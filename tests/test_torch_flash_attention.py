@@ -1,0 +1,129 @@
+"""The port's flash attention against the JAX package's Pallas kernel.
+
+The same inputs, made with numpy from a seed, go through
+``tpusim.models.pallas_attention.flash_attention`` in interpret mode and
+through ``tpusim_torch``'s ``flash_attention`` on the CPU (where the
+wrapper takes the plain PyTorch version).  Tolerance: atol 2e-5 in f32,
+the JAX package's own for this kernel (tests/test_pallas.py); the two
+differ by ~1e-7 here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from tpusim.models.pallas_attention import flash_attention as jax_flash  # noqa: E402
+from tpusim_torch.kernels import build  # noqa: E402
+from tpusim_torch.kernels import flash_attention as fa  # noqa: E402
+from tpusim_torch.models.flash_attention import (  # noqa: E402
+    flash_attention,
+    from_numpy,
+    resolve_device,
+)
+
+ATOL = 2e-5
+
+
+def _inputs(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape, dtype=np.float32) for _ in range(3))
+
+
+@pytest.mark.parametrize("shape,block_q", [
+    ((2, 256, 64), 128),
+    ((2, 192, 32), 64),
+    ((4, 128, 64), 128),
+])
+def test_matches_pallas_interpret(shape, block_q):
+    q, k, v = _inputs(shape)
+    want = np.asarray(jax_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        block_q=block_q, interpret=True,
+    ))
+    got = flash_attention(*from_numpy(q, k, v, device="cpu"), block_q=block_q)
+    assert got.shape == shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+def test_bf16_computes_in_f32_and_casts_back():
+    q, k, v = _inputs((2, 128, 64), seed=1)
+    tq, tk, tv = (t.to(torch.bfloat16)
+                  for t in from_numpy(q, k, v, device="cpu"))
+    got = flash_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    want = fa.flash_attention_reference(tq.float(), tk.float(), tv.float())
+    # one bf16 rounding of the output: within one ulp (2^-7 relative)
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                               rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,block_q", [((2, 200, 64), 128),
+                                           ((1, 96, 32), 64)])
+def test_sequence_not_divisible_raises(shape, block_q):
+    # the TPU grid floors S // block_q and leaves the tail rows unwritten;
+    # the port refuses such shapes
+    q, k, v = from_numpy(*_inputs(shape), device="cpu")
+    with pytest.raises(ValueError, match="not a multiple of block_q"):
+        flash_attention(q, k, v, block_q=block_q)
+
+
+def test_rejects_bad_inputs():
+    q, k, v = from_numpy(*_inputs((1, 64, 32)), device="cpu")
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):
+        flash_attention(q, k[:, :32], v)
+    big = torch.zeros(1, 8, 256)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(big, big, big)
+
+
+def test_other_devices_raise_instead_of_falling_back():
+    # neither kernel nor plain version takes a tensor that is on neither
+    # the card nor the CPU: no quiet route
+    q = torch.empty(1, 64, 32, device="meta")
+    with pytest.raises(ValueError, match="no flash_attention for device"):
+        fa.flash_attention_fwd(q, q, q)
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_numpy(*_inputs((1, 8, 8)), device="cuda")
+
+
+def test_launch_counter_stays_zero_on_cpu():
+    fa.reset_launch_count()
+    q, k, v = from_numpy(*_inputs((1, 64, 32)), device="cpu")
+    flash_attention(q, k, v)
+    assert fa.launch_count() == 0
+
+
+def test_kernel_source_and_build_command_are_present(tmp_path):
+    src = build.CSRC_DIR / "flash_attention.cu"
+    text = src.read_text()
+    # the C interface the ctypes wrapper binds, and the note the source
+    # owes its reader: which TPU kernel, what bounds it, what the design does
+    assert 'extern "C"' in text
+    assert "int tpusim_flash_attention_fwd(" in text
+    assert "tpusim/models/pallas_attention.py" in text
+    assert "bound" in text
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-shared" in flags and "-fPIC" in flags
+    cmd = build.nvcc_command("flash_attention", tmp_path / "lib.so",
+                             nvcc="nvcc")
+    assert cmd[0] == "nvcc" and cmd[-1] == str(src)
+    # the build lands in a git-ignored directory keyed on the source hash
+    so = build.library_path("flash_attention")
+    assert so.parent.parent == build.BUILD_DIR
+    assert so.parent.name.startswith("flash_attention-")
+    gitignore = (build.BUILD_DIR.parents[1] / ".gitignore").read_text()
+    assert "build/" in gitignore.split()

@@ -1,0 +1,217 @@
+"""On-disk trace format.
+
+Port of ``tpusim/trace/format.py``.  The layout is shared with the JAX
+package byte for byte, so a dir written by either package loads in the
+other::
+
+    <dir>/
+      meta.json                  capture metadata (device kind, topology, ...)
+      modules/<name>.hlo         HLO text (one per module; .hlo.gz if large)
+      commandlist.jsonl          per-device program streams
+
+The loader parses every module eagerly with the port's Python parser; the
+JAX package's lazy, streaming and native parsers are host-side
+accelerators that are not ported yet.
+"""
+
+from __future__ import annotations
+
+import gzip
+import json
+import os
+from dataclasses import dataclass, field
+from pathlib import Path
+
+from tpusim_torch.ir import (
+    CollectiveInfo,
+    CommandKind,
+    PodTrace,
+    TraceCommand,
+)
+from tpusim_torch.trace.hlo_text import parse_hlo_module
+
+__all__ = [
+    "TraceDir",
+    "save_trace",
+    "load_trace",
+    "parse_commandlist",
+]
+
+TRACE_FORMAT_VERSION = 1
+
+#: modules at or above this text size are stored gzipped
+COMPRESS_THRESHOLD_BYTES = 1 * 1024 * 1024
+
+
+@dataclass
+class TraceDir:
+    """Handle to a trace directory on disk."""
+
+    path: Path
+    meta: dict = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# Command (de)serialization
+# ---------------------------------------------------------------------------
+
+
+def _collective_to_json(c: CollectiveInfo | None) -> dict | None:
+    if c is None:
+        return None
+    return {
+        "kind": c.kind,
+        "replica_groups": [list(g) for g in c.replica_groups],
+        "channel_id": c.channel_id,
+        "use_global_device_ids": c.use_global_device_ids,
+        "source_target_pairs": [list(p) for p in c.source_target_pairs],
+        "split_dimension": c.split_dimension,
+        "dimensions": list(c.dimensions),
+    }
+
+
+def _collective_from_json(d: dict | None) -> CollectiveInfo | None:
+    if d is None:
+        return None
+    return CollectiveInfo(
+        kind=d["kind"],
+        replica_groups=tuple(tuple(g) for g in d.get("replica_groups", [])),
+        channel_id=d.get("channel_id"),
+        use_global_device_ids=d.get("use_global_device_ids", False),
+        source_target_pairs=tuple(
+            (p[0], p[1]) for p in d.get("source_target_pairs", [])
+        ),
+        split_dimension=d.get("split_dimension"),
+        dimensions=tuple(d.get("dimensions", [])),
+    )
+
+
+def command_to_json(cmd: TraceCommand) -> dict:
+    return {
+        "kind": cmd.kind.value,
+        "stream": cmd.stream_id,
+        "device": cmd.device_id,
+        "bytes": cmd.nbytes,
+        "module": cmd.module,
+        "collective": _collective_to_json(cmd.collective),
+        "attrs": cmd.attrs,
+    }
+
+
+def command_from_json(d: dict) -> TraceCommand:
+    return TraceCommand(
+        kind=CommandKind(d["kind"]),
+        stream_id=d.get("stream", 0),
+        device_id=d.get("device", 0),
+        nbytes=d.get("bytes", 0),
+        module=d.get("module"),
+        collective=_collective_from_json(d.get("collective")),
+        attrs=d.get("attrs", {}),
+    )
+
+
+def parse_commandlist(path: str | Path) -> list[TraceCommand]:
+    """Parse a ``commandlist.jsonl`` into commands (blank and ``#`` lines
+    skipped); raises ``ValueError`` naming the line on a bad record."""
+    cmds = []
+    with open(path) as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError as e:
+                raise ValueError(f"{path}:{lineno}: invalid JSON: {e}") from e
+            if not isinstance(rec, dict):
+                raise ValueError(
+                    f"{path}:{lineno}: record is not an object: {rec!r}"
+                )
+            cmds.append(command_from_json(rec))
+    return cmds
+
+
+# ---------------------------------------------------------------------------
+# Save / load full pod traces
+# ---------------------------------------------------------------------------
+
+
+def save_trace(
+    path: str | Path,
+    modules: dict[str, str],
+    commands: list[TraceCommand],
+    meta: dict | None = None,
+) -> TraceDir:
+    """Write a trace directory.  ``modules`` maps module name → HLO text;
+    modules of :data:`COMPRESS_THRESHOLD_BYTES` or more are gzipped."""
+    path = Path(path)
+    (path / "modules").mkdir(parents=True, exist_ok=True)
+    meta = dict(meta or {})
+    meta.setdefault("format_version", TRACE_FORMAT_VERSION)
+    with open(path / "meta.json", "w") as f:
+        json.dump(meta, f, indent=2, default=str)
+    for name, text in modules.items():
+        safe = name.replace(os.sep, "_")
+        if len(text) >= COMPRESS_THRESHOLD_BYTES:
+            with gzip.open(
+                path / "modules" / f"{safe}.hlo.gz", "wt",
+                compresslevel=6,
+            ) as f:
+                f.write(text)
+        else:
+            with open(path / "modules" / f"{safe}.hlo", "w") as f:
+                f.write(text)
+    with open(path / "commandlist.jsonl", "w") as f:
+        for cmd in commands:
+            f.write(json.dumps(command_to_json(cmd)) + "\n")
+    return TraceDir(path=path, meta=meta)
+
+
+def load_trace(path: str | Path, lenient: bool = False) -> PodTrace:
+    """Load a trace directory into a :class:`PodTrace`, parsing every
+    module.  ``lenient=True`` skips malformed HLO lines with a counted
+    warning instead of raising on the first one."""
+    path = Path(path)
+    if not path.is_dir():
+        raise FileNotFoundError(f"trace directory not found: {path}")
+    modules_dir = path / "modules"
+    cl = path / "commandlist.jsonl"
+    if not modules_dir.is_dir() and not cl.is_file():
+        raise FileNotFoundError(
+            f"{path} is not a trace directory (no modules/ or "
+            f"commandlist.jsonl)"
+        )
+    meta: dict = {}
+    if (path / "meta.json").is_file():
+        with open(path / "meta.json") as f:
+            meta = json.load(f)
+
+    pod = PodTrace(meta=meta)
+    texts: dict[str, str] = {}
+    if modules_dir.is_dir():
+        for fp in sorted(modules_dir.glob("*.hlo")):
+            texts[fp.stem] = fp.read_text()
+        for fp in sorted(modules_dir.glob("*.hlo.gz")):
+            with gzip.open(fp, "rt") as f:
+                texts[fp.name[: -len(".hlo.gz")]] = f.read()
+    for key in sorted(texts):
+        mod = parse_hlo_module(texts[key], name_hint=key, strict=not lenient)
+        # file name is the trace key; HloModule header name may differ
+        pod.modules[key] = mod
+        mod.meta.setdefault("trace_key", key)
+        # capture-time facts ride on every module: the cost model gates
+        # capture-backend dtype normalization on the platform
+        for k in ("platform", "device_kind"):
+            if k in meta:
+                mod.meta.setdefault(k, meta[k])
+
+    if cl.is_file():
+        for cmd in parse_commandlist(cl):
+            pod.device(cmd.device_id).commands.append(cmd)
+    else:
+        # modules but no command stream: one launch per module on device 0
+        for name in pod.modules:
+            pod.device(0).commands.append(
+                TraceCommand(kind=CommandKind.KERNEL_LAUNCH, module=name)
+            )
+    return pod
