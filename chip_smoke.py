@@ -9,14 +9,19 @@ holds its CUDA kernel against the plain PyTorch version.  Phases, in order
 (any failure exits non-zero and prints no result):
 
 1. the card's name and power limit (``nvidia-smi``) and the CUDA version;
-2. build every kernel from ``tpusim_torch/csrc`` with nvcc (timed);
-3. kernel vs plain version on the card, at the main path's shapes;
+2. build every kernel from ``tpusim_torch/csrc`` with nvcc (timed), and
+   print ptxas's registers and spills for every instantiation;
+3. kernel vs plain version on the card, at the main path's shapes and at
+   shapes that take the kernel's edges (a sequence that is not a multiple
+   of the key tile, padded and unaligned head dims), in f32 and bf16;
 4. the main path through the CLI entry functions, with the kernels'
    launch counters set to 0 just before and read just after; simulate at
    v5e and v5p, and the two ``matmul_512`` golden cells against
    ``ci/golden/*.json``;
-5. timings (median of CUDA-event times): kernel, plain version, the
-   card's bound, and ``scaled_dot_product_attention`` as a yardstick.
+5. timings (median of CUDA-event times) in f32 and bf16: kernel, plain
+   version, ``scaled_dot_product_attention`` as a yardstick, and the
+   card's bound (the larger of operations over the tensor cores' peak for
+   the input type and bytes over HBM's peak).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and the one before that the kernels'
@@ -31,8 +36,6 @@ import io
 import json
 import math
 import shutil
-import statistics
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -46,27 +49,42 @@ import torch  # noqa: E402
 
 from tpusim_torch.__main__ import main as cli  # noqa: E402
 from tpusim_torch.kernels import build  # noqa: E402
+from tpusim_torch.kernels.bench import (  # noqa: E402
+    REPS,
+    SAMPLES,
+    card,
+    inputs,
+    time_ms,
+)
 from tpusim_torch.kernels import flash_attention as fa  # noqa: E402
 from tpusim_torch.models.flash_attention import flash_attention  # noqa: E402
 from tpusim_torch.sim.driver import simulate_trace  # noqa: E402
 from tpusim_torch.sim.stats import EXIT_SENTINEL  # noqa: E402
 
-#: published H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores and
-#: HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
+#: published H100 SXM peaks (NVIDIA data sheet, dense): the tensor cores in
+#: TF32 (the fastest unit that takes f32 operands) and in bf16, f32 on the
+#: CUDA cores (the bound as first stated, kept for comparison), and HBM3
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_CUDA_CORE_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+#: the kernel's f32 path takes three TF32 products per product (split TF32)
+SPLIT_TF32_PRODUCTS = 3
 
 #: registered width of flash_attention_pallas: batch 4 x heads 8, seq 1024,
 #: head_dim 128
 MAIN_SHAPE = (32, 1024, 128)
 
-#: f32: the kernel and the plain version both accumulate in f32 and differ
-#: only in summation order (online softmax); 2e-5 is the JAX package's own
+#: f32: the kernel and the plain version both accumulate in f32; they differ
+#: in summation order (online softmax) and in the kernel's split-TF32
+#: products (within 2^-21 of f32 per operand); 2e-5 is the JAX package's own
 #: tolerance for this kernel
 ATOL_F32 = 2e-5
 #: bf16: both compute in f32 from the same bf16 inputs and round the output
 #: once to bf16 (relative spacing 2^-8), so f32 results a hair apart can
-#: round one bf16 ulp apart: at most 2^-7 |x| <= 1e-2 |x|, plus 1e-2 near 0
+#: round one bf16 ulp apart: at most 2^-7 |x| <= 1e-2 |x|, plus 1e-2 near 0.
+#: The kernel also rounds P once to bf16 for its P V product (2.0e-3 at the
+#: main shape in a CPU emulation, 16% of this budget)
 TOL_BF16 = 1e-2
 
 GOLDEN_CELLS = (("matmul_512", "v5e"), ("matmul_512", "v5p"))
@@ -84,15 +102,6 @@ KERNELS = (
 
 def phase(n: int, title: str) -> None:
     print(f"== phase {n}: {title}", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
 
 
 def compare_golden(name: str, stats: dict) -> list[str]:
@@ -114,37 +123,6 @@ def compare_golden(name: str, stats: dict) -> list[str]:
     return errors
 
 
-SAMPLES, REPS = 25, 10
-
-
-def time_ms(fn, warmup: int = 3) -> float:
-    """ms per call of ``fn()``: median over ``SAMPLES`` CUDA-event times of
-    ``REPS`` back-to-back calls each (so host overhead between calls is
-    hidden behind the device's work, as in a real run; L2 stays warm)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(SAMPLES):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(REPS):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / REPS)
-    return statistics.median(times)
-
-
-def inputs(shape, dtype, seed):
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    return tuple(
-        torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
-        for _ in range(3)
-    )
-
-
 def run_cli(argv: list[str]) -> str:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -154,39 +132,40 @@ def run_cli(argv: list[str]) -> str:
     return buf.getvalue()
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the GPU",
-              file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+#: phase 3: (shape, dtype, block_q).  The main path's shapes first; then
+#: a sequence that is no multiple of the 64-key tile with head dim 80
+#: (zero-padded to 128), small head dims, and head dim 50, whose rows are
+#: not whole 16-byte chunks (loaded element by element)
+CHECKS = (
+    (MAIN_SHAPE, torch.float32, 128),
+    (MAIN_SHAPE, torch.bfloat16, 128),
+    ((2, 256, 64), torch.float32, 128),
+    ((2, 192, 32), torch.float32, 64),
+    ((3, 96, 80), torch.float32, 32),
+    ((2, 192, 32), torch.bfloat16, 64),
+    ((2, 80, 50), torch.float32, 16),
+)
 
-    phase(1, "card")
-    card = card_line()
-    print(f"card: {card}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}")
 
-    phase(2, "build")
+def build_kernels() -> None:
+    """Phase 2: build every kernel, one nvcc per source, all started
+    together; print ptxas's registers and spills."""
     t0 = time.perf_counter()
-    # one nvcc per source, all started together
     with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
         libs = list(pool.map(build.build_library, [k[0] for k in KERNELS]))
     for so in libs:
         log = (so.parent / "build.log").read_text()
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
     print(f"build: {time.perf_counter() - t0:.1f} s")
 
-    phase(3, "kernel vs plain version")
+
+def check_kernels() -> dict:
+    """Phase 3: every kernel against its plain version on the card; returns
+    the max abs error by (shape, dtype).  Raises on a disagreement."""
     errs = {}
-    for shape, dtype, block_q in (
-        (MAIN_SHAPE, torch.float32, 128),
-        (MAIN_SHAPE, torch.bfloat16, 128),
-        ((2, 256, 64), torch.float32, 128),
-        ((2, 192, 32), torch.float32, 64),
-    ):
+    for shape, dtype, block_q in CHECKS:
         q, k, v = inputs(shape, dtype, seed=1)
         got = flash_attention(q, k, v, block_q=block_q)
         want = fa.flash_attention_reference(q, k, v)
@@ -200,11 +179,82 @@ def main() -> int:
             ok = bool((diff <= TOL_BF16 + TOL_BF16 * want.float().abs()).all())
             tol = f"atol {TOL_BF16} + rtol {TOL_BF16}"
         ok = ok and bool(torch.isfinite(got.float()).all())
-        print(f"  {list(shape)} {str(dtype)[6:]}: max |kernel - plain| "
-              f"{err:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
+        print(f"  {list(shape)} {str(dtype)[6:]} block_q {block_q}: max "
+              f"|kernel - plain| {err:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"kernel disagrees at {shape} {dtype}")
         errs[(shape, dtype)] = err
+    return errs
+
+
+def time_attention(dtype: torch.dtype, card_name: str) -> dict:
+    """Phase 5 for one input type at the main shape: kernel, plain version
+    and ``scaled_dot_product_attention`` times, and the card's bound."""
+    bh, s, d = MAIN_SHAPE
+    name = str(dtype)[6:]
+    q, k, v = inputs(MAIN_SHAPE, dtype, seed=3)
+    out = {
+        "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v)),
+        "plain_ms": time_ms(lambda: fa.flash_attention_reference(q, k, v)),
+        "library_ms": time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)),
+        # the same call on a [batch, heads, S, D] view: PyTorch then picks a
+        # fused backend (on [BH, S, D] it takes its unfused math path)
+        "library_fused_ms": time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                *(x.view(4, bh // 4, s, d) for x in (q, k, v)))),
+    }
+    flops = 4.0 * bh * s * s * d
+    nbytes = 4 * q.numel() * q.element_size()
+    peak, unit = ((PEAK_TF32_FLOPS, "TF32") if dtype == torch.float32
+                  else (PEAK_BF16_FLOPS, "bf16"))
+    ops_ms = flops / peak * 1e3
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    out["bound_ms"] = max(ops_ms, bytes_ms)
+    out["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    for label, what in (("ms", "kernel"), ("plain_ms", "plain"),
+                        ("library_ms", "library_sdpa"),
+                        ("library_fused_ms", "library_sdpa_4d")):
+        print(f"time {what}: {out[label]:.4f} ms at {list(MAIN_SHAPE)} {name}, "
+              f"median of {SAMPLES} x {REPS} back-to-back calls (card: {card_name})")
+    print(f"time bound: {out['bound_ms']:.4f} ms = max({flops:.4g} flop / "
+          f"{peak / 1e12:.0f} TFLOP/s {unit}, {nbytes} B / 3.35 TB/s), from the "
+          f"published H100 SXM peaks; the kernel reaches "
+          f"{out['bound_ms'] / out['ms']:.1%} of it and takes "
+          f"{out['ms'] / out['library_ms']:.3f} x the library's time "
+          f"({out['ms'] / out['library_fused_ms']:.3f} x its fused backend's) "
+          f"(card: {card_name})")
+    if dtype == torch.float32:
+        split_ms = SPLIT_TF32_PRODUCTS * flops / PEAK_TF32_FLOPS * 1e3
+        core_ms = flops / PEAK_F32_CUDA_CORE_FLOPS * 1e3
+        out["bound_split_tf32_ms"] = max(split_ms, bytes_ms)
+        out["bound_cuda_core_ms"] = max(core_ms, bytes_ms)
+        print(f"time bound split TF32: {out['bound_split_tf32_ms']:.4f} ms "
+              f"({SPLIT_TF32_PRODUCTS} TF32 products a product); the kernel "
+              f"reaches {out['bound_split_tf32_ms'] / out['ms']:.1%} of it")
+        print(f"time bound f32 CUDA cores: {out['bound_cuda_core_ms']:.4f} ms "
+              f"(67 TFLOP/s, the bound as first stated)")
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase(1, "card")
+    card_name = card()
+    print(f"card: {card_name}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+
+    phase(2, "build")
+    build_kernels()
+
+    phase(3, "kernel vs plain version")
+    errs = check_kernels()
     q, k, v = inputs((2, 200, 64), torch.float32, seed=2)
     try:
         flash_attention(q, k, v, block_q=128)
@@ -258,26 +308,8 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
 
     phase(5, "timing")
-    bh, s, d = MAIN_SHAPE
-    q, k, v = inputs(MAIN_SHAPE, torch.float32, seed=3)
-    kernel_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v))
-    plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v))
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v))
-    flops = 4.0 * bh * s * s * d
-    nbytes = 4 * q.numel() * q.element_size()
-    ops_ms = flops / PEAK_F32_FLOPS * 1e3
-    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-    for label, ms in (("kernel", kernel_ms), ("plain", plain_ms),
-                      ("library_sdpa", library_ms)):
-        print(f"time {label}: {ms:.4f} ms at {list(MAIN_SHAPE)} f32, median "
-              f"of {SAMPLES} x {REPS} back-to-back calls (card: {card})")
-    print(f"time bound: {bound_ms:.4f} ms = max({flops:.4g} flop / 67 TFLOP/s "
-          f"f32, {nbytes} B / 3.35 TB/s), computed from the published H100 "
-          f"SXM peaks; the kernel reaches {bound_ms / kernel_ms:.1%} of it "
-          f"(card: {card})")
+    f32 = time_attention(torch.float32, card_name)
+    bf16 = time_attention(torch.bfloat16, card_name)
     torch.cuda.synchronize()
 
     record = {"kernels": [{
@@ -287,16 +319,28 @@ def main() -> int:
         "replaces": KERNELS[0][2],
         "launches": launches["flash_attention"],
         "max_abs_err": errs[(MAIN_SHAPE, torch.float32)],
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        "ms": f32["ms"],
+        "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"],
+        "library_ms": f32["library_ms"],
+        "library_fused_ms": f32["library_fused_ms"],
+        "bound_split_tf32_ms": f32["bound_split_tf32_ms"],
+        "bound_cuda_core_ms": f32["bound_cuda_core_ms"],
+        "bf16_max_abs_err": errs[(MAIN_SHAPE, torch.bfloat16)],
+        "bf16_ms": bf16["ms"],
+        "bf16_plain_ms": bf16["plain_ms"],
+        "bf16_bound_ms": bf16["bound_ms"],
+        "bf16_bound_by": bf16["bound_by"],
+        "bf16_library_ms": bf16["library_ms"],
+        "bf16_library_fused_ms": bf16["library_fused_ms"],
     }]}
-    if not all(math.isfinite(x) for x in (kernel_ms, plain_ms, library_ms)):
+    keys = ("ms", "plain_ms", "library_ms", "library_fused_ms")
+    times = [f32[k] for k in keys] + [bf16[k] for k in keys]
+    if not all(math.isfinite(x) for x in times):
         raise AssertionError(f"non-finite timing in {record}")
     print(json.dumps(record))
-    print(card)
+    print(card_name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

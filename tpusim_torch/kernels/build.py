@@ -4,8 +4,9 @@ Each ``tpusim_torch/csrc/*.cu`` source is compiled with ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface and
 loaded with :mod:`ctypes`.  The build happens at first use, into
 ``build/tpusim_torch_kernels/<name>-<hash>/`` under the repo root (listed
-in ``.gitignore``); the hash covers the source and the flags, so a changed
-source rebuilds and an unchanged one is reused.
+in ``.gitignore``); the hash covers the source, every ``csrc/*.cuh`` header
+and the flags, so a changed source or header rebuilds and an unchanged one
+is reused.
 """
 
 from __future__ import annotations
@@ -54,6 +55,9 @@ def _key(source: Path) -> str:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return h.hexdigest()[:16]
 
 
