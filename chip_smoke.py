@@ -16,8 +16,13 @@ holds its CUDA kernel against the plain PyTorch version.  Phases, in order
    of the key tile, padded and unaligned head dims), in f32 and bf16;
 4. the main path through the CLI entry functions, with the kernels'
    launch counters set to 0 just before and read just after; simulate at
-   v5e and v5p, and the two ``matmul_512`` golden cells against
-   ``ci/golden/*.json``;
+   v5e and v5p, and all five golden cells (``matmul_512`` at v5e and v5p;
+   the 4-device ``llama_tiny_tp2dp2`` with its 14 collectives on the
+   analytic ICI model, on the detailed one, and with power at v6e)
+   against ``ci/golden/*.json``, each with its host seconds; then the
+   multi-device path through the CLI (``simulate --network-mode detailed
+   --power``), whose counters are read the same way (it runs on the
+   card's host and launches no kernel);
 5. timings (median of CUDA-event times) in f32 and bf16: kernel, plain
    version, ``scaled_dot_product_attention`` as a yardstick, and the
    card's bound (the larger of operations over the tensor cores' peak for
@@ -87,7 +92,19 @@ ATOL_F32 = 2e-5
 #: main shape in a CPU emulation, 16% of this budget)
 TOL_BF16 = 1e-2
 
-GOLDEN_CELLS = (("matmul_512", "v5e"), ("matmul_512", "v5p"))
+#: the golden matrix of ``ci/check_golden.py``: (fixture, arch, overlays,
+#: golden file stem)
+GOLDEN_CELLS = (
+    ("matmul_512", "v5e", [], "matmul_512__v5e"),
+    ("matmul_512", "v5p", [], "matmul_512__v5p"),
+    ("llama_tiny_tp2dp2", "v5p", [], "llama_tiny_tp2dp2__v5p"),
+    ("llama_tiny_tp2dp2", "v5p",
+     [{"arch": {"ici": {"network_mode": "detailed"}}}],
+     "llama_tiny_tp2dp2__v5p__arch.ici.network_mode=detailed"),
+    ("llama_tiny_tp2dp2", "v6e", [{"power_enabled": True}],
+     "llama_tiny_tp2dp2__v6e__power_enabled=True"),
+)
+FIXTURES = REPO / "tests" / "fixtures" / "traces"
 VOLATILE = {"simulation_rate_kops", "wall_seconds", "silicon_slowdown"}
 RTOL_GOLDEN = 1e-9
 
@@ -130,6 +147,51 @@ def run_cli(argv: list[str]) -> str:
     if rc != 0:
         raise RuntimeError(f"tpusim_torch {' '.join(argv)} exited {rc}")
     return buf.getvalue()
+
+
+def simulate_cells(card_name: str) -> None:
+    """Phase 4, simulate half: the five golden cells against
+    ``ci/golden/*.json``, each with its host seconds, then the
+    multi-device path through the CLI with the kernels' counters set to 0
+    just before and read just after.  Raises on any difference."""
+    for fixture, arch, overlays, golden in GOLDEN_CELLS:
+        t0 = time.perf_counter()
+        report = simulate_trace(FIXTURES / fixture, arch=arch,
+                                overlays=list(overlays), tuned=False)
+        host_s = time.perf_counter() - t0
+        stats = json.loads(report.stats.to_json())
+        errors = compare_golden(golden, stats)
+        if errors:
+            raise AssertionError("\n".join(errors))
+        print(f"  golden {golden}: {len(stats)} stats match; host "
+              f"{host_s:.4f} s (card: {card_name})")
+
+    # the multi-device path: collectives on the detailed ICI network and
+    # the power model, through the CLI; host Python, no kernel
+    for *_, reset in KERNELS:
+        reset()
+    t0 = time.perf_counter()
+    text = run_cli(["simulate", str(FIXTURES / "llama_tiny_tp2dp2"),
+                    "--arch", "v5p", "--network-mode", "detailed", "--power"])
+    host_s = time.perf_counter() - t0
+    sim_launches = {name: count() for name, _, _, count, _ in KERNELS}
+    lines = text.splitlines()
+    if lines[-1] != EXIT_SENTINEL or "TPUWattch power report" not in lines:
+        raise AssertionError("simulate --network-mode detailed --power: "
+                             "no exit sentinel or power report")
+    picked = {ln.split(" = ")[0]: ln for ln in lines if " = " in ln}
+    for key in ("tpusim_sim_cycle", "tpusim_tot_collective_count",
+                "tpusim_power_avg_watts"):
+        if key not in picked:
+            raise AssertionError(f"multi-device simulate: no {key} line")
+        print(f"  {picked[key]}")
+    watts = float(picked["tpusim_power_avg_watts"].split(" = ")[1])
+    if picked["tpusim_tot_collective_count"] != "tpusim_tot_collective_count = 14" \
+            or not math.isfinite(watts) or watts <= 0:
+        raise AssertionError(f"multi-device simulate: {picked}")
+    print(f"simulate llama_tiny_tp2dp2 --arch v5p --network-mode detailed "
+          f"--power: host {host_s:.4f} s (card: {card_name}); kernel "
+          f"launches {sim_launches} (this path runs on the host)")
 
 
 #: phase 3: (shape, dtype, block_q).  The main path's shapes first; then
@@ -297,15 +359,8 @@ def main() -> int:
             ("sim_cycle", "kernel_launches", "tot_hbm_bytes", "tot_flops")
         )]
         print(f"  simulate --arch {arch}: " + "; ".join(picked))
-    for fixture, arch in GOLDEN_CELLS:
-        report = simulate_trace(REPO / "tests" / "fixtures" / "traces" / fixture,
-                                arch=arch, tuned=False)
-        stats = json.loads(report.stats.to_json())
-        errors = compare_golden(f"{fixture}__{arch}", stats)
-        if errors:
-            raise AssertionError("\n".join(errors))
-        print(f"  golden {fixture}__{arch}: {len(stats)} stats match")
     shutil.rmtree(work, ignore_errors=True)
+    simulate_cells(card_name)
 
     phase(5, "timing")
     f32 = time_attention(torch.float32, card_name)

@@ -3,6 +3,10 @@
     python -m tpusim_torch capture  <workload> <out-dir> [--launches N]
                                     [--snapshot] [--set K=V] [--device cuda|cpu]
     python -m tpusim_torch simulate <trace-dir> [--arch v5e] [--config F] [--json F]
+                                    [--power] [--network-mode analytic|detailed]
+                                    [--resume-kernel N] [--checkpoint-kernel N]
+                                    [--resume-op N] [--checkpoint-op N]
+                                    [--lenient-parse]
     python -m tpusim_torch info     <trace-dir>
     python -m tpusim_torch workloads
 
@@ -21,9 +25,25 @@ from pathlib import Path
 def _cmd_simulate(args: argparse.Namespace) -> int:
     from tpusim_torch.sim.driver import simulate_trace
 
+    overlays = list(args.config or [])
+    if args.power:
+        overlays.append({"power_enabled": True})
+    if args.resume_kernel:
+        overlays.append({"resume_kernel": args.resume_kernel})
+    if args.checkpoint_kernel:
+        overlays.append({"checkpoint_kernel": args.checkpoint_kernel})
+    if args.resume_op:
+        overlays.append({"resume_op": args.resume_op})
+    if args.checkpoint_op:
+        overlays.append({"checkpoint_op": args.checkpoint_op})
+    if args.network_mode:
+        overlays.append({"arch": {"ici": {"network_mode": args.network_mode}}})
     report = simulate_trace(
-        args.trace, arch=args.arch, overlays=list(args.config or []),
+        args.trace, arch=args.arch, overlays=overlays,
+        lenient=args.lenient_parse,
     )
+    if args.power and report.power is not None:
+        print(report.power.report_text())
     report.print_report()
     if args.json:
         with open(args.json, "w") as f:
@@ -105,6 +125,26 @@ def main(argv: list[str] | None = None) -> int:
     ps.add_argument("--config", action="append",
                     help="overlay flag file(s), applied in order")
     ps.add_argument("--json", default=None, help="also write stats JSON here")
+    ps.add_argument("--power", action="store_true",
+                    help="enable the TPUWattch power model")
+    ps.add_argument("--resume-kernel", type=int, default=0,
+                    help="fast-forward the first N kernel launches")
+    ps.add_argument("--checkpoint-kernel", type=int, default=0,
+                    help="stop the replay after N kernel launches")
+    ps.add_argument("--resume-op", type=int, default=0,
+                    help="fast-forward the first N entry ops inside each "
+                         "module replay (sub-kernel resume)")
+    ps.add_argument("--checkpoint-op", type=int, default=0,
+                    help="stop each module replay after N entry ops "
+                         "(sub-kernel checkpoint; drains in-flight async)")
+    ps.add_argument("--network-mode", default=None,
+                    choices=["analytic", "detailed"],
+                    help="ICI model: closed-form schedules or per-packet "
+                         "torus network sim (the -network_mode equivalent)")
+    ps.add_argument("--lenient-parse", action="store_true",
+                    help="skip malformed HLO lines with a counted "
+                         "warning instead of raising mid-file (salvage "
+                         "mode for damaged captures)")
     ps.set_defaults(fn=_cmd_simulate)
 
     pc = sub.add_parser("capture", help="capture a registered workload")
@@ -132,8 +172,8 @@ def main(argv: list[str] | None = None) -> int:
     try:
         return args.fn(args)
     except (KeyError, FileNotFoundError, ValueError, RuntimeError) as e:
-        # RuntimeError covers a missing card and the not-yet-ported
-        # collectives (NotImplementedError)
+        # RuntimeError covers a missing card and a capture graph node the
+        # port cannot lower yet (NotImplementedError)
         print(f"tpusim_torch: error: {e}", file=sys.stderr)
         return 2
 

@@ -1,14 +1,16 @@
 """Trace-replay driver.
 
-Port of ``tpusim/sim/driver.py`` for memcpy and kernel-launch commands:
-parse the command list, keep per-stream order with cross-stream overlap
-under the kernel window, model memcpys, launch kernels into the timing
-engine, and emit the same stats keys as the JAX package (the collective
-counters stay 0).
+Port of ``tpusim/sim/driver.py``: parse the command list, keep per-stream
+order with cross-stream overlap under the kernel window, model memcpys,
+launch kernels into the timing engine, price standalone collective
+commands on the pod's ICI model with a ``(group, k)`` rendezvous across
+the group's devices, and emit the same stats keys as the JAX package —
+``dcn_*`` when the pod spans DCN slices, ``power_*``/``energy_*`` under
+``power_enabled``.
 
-Not ported yet: standalone collective commands (ROADMAP A2 — they raise
-``NotImplementedError``), faults, the result cache, worker pools, the
-compile store, validation, power and the observability layer.
+Not ported yet: faults (ROADMAP A7), the result cache and worker pools
+(A6), the compile store (A6), validation (A9), the observability layer
+(A10) and cancellation (A11).
 """
 
 from __future__ import annotations
@@ -20,11 +22,15 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
 
-from tpusim_torch.ir import CommandKind, PodTrace
+from tpusim_torch.dcn.topology import slice_topology_for
+from tpusim_torch.ici.detailed import make_collective_model
+from tpusim_torch.ici.topology import torus_for
+from tpusim_torch.ir import CommandKind, PodTrace, TraceCommand
+from tpusim_torch.power.model import PowerModel, PowerReport
 from tpusim_torch.sim.stats import EXIT_SENTINEL, StatsRegistry
 from tpusim_torch.timing.arch import detect_arch
 from tpusim_torch.timing.config import SimConfig, load_config
-from tpusim_torch.timing.engine import COLLECTIVES_TODO, Engine, EngineResult
+from tpusim_torch.timing.engine import Engine, EngineResult
 from tpusim_torch.trace.format import load_trace
 
 __all__ = ["SimDriver", "SimReport", "simulate_trace"]
@@ -53,6 +59,7 @@ class SimReport:
     collective_cmd_cycles: float = 0.0
     wall_seconds: float = 0.0       # host time spent simulating
     stats: StatsRegistry = field(default_factory=StatsRegistry)
+    power: PowerReport | None = None  # when power_enabled
 
     @property
     def cycles(self) -> float:
@@ -111,7 +118,9 @@ class SimDriver:
             max((m.num_devices for m in pod.modules.values()), default=1),
             len(pod.devices) or 1,
         )
-        engine = Engine(cfg)
+        topo = torus_for(n_devices, arch.name)
+        coll = make_collective_model(topo, arch.ici)
+        engine = Engine(cfg, topology=topo)
         report = SimReport(config_name=arch.name, num_devices=n_devices)
 
         # kernel timing is per-module (SPMD: all devices run the same
@@ -128,7 +137,19 @@ class SimDriver:
                 module_results[name] = engine.run(pod.modules[name])
             return module_results[name]
 
+        # Cross-device collective rendezvous: the k-th standalone collective
+        # *over a given replica group* must align across that group's
+        # members (NCCL call-order matching).  Keyed by (group, index) so
+        # disjoint groups never synchronize with each other.
+        coll_ready: dict[tuple, list[float]] = defaultdict(list)
+
         device_ids = sorted(pod.devices) or [0]
+
+        def _group_of(cmd: TraceCommand, d: int) -> tuple:
+            groups = cmd.collective.replica_groups or []
+            mine = next((tuple(g) for g in groups if d in g), None)
+            # no groups recorded: all devices participate
+            return mine if mine is not None else tuple(device_ids)
         # per-device resource timelines
         core_free = {d: 0.0 for d in device_ids}
         dma_free = {d: 0.0 for d in device_ids}
@@ -144,6 +165,7 @@ class SimDriver:
             dev = pod.devices.get(dev_id)
             if dev is None:
                 continue
+            coll_counts: Counter = Counter()  # per-group issue index
             kernel_index = 0
             # completion times of this device's kernel launches, in launch
             # order — the stream-window gate
@@ -164,9 +186,10 @@ class SimDriver:
                     kernel_index <= resume_k if is_kernel
                     else kernel_index < resume_k
                 )
-                if cmd.kind == CommandKind.COLLECTIVE and cmd.collective:
-                    raise NotImplementedError(COLLECTIVES_TODO)
                 if resume_k and in_first_half:
+                    if cmd.kind == CommandKind.COLLECTIVE and cmd.collective:
+                        # keep rendezvous indices aligned
+                        coll_counts[_group_of(cmd, dev_id)] += 1
                     continue  # fast-forward already-simulated work
                 if checkpoint_k and (
                     kernel_index > checkpoint_k if is_kernel
@@ -199,6 +222,27 @@ class SimDriver:
                     stream_free[key] = end
                     report.memcpy_cycles += dur
 
+                elif cmd.kind == CommandKind.COLLECTIVE and cmd.collective:
+                    secs = coll.seconds(cmd.collective, float(cmd.nbytes))
+                    dur = arch.seconds_to_cycles(secs)
+                    start = max(ready, ici_free[dev_id])
+                    # rendezvous with the group's k-th collective: all
+                    # participants start together at the latest arrival
+                    grp = _group_of(cmd, dev_id)
+                    k = coll_counts[grp]
+                    coll_counts[grp] += 1
+                    peers = coll_ready[(grp, k)]
+                    if peers:
+                        start = max(start, max(peers))
+                    coll_ready[(grp, k)].append(start)
+                    end = start + dur
+                    ici_free[dev_id] = end
+                    stream_free[key] = end
+                    report.collective_cmd_cycles += dur
+                    report.totals.collective_count += 1
+                    report.totals.ici_bytes += cmd.nbytes
+                    report.totals.collective_cycles += dur
+
                 else:
                     # comm_init/destroy/group markers: logged no-ops
                     stream_free[key] = ready
@@ -208,6 +252,39 @@ class SimDriver:
                 max((v for (d, _), v in stream_free.items() if d == dev_id),
                     default=0.0),
             )
+
+        # failure detection: devices that share a replica group must issue
+        # the same number of collectives over that group — a ragged count
+        # means a device would hang waiting at a rendezvous (the NCCL-hang
+        # analog).  Disjoint groups and non-participating devices are fine.
+        if coll_ready:
+            per_dev_groups: dict[int, Counter] = {}
+            for d in device_ids:
+                dev = pod.devices.get(d)
+                if dev is None:
+                    continue
+                counts: Counter = Counter()
+                for cmd in dev.commands:
+                    if cmd.kind != CommandKind.COLLECTIVE or not cmd.collective:
+                        continue
+                    counts[_group_of(cmd, d)] += 1
+                per_dev_groups[d] = counts
+            ragged: list[str] = []
+            for d, counts in per_dev_groups.items():
+                for grp, n in counts.items():
+                    for peer in grp:
+                        if peer == d or peer not in per_dev_groups:
+                            continue
+                        if per_dev_groups[peer].get(grp, 0) != n:
+                            ragged.append(
+                                f"dev{d}:{n}!=dev{peer}:"
+                                f"{per_dev_groups[peer].get(grp, 0)}@{grp}"
+                            )
+            if ragged:
+                report.stats.set("collective_rendezvous_mismatch", 1)
+                report.stats.set(
+                    "collective_counts_per_device", ";".join(sorted(set(ragged)))
+                )
 
         # runaway detection: a corrupt trace or unresolved loop bound can
         # send the cycle count to absurdity — flag the biggest offenders
@@ -231,6 +308,23 @@ class SimDriver:
 
         report.wall_seconds = time.perf_counter() - t_start
         report.finalize(arch.clock_hz)
+        slice_topo = slice_topology_for(topo.num_chips, arch.ici)
+        if slice_topo is not None and slice_topo.num_slices > 1:
+            # dcn_* keys ride the report ONLY when a DCN fabric is
+            # configured AND this pod actually spans slices, so
+            # single-slice and fabric-less runs stay key-identical
+            report.stats.update({
+                "dcn_slices": slice_topo.num_slices,
+                "dcn_chips_per_slice": slice_topo.chips_per_slice,
+                "dcn_nics_per_slice": slice_topo.nics_per_slice,
+                "dcn_slice_bandwidth": slice_topo.slice_bandwidth(),
+            })
+        if cfg.power_enabled:
+            preport = PowerModel(
+                arch.name, dvfs_scale=cfg.dvfs_scale
+            ).report(report.totals)
+            report.stats.update(preport.stats_dict(), prefix="")
+            report.power = preport
         return report
 
 

@@ -9,11 +9,15 @@ asynchronous DMA and ICI transfers bracketed in the HLO as
 ``*-start`` / ``*-done`` pairs, so the engine walks the schedule advancing
 a core clock, runs async DMA on a resource timeline, and joins at the
 ``-done`` ops.  ``while`` bodies are recursed into and multiplied by their
-trip count.
+trip count.  Collectives are priced by the ICI model the config selects
+(:func:`tpusim_torch.ici.detailed.make_collective_model`, analytic or
+detailed) over the module's torus: an overlapped ``*-start`` runs on the
+ICI timeline and joins at its ``-done``; any other collective stalls the
+core.
 
-Not ported yet: the collective model (ROADMAP A2 — a collective op raises
-``NotImplementedError``), the fastpath dispatch, the observability
-sampler, cooperative cancellation and degraded-chip multipliers.
+Not ported yet: the fastpath dispatch (ROADMAP A1), degraded-chip
+multipliers (faults, A7), the observability sampler (A10) and
+cooperative cancellation (A11).
 """
 
 from __future__ import annotations
@@ -21,6 +25,9 @@ from __future__ import annotations
 from collections import defaultdict
 from dataclasses import dataclass, field
 
+from tpusim_torch.ici.collectives import CollectiveModel
+from tpusim_torch.ici.detailed import make_collective_model
+from tpusim_torch.ici.topology import Topology, torus_for
 from tpusim_torch.ir import (
     Computation,
     FREE_OPCODES,
@@ -33,13 +40,12 @@ from tpusim_torch.timing.config import SimConfig
 from tpusim_torch.timing.cost import CostModel, while_trip_count
 from tpusim_torch.trace.loop_analysis import infer_trip_count
 
-__all__ = ["Engine", "EngineResult", "COLLECTIVES_TODO"]
+__all__ = ["Engine", "EngineResult"]
 
-#: the message every not-yet-ported collective path raises with
-COLLECTIVES_TODO = (
-    "collectives are not ported to tpusim_torch yet (ROADMAP A2: "
-    "ICI topology and collective model); price this trace with the "
-    "JAX package"
+#: async ``-done`` bases whose wait counts as exposed collective time
+_COLLECTIVE_DONE_BASES = (
+    "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+    "collective-permute", "collective-broadcast", "ragged-all-to-all",
 )
 
 
@@ -304,15 +310,23 @@ def _vmem_peak_live_bytes(module: ModuleTrace) -> float:
 
 
 class Engine:
-    """Times one module on one modeled device."""
+    """Times one module on one modeled device of a topology."""
 
-    def __init__(self, config: SimConfig):
+    def __init__(self, config: SimConfig, topology: Topology | None = None):
         self.config = config
         self.arch = config.arch
         self.cost = CostModel(self.arch)
+        self.topology = topology
+
+    def _topology_for(self, module: ModuleTrace) -> Topology:
+        if self.topology is not None:
+            return self.topology
+        return torus_for(module.num_devices, self.arch.name)
 
     def run(self, module: ModuleTrace) -> EngineResult:
         """Simulate one execution of the module's entry computation."""
+        topo = self._topology_for(module)
+        coll = make_collective_model(topo, self.arch.ici)
         result = EngineResult()
         spill_frac = 1.0
         if self.config.model_vmem_capacity:
@@ -327,7 +341,7 @@ class Engine:
                 # over-subscribed vmem: the overflow fraction spills to HBM
                 spill_frac = cap / resident
         end = self._run_computation(
-            module, module.entry, t0=0.0, result=result, depth=0,
+            module, module.entry, t0=0.0, coll=coll, result=result, depth=0,
             spill_frac=spill_frac,
         )
         result.cycles = end
@@ -341,6 +355,7 @@ class Engine:
         module: ModuleTrace,
         comp: Computation,
         t0: float,
+        coll: CollectiveModel,
         result: EngineResult,
         depth: int,
         spill_frac: float = 1.0,
@@ -350,6 +365,7 @@ class Engine:
             return t0
         a = self.arch
         t = t0
+        ici_free = t0
         dma_free = t0
         pending: dict[str, float] = {}  # async op name -> finish cycle
         dma_names: set[str] = set()     # pending entries on the DMA channel
@@ -360,6 +376,7 @@ class Engine:
         hbm_bpc = a.hbm_bytes_per_cycle
         dma_lat = a.seconds_to_cycles(a.dma_issue_latency)
         contend = self.config.model_hbm_contention
+        overlap = self.config.overlap_collectives
         # op-granularity checkpoint/resume applies to the entry walk only
         resume_op = self.config.resume_op if depth == 0 else 0
         checkpoint_op = self.config.checkpoint_op if depth == 0 else 0
@@ -386,7 +403,7 @@ class Engine:
                         result.unknown_trip_loops += 1
                 sub = EngineResult()
                 body_end = self._run_computation(
-                    module, module.computation(body_name), 0.0, sub,
+                    module, module.computation(body_name), 0.0, coll, sub,
                     depth + 1, spill_frac,
                 )
                 result.merge_scaled(sub, float(trips))
@@ -403,7 +420,7 @@ class Engine:
                         continue
                     sub = EngineResult()
                     d = self._run_computation(
-                        module, module.computation(branch), 0.0, sub,
+                        module, module.computation(branch), 0.0, coll, sub,
                         depth + 1, spill_frac,
                     )
                     durs.append(d)
@@ -423,7 +440,7 @@ class Engine:
             if base == "call" and op.called:
                 sub = EngineResult()
                 d = self._run_computation(
-                    module, module.computation(op.called[0]), 0.0, sub,
+                    module, module.computation(op.called[0]), 0.0, coll, sub,
                     depth + 1, spill_frac,
                 )
                 result.merge_scaled(sub, 1.0)
@@ -439,18 +456,17 @@ class Engine:
                     # started before the resume point: complete by now
                     result.op_count += 1
                     continue
-                if op.is_collective:
-                    raise NotImplementedError(COLLECTIVES_TODO)
                 if src not in pending:
                     result.orphan_async_joins += 1
                 finish = pending.pop(src, t)
-                result.exposed_dma_cycles += max(0.0, finish - t)
+                waited = max(0.0, finish - t)
+                if op.base in _COLLECTIVE_DONE_BASES:
+                    result.exposed_collective_cycles += waited
+                else:
+                    result.exposed_dma_cycles += waited
                 t = max(t, finish)
                 result.op_count += 1
                 continue
-
-            if op.is_collective:
-                raise NotImplementedError(COLLECTIVES_TODO)
 
             cost = self.cost.op_cost(op, comp, module)
 
@@ -473,6 +489,35 @@ class Engine:
                         cost.compute_cycles, cost.mem_cycles
                     ),
                 )
+
+            # ---- collectives -------------------------------------------
+            if op.is_collective:
+                seconds = coll.seconds(op.collective, cost.ici_bytes)
+                dur = a.seconds_to_cycles(seconds)
+                result.collective_count += 1
+                result.ici_bytes += cost.ici_bytes
+                result.collective_cycles += dur
+                result.unit_busy_cycles[Unit.ICI.value] += dur
+                result.opcode_cycles[base] += dur
+                if op.is_async_start and overlap:
+                    # runs on the ICI timeline; the core pays the issue
+                    start = max(t, ici_free)
+                    pending[op.name] = start + dur
+                    ici_free = start + dur
+                    self._emit(result, op, start, start + dur)
+                    t += a.op_overhead_cycles
+                else:
+                    start = max(t, ici_free)
+                    self._emit(result, op, start, start + dur)
+                    t = start + dur
+                    ici_free = t
+                    result.exposed_collective_cycles += dur
+                    if op.is_async_start:
+                        # already complete when the done-op arrives;
+                        # register so the join doesn't count as orphaned
+                        pending[op.name] = t
+                result.op_count += 1
+                continue
 
             # ---- async DMA (copy-start etc.) ---------------------------
             if op.is_async_start:
