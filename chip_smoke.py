@@ -5,8 +5,9 @@
 
 Drives the port's main path, ``tpusim_torch capture → simulate``, at the
 registered width of ``flash_attention_pallas`` ([32, 1024, 128] f32), and
-holds its CUDA kernel against the plain PyTorch version.  Phases, in order
-(any failure exits non-zero and prints no result):
+simulate's lane-batched pricing with its row scans on the card, and holds
+each CUDA kernel against its plain PyTorch version.  Phases, in order (any
+failure exits non-zero and prints no result):
 
 1. the card's name and power limit (``nvidia-smi``) and the CUDA version;
 2. build every kernel from ``tpusim_torch/csrc`` with nvcc (timed), and
@@ -26,7 +27,20 @@ holds its CUDA kernel against the plain PyTorch version.  Phases, in order
 5. timings (median of CUDA-event times) in f32 and bf16: kernel, plain
    version, ``scaled_dot_product_attention`` as a yardstick, and the
    card's bound (the larger of operations over the tensor cores' peak for
-   the input type and bytes over HBM's peak).
+   the input type and bytes over HBM's peak);
+6. the pricing fastpath: (a) golden cells 1-5 simulated on the card's
+   host with ``pricing_backend="serial"`` and ``"vectorized"`` (cold and
+   with the compiled columns cached), each report against its golden and
+   the two backends' stats equal apart from the ``fastpath_*`` keys, with
+   host seconds; (b) ``price_module_batch`` over ``llama_tiny_tp2dp2``'s
+   module at v5p with 64 degraded lanes (seeded scales in (0.5, 1]) with
+   ``backend="cuda"`` — the ``scan_rows`` kernel — with the launch counters
+   set to 0 just before and read just after, every lane's result equal to
+   ``"vectorized"``'s and to the lane's serial walk; (c) ``scan_rows``
+   against its plain version by bytes on seeded matrices, S in {1, 64,
+   4096} lanes x k in {1, 47, 4096} ops, values from 1e-3 to 1e9; (d) the
+   times of (b) and (c): kernel, plain version, the host row scan,
+   ``torch.cumsum`` on the card as the yardstick, and the bound.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and the one before that the kernels'
@@ -41,6 +55,7 @@ import io
 import json
 import math
 import shutil
+import statistics
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -62,9 +77,19 @@ from tpusim_torch.kernels.bench import (  # noqa: E402
     time_ms,
 )
 from tpusim_torch.kernels import flash_attention as fa  # noqa: E402
+from tpusim_torch.kernels import scan_rows as sr  # noqa: E402
 from tpusim_torch.models.flash_attention import flash_attention  # noqa: E402
+from tpusim_torch.fastpath import batch as fp_batch  # noqa: E402
+from tpusim_torch.fastpath import price_module_batch  # noqa: E402
+from tpusim_torch.perf.cache import (  # noqa: E402
+    clear_compiled_cache,
+    result_to_doc,
+)
 from tpusim_torch.sim.driver import simulate_trace  # noqa: E402
 from tpusim_torch.sim.stats import EXIT_SENTINEL  # noqa: E402
+from tpusim_torch.timing.config import load_config  # noqa: E402
+from tpusim_torch.timing.engine import Engine  # noqa: E402
+from tpusim_torch.trace.format import load_trace  # noqa: E402
 
 #: published H100 SXM peaks (NVIDIA data sheet, dense): the tensor cores in
 #: TF32 (the fastest unit that takes f32 operands) and in bf16, f32 on the
@@ -73,6 +98,9 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_CUDA_CORE_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+#: float64 on the CUDA cores (data sheet; the scan's adds are no matrix
+#: product, so the FP64 tensor cores' 67 TFLOP/s do not apply)
+PEAK_F64_FLOPS = 34e12
 #: the kernel's f32 path takes three TF32 products per product (split TF32)
 SPLIT_TF32_PRODUCTS = 3
 
@@ -114,6 +142,11 @@ KERNELS = (
     ("flash_attention", "tpusim_torch/csrc/flash_attention.cu",
      "tpusim/models/pallas_attention.py:50", fa.launch_count,
      fa.reset_launch_count),
+    # not a Pallas kernel: the counterpart of the JAX package's lane-axis
+    # scan backend
+    ("scan_rows", "tpusim_torch/csrc/scan_rows.cu",
+     "tpusim/fastpath/jax_backend.py:74", sr.launch_count,
+     sr.reset_launch_count),
 )
 
 
@@ -299,6 +332,200 @@ def time_attention(dtype: torch.dtype, card_name: str) -> dict:
     return out
 
 
+#: phase 6 (b): degraded lanes of the batched pricing call, and the seed of
+#: their (clock_scale, hbm_scale) draws
+BATCH_LANES = 64
+BATCH_SEED = 7
+#: phase 6 (c): scan_rows shapes (lanes x ops) and the seed of the matrices
+SCAN_LANES = (1, 64, 4096)
+SCAN_OPS = (1, 47, 4096)
+SCAN_SEED = 11
+#: the shape timed for the kernels' record: the batched call's 64 lanes
+#: over the longest run of (c)
+SCAN_TIMED = (64, 4096)
+
+
+def host_ms(fn, samples: int = 7) -> float:
+    """Median host-clock milliseconds of ``fn`` over ``samples`` calls,
+    after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def without_fastpath(stats: dict) -> dict:
+    return {k: v for k, v in stats.items() if not k.startswith("fastpath_")}
+
+
+def fastpath_cells(card_name: str) -> dict:
+    """Phase 6 (a): golden cells 1-5 under the serial walk and the
+    vectorized fastpath (cold: compiled columns cleared first; warm: the
+    compiled-module tier holds them).  Every report must pass its golden,
+    and the backends' stats must be equal apart from ``fastpath_*`` and
+    the host-time keys.  Returns, by (golden, run), the host seconds of
+    the whole call and of its replay alone (``SimReport.wall_seconds``:
+    pricing and command stream, without loading and parsing the trace)."""
+    seconds = {}
+    for fixture, arch, overlays, golden in GOLDEN_CELLS:
+        runs = {}
+        for run, backend in (("serial", "serial"),
+                             ("vectorized_cold", "vectorized"),
+                             ("vectorized_warm", "vectorized")):
+            if run == "vectorized_cold":
+                clear_compiled_cache()
+            t0 = time.perf_counter()
+            report = simulate_trace(FIXTURES / fixture, arch=arch,
+                                    overlays=list(overlays), tuned=False,
+                                    pricing_backend=backend)
+            seconds[(golden, run)] = (time.perf_counter() - t0,
+                                      report.wall_seconds)
+            stats = json.loads(report.stats.to_json())
+            if stats.get("fastpath_backend") != backend:
+                raise AssertionError(f"{golden} {run}: fastpath_backend "
+                                     f"{stats.get('fastpath_backend')!r}")
+            errors = compare_golden(golden, without_fastpath(stats))
+            if errors:
+                raise AssertionError("\n".join(errors))
+            runs[run] = {k: v for k, v in without_fastpath(stats).items()
+                         if k not in VOLATILE}
+        if not runs["serial"] == runs["vectorized_cold"] == runs["vectorized_warm"]:
+            raise AssertionError(f"{golden}: serial and vectorized stats differ")
+        print(f"  golden {golden}: serial and vectorized pass, stats equal; "
+              "host s (whole call / replay alone): " + ", ".join(
+                  f"{run} {seconds[(golden, run)][0]:.4f} / "
+                  f"{seconds[(golden, run)][1]:.4f}" for run in runs)
+              + f" (card: {card_name})")
+    return seconds
+
+
+def batch_module_and_engines():
+    """Phase 6 (b)'s inputs: ``llama_tiny_tp2dp2``'s module at v5p and a
+    maker of its 64 degraded lanes' engines (scales in (0.5, 1])."""
+    scales = 1.0 - 0.5 * np.random.default_rng(BATCH_SEED).random(
+        (BATCH_LANES, 2))
+    cfg = load_config(arch="v5p")
+    [module] = load_trace(FIXTURES / "llama_tiny_tp2dp2").modules.values()
+
+    def engines():
+        return [Engine(cfg, clock_scale=float(c), hbm_scale=float(h))
+                for c, h in scales]
+    return module, engines
+
+
+def docs(results) -> list[str]:
+    return [json.dumps(result_to_doc(r)) for r in results]
+
+
+def batch_on_card(module, engines) -> dict:
+    """Phase 6 (b): the batched pricing call with its row scans on the
+    card, the kernels' counters set to 0 just before and read just after;
+    every lane against the host row scans and against its serial walk."""
+    for *_, reset in KERNELS:
+        reset()
+    got = price_module_batch(module, engines(), backend="cuda")
+    torch.cuda.synchronize()
+    launches = {name: count() for name, _, _, count, _ in KERNELS}
+    print(f"  price_module_batch llama_tiny_tp2dp2 @ v5p, {BATCH_LANES} lanes, "
+          f"backend cuda: kernel launches {launches}")
+    if launches["scan_rows"] < 1:
+        raise AssertionError("the batched pricing call never launched scan_rows")
+    got = docs(got)
+    host = docs(price_module_batch(module, engines(), backend="vectorized"))
+    serial = docs(e._run_serial(module) for e in engines())
+    if got != host or got != serial:
+        bad = [s for s in range(BATCH_LANES)
+               if not got[s] == host[s] == serial[s]]
+        raise AssertionError(f"batched lanes differ at {bad[:8]}")
+    cycles = [json.loads(d)["cycles"] for d in got]
+    if not all(math.isfinite(c) and c > 0 for c in cycles):
+        raise AssertionError("non-finite or empty lane cycles")
+    print(f"  every lane equals the host row scans and its serial walk; "
+          f"cycles {min(cycles):.6g} .. {max(cycles):.6g}")
+    return launches
+
+
+def scan_inputs(lanes: int, ops: int, seed: int):
+    """Seeded ``[lanes]`` seeds and an ops-major ``[ops, lanes]`` matrix,
+    float64, log-uniform from 1e-3 to 1e9, on the CPU."""
+    vals = np.exp(np.random.default_rng(seed).uniform(
+        math.log(1e-3), math.log(1e9), size=(ops + 1, lanes)))
+    return torch.from_numpy(vals[0].copy()), torch.from_numpy(vals[1:].copy())
+
+
+def check_scan_rows() -> float:
+    """Phase 6 (c): the kernel against its plain version by bytes at every
+    (lanes, ops) shape; returns the largest absolute difference (0)."""
+    worst = 0.0
+    for lanes in SCAN_LANES:
+        for ops in SCAN_OPS:
+            seeds, mat = scan_inputs(lanes, ops, SCAN_SEED)
+            got = sr.scan_rows(seeds.cuda(), mat.cuda()).cpu()
+            want = sr.scan_rows_reference(seeds, mat)
+            same = got.numpy().tobytes() == want.numpy().tobytes()
+            err = (got - want).abs().max().item()
+            worst = max(worst, err)
+            print(f"  scan_rows [{ops}, {lanes}]: bytes "
+                  f"{'equal' if same else 'DIFFER'} to the plain version "
+                  f"(max abs diff {err:.3g})")
+            if not same:
+                raise AssertionError(f"scan_rows differs at {lanes} x {ops}")
+    return worst
+
+
+def time_fastpath(module, engines, card_name: str) -> dict:
+    """Phase 6 (d): the batched call under both backends (host clock), and
+    scan_rows at every shape of (c) and at SCAN_TIMED: kernel (CUDA
+    events), plain version and host row scan (host clock), torch.cumsum on
+    the card as the yardstick, and the bound."""
+    out = {}
+    for backend in ("cuda", "vectorized"):
+        out[f"batch_{backend}_ms"] = host_ms(
+            lambda: price_module_batch(module, engines(), backend=backend),
+            samples=5)
+    out["serial_walk_ms"] = host_ms(
+        lambda: [e._run_serial(module) for e in engines()], samples=3)
+    print(f"time price_module_batch {BATCH_LANES} lanes: cuda "
+          f"{out['batch_cuda_ms']:.2f} ms, vectorized "
+          f"{out['batch_vectorized_ms']:.2f} ms, the lanes' serial walks "
+          f"{out['serial_walk_ms']:.2f} ms (host clock, median; card: "
+          f"{card_name})")
+    for lanes in SCAN_LANES:
+        for ops in SCAN_OPS:
+            seeds, mat = scan_inputs(lanes, ops, SCAN_SEED + 1)
+            seeds_d, mat_d = seeds.cuda(), mat.cuda()
+            rows = mat.t().contiguous()
+            t = {
+                "ms": time_ms(lambda: sr.scan_rows(seeds_d, mat_d)),
+                "plain_ms": host_ms(
+                    lambda: sr.scan_rows_reference(seeds, mat), samples=3),
+                "host_vectorized_ms": host_ms(
+                    lambda: fp_batch._scan_rows_host(seeds, rows), samples=3),
+            }
+            full = torch.cat([seeds_d[None], mat_d])
+            t["library_ms"] = time_ms(lambda: torch.cumsum(full, 0))
+            t["library_bytes_equal"] = (
+                torch.cumsum(full, 0).cpu().numpy().tobytes()
+                == sr.scan_rows_reference(seeds, mat).numpy().tobytes())
+            nbytes = 2 * lanes * (ops + 1) * 8
+            bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+            ops_ms = lanes * ops / PEAK_F64_FLOPS * 1e3
+            t["bound_ms"] = max(bytes_ms, ops_ms)
+            t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+            print(f"time scan_rows [{ops}, {lanes}]: kernel {t['ms']:.4f} ms, "
+                  f"plain {t['plain_ms']:.4f} ms, host row scan "
+                  f"{t['host_vectorized_ms']:.4f} ms, torch.cumsum on the "
+                  f"card {t['library_ms']:.4f} ms (bytes equal: "
+                  f"{t['library_bytes_equal']}), bound {t['bound_ms']:.6f} ms "
+                  f"({t['bound_by']}: {nbytes} B / 3.35 TB/s, {lanes * ops} "
+                  f"dependent-chain adds / 34 TFLOP/s f64) (card: {card_name})")
+            out[(lanes, ops)] = t
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -340,9 +567,8 @@ def main() -> int:
     launches = {name: count() for name, _, _, count, _ in KERNELS}
     print(out.strip())
     print(f"capture: {capture_s:.2f} s; kernel launches {launches}")
-    for name, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"main path never launched kernel {name}")
+    if launches["flash_attention"] < 1:
+        raise AssertionError("main path never launched kernel flash_attention")
     snaps = sorted((trace / "checkpoint_files").glob("*.npy"))
     for p in snaps:
         a = np.load(p)
@@ -367,6 +593,15 @@ def main() -> int:
     bf16 = time_attention(torch.bfloat16, card_name)
     torch.cuda.synchronize()
 
+    phase(6, "pricing fastpath: serial vs vectorized, batched lanes on the card")
+    cell_seconds = fastpath_cells(card_name)
+    module, engines = batch_module_and_engines()
+    batch_launches = batch_on_card(module, engines)
+    scan_err = check_scan_rows()
+    fp_times = time_fastpath(module, engines, card_name)
+    scan = fp_times[SCAN_TIMED]
+    torch.cuda.synchronize()
+
     record = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -389,9 +624,30 @@ def main() -> int:
         "bf16_bound_by": bf16["bound_by"],
         "bf16_library_ms": bf16["library_ms"],
         "bf16_library_fused_ms": bf16["library_fused_ms"],
+    }, {
+        "name": "scan_rows",
+        "route": "cuda",
+        "source": KERNELS[1][1],
+        "replaces": KERNELS[1][2],
+        "launches": batch_launches["scan_rows"],
+        "max_abs_err": scan_err,
+        "ms": scan["ms"],
+        "plain_ms": scan["plain_ms"],
+        "bound_ms": scan["bound_ms"],
+        "bound_by": scan["bound_by"],
+        "library_ms": scan["library_ms"],
+        "shape_ops_lanes": [SCAN_TIMED[1], SCAN_TIMED[0]],
+        "host_vectorized_ms": scan["host_vectorized_ms"],
+        "library_bytes_equal": scan["library_bytes_equal"],
+        "batch_cuda_ms": fp_times["batch_cuda_ms"],
+        "batch_vectorized_ms": fp_times["batch_vectorized_ms"],
+        "batch_serial_walk_ms": fp_times["serial_walk_ms"],
+        "golden_host_s": {f"{g}|{run}": list(v)
+                          for (g, run), v in cell_seconds.items()},
     }]}
     keys = ("ms", "plain_ms", "library_ms", "library_fused_ms")
-    times = [f32[k] for k in keys] + [bf16[k] for k in keys]
+    times = [f32[k] for k in keys] + [bf16[k] for k in keys] + [
+        scan[k] for k in ("ms", "plain_ms", "library_ms")]
     if not all(math.isfinite(x) for x in times):
         raise AssertionError(f"non-finite timing in {record}")
     print(json.dumps(record))

@@ -321,4 +321,4 @@ def test_chip_smoke_checks_every_golden_cell(capsys):
     out = capsys.readouterr().out
     assert out.count("stats match; host") == 5
     assert "tpusim_tot_collective_count = 14" in out
-    assert "{'flash_attention': 0}" in out
+    assert "{'flash_attention': 0, 'scan_rows': 0}" in out

@@ -7,6 +7,7 @@
                                     [--resume-kernel N] [--checkpoint-kernel N]
                                     [--resume-op N] [--checkpoint-op N]
                                     [--lenient-parse]
+                                    [--pricing-backend auto|serial|vectorized|native]
     python -m tpusim_torch info     <trace-dir>
     python -m tpusim_torch workloads
 
@@ -40,7 +41,7 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
         overlays.append({"arch": {"ici": {"network_mode": args.network_mode}}})
     report = simulate_trace(
         args.trace, arch=args.arch, overlays=overlays,
-        lenient=args.lenient_parse,
+        lenient=args.lenient_parse, pricing_backend=args.pricing_backend,
     )
     if args.power and report.power is not None:
         print(report.power.report_text())
@@ -145,6 +146,13 @@ def main(argv: list[str] | None = None) -> int:
                     help="skip malformed HLO lines with a counted "
                          "warning instead of raising mid-file (salvage "
                          "mode for damaged captures)")
+    ps.add_argument("--pricing-backend", default=None,
+                    choices=["auto", "serial", "vectorized", "native"],
+                    help="pin the tpusim_torch.fastpath pricing backend "
+                         "(byte-identical; default auto = vectorized; also "
+                         "via $TPUSIM_PRICING_BACKEND; native is not "
+                         "ported yet and raises) and stamp fastpath_* "
+                         "stats on the report")
     ps.set_defaults(fn=_cmd_simulate)
 
     pc = sub.add_parser("capture", help="capture a registered workload")

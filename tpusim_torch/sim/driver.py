@@ -8,6 +8,9 @@ the group's devices, and emit the same stats keys as the JAX package —
 ``dcn_*`` when the pod spans DCN slices, ``power_*``/``energy_*`` under
 ``power_enabled``.
 
+Every engine prices through the backend ``pricing_backend`` requests
+(None: auto-resolved); an explicit request stamps ``fastpath_*`` stats.
+
 Not ported yet: faults (ROADMAP A7), the result cache and worker pools
 (A6), the compile store (A6), validation (A9), the observability layer
 (A10) and cancellation (A11).
@@ -104,9 +107,14 @@ class SimReport:
 class SimDriver:
     """Replays a :class:`PodTrace` under a :class:`SimConfig`."""
 
-    def __init__(self, config: SimConfig):
+    def __init__(self, config: SimConfig,
+                 pricing_backend: str | None = None):
         self.config = config
         self.arch = config.arch
+        # tpusim_torch.fastpath: pricing-backend request (None = auto; an
+        # EXPLICIT request also stamps the fastpath_* stats block, so
+        # default runs stay key-identical)
+        self.pricing_backend = pricing_backend
 
     def run(self, pod: PodTrace) -> SimReport:
         t_start = time.perf_counter()
@@ -120,7 +128,8 @@ class SimDriver:
         )
         topo = torus_for(n_devices, arch.name)
         coll = make_collective_model(topo, arch.ici)
-        engine = Engine(cfg, topology=topo)
+        engine = Engine(cfg, topology=topo,
+                        pricing_backend=self.pricing_backend)
         report = SimReport(config_name=arch.name, num_devices=n_devices)
 
         # kernel timing is per-module (SPMD: all devices run the same
@@ -308,6 +317,19 @@ class SimDriver:
 
         report.wall_seconds = time.perf_counter() - t_start
         report.finalize(arch.clock_hz)
+        if self.pricing_backend is not None:
+            # fastpath accounting rides the report ONLY when a backend was
+            # explicitly requested.  The stamped name is what actually
+            # priced: under op-granularity checkpoint/resume the fastpath
+            # disengages and every run took the serial walk.
+            from tpusim_torch.fastpath.price import resolve_backend
+            from tpusim_torch.perf.cache import compiled_cache_stats
+
+            resolved = resolve_backend(self.pricing_backend)
+            if cfg.resume_op or cfg.checkpoint_op:
+                resolved = "serial"
+            report.stats.set("fastpath_backend", resolved)
+            report.stats.update(compiled_cache_stats(), prefix="fastpath_")
         slice_topo = slice_topology_for(topo.num_chips, arch.ici)
         if slice_topo is not None and slice_topo.num_slices > 1:
             # dcn_* keys ride the report ONLY when a DCN fabric is
@@ -335,17 +357,20 @@ def simulate_trace(
     overlays: list[Any] | None = None,
     tuned: bool = True,
     lenient: bool = False,
+    pricing_backend: str | None = None,
 ) -> SimReport:
     """Load a trace dir, compose the config, replay.
 
     ``tuned=False`` skips the committed tuner overlay, as the golden cells
     do.  With neither ``arch`` nor ``config`` the arch defaults to the
     one the trace was captured on (v5e when the device kind is not a
-    TPU)."""
+    TPU).  ``pricing_backend`` (the ``--pricing-backend`` flag /
+    ``$TPUSIM_PRICING_BACKEND``) pins the pricing backend; all backends
+    give the same stats."""
     pod = load_trace(trace_path, lenient=lenient)
     if arch is None and config is None:
         kind = str(pod.meta.get("device_kind", ""))
         if kind:
             arch = detect_arch(kind).name
     cfg = load_config(config, arch=arch, overlays=overlays, tuned=tuned)
-    return SimDriver(cfg).run(pod)
+    return SimDriver(cfg, pricing_backend=pricing_backend).run(pod)

@@ -15,9 +15,13 @@ detailed) over the module's torus: an overlapped ``*-start`` runs on the
 ICI timeline and joins at its ``-done``; any other collective stalls the
 core.
 
-Not ported yet: the fastpath dispatch (ROADMAP A1), degraded-chip
-multipliers (faults, A7), the observability sampler (A10) and
-cooperative cancellation (A11).
+``Engine.run`` hands every eligible module to the pricing fastpath
+(:mod:`tpusim_torch.fastpath`), which is byte-identical to the serial walk
+``_run_serial`` kept here as the reference.  A degraded chip (a straggler
+clock, a throttled HBM) prices through the ``clock_scale``/``hbm_scale``
+multipliers; the fault schedules that produce them are not ported yet
+(ROADMAP A7), nor the observability sampler (A10) or cooperative
+cancellation (A11).
 """
 
 from __future__ import annotations
@@ -40,13 +44,27 @@ from tpusim_torch.timing.config import SimConfig
 from tpusim_torch.timing.cost import CostModel, while_trip_count
 from tpusim_torch.trace.loop_analysis import infer_trip_count
 
-__all__ = ["Engine", "EngineResult"]
+__all__ = ["Engine", "EngineResult", "TimelineEvent"]
+
+#: events a recorded timeline keeps per computation walk
+MAX_TIMELINE_EVENTS = 100_000
 
 #: async ``-done`` bases whose wait counts as exposed collective time
 _COLLECTIVE_DONE_BASES = (
     "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
     "collective-permute", "collective-broadcast", "ragged-all-to-all",
 )
+
+
+@dataclass
+class TimelineEvent:
+    """One op's span on its unit, recorded under ``record_timeline``."""
+
+    name: str
+    opcode: str
+    unit: str
+    start_cycle: float
+    end_cycle: float
 
 
 @dataclass
@@ -98,6 +116,8 @@ class EngineResult:
     per_op_mxu_flops: dict[str, float] = field(
         default_factory=lambda: defaultdict(float)
     )
+    #: op spans of a run with ``record_timeline`` (serial walk only)
+    timeline: list[TimelineEvent] = field(default_factory=list)
 
     # -- derived -----------------------------------------------------------
 
@@ -309,14 +329,57 @@ def _vmem_peak_live_bytes(module: ModuleTrace) -> float:
     )
 
 
+def _residency_of(module: ModuleTrace) -> float:
+    """:func:`_vmem_resident_bytes`, memoized on the module (it is not
+    mutated after parse)."""
+    cached = getattr(module, "_residency_cache", None)
+    if cached is None:
+        cached = module._residency_cache = _vmem_resident_bytes(module)
+    return cached
+
+
 class Engine:
     """Times one module on one modeled device of a topology."""
 
-    def __init__(self, config: SimConfig, topology: Topology | None = None):
+    def __init__(
+        self,
+        config: SimConfig,
+        topology: Topology | None = None,
+        record_timeline: bool = False,
+        clock_scale: float = 1.0,
+        hbm_scale: float = 1.0,
+        pricing_backend: str | None = None,
+    ):
         self.config = config
         self.arch = config.arch
         self.cost = CostModel(self.arch)
+        # pricing backend (tpusim_torch.fastpath): None/"auto" resolves to
+        # the fastest available path; "serial" pins the reference walk.
+        # Resolved at the first run.
+        self.pricing_backend = pricing_backend
+        self._resolved_backend: str | None = None
         self.topology = topology
+        self.record_timeline = record_timeline
+        # degraded-chip multipliers: a straggler runs its core/vmem at
+        # clock_scale x nominal, a throttled HBM streams at hbm_scale x
+        # nominal.  Cycles stay in NOMINAL units (the pod clock), so a
+        # straggler's ops take 1/clock_scale more of them; 1.0/1.0 keeps
+        # the healthy path bit-identical (no per-op branch)
+        if not 0.0 < clock_scale <= 1.0 or not 0.0 < hbm_scale <= 1.0:
+            raise ValueError(
+                "clock_scale/hbm_scale must be in (0, 1] "
+                f"(got {clock_scale}, {hbm_scale})"
+            )
+        self.clock_scale = float(clock_scale)
+        self.hbm_scale = float(hbm_scale)
+        self._degraded = clock_scale != 1.0 or hbm_scale != 1.0
+
+    @staticmethod
+    def _peak_live_of(module: ModuleTrace) -> float:
+        cached = getattr(module, "_peak_live_cache", None)
+        if cached is None:
+            cached = module._peak_live_cache = _vmem_peak_live_bytes(module)
+        return cached
 
     def _topology_for(self, module: ModuleTrace) -> Topology:
         if self.topology is not None:
@@ -324,18 +387,42 @@ class Engine:
         return torus_for(module.num_devices, self.arch.name)
 
     def run(self, module: ModuleTrace) -> EngineResult:
-        """Simulate one execution of the module's entry computation."""
+        """Simulate one execution of the module's entry computation.
+
+        Dispatches to the compiled fastpath (:mod:`tpusim_torch.fastpath`)
+        when a non-serial backend resolves and the run is eligible (see
+        ``fastpath_eligible``); the serial walk is the reference semantics
+        the fastpath is byte-identical to."""
+        backend = self._resolved_backend
+        if backend is None:
+            from tpusim_torch.fastpath.price import resolve_backend
+
+            backend = self._resolved_backend = resolve_backend(
+                self.pricing_backend
+            )
+        if backend != "serial":
+            from tpusim_torch.fastpath.price import (
+                fastpath_eligible,
+                price_module,
+            )
+
+            if fastpath_eligible(self):
+                return price_module(self, module, backend)
+        return self._run_serial(module)
+
+    def _run_serial(self, module: ModuleTrace) -> EngineResult:
+        """The reference per-op schedule walk."""
         topo = self._topology_for(module)
         coll = make_collective_model(topo, self.arch.ici)
         result = EngineResult()
         spill_frac = 1.0
         if self.config.model_vmem_capacity:
-            resident = _vmem_resident_bytes(module)
+            resident = _residency_of(module)
             cap = float(self.arch.vmem_bytes)
             if resident > cap > 0:
                 # the conservative sum counts every allocation as
                 # simultaneous; check what is actually concurrently live
-                resident = _vmem_peak_live_bytes(module)
+                resident = self._peak_live_of(module)
             result.vmem_resident_bytes = resident
             if resident > cap > 0:
                 # over-subscribed vmem: the overflow fraction spills to HBM
@@ -408,7 +495,7 @@ class Engine:
                 )
                 result.merge_scaled(sub, float(trips))
                 dur = body_end * trips + a.op_overhead_cycles * (trips + 1)
-                self._emit(result, op, t, t + dur)
+                self._emit(result, op, t, t + dur, Unit.SCALAR)
                 t += dur
                 result.op_count += 1
                 continue
@@ -433,7 +520,7 @@ class Engine:
                         # the worst-case assumption is materially wrong for
                         # whichever arm actually runs — surface it
                         result.worst_case_branches += 1
-                    self._emit(result, op, t, t + dur)
+                    self._emit(result, op, t, t + dur, Unit.SCALAR)
                     t += dur
                 result.op_count += 1
                 continue
@@ -444,7 +531,7 @@ class Engine:
                     depth + 1, spill_frac,
                 )
                 result.merge_scaled(sub, 1.0)
-                self._emit(result, op, t, t + d)
+                self._emit(result, op, t, t + d, Unit.SCALAR)
                 t += d
                 result.op_count += 1
                 continue
@@ -469,6 +556,30 @@ class Engine:
                 continue
 
             cost = self.cost.op_cost(op, comp, module)
+
+            # ---- degraded chip: straggler clock / HBM throttle ---------
+            # (free ops — parameter/tuple/bitcast — cost 0 and stay 0:
+            # there is no work to slow down)
+            if self._degraded and cost.cycles > 0:
+                cs, hs = self.clock_scale, self.hbm_scale
+                # core + vmem run on the chip clock; HBM is derated
+                # independently.  Cycles are nominal, so slower silicon
+                # means MORE nominal cycles; the max() keeps floors
+                # (dispatch, small-kernel) monotone under degradation.
+                cost.compute_cycles /= cs
+                cost.hbm_rate_scale *= hs
+                cost.vmem_rate_scale *= cs
+                cost.mem_cycles = max(
+                    cost.hbm_bytes / (hbm_bpc * cost.hbm_rate_scale),
+                    cost.vmem_bytes
+                    / (a.vmem_bytes_per_cycle * cost.vmem_rate_scale),
+                )
+                cost.cycles = max(
+                    cost.cycles,
+                    a.op_overhead_cycles / cs + max(
+                        cost.compute_cycles, cost.mem_cycles
+                    ),
+                )
 
             # ---- vmem capacity: spill the over-subscribed fraction -----
             if spill_frac < 1.0 and cost.vmem_bytes > 0:
@@ -504,11 +615,11 @@ class Engine:
                     start = max(t, ici_free)
                     pending[op.name] = start + dur
                     ici_free = start + dur
-                    self._emit(result, op, start, start + dur)
+                    self._emit(result, op, start, start + dur, Unit.ICI)
                     t += a.op_overhead_cycles
                 else:
                     start = max(t, ici_free)
-                    self._emit(result, op, start, start + dur)
+                    self._emit(result, op, start, start + dur, Unit.ICI)
                     t = start + dur
                     ici_free = t
                     result.exposed_collective_cycles += dur
@@ -539,9 +650,12 @@ class Engine:
                 result.opcode_cycles[base] += dur
                 result.hbm_bytes += cost.hbm_bytes
                 result.per_op_hbm_bytes[op.name] += cost.hbm_bytes
-                # per-op aggregates see the exposure: queueing + latency +
-                # transfer
-                self._emit(result, op, t, start + dma_lat + dur)
+                # per-op aggregates see the exposure (queueing + latency +
+                # transfer); the timeline keeps the channel occupancy span
+                self._emit(
+                    result, op, start, start + dur, Unit.DMA,
+                    per_op_span=(t, start + dma_lat + dur),
+                )
                 t += a.op_overhead_cycles
                 result.op_count += 1
                 continue
@@ -593,7 +707,7 @@ class Engine:
                             s[2] = remaining / (s[1] - t)
                 dur = new_dur
             if dur > 0:
-                self._emit(result, op, t, t + dur)
+                self._emit(result, op, t, t + dur, cost.unit)
             t += dur
             result.op_count += 1
             result.flops += cost.flops
@@ -624,12 +738,25 @@ class Engine:
 
     # ------------------------------------------------------------------
 
-    @staticmethod
-    def _emit(result: EngineResult, op: TraceOp, start: float,
-              end: float) -> None:
-        """Per-instruction aggregates (loop bodies scaled by the caller)."""
-        result.per_op_cycles[op.name] += end - start
+    def _emit(
+        self, result: EngineResult, op: TraceOp, start: float, end: float,
+        unit: Unit,
+        per_op_span: tuple[float, float] | None = None,
+    ) -> None:
+        """Per-instruction aggregates (loop bodies scaled by the caller),
+        and the op's span when the timeline is recorded.  ``per_op_span``
+        lets async transfers report their exposure (issue to completion)
+        to the aggregates while the timeline keeps the channel span."""
+        po_start, po_end = per_op_span if per_op_span else (start, end)
+        result.per_op_cycles[op.name] += po_end - po_start
         result.per_op_count[op.name] += 1.0
         result.per_op_opcode.setdefault(op.name, op.base)
         if op.is_async_start:
             result.per_op_async[op.name] = True
+        if not self.record_timeline:
+            return
+        if len(result.timeline) >= MAX_TIMELINE_EVENTS:
+            return
+        result.timeline.append(
+            TimelineEvent(op.name, op.opcode, unit.value, start, end)
+        )

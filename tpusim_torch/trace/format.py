@@ -17,6 +17,7 @@ accelerators that are not ported yet.
 from __future__ import annotations
 
 import gzip
+import hashlib
 import json
 import os
 from dataclasses import dataclass, field
@@ -199,6 +200,12 @@ def load_trace(path: str | Path, lenient: bool = False) -> PodTrace:
         # file name is the trace key; HloModule header name may differ
         pod.modules[key] = mod
         mod.meta.setdefault("trace_key", key)
+        # content digest of the module text — the address half of the
+        # fastpath's compiled-module key (computed here, where the text is
+        # in hand)
+        mod.meta.setdefault(
+            "content_hash", hashlib.sha256(texts[key].encode()).hexdigest()[:24]
+        )
         # capture-time facts ride on every module: the cost model gates
         # capture-backend dtype normalization on the platform
         for k in ("platform", "device_kind"):
