@@ -40,7 +40,26 @@ failure exits non-zero and prints no result):
    against its plain version by bytes on seeded matrices, S in {1, 64,
    4096} lanes x k in {1, 47, 4096} ops, values from 1e-3 to 1e9; (d) the
    times of (b) and (c): kernel, plain version, the host row scan,
-   ``torch.cumsum`` on the card as the yardstick, and the bound.
+   ``torch.cumsum`` on the card as the yardstick, and the bound;
+7. degraded pods on the card's host, with the kernels' launch counters set
+   to 0 just before and read just after (they must stay 0: this path
+   launches no kernel), each part with its host seconds: (a) the faults
+   smoke contract of ``ci/check_golden.py`` (``ci/faults_schema.json``
+   read as data: its kinds equal ``FAULT_KINDS``, its example schedules
+   round-trip, a healthy ``llama_tiny_tp2dp2`` @ v5p run carries no
+   ``faults_*`` key, one dead link stamps every required key and inflates
+   both collective and step cycles); (b) every example schedule on
+   ``llama_tiny_tp2dp2`` @ v5p on the analytic and the detailed network,
+   ``serial`` and ``vectorized`` stats equal apart from ``fastpath_*``;
+   (c) ``simulate --workers 4`` on a two-module trace built from
+   ``matmul_512`` — its pool forks after CUDA is initialised, must stamp
+   ``pool_workers`` 4 and ``pool_parallel_segments`` 2, and give the
+   serial stats; (d) ``faults --arch v5p --chips 64`` (192 scenarios),
+   serial and ``--workers 4``, reports equal by bytes; (e) ``faults
+   --arch v5p --chips 8 --trace llama_tiny_tp2dp2`` (12 scenarios)
+   serially, with ``--workers 4`` and twice with ``--result-cache DIR``,
+   reports equal by bytes, the second cached run taking every module
+   result from the disk tier.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and the one before that the kernels'
@@ -57,6 +76,7 @@ import math
 import shutil
 import statistics
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -81,6 +101,12 @@ from tpusim_torch.kernels import scan_rows as sr  # noqa: E402
 from tpusim_torch.models.flash_attention import flash_attention  # noqa: E402
 from tpusim_torch.fastpath import batch as fp_batch  # noqa: E402
 from tpusim_torch.fastpath import price_module_batch  # noqa: E402
+from tpusim_torch.faults import (  # noqa: E402
+    FAULT_KINDS,
+    link_down_schedule,
+    load_fault_schedule,
+)
+from tpusim_torch.ici.topology import torus_for  # noqa: E402
 from tpusim_torch.perf.cache import (  # noqa: E402
     clear_compiled_cache,
     result_to_doc,
@@ -526,6 +552,231 @@ def time_fastpath(module, engines, card_name: str) -> dict:
     return out
 
 
+#: phase 7: the faults contract, read as data, and the pool's width
+FAULTS_SCHEMA = REPO / "ci" / "faults_schema.json"
+POOL_WORKERS = 4
+
+
+def stats_of(report, drop: tuple[str, ...] = ()) -> dict:
+    """A report's stats without the host-time keys and the prefixes in
+    ``drop``."""
+    return {k: v for k, v in json.loads(report.stats.to_json()).items()
+            if k not in VOLATILE and not k.startswith(drop)}
+
+
+def faults_smoke(card_name: str) -> dict:
+    """Phase 7 (a): ``ci/check_golden.py``'s faults smoke contract, run
+    against the port.  Raises on a violation; returns its summary."""
+    t0 = time.perf_counter()
+    schema = json.loads(FAULTS_SCHEMA.read_text())
+    if set(schema["fault_kinds"]) != set(FAULT_KINDS):
+        raise AssertionError(f"schema kinds {sorted(schema['fault_kinds'])} "
+                             f"!= FAULT_KINDS {sorted(FAULT_KINDS)}")
+    for kind, doc in schema["example_schedules"].items():
+        sched = load_fault_schedule(doc)
+        if not sched.faults or sched.faults[0].kind != kind \
+                or load_fault_schedule(sched.to_doc()) != sched:
+            raise AssertionError(f"example schedule {kind!r} did not round-trip")
+    trace = FIXTURES / "llama_tiny_tp2dp2"
+    healthy = simulate_trace(trace, arch="v5p", tuned=False)
+    leaked = [k for k in healthy.stats.values if k.startswith("faults_")]
+    if leaked:
+        raise AssertionError(f"healthy run leaked fault stats {leaked}")
+    topo = torus_for(healthy.num_devices, "v5p")
+    a, b = topo.undirected_links()[0]
+    faulted = simulate_trace(trace, arch="v5p", tuned=False,
+                             faults=link_down_schedule(topo, a, b),
+                             topology=topo)
+    missing = [k for k in schema["stats_required_when_active"]
+               if k not in faulted.stats.values]
+    if missing:
+        raise AssertionError(f"faulted run misses stats keys {missing}")
+    h_coll = healthy.stats.get("tot_collective_cycles", 0.0)
+    f_coll = faulted.stats.get("tot_collective_cycles", 0.0)
+    if not (f_coll > h_coll and faulted.cycles > healthy.cycles):
+        raise AssertionError(
+            f"dead link did not inflate collective cycles ({h_coll} -> "
+            f"{f_coll}) and step cycles ({healthy.cycles} -> {faulted.cycles})")
+    out = {
+        "kinds": sorted(schema["fault_kinds"]),
+        "dead_link": f"{list(topo.coords(a))}->{list(topo.coords(b))}",
+        "step_inflation": faulted.cycles / healthy.cycles,
+        "collective_inflation": f_coll / h_coll,
+        "stats_keys": schema["stats_required_when_active"],
+    }
+    print(f"  (a) faults smoke: dead link {out['dead_link']}, step cycles "
+          f"x{out['step_inflation']:.6f}, collective cycles "
+          f"x{out['collective_inflation']:.6f}; host "
+          f"{time.perf_counter() - t0:.4f} s (card: {card_name})")
+    return out
+
+
+def example_schedules(card_name: str) -> None:
+    """Phase 7 (b): every example schedule on ``llama_tiny_tp2dp2`` @ v5p,
+    analytic and detailed network, ``serial`` and ``vectorized`` stats
+    equal apart from ``fastpath_*``."""
+    t0 = time.perf_counter()
+    schema = json.loads(FAULTS_SCHEMA.read_text())
+    for mode in ("analytic", "detailed"):
+        overlays = [{"arch": {"ici": {"network_mode": mode}}}]
+        for kind, doc in schema["example_schedules"].items():
+            runs = [stats_of(simulate_trace(
+                FIXTURES / "llama_tiny_tp2dp2", arch="v5p",
+                overlays=overlays, tuned=False, faults=doc,
+                pricing_backend=backend), drop=("fastpath_",))
+                for backend in ("serial", "vectorized")]
+            if runs[0] != runs[1] or "faults_active" not in runs[0]:
+                raise AssertionError(f"{kind} {mode}: serial and vectorized "
+                                     "stats differ")
+    print(f"  (b) {len(schema['example_schedules'])} example schedules x "
+          f"{{analytic, detailed}}: serial == vectorized; host "
+          f"{time.perf_counter() - t0:.4f} s (card: {card_name})")
+
+
+def two_module_trace(dst: Path) -> Path:
+    """A trace with two distinct modules (``matmul_512`` and a copy with
+    a narrower first operand), launched a, b, a on device 0, so the
+    driver's segment-parallel pricing engages (two launch classes)."""
+    src = FIXTURES / "matmul_512"
+    (dst / "modules").mkdir(parents=True)
+    hlo = (src / "modules" / "matmul_512.hlo").read_text()
+    (dst / "modules" / "mm_a.hlo").write_text(hlo)
+    (dst / "modules" / "mm_b.hlo").write_text(
+        hlo.replace("f32[512,512]", "f32[256,512]", 1))
+    shutil.copy(src / "meta.json", dst / "meta.json")
+    cmds = [{"kind": "kernel_launch", "module": m, "device": 0}
+            for m in ("mm_a", "mm_b", "mm_a")]
+    (dst / "commandlist.jsonl").write_text(
+        "\n".join(json.dumps(c) for c in cmds) + "\n")
+    return dst
+
+
+def pooled_simulate(work: Path, card_name: str) -> None:
+    """Phase 7 (c): ``simulate --workers 4`` on the two-module trace
+    against the serial run, through the CLI."""
+    t0 = time.perf_counter()
+    trace = two_module_trace(work / "two_module")
+    runs = {}
+    for label, extra in (("serial", []),
+                         ("pooled", ["--workers", str(POOL_WORKERS)])):
+        out = work / f"two_module_{label}.json"
+        run_cli(["simulate", str(trace), "--arch", "v5e", "--json", str(out),
+                 *extra])
+        runs[label] = {k: v for k, v in json.loads(out.read_text()).items()
+                       if k not in VOLATILE}
+    pooled = runs["pooled"]
+    if pooled.get("pool_workers") != POOL_WORKERS \
+            or pooled.get("pool_parallel_segments") != 2:
+        raise AssertionError(f"the pool did not engage: {pooled}")
+    if {k: v for k, v in pooled.items() if not k.startswith("pool_")} \
+            != runs["serial"]:
+        raise AssertionError("pooled and serial stats differ")
+    print(f"  (c) simulate --workers {POOL_WORKERS} on a two-module trace: "
+          f"pool_workers {pooled['pool_workers']}, pool_parallel_segments "
+          f"{pooled['pool_parallel_segments']}, stats equal the serial run's; "
+          f"host {time.perf_counter() - t0:.4f} s (card: {card_name})")
+
+
+@contextlib.contextmanager
+def counting_engine_runs():
+    """Count the engine's pricing walks while the block runs (a result
+    cache hit returns before ``Engine.run``)."""
+    calls = {"n": 0}
+    orig = Engine.run
+
+    def counting(self, module):
+        calls["n"] += 1
+        return orig(self, module)
+
+    Engine.run = counting
+    try:
+        yield calls
+    finally:
+        Engine.run = orig
+
+
+def sweep_reports(work: Path, argv: list[str], runs: dict) -> dict:
+    """``faults`` through the CLI once per ``runs`` entry (label -> extra
+    flags); returns each run's ``--json`` report bytes, host seconds and
+    engine walks."""
+    out = {}
+    for label, extra in runs.items():
+        path = work / f"sweep_{label}.json"
+        with counting_engine_runs() as calls:
+            t0 = time.perf_counter()
+            run_cli(["faults", *argv, "--json", str(path), *extra])
+            secs = time.perf_counter() - t0
+        out[label] = (path.read_bytes(), secs, calls["n"])
+    return out
+
+
+def sweeps(work: Path, card_name: str) -> dict:
+    """Phase 7 (d) and (e): the analytic and the trace link sweeps through
+    the CLI, serial, pooled and cached, reports equal by bytes.  Returns
+    the host seconds by run."""
+    workers = ["--workers", str(POOL_WORKERS)]
+    analytic = sweep_reports(work, ["--arch", "v5p", "--chips", "64"],
+                             {"d_serial": [], "d_pooled": workers})
+    cached = ["--result-cache", str(work / "result_cache")]
+    traced = sweep_reports(
+        work, ["--arch", "v5p", "--chips", "8", "--trace",
+               str(FIXTURES / "llama_tiny_tp2dp2")],
+        {"e_serial": [], "e_pooled": workers, "e_cached_cold": cached,
+         "e_cached_warm": cached})
+    for name, reports in (("d", analytic), ("e", traced)):
+        blobs = {label: blob for label, (blob, _, _) in reports.items()}
+        if len(set(blobs.values())) != 1:
+            raise AssertionError(f"({name}) sweep reports differ: "
+                                 f"{sorted(blobs)}")
+    doc_d = json.loads(analytic["d_serial"][0])
+    doc_e = json.loads(traced["e_serial"][0])
+    if doc_d["scenarios"] != 192 or doc_e["scenarios"] != 12:
+        raise AssertionError(f"scenario counts {doc_d['scenarios']}, "
+                             f"{doc_e['scenarios']}")
+    walks = {label: n for label, (_, _, n) in traced.items()}
+    if walks["e_cached_cold"] < 1 or walks["e_cached_warm"] != 0:
+        raise AssertionError(f"engine walks by run {walks}: the warm "
+                             "cached sweep must take every module result "
+                             "from the disk tier")
+    seconds = {label: secs for reports in (analytic, traced)
+               for label, (_, secs, _) in reports.items()}
+    print(f"  (d) faults --arch v5p --chips 64: 192 scenarios, worst "
+          f"x{doc_d['worst_inflation']:.6f} at {doc_d['worst_link']}; serial "
+          f"and --workers {POOL_WORKERS} reports equal by bytes; host "
+          f"{seconds['d_serial']:.4f} / {seconds['d_pooled']:.4f} s "
+          f"(card: {card_name})")
+    print(f"  (e) faults --arch v5p --chips 8 --trace llama_tiny_tp2dp2: 12 "
+          f"scenarios, worst x{doc_e['worst_inflation']:.6f}; serial, "
+          f"--workers {POOL_WORKERS}, --result-cache cold and warm reports "
+          f"equal by bytes; engine walks in the parent {walks} (the warm run "
+          f"prices nothing); host " + " / ".join(
+              f"{seconds[k]:.4f}" for k in ("e_serial", "e_pooled",
+                                            "e_cached_cold", "e_cached_warm"))
+          + f" s (card: {card_name})")
+    return seconds
+
+
+def degraded_pods(card_name: str, work: Path) -> dict:
+    """Phase 7: (a)-(e) in ``work`` (an empty directory), with the
+    kernels' launch counters set to 0 just before and read just after.
+    Raises on any failure, and when a kernel was launched; returns the
+    launch counts, the smoke summary and the sweeps' host seconds."""
+    for *_, reset in KERNELS:
+        reset()
+    t0 = time.perf_counter()
+    smoke = faults_smoke(card_name)
+    example_schedules(card_name)
+    pooled_simulate(work, card_name)
+    seconds = sweeps(work, card_name)
+    launches = {name: count() for name, _, _, count, _ in KERNELS}
+    print(f"degraded pods: host {time.perf_counter() - t0:.4f} s (card: "
+          f"{card_name}); kernel launches {launches} (this path runs on the "
+          f"host)")
+    if any(launches.values()):
+        raise AssertionError(f"the host path launched kernels: {launches}")
+    return {"launches": launches, "smoke": smoke, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -601,6 +852,10 @@ def main() -> int:
     fp_times = time_fastpath(module, engines, card_name)
     scan = fp_times[SCAN_TIMED]
     torch.cuda.synchronize()
+
+    phase(7, "degraded pods on the card's host")
+    with tempfile.TemporaryDirectory() as tmp:
+        degraded_pods(card_name, Path(tmp))
 
     record = {"kernels": [{
         "name": "flash_attention",

@@ -8,6 +8,12 @@
                                     [--resume-op N] [--checkpoint-op N]
                                     [--lenient-parse]
                                     [--pricing-backend auto|serial|vectorized|native]
+                                    [--faults SCHEDULE.json] [--workers N]
+                                    [--result-cache[=DIR]]
+    python -m tpusim_torch faults   [--arch v5p] [--chips 64] [--trace DIR]
+                                    [--kind K] [--payload-mb MB] [--top N]
+                                    [--max-scenarios N] [--json F]
+                                    [--workers N] [--result-cache[=DIR]]
     python -m tpusim_torch info     <trace-dir>
     python -m tpusim_torch workloads
 
@@ -39,9 +45,15 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
         overlays.append({"checkpoint_op": args.checkpoint_op})
     if args.network_mode:
         overlays.append({"arch": {"ici": {"network_mode": args.network_mode}}})
+    faults = None
+    if args.faults:
+        from tpusim_torch.faults import load_fault_schedule
+
+        faults = load_fault_schedule(args.faults)
     report = simulate_trace(
-        args.trace, arch=args.arch, overlays=overlays,
-        lenient=args.lenient_parse, pricing_backend=args.pricing_backend,
+        args.trace, arch=args.arch, overlays=overlays, faults=faults,
+        lenient=args.lenient_parse, result_cache=args.result_cache,
+        workers=args.workers, pricing_backend=args.pricing_backend,
     )
     if args.power and report.power is not None:
         print(report.power.report_text())
@@ -49,6 +61,54 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
     if args.json:
         with open(args.json, "w") as f:
             f.write(report.stats.to_json() + "\n")
+    return 0
+
+
+def _cmd_faults(args: argparse.Namespace) -> int:
+    """Single-link-failure sweep: price a collective (or replay a trace)
+    once per dead link and report worst-case step-time inflation."""
+    from tpusim_torch.faults.sweep import single_link_sweep, trace_step_sweep
+    from tpusim_torch.ici.topology import torus_for
+    from tpusim_torch.timing.config import load_config
+
+    cfg = load_config(arch=args.arch)
+    arch_name = cfg.arch.name
+    topo = torus_for(args.chips, arch_name)
+    if args.trace:
+        result = trace_step_sweep(
+            args.trace, topo, arch=args.arch,
+            max_scenarios=args.max_scenarios,
+            workers=args.workers, result_cache=args.result_cache,
+        )
+        what = f"step time ({result.unit})"
+    else:
+        result = single_link_sweep(
+            topo, cfg.arch.ici,
+            payload_bytes=args.payload_mb * 1024 * 1024,
+            kind=args.kind,
+            workers=args.workers,
+        )
+        what = f"{args.kind} ({result.unit})"
+    dims = "x".join(str(d) for d in topo.dims)
+    print(f"tpusim faults: single-link-failure sweep on {arch_name} "
+          f"{dims} torus ({topo.num_chips} chips, "
+          f"{len(result.rows)} scenarios)")
+    print(f"  healthy {what}: {result.healthy:.6g}")
+    worst = result.worst
+    if worst is not None:
+        print(f"  worst-case inflation: {worst.inflation:.3f}x at link "
+              f"{worst.label()}")
+    top = sorted(result.rows, key=lambda r: -r.inflation)[: args.top]
+    for r in top:
+        print(f"    {r.label():24s} {r.value:.6g} "
+              f"({r.inflation:.3f}x)")
+    degraded = sum(1 for r in result.rows if r.inflation > 1.0 + 1e-12)
+    print(f"  {degraded}/{len(result.rows)} scenarios inflate the "
+          f"healthy baseline")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(result.to_doc(), f, indent=2)
+        print(f"  sweep report written to {args.json}")
     return 0
 
 
@@ -153,7 +213,56 @@ def main(argv: list[str] | None = None) -> int:
                          "via $TPUSIM_PRICING_BACKEND; native is not "
                          "ported yet and raises) and stamp fastpath_* "
                          "stats on the report")
+    ps.add_argument("--faults", default=None, metavar="SCHEDULE.json",
+                    help="fault schedule (dead/degraded ICI links, chip "
+                         "stragglers, HBM throttles, DCN faults — see "
+                         "ci/faults_schema.json); stamps faults_* stats")
+    ps.add_argument("--workers", type=int, default=None, metavar="N",
+                    help="fan module pricing over N processes "
+                         "(default: $TPUSIM_WORKERS, else serial); "
+                         "bit-identical to the serial replay")
+    ps.add_argument("--result-cache", nargs="?", const=True, default=None,
+                    metavar="DIR",
+                    help="memoize engine results on disk (default dir "
+                         ".tpusim_cache/): a warm re-run prices nothing "
+                         "and reproduces the same stats byte for byte; "
+                         "stamps cache_* stats")
     ps.set_defaults(fn=_cmd_simulate)
+
+    pfa = sub.add_parser(
+        "faults",
+        help="single-link-failure sweep: worst-case step-time inflation "
+             "over every dead-link scenario (degraded-pod what-ifs)",
+    )
+    pfa.add_argument("--arch", default="v5p")
+    pfa.add_argument("--chips", type=int, default=64,
+                     help="pod size to sweep (default 64 = v5p 4x4x4)")
+    pfa.add_argument("--kind", default="all-reduce",
+                     help="collective to price per scenario "
+                          "(analytic sweep)")
+    pfa.add_argument("--payload-mb", type=float, default=64.0,
+                     help="per-chip payload for the analytic sweep")
+    pfa.add_argument("--trace", default=None,
+                     help="replay this trace per scenario instead "
+                          "(end-to-end step-time inflation; slower)")
+    pfa.add_argument("--max-scenarios", type=int, default=16,
+                     help="scenario cap for --trace sweeps")
+    pfa.add_argument("--top", type=int, default=5,
+                     help="how many worst links to print")
+    pfa.add_argument("--json", default=None,
+                     help="write the full sweep report here")
+    pfa.add_argument("--workers", type=int, default=None, metavar="N",
+                     help="fan per-link scenarios over N processes "
+                          "(default: $TPUSIM_WORKERS, else serial); "
+                          "rows merge in link order — byte-identical "
+                          "to the serial sweep")
+    pfa.add_argument("--result-cache", nargs="?", const=True, default=None,
+                     metavar="DIR",
+                     help="share one engine-result cache across the "
+                          "sweep's replays (--trace sweeps; in-memory "
+                          "sharing is always on, this adds the disk "
+                          "tier)")
+    pfa.set_defaults(fn=_cmd_faults)
 
     pc = sub.add_parser("capture", help="capture a registered workload")
     pc.add_argument("workload")

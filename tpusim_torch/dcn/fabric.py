@@ -9,7 +9,7 @@ BETWEEN slices cost right now".  The hierarchical decompositions in
 the in-slice schedules.
 
 Degradation semantics (per slice ``k``), read from the fault view when
-one is bound (none is in the port until ROADMAP A7):
+one is bound (:class:`tpusim_torch.faults.FaultView`):
 
 * ``dcn_link_down`` removes one NIC from slice ``k``;
 * ``dcn_link_degraded`` scales slice ``k``'s usable bandwidth;

@@ -42,7 +42,6 @@ __all__ = [
     "NET_CYCLE_S",
     "TorusNetwork",
     "DetailedCollectiveModel",
-    "TopologyPartitionedError",
     "make_collective_model",
 ]
 
@@ -54,11 +53,6 @@ NET_CYCLE_S = 1e-9
 #: forces the rotation direction on that axis (-1/absent = DOR default),
 #: letting counter-rotating rings claim both directions of an axis
 Transfer = tuple
-
-
-class TopologyPartitionedError(RuntimeError):
-    """Dead links disconnect two chips that must exchange data (raised by
-    the live-link detour; reachable only through a fault view)."""
 
 
 class TorusNetwork:
@@ -132,8 +126,8 @@ class TorusNetwork:
     def _route_around(self, src: int, dst: int) -> list[int]:
         """BFS shortest path over LIVE links only — the fallback when the
         dimension-order route crosses a dead link.  Raises
-        :class:`TopologyPartitionedError` when the dead links disconnect
-        ``src`` from ``dst``."""
+        :class:`~tpusim_torch.faults.TopologyPartitionedError` when the
+        dead links disconnect ``src`` from ``dst``."""
         key = (src, dst)
         cached = self._detour_cache.get(key)
         if cached is not None:
@@ -160,6 +154,8 @@ class TorusNetwork:
                     prev[nxt] = (cur, (cur * nd + axis) * 2 + direction)
                     q.append(nxt)
         if dst not in prev:
+            from tpusim_torch.faults import TopologyPartitionedError
+
             faults = topo.faults
             ndead = getattr(faults, "links_down", 0)
             raise TopologyPartitionedError(

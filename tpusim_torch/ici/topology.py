@@ -29,11 +29,9 @@ class Topology:
     :meth:`with_faults`); the link-liveness queries below forward to it
     and are trivially True/1.0 on a healthy topology, so fault awareness
     costs the healthy path nothing.  Excluded from eq/hash: a faulted
-    topology is the same *shape*.  Nothing in the port makes a fault view
-    yet — the fault schedule (``tpusim/faults/schedule.py``) is ROADMAP
-    A7 — so every topology the port builds is healthy; the field and its
-    queries are kept so the collective models read the same as the
-    reference's."""
+    topology is the same *shape*.  The views come from a fault schedule
+    bound to this topology
+    (:meth:`tpusim_torch.faults.FaultState.view_at`)."""
 
     dims: tuple[int, ...]            # e.g. (4, 4, 4) for v5p-128 (64 chips)
     wrap: tuple[bool, ...]           # per-axis wraparound links present?

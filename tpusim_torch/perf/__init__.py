@@ -1,2 +1,5 @@
-"""Caches of the port's pricing (port of part of :mod:`tpusim.perf`): the
-compiled-module tier the fastpath keys its columns under."""
+"""The port's performance layer (port of :mod:`tpusim.perf`): the
+content-addressed caches of pricing (:mod:`tpusim_torch.perf.cache` — the
+engine-result cache and the fastpath's compiled-module tier) and the
+ordered worker pool of the sweeps and the driver
+(:mod:`tpusim_torch.perf.pool`)."""

@@ -1,48 +1,85 @@
-"""The compiled-module cache tier of the pricing fastpath.
+"""Content-addressed caches of the port's pricing.
 
-Port of the part of ``tpusim/perf/cache.py`` that the fastpath needs: the
-content fingerprints, the process-wide LRU of
-:class:`~tpusim_torch.fastpath.compile.CompiledModule` instances keyed on
+Port of ``tpusim/perf/cache.py``, in two tiers of its own:
 
-    (module fingerprint, capture platform, config fingerprint,
-     model + parser version)
+* the **result cache** (:class:`ResultCache`, :class:`CachedEngine`):
+  one priced :class:`~tpusim_torch.timing.engine.EngineResult` per key
 
-and :func:`result_to_doc`, the JSON document of one
-:class:`~tpusim_torch.timing.engine.EngineResult` by which results are
-compared.  Scales and topology are deliberately absent from the key:
-compiled columns hold healthy per-op costs and launch-class transforms
-apply at price time, so every degraded class of a module shares one
-compile.
+      (module fingerprint, capture platform, config fingerprint, arch,
+       model + parser version, (clock_scale, hbm_scale) [, topology sig])
 
-Not ported yet (ROADMAP A6): the result cache (``ResultCache``,
-``CachedEngine``), the worker pool and the durable compile store.
+  where the topology part joins only for modules that contain collective
+  ops — a collective-free kernel prices identically on any pod, faulted
+  or not, which is why a link sweep prices the healthy-kernel class once.
+  An LRU in memory, and on request (``--result-cache[=DIR]``, default
+  ``.tpusim_cache/``) JSON records on disk, written atomically (temp +
+  ``os.replace``); a corrupt record is moved aside into ``quarantine/``
+  and recomputed with one warning.  A hit returns the exact float-for-
+  float result the engine would have produced (JSON's shortest-repr
+  floats round-trip every counter), so cached replays reproduce stats
+  byte for byte.
+* the **compiled-module tier** of the pricing fastpath: the process-wide
+  LRU of :class:`~tpusim_torch.fastpath.compile.CompiledModule`
+  instances keyed on
+
+      (module fingerprint, capture platform, config fingerprint,
+       model + parser version)
+
+  Scales and topology are deliberately absent from this key: compiled
+  columns hold healthy per-op costs and launch-class transforms apply at
+  price time, so every degraded class of a module shares one compile.
+
+Keys hash the port's own sources (:func:`parser_version`, and
+``model_version`` over its timing model), so the port and the JAX package
+never read each other's records, even in one cache directory.
+
+Not ported yet: the store quota and its garbage collection (ROADMAP A11)
+and the durable compile store (A6).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import errno
 import hashlib
 import json
+import os
 import threading
-from collections import OrderedDict
+import warnings
+from collections import OrderedDict, defaultdict
 from pathlib import Path
 
 from tpusim_torch.timing.config import SimConfig
-from tpusim_torch.timing.engine import EngineResult
+from tpusim_torch.timing.engine import Engine, EngineResult
 from tpusim_torch.timing.model_version import model_version
 
 __all__ = [
+    "CACHE_FORMAT_VERSION",
+    "CachedEngine",
+    "DEFAULT_CACHE_DIR",
+    "ResultCache",
+    "as_result_cache",
     "clear_compiled_cache",
     "compiled_cache_stats",
     "compiled_for",
     "compiled_key_str",
     "config_fingerprint",
     "module_fingerprint",
+    "module_uses_ici",
     "parser_version",
+    "result_from_doc",
     "result_to_doc",
     "set_compiled_cache_max",
     "topology_signature",
 ]
+
+CACHE_FORMAT_VERSION = 1
+
+#: the ``--result-cache`` flag's bare form resolves here (cwd-relative)
+DEFAULT_CACHE_DIR = ".tpusim_cache"
+
+#: where a corrupt disk record is moved, inside the cache directory
+QUARANTINE_DIR = "quarantine"
 
 _REPO = Path(__file__).resolve().parents[2]
 
@@ -89,6 +126,54 @@ def parser_version() -> str:
 
 def _sha(text: str) -> str:
     return hashlib.sha256(text.encode()).hexdigest()[:24]
+
+
+#: OSError errnos that mean the disk tier's medium is gone (full, failing,
+#: or read-only) — one more write will not fare better, so the cache
+#: disables its write path for the instance's lifetime instead of warning
+#: on every put
+FATAL_WRITE_ERRNOS = frozenset({
+    errno.ENOSPC, errno.EDQUOT, errno.EIO, errno.EROFS,
+})
+
+
+def fatal_write_disable(exc: OSError, message: str) -> bool:
+    """When ``exc`` is a medium-level failure, emit the single disable
+    warning (``message``) and return True — the caller sets its instance
+    flag and stops writing.  Non-fatal errnos return False and the caller
+    keeps writing."""
+    if exc.errno not in FATAL_WRITE_ERRNOS:
+        return False
+    warnings.warn(message, RuntimeWarning, stacklevel=3)
+    return True
+
+
+def _stage_write(tmp: Path, text: str) -> None:
+    """Stage one record's bytes to its temp file (the seam a test of the
+    full-disk path replaces)."""
+    with open(tmp, "w") as f:
+        f.write(text)
+
+
+def _quarantine_record(path: Path) -> bool:
+    """Move one bad record into the cache's quarantine dir (atomic rename;
+    a pid suffix keeps two processes quarantining the same record from
+    colliding).  Returns False when the record was already gone — someone
+    else quarantined or replaced it first, which is the same outcome."""
+    qdir = path.parent / QUARANTINE_DIR
+    try:
+        qdir.mkdir(parents=True, exist_ok=True)
+        os.replace(path, qdir / f"{path.name}.{os.getpid()}")
+        return True
+    except FileNotFoundError:
+        return False
+    except OSError:
+        # quarantine dir unwritable: deleting still heals the lookup path
+        try:
+            path.unlink()
+            return True
+        except OSError:
+            return False
 
 
 def module_fingerprint(module) -> str | None:
@@ -159,10 +244,31 @@ def topology_signature(topo) -> str | None:
     return sig
 
 
+def module_uses_ici(module) -> bool:
+    """Does pricing this module consult the topology (any collective op)?
+    Memoized on the module (it is not mutated after parse)."""
+    cached = getattr(module, "_uses_ici_cache", None)
+    if cached is not None:
+        return cached
+    uses = any(op.is_collective for op in module.all_ops())
+    try:
+        module._uses_ici_cache = uses
+    except (AttributeError, TypeError):
+        pass
+    return uses
+
+
 # ---------------------------------------------------------------------------
-# EngineResult document
+# EngineResult (de)serialization
 # ---------------------------------------------------------------------------
 
+#: dict-valued counter fields restored as defaultdict(float)
+_FLOAT_MAP_FIELDS = (
+    "unit_busy_cycles", "opcode_cycles", "per_op_cycles", "per_op_count",
+    "per_op_hbm_bytes", "per_op_flops", "per_op_mxu_flops",
+)
+#: dict-valued fields restored as plain dicts
+_PLAIN_MAP_FIELDS = ("per_op_opcode", "per_op_async")
 #: run-scoped fields that are not part of a result's document
 _UNDOCUMENTED_FIELDS = ("timeline",)
 
@@ -177,6 +283,263 @@ def result_to_doc(result: EngineResult) -> dict:
         value = getattr(result, f.name)
         doc[f.name] = dict(value) if isinstance(value, dict) else value
     return doc
+
+
+def result_from_doc(doc: dict) -> EngineResult:
+    """The inverse of :func:`result_to_doc`; raises ValueError on a
+    document whose fields are not exactly the result's."""
+    expected = {
+        f.name for f in dataclasses.fields(EngineResult)
+        if f.name not in _UNDOCUMENTED_FIELDS
+    }
+    if set(doc) != expected:
+        raise ValueError(
+            f"cache record field mismatch: {sorted(set(doc) ^ expected)}"
+        )
+    result = EngineResult()
+    for name, value in doc.items():
+        if name in _FLOAT_MAP_FIELDS:
+            value = defaultdict(float, value)
+        elif name in _PLAIN_MAP_FIELDS:
+            value = dict(value)
+        setattr(result, name, value)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# The result cache
+# ---------------------------------------------------------------------------
+
+
+class ResultCache:
+    """Two-tier content-addressed cache of engine results; see the module
+    docstring.
+
+    One instance may be shared across many drivers/engines (a sweep's
+    per-link drivers all thread the same cache) — hit/miss counters are
+    therefore cumulative over the instance's lifetime."""
+
+    def __init__(
+        self,
+        disk_dir: str | Path | None = None,
+        max_entries: int = 1024,
+    ):
+        self.disk_dir = Path(disk_dir) if disk_dir else None
+        self.max_entries = max(int(max_entries), 1)
+        self._mem: OrderedDict[str, EngineResult] = OrderedDict()
+        # guards the LRU mutations (move_to_end racing an eviction would
+        # KeyError), not the disk tier (atomic writes)
+        self._lock = threading.Lock()
+        # captured once: a key is a statement about the code that computed
+        # the result, not about when it is read
+        self._model_version = f"{model_version()}+{parser_version()}"
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.disk_hits = 0
+        self.disk_errors = 0
+        self.quarantined = 0
+        # once a staging write fails with a medium-level errno, this
+        # instance stops writing (one warning ever) and keeps serving from
+        # memory and the records already on disk
+        self._disk_write_disabled = False
+
+    # -- keys ----------------------------------------------------------------
+
+    def key_for(
+        self,
+        module,
+        config: SimConfig,
+        scales: tuple[float, float] = (1.0, 1.0),
+        topology=None,
+    ) -> str | None:
+        """The content-addressed key, or None when this (module, run)
+        cannot be cached safely."""
+        mfp = module_fingerprint(module)
+        if mfp is None:
+            return None
+        topo_part = "-"
+        if module_uses_ici(module):
+            topo = topology
+            if topo is None:
+                from tpusim_torch.ici.topology import torus_for
+
+                topo = torus_for(module.num_devices, config.arch.name)
+            topo_part = topology_signature(topo)
+            if topo_part is None:
+                return None
+        # capture-time platform joins the key: the cost model normalizes
+        # capture-backend dtypes on module.meta["platform"], so identical
+        # HLO text captured on two platforms prices differently
+        platform = str(module.meta.get("platform", "")) if module.meta \
+            else ""
+        return "|".join((
+            mfp,
+            f"p={platform}",
+            config_fingerprint(config),
+            config.arch.name,
+            self._model_version,
+            f"{scales[0]!r},{scales[1]!r}",
+            topo_part,
+        ))
+
+    # -- lookup / insert -----------------------------------------------------
+
+    def get(self, key: str) -> EngineResult | None:
+        with self._lock:
+            result = self._mem.get(key)
+            if result is not None:
+                self._mem.move_to_end(key)
+                self.hits += 1
+        if result is not None:
+            return result
+        if self.disk_dir is not None:
+            result = self._disk_get(key)
+            if result is not None:
+                self._mem_put(key, result)
+                self.hits += 1
+                self.disk_hits += 1
+                return result
+        self.misses += 1
+        return None
+
+    def put(self, key: str, result: EngineResult) -> None:
+        self._mem_put(key, result)
+        if self.disk_dir is not None:
+            self._disk_put(key, result)
+
+    def _mem_put(self, key: str, result: EngineResult) -> None:
+        with self._lock:
+            self._mem[key] = result
+            self._mem.move_to_end(key)
+            while len(self._mem) > self.max_entries:
+                self._mem.popitem(last=False)
+                self.evictions += 1
+
+    # -- disk tier -----------------------------------------------------------
+
+    def _path_for(self, key: str) -> Path:
+        return self.disk_dir / f"{_sha(key)}.json"
+
+    def _disk_get(self, key: str) -> EngineResult | None:
+        path = self._path_for(key)
+        if not path.is_file():
+            return None
+        try:
+            doc = json.loads(path.read_text())
+            if doc.get("format_version") != CACHE_FORMAT_VERSION:
+                return None  # older layout: stale, not corrupt
+            if doc.get("key") != key:
+                raise ValueError("stored key mismatch (hash collision?)")
+            if doc.get("model_version") != self._model_version:
+                return None  # stale: model bumped under the same name
+            return result_from_doc(doc["result"])
+        except FileNotFoundError:
+            # replaced or quarantined by a peer between the existence
+            # check and the read: a plain miss, never damage
+            return None
+        except (ValueError, KeyError, TypeError, OSError) as e:
+            self.disk_errors += 1
+            # move the bad record off the lookup path on first detection,
+            # so the recompute's put heals it and no later lookup warns
+            if _quarantine_record(path):
+                self.quarantined += 1
+            warnings.warn(
+                f"tpusim_torch.perf: corrupt result-cache entry {path} "
+                f"({type(e).__name__}: {e}); quarantined, recomputing",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+            return None
+
+    def _disk_put(self, key: str, result: EngineResult) -> None:
+        if self._disk_write_disabled:
+            return
+        tmp = None
+        try:
+            self.disk_dir.mkdir(parents=True, exist_ok=True)
+            path = self._path_for(key)
+            doc = {
+                "format_version": CACHE_FORMAT_VERSION,
+                "model_version": self._model_version,
+                "key": key,
+                "result": result_to_doc(result),
+            }
+            # pid AND thread ident: two threads or processes racing the
+            # same cold key must not share a tmp file
+            tmp = path.with_suffix(
+                f".{os.getpid()}.{threading.get_ident()}.tmp"
+            )
+            _stage_write(tmp, json.dumps(doc))
+            os.replace(tmp, path)  # atomic: readers never see a torn file
+        except OSError as e:
+            self.disk_errors += 1
+            if tmp is not None:
+                try:
+                    tmp.unlink()
+                except OSError:
+                    pass
+            if fatal_write_disable(
+                e,
+                f"tpusim_torch.perf: result-cache write failed under "
+                f"{self.disk_dir} ({e}); disabling further disk writes "
+                f"for this cache instance (reads and in-memory caching "
+                f"continue)",
+            ):
+                self._disk_write_disabled = True
+                return
+            warnings.warn(
+                f"tpusim_torch.perf: result-cache write failed under "
+                f"{self.disk_dir} ({e}); continuing uncached",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+
+    def flush(self) -> int:
+        """Ensure every in-memory entry has its disk record (no-op for
+        memory-only caches).  Normal operation writes through at ``put``
+        time; this heals records whose write failed transiently.  Returns
+        the number of records written."""
+        if self.disk_dir is None or self._disk_write_disabled:
+            return 0
+        with self._lock:
+            items = list(self._mem.items())
+        healed = 0
+        for key, result in items:
+            if self._disk_write_disabled:
+                break
+            if not self._path_for(key).is_file():
+                self._disk_put(key, result)
+                healed += 1
+        return healed
+
+    # -- reporting -----------------------------------------------------------
+
+    def stats_dict(self) -> dict[str, float]:
+        """Counter block the driver stamps under the ``cache_`` prefix
+        (only when a cache is active)."""
+        return {
+            "hits": self.hits,
+            "misses": self.misses,
+            "evictions": self.evictions,
+            "disk_hits": self.disk_hits,
+            "disk_errors": self.disk_errors,
+            "entries": len(self._mem),
+        }
+
+
+def as_result_cache(spec) -> ResultCache | None:
+    """Coerce the ``--result-cache`` flag family to a cache instance:
+    None/False → no cache; True → disk tier at :data:`DEFAULT_CACHE_DIR`;
+    a path → disk tier there; an existing :class:`ResultCache` passes
+    through."""
+    if spec is None or spec is False:
+        return None
+    if isinstance(spec, ResultCache):
+        return spec
+    if spec is True:
+        return ResultCache(disk_dir=DEFAULT_CACHE_DIR)
+    return ResultCache(disk_dir=spec)
 
 
 # ---------------------------------------------------------------------------
@@ -278,3 +641,37 @@ def compiled_cache_stats() -> dict[str, float]:
         "compile_misses": _compiled_misses,
         "compiled_modules": len(_COMPILED),
     }
+
+
+# ---------------------------------------------------------------------------
+# Engine wiring
+# ---------------------------------------------------------------------------
+
+
+class CachedEngine(Engine):
+    """An :class:`Engine` whose ``run`` consults a :class:`ResultCache`.
+
+    Runs that record a timeline carry run-scoped spans and always price
+    live.  A ``result_cache`` of None makes this an exact Engine."""
+
+    def __init__(self, *args, result_cache: ResultCache | None = None, **kw):
+        super().__init__(*args, **kw)
+        self.result_cache = result_cache
+
+    def run(self, module) -> EngineResult:
+        cache = self.result_cache
+        if cache is None or self.record_timeline:
+            return super().run(module)
+        key = cache.key_for(
+            module, self.config,
+            (self.clock_scale, self.hbm_scale),
+            self.topology,
+        )
+        if key is None:
+            return super().run(module)
+        cached = cache.get(key)
+        if cached is not None:
+            return cached
+        result = super().run(module)
+        cache.put(key, result)
+        return result

@@ -11,9 +11,16 @@ the group's devices, and emit the same stats keys as the JAX package —
 Every engine prices through the backend ``pricing_backend`` requests
 (None: auto-resolved); an explicit request stamps ``fastpath_*`` stats.
 
-Not ported yet: faults (ROADMAP A7), the result cache and worker pools
-(A6), the compile store (A6), validation (A9), the observability layer
-(A10) and cancellation (A11).
+Degraded pods: a fault schedule (``faults=``) is bound to the pod's
+topology once; kernels price under their chip's multipliers and
+standalone collectives under the link view active at their issue cycle,
+and the report carries the schedule's ``faults_*`` stats.  An engine-
+result cache (``result_cache=``, ``cache_*`` stats) and a worker count
+(``workers=``: the distinct launch classes priced over a process pool
+up front, ``pool_*`` stats) leave every other stat unchanged.
+
+Not ported yet: the compile store (ROADMAP A6), validation (A9), the
+observability layer and its "faults" lane (A10) and cancellation (A11).
 """
 
 from __future__ import annotations
@@ -27,8 +34,10 @@ from typing import Any
 
 from tpusim_torch.dcn.topology import slice_topology_for
 from tpusim_torch.ici.detailed import make_collective_model
-from tpusim_torch.ici.topology import torus_for
+from tpusim_torch.ici.topology import Topology, torus_for
 from tpusim_torch.ir import CommandKind, PodTrace, TraceCommand
+from tpusim_torch.perf.cache import CachedEngine, as_result_cache
+from tpusim_torch.perf.pool import map_ordered, pool_context, resolve_workers
 from tpusim_torch.power.model import PowerModel, PowerReport
 from tpusim_torch.sim.stats import EXIT_SENTINEL, StatsRegistry
 from tpusim_torch.timing.arch import detect_arch
@@ -37,6 +46,19 @@ from tpusim_torch.timing.engine import Engine, EngineResult
 from tpusim_torch.trace.format import load_trace
 
 __all__ = ["SimDriver", "SimReport", "simulate_trace"]
+
+
+def _price_segment_worker(item):
+    """:mod:`tpusim_torch.perf.pool` worker: price one ``(module, scales)``
+    launch class — the unit of the driver's segment-parallel replay.
+    Pure: same engine math as the serial path, so the returned counters
+    are bit-identical to an in-process run."""
+    name, scales = item
+    cfg, topo, modules, cache, backend = pool_context()
+    return CachedEngine(
+        cfg, topology=topo, clock_scale=scales[0], hbm_scale=scales[1],
+        result_cache=cache, pricing_backend=backend,
+    ).run(modules[name])
 
 
 @dataclass
@@ -107,10 +129,28 @@ class SimReport:
 class SimDriver:
     """Replays a :class:`PodTrace` under a :class:`SimConfig`."""
 
-    def __init__(self, config: SimConfig,
-                 pricing_backend: str | None = None):
+    def __init__(
+        self,
+        config: SimConfig,
+        topology: Topology | None = None,
+        faults=None,
+        result_cache=None,
+        workers: int | None = None,
+        pricing_backend: str | None = None,
+    ):
         self.config = config
         self.arch = config.arch
+        # None = the default torus for the pod's device count
+        self.topology = topology
+        # fault schedule (FaultSchedule | path | JSON text | dict); None =
+        # healthy pod, zero added work and zero added stats keys
+        self.faults = faults
+        # engine-result cache (ResultCache | dir path | True for the
+        # default disk dir) and the worker count of segment-parallel
+        # pricing (None = $TPUSIM_WORKERS, else serial).  Both default
+        # off: the healthy serial path is unchanged, key-identical.
+        self.result_cache = as_result_cache(result_cache)
+        self.workers = workers
         # tpusim_torch.fastpath: pricing-backend request (None = auto; an
         # EXPLICIT request also stamps the fastpath_* stats block, so
         # default runs stay key-identical)
@@ -126,25 +166,85 @@ class SimDriver:
             max((m.num_devices for m in pod.modules.values()), default=1),
             len(pod.devices) or 1,
         )
-        topo = torus_for(n_devices, arch.name)
+        base_topo = self.topology or torus_for(n_devices, arch.name)
+        # fault binding: resolve the schedule against this pod's topology
+        # once (validates coords/adjacency), then attach the cycle-0 view.
+        # Windowed schedules re-resolve the view at each command's issue
+        # cycle — kernels pick their chip multipliers and standalone
+        # collectives their link view at command grain (a fault window
+        # cannot split a single kernel: the whole launch prices under the
+        # view active when it issues).
+        fault_state = None
+        fault_view = None
+        if self.faults is not None:
+            from tpusim_torch.faults import FaultSchedule, load_fault_schedule
+
+            sched = (
+                self.faults if isinstance(self.faults, FaultSchedule)
+                else load_fault_schedule(self.faults)
+            )
+            fault_state = sched.bind(base_topo)
+            fault_view = fault_state.view_at(0.0)
+        topo = (
+            base_topo.with_faults(fault_view) if fault_view is not None
+            else base_topo
+        )
         coll = make_collective_model(topo, arch.ici)
-        engine = Engine(cfg, topology=topo,
-                        pricing_backend=self.pricing_backend)
+
+        # one engine per (clock_scale, hbm_scale) launch class: degraded
+        # chips (straggler clock / HBM throttle) run their own; with no
+        # result cache a CachedEngine is an exact Engine
+        engines: dict[tuple[float, float], Engine] = {}
+
+        def engine_for(scales: tuple[float, float]) -> Engine:
+            e = engines.get(scales)
+            if e is None:
+                e = engines[scales] = CachedEngine(
+                    cfg, topology=topo, clock_scale=scales[0],
+                    hbm_scale=scales[1], result_cache=self.result_cache,
+                    pricing_backend=self.pricing_backend,
+                )
+            return e
+
+        # windowed link faults: standalone collectives are priced with the
+        # view active at their issue cycle (one model per distinct view)
+        coll_models = {
+            (fault_view.signature if fault_view is not None else None): coll
+        }
+
+        def coll_for(cycle: float):
+            if fault_state is None or not fault_state.windowed:
+                return coll
+            v = fault_state.view_at(cycle)
+            m = coll_models.get(v.signature)
+            if m is None:
+                m = coll_models[v.signature] = make_collective_model(
+                    base_topo.with_faults(v), arch.ici
+                )
+            return m
+
         report = SimReport(config_name=arch.name, num_devices=n_devices)
 
         # kernel timing is per-module (SPMD: all devices run the same
-        # program), so each module prices once
-        module_results: dict[str, EngineResult] = {}
+        # program), so each (module, chip multipliers) launch class prices
+        # once; degraded chips form their own classes
+        module_results: dict[tuple[str, tuple[float, float]], EngineResult] \
+            = {}
 
-        def module_result(name: str) -> EngineResult:
-            if name not in module_results:
+        def module_result(
+            name: str, scales: tuple[float, float] = (1.0, 1.0)
+        ) -> EngineResult:
+            key = (name, scales)
+            if key not in module_results:
                 if name not in pod.modules:
                     raise KeyError(
                         f"command references unknown module {name!r}; "
                         f"trace has {sorted(pod.modules)}"
                     )
-                module_results[name] = engine.run(pod.modules[name])
-            return module_results[name]
+                module_results[key] = engine_for(scales).run(
+                    pod.modules[name]
+                )
+            return module_results[key]
 
         # Cross-device collective rendezvous: the k-th standalone collective
         # *over a given replica group* must align across that group's
@@ -170,10 +270,88 @@ class SimDriver:
         checkpoint_k = max(cfg.checkpoint_kernel, 0)
         window = max(cfg.kernel_window, 1)
 
+        # --- segment-parallel pricing -----------------------------------
+        # The replay decomposes into per-(module, chip-multiplier) launch
+        # classes whose pricing is pure and independent.  With workers,
+        # the distinct classes price CONCURRENTLY up front; the stream
+        # walk below stays serial and consumes the pre-priced results, so
+        # every scalar accumulates in the exact serial order (bit-identical
+        # reports).  The parallel path disengages under windowed faults
+        # (multipliers depend on the issue cycle) and checkpoint/resume
+        # (classes past the barrier must not price).
+        workers = resolve_workers(self.workers)
+        pool_segments = 0
+        if (
+            workers > 1
+            and not (fault_state is not None and fault_state.windowed)
+            and not resume_k and not checkpoint_k
+        ):
+            classes: list[tuple[str, tuple[float, float]]] = []
+            seen_classes: set[tuple[str, tuple[float, float]]] = set()
+            for dev_id in device_ids:
+                dev = pod.devices.get(dev_id)
+                if dev is None:
+                    continue
+                scales = (
+                    fault_view.chip_scales(dev_id)
+                    if fault_view is not None else (1.0, 1.0)
+                )
+                for cmd in dev.commands:
+                    if (
+                        cmd.kind == CommandKind.KERNEL_LAUNCH
+                        and cmd.module in pod.modules
+                        and (cmd.module, scales) not in seen_classes
+                    ):
+                        seen_classes.add((cmd.module, scales))
+                        classes.append((cmd.module, scales))
+            # classes the parent's cache already holds skip the pool
+            # entirely (a warm-cache run forks nothing and runs no engine)
+            remaining: list[tuple[str, tuple[float, float]]] = []
+            for mkey in classes if len(classes) > 1 else []:
+                res = None
+                if self.result_cache is not None:
+                    ck = self.result_cache.key_for(
+                        pod.modules[mkey[0]], cfg, mkey[1], topo
+                    )
+                    if ck is not None:
+                        res = self.result_cache.get(ck)
+                if res is not None:
+                    module_results[mkey] = res
+                else:
+                    remaining.append(mkey)
+            if len(remaining) > 1:
+                priced = map_ordered(
+                    _price_segment_worker, remaining, workers=workers,
+                    context=(cfg, topo, pod.modules, self.result_cache,
+                             self.pricing_backend),
+                )
+                pool_segments = len(remaining)
+                for mkey, res in zip(remaining, priced):
+                    module_results[mkey] = res
+                    if self.result_cache is not None:
+                        ck = self.result_cache.key_for(
+                            pod.modules[mkey[0]], cfg, mkey[1], topo
+                        )
+                        if ck is not None:
+                            self.result_cache.put(ck, res)
+
         for dev_id in device_ids:
             dev = pod.devices.get(dev_id)
             if dev is None:
                 continue
+            dev_scales = (
+                fault_view.chip_scales(dev_id)
+                if fault_view is not None else (1.0, 1.0)
+            )
+
+            def scales_at(cycle: float) -> tuple[float, float]:
+                """Chip multipliers for this device at a kernel's issue
+                cycle — windowed stragglers/throttles hit only the
+                launches their window overlaps."""
+                if fault_state is None or not fault_state.windowed:
+                    return dev_scales
+                return fault_state.view_at(cycle).chip_scales(dev_id)
+
             coll_counts: Counter = Counter()  # per-group issue index
             kernel_index = 0
             # completion times of this device's kernel launches, in launch
@@ -208,7 +386,10 @@ class SimDriver:
                     break
 
                 if is_kernel:
-                    res = module_result(cmd.module)
+                    res = module_result(
+                        cmd.module,
+                        scales_at(max(ready, core_free[dev_id])),
+                    )
                     start = max(ready, core_free[dev_id])
                     end = start + res.cycles
                     core_free[dev_id] = end
@@ -232,7 +413,9 @@ class SimDriver:
                     report.memcpy_cycles += dur
 
                 elif cmd.kind == CommandKind.COLLECTIVE and cmd.collective:
-                    secs = coll.seconds(cmd.collective, float(cmd.nbytes))
+                    secs = coll_for(max(ready, ici_free[dev_id])).seconds(
+                        cmd.collective, float(cmd.nbytes)
+                    )
                     dur = arch.seconds_to_cycles(secs)
                     start = max(ready, ici_free[dev_id])
                     # rendezvous with the group's k-th collective: all
@@ -303,7 +486,7 @@ class SimDriver:
             worst = sorted(
                 module_results.items(),
                 key=lambda kv: -(
-                    kv[1].cycles * max(launches.get(kv[0], 0), 1)
+                    kv[1].cycles * max(launches.get(kv[0][0], 0), 1)
                 ),
             )[:3]
             report.stats.set(
@@ -311,12 +494,24 @@ class SimDriver:
                 ";".join(
                     f"{name}:x{max(launches.get(name, 0), 1)}:"
                     f"{r.cycles * max(launches.get(name, 0), 1):.3g}cy"
-                    for name, r in worst
+                    for (name, _), r in worst
                 ),
             )
 
         report.wall_seconds = time.perf_counter() - t_start
         report.finalize(arch.clock_hz)
+        # perf-layer accounting rides the report ONLY when the feature is
+        # active: serial/uncached runs stay key-identical, and byte-
+        # identity comparisons strip these keys
+        if self.result_cache is not None:
+            report.stats.update(
+                self.result_cache.stats_dict(), prefix="cache_"
+            )
+        if pool_segments:
+            report.stats.update(
+                {"workers": workers, "parallel_segments": pool_segments},
+                prefix="pool_",
+            )
         if self.pricing_backend is not None:
             # fastpath accounting rides the report ONLY when a backend was
             # explicitly requested.  The stamped name is what actually
@@ -330,6 +525,11 @@ class SimDriver:
                 resolved = "serial"
             report.stats.set("fastpath_backend", resolved)
             report.stats.update(compiled_cache_stats(), prefix="fastpath_")
+        if fault_state is not None:
+            # faults_* keys ride the report ONLY when a schedule is active.
+            # Counts describe the whole schedule (windowed faults
+            # included), not just the cycle-0 snapshot.
+            report.stats.update(fault_state.full_view().stats_dict())
         slice_topo = slice_topology_for(topo.num_chips, arch.ici)
         if slice_topo is not None and slice_topo.num_slices > 1:
             # dcn_* keys ride the report ONLY when a DCN fabric is
@@ -356,7 +556,11 @@ def simulate_trace(
     arch: str | None = None,
     overlays: list[Any] | None = None,
     tuned: bool = True,
+    faults=None,
+    topology: Topology | None = None,
     lenient: bool = False,
+    result_cache=None,
+    workers: int | None = None,
     pricing_backend: str | None = None,
 ) -> SimReport:
     """Load a trace dir, compose the config, replay.
@@ -364,13 +568,22 @@ def simulate_trace(
     ``tuned=False`` skips the committed tuner overlay, as the golden cells
     do.  With neither ``arch`` nor ``config`` the arch defaults to the
     one the trace was captured on (v5e when the device kind is not a
-    TPU).  ``pricing_backend`` (the ``--pricing-backend`` flag /
-    ``$TPUSIM_PRICING_BACKEND``) pins the pricing backend; all backends
-    give the same stats."""
+    TPU).  ``faults`` is a fault schedule (FaultSchedule / path / JSON
+    text / dict — the ``--faults`` flag) bound to ``topology`` (default:
+    the pod's torus).  ``result_cache`` (the ``--result-cache[=DIR]``
+    flag: a ResultCache, a directory, or True for the default dir)
+    memoizes engine results across runs; ``workers`` (``--workers`` /
+    ``$TPUSIM_WORKERS``) fans module pricing over a process pool — both
+    give the serial path's stats.  ``pricing_backend`` (the
+    ``--pricing-backend`` flag / ``$TPUSIM_PRICING_BACKEND``) pins the
+    pricing backend; all backends give the same stats."""
     pod = load_trace(trace_path, lenient=lenient)
     if arch is None and config is None:
         kind = str(pod.meta.get("device_kind", ""))
         if kind:
             arch = detect_arch(kind).name
     cfg = load_config(config, arch=arch, overlays=overlays, tuned=tuned)
-    return SimDriver(cfg, pricing_backend=pricing_backend).run(pod)
+    return SimDriver(
+        cfg, topology=topology, faults=faults, result_cache=result_cache,
+        workers=workers, pricing_backend=pricing_backend,
+    ).run(pod)

@@ -19,9 +19,10 @@ core.
 (:mod:`tpusim_torch.fastpath`), which is byte-identical to the serial walk
 ``_run_serial`` kept here as the reference.  A degraded chip (a straggler
 clock, a throttled HBM) prices through the ``clock_scale``/``hbm_scale``
-multipliers; the fault schedules that produce them are not ported yet
-(ROADMAP A7), nor the observability sampler (A10) or cooperative
-cancellation (A11).
+multipliers, which the driver takes from the fault schedule's view at
+each kernel's issue cycle (:mod:`tpusim_torch.faults`).  Not ported yet:
+the observability sampler (ROADMAP A10) and cooperative cancellation
+(A11).
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Content hash of the timing model.
 
-Port of ``tpusim/timing/model_version.py``.  The compiled-module cache key
-(:mod:`tpusim_torch.perf.cache`) carries a hash of the sources that define
-the timing model's predictions, so an edit to any of them invalidates every
-compiled column built before it.  The files hashed are the port's own.
+Port of ``tpusim/timing/model_version.py``.  The cache keys of
+:mod:`tpusim_torch.perf.cache` (compiled columns and engine results) carry
+a hash of the sources that define the timing model's predictions, so an
+edit to any of them invalidates every entry built before it.  The files
+hashed are the port's own.
 """
 
 from __future__ import annotations
