@@ -59,7 +59,27 @@ failure exits non-zero and prints no result):
    --arch v5p --chips 8 --trace llama_tiny_tp2dp2`` (12 scenarios)
    serially, with ``--workers 4`` and twice with ``--result-cache DIR``,
    reports equal by bytes, the second cached run taking every module
-   result from the disk tier.
+   result from the disk tier;
+8. the durable store on the card's host, the kernels' launch counters set
+   to 0 just before each part and read just after, each part with its host
+   seconds: (a) golden cells 1-5 through ``python -m tpusim_torch simulate
+   --compile-cache DIR``, cold then warm, each run a fresh process timed
+   inside the child from before ``load_trace`` to the end of simulate;
+   every report passes its golden without the ``fastpath_*`` keys, the
+   warm run shows ``fastpath_store_hits`` >= 1, ``fastpath_compile_misses``
+   0 and ``fastpath_ir_ops_built`` 0, and cold and warm stats are equal
+   apart from ``fastpath_*``; (b) the garbage-collection pauses of 10 ms or
+   more in the cold ``llama_tiny_tp2dp2`` runs (``gc.callbacks``), and in
+   one cold llama run inside this process, which holds CUDA; (c)
+   ``warm_states`` over 64 seeded chip-degradation states of
+   ``llama_tiny_tp2dp2`` @ v5p with ``backend="cuda"`` (``scan_rows``
+   launches > 0) and ``"vectorized"`` (0 launches), each into a fresh disk
+   result cache, every published record equal by bytes to the one the
+   per-state ``CachedEngine.run`` writes, ``auto`` still resolving to
+   ``vectorized``; (d) the ``cache`` CLI over (a)'s store: ``stats`` counts
+   both tiers, ``verify`` finds no corrupt record, a record with one byte
+   flipped is quarantined once, ``gc --quota`` leaves the store under the
+   quota; (e) phase 7 (e) again, each of its four legs in a fresh process.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and the one before that the kernels'
@@ -70,11 +90,15 @@ CUDA device or without the rest of the repository beside it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
+import os
+import random
 import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -100,17 +124,21 @@ from tpusim_torch.kernels import flash_attention as fa  # noqa: E402
 from tpusim_torch.kernels import scan_rows as sr  # noqa: E402
 from tpusim_torch.models.flash_attention import flash_attention  # noqa: E402
 from tpusim_torch.fastpath import batch as fp_batch  # noqa: E402
-from tpusim_torch.fastpath import price_module_batch  # noqa: E402
+from tpusim_torch.fastpath import price_module_batch, warm_states  # noqa: E402
 from tpusim_torch.faults import (  # noqa: E402
     FAULT_KINDS,
     link_down_schedule,
     load_fault_schedule,
 )
 from tpusim_torch.ici.topology import torus_for  # noqa: E402
+from tpusim_torch.guard.store import store_bytes  # noqa: E402
 from tpusim_torch.perf.cache import (  # noqa: E402
+    CachedEngine,
+    ResultCache,
     clear_compiled_cache,
     result_to_doc,
 )
+from tpusim_torch.sim import driver as sim_driver  # noqa: E402
 from tpusim_torch.sim.driver import simulate_trace  # noqa: E402
 from tpusim_torch.sim.stats import EXIT_SENTINEL  # noqa: E402
 from tpusim_torch.timing.config import load_config  # noqa: E402
@@ -358,6 +386,8 @@ def time_attention(dtype: torch.dtype, card_name: str) -> dict:
     return out
 
 
+#: garbage-collection pauses at or above this are printed (phases 6 a, 8 b)
+GC_PAUSE_S = 0.010
 #: phase 6 (b): degraded lanes of the batched pricing call, and the seed of
 #: their (clock_scale, hbm_scale) draws
 BATCH_LANES = 64
@@ -387,6 +417,40 @@ def without_fastpath(stats: dict) -> dict:
     return {k: v for k, v in stats.items() if not k.startswith("fastpath_")}
 
 
+@contextlib.contextmanager
+def watch_host():
+    """While the block runs, record in this process every garbage-
+    collection pause (generation, seconds, objects collected) and the
+    seconds of each ``load_trace`` the driver makes."""
+    rec = {"gc": [], "load_s": []}
+    marks = {}
+
+    def on_gc(phase_, info):
+        if phase_ == "start":
+            marks["gc"] = time.perf_counter()
+        else:
+            rec["gc"].append([info["generation"],
+                              time.perf_counter() - marks["gc"],
+                              info["collected"]])
+
+    load = sim_driver.load_trace
+
+    def timed_load(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return load(*a, **k)
+        finally:
+            rec["load_s"].append(time.perf_counter() - t0)
+
+    sim_driver.load_trace = timed_load
+    gc.callbacks.append(on_gc)
+    try:
+        yield rec
+    finally:
+        gc.callbacks.remove(on_gc)
+        sim_driver.load_trace = load
+
+
 def fastpath_cells(card_name: str) -> dict:
     """Phase 6 (a): golden cells 1-5 under the serial walk and the
     vectorized fastpath (cold: compiled columns cleared first; warm: the
@@ -394,21 +458,31 @@ def fastpath_cells(card_name: str) -> dict:
     and the backends' stats must be equal apart from ``fastpath_*`` and
     the host-time keys.  Returns, by (golden, run), the host seconds of
     the whole call and of its replay alone (``SimReport.wall_seconds``:
-    pricing and command stream, without loading and parsing the trace)."""
+    pricing and command stream, without loading and parsing the trace),
+    and prints the ``load_trace`` seconds of each call beside them, with
+    any GC pause of :data:`GC_PAUSE_S` or more."""
     seconds = {}
     for fixture, arch, overlays, golden in GOLDEN_CELLS:
         runs = {}
+        loads = {}
         for run, backend in (("serial", "serial"),
                              ("vectorized_cold", "vectorized"),
                              ("vectorized_warm", "vectorized")):
             if run == "vectorized_cold":
                 clear_compiled_cache()
-            t0 = time.perf_counter()
-            report = simulate_trace(FIXTURES / fixture, arch=arch,
-                                    overlays=list(overlays), tuned=False,
-                                    pricing_backend=backend)
-            seconds[(golden, run)] = (time.perf_counter() - t0,
-                                      report.wall_seconds)
+            with watch_host() as watched:
+                t0 = time.perf_counter()
+                report = simulate_trace(FIXTURES / fixture, arch=arch,
+                                        overlays=list(overlays), tuned=False,
+                                        pricing_backend=backend)
+                seconds[(golden, run)] = (time.perf_counter() - t0,
+                                          report.wall_seconds)
+            loads[run] = sum(watched["load_s"])
+            for g, dt, n in watched["gc"]:
+                if dt >= GC_PAUSE_S:
+                    print(f"  GC pause in {golden} {run}: generation {g}, "
+                          f"{dt * 1e3:.1f} ms, {n} collected (card: "
+                          f"{card_name})")
             stats = json.loads(report.stats.to_json())
             if stats.get("fastpath_backend") != backend:
                 raise AssertionError(f"{golden} {run}: fastpath_backend "
@@ -421,9 +495,10 @@ def fastpath_cells(card_name: str) -> dict:
         if not runs["serial"] == runs["vectorized_cold"] == runs["vectorized_warm"]:
             raise AssertionError(f"{golden}: serial and vectorized stats differ")
         print(f"  golden {golden}: serial and vectorized pass, stats equal; "
-              "host s (whole call / replay alone): " + ", ".join(
+              "host s (whole call / load_trace / replay alone): " + ", ".join(
                   f"{run} {seconds[(golden, run)][0]:.4f} / "
-                  f"{seconds[(golden, run)][1]:.4f}" for run in runs)
+                  f"{loads[run]:.4f} / {seconds[(golden, run)][1]:.4f}"
+                  for run in runs)
               + f" (card: {card_name})")
     return seconds
 
@@ -777,6 +852,349 @@ def degraded_pods(card_name: str, work: Path) -> dict:
     return {"launches": launches, "smoke": smoke, "seconds": seconds}
 
 
+#: phase 8: the child each fresh-process run executes (``python -c``): it
+#: runs one CLI command and writes, to the JSON path it is given, its host
+#: seconds from the first ``load_trace`` (or from the CLI's start, when the
+#: command loads no trace through the driver) to the CLI's return, the
+#: engine walks it made, every garbage-collection pause and its kernels'
+#: launch counts.  Arguments: repo root, output path, CLI arguments.
+FRESH_CHILD = r"""
+import gc, json, sys, time
+repo, out_path, *argv = sys.argv[1:]
+sys.path.insert(0, repo)
+import tpusim_torch.sim.driver as driver
+from tpusim_torch.__main__ import main
+from tpusim_torch.kernels import flash_attention, scan_rows
+from tpusim_torch.timing.engine import Engine
+
+marks, pauses, walks = {}, [], [0]
+load = driver.load_trace
+def timed_load(*a, **k):
+    marks.setdefault("load", time.perf_counter())
+    return load(*a, **k)
+driver.load_trace = timed_load
+run = Engine.run
+def counting(self, module):
+    walks[0] += 1
+    return run(self, module)
+Engine.run = counting
+def on_gc(phase, info):
+    if phase == "start":
+        marks["gc"] = time.perf_counter()
+    else:
+        pauses.append([info["generation"], time.perf_counter() - marks["gc"],
+                       info["collected"]])
+gc.callbacks.append(on_gc)
+t0 = time.perf_counter()
+rc = main(argv)
+t1 = time.perf_counter()
+gc.callbacks.remove(on_gc)
+with open(out_path, "w") as f:
+    json.dump({"rc": rc, "host_s": t1 - marks.get("load", t0),
+               "cli_s": t1 - t0, "walks": walks[0], "gc": pauses,
+               "launches": {"flash_attention": flash_attention.launch_count(),
+                            "scan_rows": scan_rows.launch_count()}}, f)
+"""
+#: phase 8 (c): chip-degradation states of warm_states and their seed
+WARM_STATES = 64
+WARM_SEED = 19
+
+
+def fresh_run(work: Path, argv: list[str], tag: str) -> tuple[dict, str]:
+    """One CLI command in a fresh process (:data:`FRESH_CHILD`), with the
+    committed tuner overlays off (``$TPUSIM_TUNED_DIR`` an empty dir, as
+    the golden cells are priced) and no inherited compile store.  Returns
+    the child's record and its standard output; raises when it fails."""
+    out = work / f"fresh_{tag}.json"
+    tuned = work / "no_tuned_overlays"
+    tuned.mkdir(exist_ok=True)
+    env = dict(os.environ, TPUSIM_TUNED_DIR=str(tuned))
+    env.pop("TPUSIM_COMPILE_CACHE", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", FRESH_CHILD, str(REPO), str(out), *argv],
+        capture_output=True, text=True, env=env, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"fresh tpusim_torch {' '.join(argv)} exited "
+                           f"{proc.returncode}: {proc.stderr[-2000:]}")
+    rec = json.loads(out.read_text())
+    if rec["rc"] != 0:
+        raise RuntimeError(f"fresh tpusim_torch {' '.join(argv)}: rc "
+                           f"{rec['rc']}: {proc.stderr[-2000:]}")
+    return rec, proc.stdout
+
+
+def cell_flags(overlays: list) -> list[str]:
+    """A golden cell's overlays as ``simulate`` flags."""
+    flags = []
+    for ov in overlays:
+        if ov == {"power_enabled": True}:
+            flags.append("--power")
+        elif ov == {"arch": {"ici": {"network_mode": "detailed"}}}:
+            flags += ["--network-mode", "detailed"]
+        else:
+            raise ValueError(f"no simulate flag for overlay {ov}")
+    return flags
+
+
+def store_cells(card_name: str, work: Path, store: Path,
+                cells=GOLDEN_CELLS) -> dict:
+    """Phase 8 (a) and (b): each golden cell through ``simulate
+    --compile-cache`` cold then warm, each run a fresh process.  Returns
+    the host seconds by (golden, run) and the cold llama runs' GC pauses
+    of :data:`GC_PAUSE_S` or more."""
+    seconds, pauses = {}, {}
+    for fixture, arch, overlays, golden in cells:
+        runs = {}
+        for run in ("cold", "warm"):
+            path = work / f"{golden}_{run}.json"
+            rec, _ = fresh_run(work, [
+                "simulate", str(FIXTURES / fixture), "--arch", arch,
+                *cell_flags(overlays), "--compile-cache", str(store),
+                "--json", str(path)], f"{golden}_{run}")
+            stats = json.loads(path.read_text())
+            errors = compare_golden(golden, without_fastpath(stats))
+            if errors:
+                raise AssertionError("\n".join(errors))
+            if any(rec["launches"].values()):
+                raise AssertionError(f"{golden} {run}: kernel launches "
+                                     f"{rec['launches']}")
+            seconds[(golden, run)] = rec["host_s"]
+            runs[run] = stats
+            if run == "cold" and fixture == "llama_tiny_tp2dp2":
+                pauses[golden] = [p for p in rec["gc"] if p[1] >= GC_PAUSE_S]
+        warm = runs["warm"]
+        if warm.get("fastpath_store_hits", 0) < 1 \
+                or warm.get("fastpath_compile_misses") != 0 \
+                or warm.get("fastpath_ir_ops_built") != 0:
+            raise AssertionError(f"{golden} warm: " + str(
+                {k: v for k, v in warm.items() if k.startswith("fastpath_")}))
+        if {k: v for k, v in without_fastpath(runs["cold"]).items()
+                if k not in VOLATILE} != \
+                {k: v for k, v in without_fastpath(warm).items()
+                 if k not in VOLATILE}:
+            raise AssertionError(f"{golden}: cold and warm stats differ")
+        print(f"  (a) golden {golden}: cold and warm pass, stats equal; "
+              f"cold store_writes {runs['cold']['fastpath_store_writes']}, "
+              f"ir_ops_built {runs['cold']['fastpath_ir_ops_built']}; warm "
+              f"store_hits {warm['fastpath_store_hits']}, compile_misses 0, "
+              f"ir_ops_built 0; host s from load_trace, fresh process: cold "
+              f"{seconds[(golden, 'cold')]:.4f}, warm "
+              f"{seconds[(golden, 'warm')]:.4f} (card: {card_name})")
+    for golden, found in pauses.items():
+        print(f"  (b) {golden} cold: {len(found)} GC pause(s) >= "
+              f"{GC_PAUSE_S * 1e3:.0f} ms" + "".join(
+                  f"; generation {g}: {dt * 1e3:.1f} ms, {n} collected"
+                  for g, dt, n in found) + f" (card: {card_name})")
+    return {"seconds": seconds, "gc_pauses": pauses}
+
+
+#: phase 8 (b): in-process cold loads of each llama cell
+PARENT_LOADS = 3
+
+
+def parent_gc_pauses(card_name: str) -> dict:
+    """Phase 8 (b), second half: the llama cells cold in this process,
+    which holds torch's and CUDA's heap — where a pause of about 0.3 s
+    inside a trace load was seen (PERF.md §7) — :data:`PARENT_LOADS`
+    times each, with every GC pause and each ``load_trace``'s seconds
+    recorded."""
+    out = {}
+    for fixture, arch, overlays, golden in GOLDEN_CELLS:
+        if fixture != "llama_tiny_tp2dp2":
+            continue
+        calls = []
+        for _ in range(PARENT_LOADS):
+            clear_compiled_cache()
+            with watch_host() as watched:
+                t0 = time.perf_counter()
+                report = simulate_trace(FIXTURES / fixture, arch=arch,
+                                        overlays=list(overlays), tuned=False)
+                calls.append((time.perf_counter() - t0,
+                              sum(watched["load_s"]), report.wall_seconds,
+                              [p for p in watched["gc"] if p[1] >= GC_PAUSE_S],
+                              len(watched["gc"])))
+        out[golden] = calls
+        print(f"  (b) {golden} cold in this process, {PARENT_LOADS} runs, "
+              f"host s (whole / load_trace / replay alone, GC passes, "
+              f"pauses >= {GC_PAUSE_S * 1e3:.0f} ms): " + "; ".join(
+                  f"{whole:.4f} / {load:.4f} / {replay:.4f}, {n} passes, "
+                  + (", ".join(f"gen {g} {dt * 1e3:.1f} ms" for g, dt, _ in
+                               found) or "none")
+                  for whole, load, replay, found, n in calls)
+              + f" (card: {card_name})")
+    return out
+
+
+def degradation_states(topo, n: int = WARM_STATES, seed: int = WARM_SEED):
+    """``n`` seeded chip-degradation states bound to ``topo``: one
+    straggling chip and one throttled HBM each, scales in (0.5, 1]."""
+    rng = random.Random(seed)
+    chips = topo.num_chips
+    return [load_fault_schedule({"faults": [
+        {"kind": "chip_straggler", "chip": rng.randrange(chips),
+         "clock_scale": 1.0 - 0.5 * rng.random()},
+        {"kind": "hbm_throttle", "chip": rng.randrange(chips),
+         "hbm_scale": 1.0 - 0.5 * rng.random()},
+    ]}).bind(topo) for _ in range(n)]
+
+
+def per_state_records(pod, cfg, topo, states, cache: ResultCache) -> None:
+    """The per-state walk ``warm_states`` stands in for: each state's
+    launch classes through ``CachedEngine.run`` into ``cache``."""
+    for state in states:
+        view = state.view_at(0.0)
+        topo_k = topo.with_faults(view)
+        for dev_id in sorted(pod.devices):
+            cs, hs = view.chip_scales(dev_id)
+            engine = CachedEngine(cfg, topology=topo_k, clock_scale=cs,
+                                  hbm_scale=hs, result_cache=cache)
+            for cmd in pod.devices[dev_id].commands:
+                if cmd.module in pod.modules:
+                    engine.run(pod.modules[cmd.module])
+
+
+def records(directory: Path) -> dict:
+    return {p.name: p.read_bytes() for p in sorted(directory.glob("*.json"))}
+
+
+def warm_states_phase(card_name: str, work: Path,
+                      backends=("cuda", "vectorized")) -> dict:
+    """Phase 8 (c): ``warm_states`` over :data:`WARM_STATES` seeded states
+    per backend, each into a fresh disk result cache; every published
+    record equal by bytes to the per-state walk's.  Returns the launches
+    and host ms by backend."""
+    pod = load_trace(FIXTURES / "llama_tiny_tp2dp2")
+    cfg = load_config(arch="v5p", tuned=False)
+    # the pod's torus as the driver sizes it: the trace records device 0's
+    # stream only, its module spans 4 chips
+    topo = torus_for(max(m.num_devices for m in pod.modules.values()), "v5p")
+    states = degradation_states(topo)
+    per_state_records(pod, cfg, topo, states,
+                      ResultCache(disk_dir=work / "per_state"))
+    want = records(work / "per_state")
+    if fp_batch.resolve_batch_backend(None) != "vectorized":
+        raise AssertionError("auto no longer resolves to vectorized")
+    out = {}
+    for backend in backends:
+        for *_, reset in KERNELS:
+            reset()
+        cache = ResultCache(disk_dir=work / f"warm_{backend}")
+        stats = warm_states(pod, cfg, topo, states, cache, backend=backend)
+        launches = {name: count() for name, _, _, count, _ in KERNELS}
+        got = records(work / f"warm_{backend}")
+        if got != want or stats.states != len(want):
+            raise AssertionError(
+                f"warm_states {backend}: {stats.stats_dict()}, "
+                f"{len(got)} records vs {len(want)} per-state, differing "
+                f"{sorted(k for k in want if got.get(k) != want[k])[:4]}")
+        if (launches["scan_rows"] > 0) != (backend == "cuda") \
+                or launches["flash_attention"]:
+            raise AssertionError(f"warm_states {backend}: launches {launches}")
+        ms = host_ms(lambda: warm_states(pod, cfg, topo, states, ResultCache(),
+                                         backend=backend), samples=5)
+        out[backend] = {"launches": launches, "ms": ms}
+        print(f"  (c) warm_states {len(states)} states llama_tiny_tp2dp2 @ "
+              f"v5p, backend {backend}: {stats.states} lanes in "
+              f"{stats.groups} group(s), {len(got)} records equal by bytes "
+              f"to the per-state walk's; kernel launches {launches}; host "
+              f"{ms:.2f} ms (median of 5, fresh memory cache each; card: "
+              f"{card_name})")
+    return out
+
+
+def cache_cli(card_name: str, store: Path) -> dict:
+    """Phase 8 (d): the ``cache`` CLI over (a)'s store, with one result
+    record added beside its compiled records."""
+    t0 = time.perf_counter()
+    run_cli(["simulate", str(FIXTURES / "matmul_512"), "--arch", "v5e",
+             "--result-cache", str(store)])
+
+    def field(text: str, label: str) -> int:
+        line = next(ln for ln in text.splitlines()
+                    if ln.strip().startswith(label))
+        return int(line.split(":", 1)[1].split()[0])
+
+    stats = run_cli(["cache", "stats", "--dir", str(store)])
+    compiled, results = field(stats, "compiled:"), field(stats, "results:")
+    if compiled < 1 or results < 1:
+        raise AssertionError(f"cache stats does not count both tiers:\n{stats}")
+    verify = run_cli(["cache", "verify", "--dir", str(store)])
+    if field(verify, "quarantined (corrupt):") != 0:
+        raise AssertionError(f"verify of a sound store:\n{verify}")
+    victim = sorted(store.glob("*.cmod"))[0]
+    raw = bytearray(victim.read_bytes())
+    raw[3] ^= 0xFF  # one byte of the magic
+    victim.write_bytes(bytes(raw))
+    first = run_cli(["cache", "verify", "--dir", str(store)])
+    second = run_cli(["cache", "verify", "--dir", str(store)])
+    if field(first, "quarantined (corrupt):") != 1 \
+            or field(second, "quarantined (corrupt):") != 0 \
+            or victim.exists():
+        raise AssertionError(f"flipped record not quarantined once:\n"
+                             f"{first}\n{second}")
+    quota = store_bytes(store) // 2
+    gc_out = run_cli(["cache", "gc", "--dir", str(store), "--quota",
+                      str(quota)])
+    left = store_bytes(store)
+    if left > quota:
+        raise AssertionError(f"gc left {left} B over the {quota} B quota")
+    print(f"  (d) cache stats: {compiled} compiled + {results} result "
+          f"record(s); verify: 0 corrupt; one flipped byte: quarantined by "
+          f"the first verify, 0 by the second; gc --quota {quota}: "
+          f"{field(gc_out, 'deleted:')} deleted, {left} B left; host "
+          f"{time.perf_counter() - t0:.4f} s (card: {card_name})")
+    return {"compiled": compiled, "results": results, "quota": quota,
+            "left": left}
+
+
+def fresh_sweeps(card_name: str, work: Path) -> dict:
+    """Phase 8 (e): phase 7 (e)'s four legs, each in a fresh process;
+    reports equal by bytes, the warm cached leg pricing nothing."""
+    argv = ["faults", "--arch", "v5p", "--chips", "8", "--trace",
+            str(FIXTURES / "llama_tiny_tp2dp2")]
+    cached = ["--result-cache", str(work / "fresh_result_cache")]
+    legs = {"e_serial": [], "e_pooled": ["--workers", str(POOL_WORKERS)],
+            "e_cached_cold": cached, "e_cached_warm": cached}
+    out, blobs = {}, {}
+    for label, extra in legs.items():
+        path = work / f"fresh_{label}_report.json"
+        rec, _ = fresh_run(work, [*argv, "--json", str(path), *extra], label)
+        blobs[label] = path.read_bytes()
+        out[label] = rec
+    if len(set(blobs.values())) != 1:
+        raise AssertionError("fresh-process sweep reports differ")
+    walks = {label: rec["walks"] for label, rec in out.items()}
+    if walks["e_cached_cold"] < 1 or walks["e_cached_warm"] != 0:
+        raise AssertionError(f"fresh-process engine walks {walks}")
+    print(f"  (e) faults --trace llama_tiny_tp2dp2, each leg a fresh "
+          f"process: reports equal by bytes; engine walks {walks}; host s "
+          f"inside the child " + " / ".join(
+              f"{label[2:]} {rec['cli_s']:.4f}" for label, rec in out.items())
+          + f" (card: {card_name})")
+    return {label: rec["cli_s"] for label, rec in out.items()}
+
+
+def durable_store(card_name: str, work: Path) -> dict:
+    """Phase 8: (a)-(e) in ``work`` (an empty directory), the kernels'
+    launch counters set to 0 just before each part and read just after.
+    Raises on any failure."""
+    store = work / "store"
+    out, launches = {}, {}
+    for part, fn in (
+            ("a", lambda: store_cells(card_name, work, store)),
+            ("b", lambda: parent_gc_pauses(card_name)),
+            ("c", lambda: warm_states_phase(card_name, work)),
+            ("d", lambda: cache_cli(card_name, store)),
+            ("e", lambda: fresh_sweeps(card_name, work))):
+        for *_, reset in KERNELS:
+            reset()
+        out[part] = fn()
+        launches[part] = {name: count() for name, _, _, count, _ in KERNELS}
+    print(f"durable store: kernel launches by part {launches} (card: "
+          f"{card_name})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -857,6 +1275,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         degraded_pods(card_name, Path(tmp))
 
+    phase(8, "durable store on the card's host")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = durable_store(card_name, Path(tmp))
+
     record = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -899,6 +1321,11 @@ def main() -> int:
         "batch_serial_walk_ms": fp_times["serial_walk_ms"],
         "golden_host_s": {f"{g}|{run}": list(v)
                           for (g, run), v in cell_seconds.items()},
+        "warm_states_launches": store["c"]["cuda"]["launches"]["scan_rows"],
+        "warm_states_cuda_ms": store["c"]["cuda"]["ms"],
+        "warm_states_vectorized_ms": store["c"]["vectorized"]["ms"],
+        "store_golden_host_s": {f"{g}|{run}": v for (g, run), v
+                                in store["a"]["seconds"].items()},
     }]}
     keys = ("ms", "plain_ms", "library_ms", "library_fused_ms")
     times = [f32[k] for k in keys] + [bf16[k] for k in keys] + [

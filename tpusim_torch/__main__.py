@@ -9,11 +9,15 @@
                                     [--lenient-parse]
                                     [--pricing-backend auto|serial|vectorized|native]
                                     [--faults SCHEDULE.json] [--workers N]
-                                    [--result-cache[=DIR]]
+                                    [--result-cache[=DIR]] [--cache-quota SIZE]
+                                    [--compile-cache[=DIR]]
     python -m tpusim_torch faults   [--arch v5p] [--chips 64] [--trace DIR]
                                     [--kind K] [--payload-mb MB] [--top N]
                                     [--max-scenarios N] [--json F]
                                     [--workers N] [--result-cache[=DIR]]
+                                    [--compile-cache[=DIR]]
+    python -m tpusim_torch cache    {stats,verify,gc,clear} [--dir DIR]
+                                    [--quota SIZE] [--max-entries N]
     python -m tpusim_torch info     <trace-dir>
     python -m tpusim_torch workloads
 
@@ -50,10 +54,27 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
         from tpusim_torch.faults import load_fault_schedule
 
         faults = load_fault_schedule(args.faults)
+    # --cache-quota bounds the disk store: it implies --result-cache and
+    # governs the compile tier's publishes too (one quota, one directory)
+    result_cache = args.result_cache
+    compile_cache = args.compile_cache
+    if args.cache_quota:
+        from tpusim_torch.fastpath.store import as_compile_store
+        from tpusim_torch.guard.store import parse_size
+        from tpusim_torch.perf.cache import as_result_cache
+
+        quota = parse_size(args.cache_quota)
+        result_cache = as_result_cache(
+            True if result_cache is None else result_cache
+        )
+        result_cache.quota_bytes = quota
+        if compile_cache:
+            compile_cache = as_compile_store(compile_cache, quota_bytes=quota)
     report = simulate_trace(
         args.trace, arch=args.arch, overlays=overlays, faults=faults,
-        lenient=args.lenient_parse, result_cache=args.result_cache,
+        lenient=args.lenient_parse, result_cache=result_cache,
         workers=args.workers, pricing_backend=args.pricing_backend,
+        compile_cache=compile_cache,
     )
     if args.power and report.power is not None:
         print(report.power.report_text())
@@ -71,6 +92,11 @@ def _cmd_faults(args: argparse.Namespace) -> int:
     from tpusim_torch.ici.topology import torus_for
     from tpusim_torch.timing.config import load_config
 
+    if args.compile_cache:
+        # activate before the trace loads so its parse defers
+        from tpusim_torch.fastpath.store import as_compile_store
+
+        as_compile_store(args.compile_cache)
     cfg = load_config(arch=args.arch)
     arch_name = cfg.arch.name
     topo = torus_for(args.chips, arch_name)
@@ -109,6 +135,54 @@ def _cmd_faults(args: argparse.Namespace) -> int:
         with open(args.json, "w") as f:
             json.dump(result.to_doc(), f, indent=2)
         print(f"  sweep report written to {args.json}")
+    return 0
+
+
+def _cmd_cache(args: argparse.Namespace) -> int:
+    """Governance of a disk store (result and compiled records): inspect
+    it, verify it (quarantining damaged records), collect it down to a
+    quota, or clear it."""
+    from tpusim_torch.guard.store import (
+        clear_store, format_size, gc_store, parse_size, scan_store,
+        verify_store,
+    )
+    from tpusim_torch.perf.cache import DEFAULT_CACHE_DIR
+
+    d = Path(args.dir or DEFAULT_CACHE_DIR)
+    if args.action != "stats" and not d.is_dir():
+        print(f"tpusim_torch cache: no store at {d}", file=sys.stderr)
+        return 1
+    if args.action == "stats":
+        for line in scan_store(d).lines():
+            print(line)
+        return 0
+    if args.action == "verify":
+        res = verify_store(d)
+        print(f"store: {d}")
+        for line in res.lines():
+            print(line)
+        return 0
+    if args.action == "gc":
+        try:
+            quota = parse_size(args.quota)
+        except ValueError as e:
+            print(f"tpusim_torch cache: error: {e}", file=sys.stderr)
+            return 2
+        if quota is None and args.max_entries is None:
+            print("tpusim_torch cache: gc needs --quota and/or "
+                  "--max-entries (otherwise there is nothing to collect "
+                  "down to)", file=sys.stderr)
+            return 2
+        res = gc_store(d, quota_bytes=quota, max_entries=args.max_entries)
+        print(f"store: {d}")
+        print(f"  deleted: {res.deleted} record(s) "
+              f"({format_size(res.freed_bytes)} freed)")
+        print(f"  reaped: {res.tmp_reaped} abandoned tmp file(s)")
+        print(f"  remaining: {res.remaining_entries} record(s) "
+              f"({format_size(res.remaining_bytes)})")
+        return 0
+    removed = clear_store(d)  # clear
+    print(f"store: {d}\n  removed: {removed} file(s)")
     return 0
 
 
@@ -227,6 +301,19 @@ def main(argv: list[str] | None = None) -> int:
                          ".tpusim_cache/): a warm re-run prices nothing "
                          "and reproduces the same stats byte for byte; "
                          "stamps cache_* stats")
+    ps.add_argument("--cache-quota", default=None, metavar="SIZE",
+                    help="bound the disk store (e.g. 512M, 2G); implies "
+                         "--result-cache and garbage-collects least-"
+                         "recently-used records past the quota; stamps "
+                         "guard_* stats")
+    ps.add_argument("--compile-cache", nargs="?", const=True, default=None,
+                    metavar="DIR",
+                    help="durable compiled-module tier (default dir "
+                         ".tpusim_cache/, beside the result records): "
+                         "compiled pricing columns persist across "
+                         "processes, so a warm store prices from mapped "
+                         "columns with zero IR built; stamps fastpath_* "
+                         "stats")
     ps.set_defaults(fn=_cmd_simulate)
 
     pfa = sub.add_parser(
@@ -262,7 +349,34 @@ def main(argv: list[str] | None = None) -> int:
                           "sweep's replays (--trace sweeps; in-memory "
                           "sharing is always on, this adds the disk "
                           "tier)")
+    pfa.add_argument("--compile-cache", nargs="?", const=True,
+                     default=None, metavar="DIR",
+                     help="durable compiled-module tier: every sweep "
+                          "scenario shares one compile, persisted "
+                          "across runs")
     pfa.set_defaults(fn=_cmd_faults)
+
+    pca = sub.add_parser(
+        "cache",
+        help="govern a disk store (result and compiled records): stats / "
+             "verify (quarantine damaged records) / gc (LRU-collect to a "
+             "quota) / clear",
+    )
+    pca.add_argument("action", choices=["stats", "verify", "gc", "clear"],
+                     help="stats: one scan summary; verify: integrity "
+                          "sweep quarantining corrupt/stale-format "
+                          "records; gc: delete least-recently-used "
+                          "records down to --quota/--max-entries; "
+                          "clear: remove everything incl. quarantine")
+    pca.add_argument("--dir", default=None, metavar="DIR",
+                     help="store directory (default: the --result-cache "
+                          "default, .tpusim_cache/)")
+    pca.add_argument("--quota", default=None, metavar="SIZE",
+                     help="gc: byte quota to collect down to "
+                          "(e.g. 512M, 2G)")
+    pca.add_argument("--max-entries", type=int, default=None, metavar="N",
+                     help="gc: record-count quota to collect down to")
+    pca.set_defaults(fn=_cmd_cache)
 
     pc = sub.add_parser("capture", help="capture a registered workload")
     pc.add_argument("workload")

@@ -16,7 +16,11 @@ phases.
   flow) steps through the same scalar logic as the reference walk.
 * **batch** (:mod:`tpusim_torch.fastpath.batch`) — the scenario axis: S
   degradation states of one module price as ONE lane-axis pass, with the
-  row scans on the host or, on request, in the ``scan_rows`` CUDA kernel.
+  row scans on the host or, on request, in the ``scan_rows`` CUDA kernel;
+  ``warm_states`` publishes a set of states' lanes into a result cache.
+* **store** (:mod:`tpusim_torch.fastpath.store`) — the durable tier: the
+  compiled columns as ``.cmod`` records, mapped back on load, so a warm
+  store prices a lazily loaded module without parsing it.
 
 Contract: every backend — ``serial`` (the reference walk in
 :class:`tpusim_torch.timing.engine.Engine`) and ``vectorized`` — and
@@ -33,6 +37,7 @@ from tpusim_torch.fastpath.batch import (
     BatchStats,
     price_module_batch,
     resolve_batch_backend,
+    warm_states,
 )
 from tpusim_torch.fastpath.compile import (
     CompiledComputation,
@@ -60,4 +65,5 @@ __all__ = [
     "resolve_backend",
     "resolve_batch_backend",
     "resolve_engine_scales",
+    "warm_states",
 ]

@@ -38,8 +38,13 @@ Byte-identity discipline (extends price.py's invariants per lane):
 * conditionals price every branch batched, then select each lane's worst
   branch with the per-state walk's first-max argmax.
 
-Not ported yet: ``warm_states``, which feeds campaign and fleet (ROADMAP
-A8), and the ``native`` batch kernel (A10).
+:func:`warm_states` batch-prices the launch classes of a set of
+degradation states and publishes each lane into a result cache under the
+key the per-state walk looks up.  Its callers, campaign and fleet, wait
+for their slice (ROADMAP A8).
+
+Not ported yet: cancellation of a batch pass (A11) and the ``native``
+batch kernel (A10).
 """
 
 from __future__ import annotations
@@ -47,11 +52,12 @@ from __future__ import annotations
 import torch
 
 from tpusim_torch.ici.detailed import make_collective_model
-from tpusim_torch.timing.engine import EngineResult
+from tpusim_torch.timing.engine import Engine, EngineResult
 
 from tpusim_torch.fastpath.price import (
     _chain,
     entry_of,
+    fastpath_eligible,
     module_spill,
     resolve_backend,
     resolve_engine_scales,
@@ -62,6 +68,7 @@ __all__ = [
     "BatchStats",
     "price_module_batch",
     "resolve_batch_backend",
+    "warm_states",
 ]
 
 #: lane-axis pricing backends: the host row-scan interpreter, the same
@@ -391,6 +398,9 @@ def price_module_batch(module, engines, backend: str | None = None
     for r, end in zip(results, ends):
         r.cycles = end
         r.seconds = a.cycles_to_seconds(end)
+    from tpusim_torch.fastpath.store import maybe_persist_compiled
+
+    maybe_persist_compiled(cm)
     return results
 
 
@@ -1022,3 +1032,98 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
             r.per_op_mxu_flops = mx_d.copy()
             r.per_op_async = asy.copy()
     return t
+
+
+# ---------------------------------------------------------------------------
+# Campaign/fleet integration: warm the result cache per launch class
+# ---------------------------------------------------------------------------
+
+
+def warm_states(
+    pod, cfg, topo, states, cache, *, backend: str | None = None,
+) -> BatchStats:
+    """Batch-price the launch classes a set of degradation states will
+    consume and publish each lane under its exact per-state cache key.
+
+    ``states`` is a list of bound fault states (or ``None`` for the
+    healthy state) against base topology ``topo``; windowed states are
+    skipped (their multipliers depend on issue cycles the batch cannot
+    see — the per-state walk prices them unchanged).  The launch-class
+    enumeration mirrors the driver's segment-parallel pre-scan, so the
+    keys minted here are exactly the ones ``CachedEngine.run`` looks up:
+    a per-state driver walk that follows consumes pure cache hits and
+    its bytes cannot move.  ``backend="cuda"`` runs the lanes' row scans
+    on the card (``scan_rows``) and must be asked for explicitly."""
+    from tpusim_torch.faults import TopologyPartitionedError
+    from tpusim_torch.ir import CommandKind
+
+    stats = BatchStats()
+    if cache is None:
+        stats.skipped += len(states)
+        return stats
+    backend = resolve_batch_backend(backend)
+    if backend == "serial" or cfg.resume_op or cfg.checkpoint_op:
+        # no batching; op-granularity checkpoint/resume keeps the serial
+        # walk in charge (fastpath_eligible's discipline)
+        stats.skipped += len(states)
+        return stats
+
+    device_ids = sorted(pod.devices) or [0]
+    # lanes per module: module name -> list of (scales, topo_k, key)
+    lanes_by_module: dict[str, list] = {}
+    seen_keys: set[str] = set()
+    for state in states:
+        if state is not None and state.windowed:
+            stats.skipped += 1
+            continue
+        view = state.view_at(0.0) if state is not None else None
+        topo_k = topo.with_faults(view) if view is not None else topo
+        for dev_id in device_ids:
+            dev = pod.devices.get(dev_id)
+            if dev is None:
+                continue
+            scales = (
+                view.chip_scales(dev_id)
+                if view is not None else (1.0, 1.0)
+            )
+            for cmd in dev.commands:
+                if (
+                    cmd.kind != CommandKind.KERNEL_LAUNCH
+                    or cmd.module not in pod.modules
+                ):
+                    continue
+                key = cache.key_for(
+                    pod.modules[cmd.module], cfg, scales, topo_k
+                )
+                if key is None or key in seen_keys:
+                    continue
+                seen_keys.add(key)
+                if cache.get(key) is not None:
+                    stats.lanes_cached += 1
+                    continue
+                lanes_by_module.setdefault(cmd.module, []).append(
+                    (scales, topo_k, key)
+                )
+
+    for mod_name, lanes in lanes_by_module.items():
+        module = pod.modules[mod_name]
+        engines = [
+            Engine(cfg, topology=tk, clock_scale=cs, hbm_scale=hs)
+            for (cs, hs), tk, _key in lanes
+        ]
+        if not fastpath_eligible(engines[0]):
+            stats.skipped += len(lanes)
+            continue
+        try:
+            results = price_module_batch(module, engines, backend=backend)
+        except TopologyPartitionedError:
+            # a lane whose dead links disconnect this module's chips:
+            # leave the whole group to the per-state walk, which records
+            # the partition outcome itself
+            stats.skipped += len(lanes)
+            continue
+        for (_scales, _tk, key), res in zip(lanes, results):
+            cache.put(key, res)
+        stats.states += len(lanes)
+        stats.groups += 1
+    return stats

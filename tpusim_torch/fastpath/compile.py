@@ -107,12 +107,21 @@ class CompiledModule:
         self.cost = cost
         self.config = config
         self.comps: dict[str, CompiledComputation] = {}
-        # content-derived module scalars cached beside the columns: the
-        # entry computation's name, the S(1) residency sum and (when a
-        # spill run computed it) the peak-live refinement
+        # content-derived module scalars cached beside the columns, so a
+        # disk-loaded instance never re-scans the trace text: the entry
+        # computation's name, the S(1) residency sum (tagged with the
+        # KIND of scan that produced it: the raw-text scan of a lazy
+        # module and the IR walk of an eager one never cross-serve) and
+        # (when a spill run computed it) the peak-live refinement
         self.entry_name: str | None = None
         self.residency: float | None = None
+        self.residency_kind: str | None = None
         self.peak_live: float | None = None
+        # durable tier bookkeeping (tpusim_torch.fastpath.store): the key
+        # the instance publishes under (None = not in the shared tier)
+        # and whether a pricing walk compiled columns not yet on disk
+        self._store_key: str | None = None
+        self._store_dirty = False
 
     def bind(self, module: ModuleTrace, cost: CostModel) -> None:
         """(Re)attach the live module for lazy compiles of computations
@@ -138,6 +147,7 @@ class CompiledModule:
                 module, module.computation(name), self.cost, self.config
             )
             self.comps[name] = cc
+            self._store_dirty = True
         return cc
 
 

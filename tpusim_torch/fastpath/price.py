@@ -28,8 +28,11 @@ package):
   identity, so whole-column scans may include zero rows exactly like
   the serial walk does.
 
+After a walk that compiled new columns, the durable compile store
+(:mod:`tpusim_torch.fastpath.store`), when active, publishes them.
+
 Not ported yet: the ``native`` backend (``native/op_price.cpp`` through
-ctypes, ROADMAP A10) and the durable compile store (A6).
+ctypes, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -244,9 +247,17 @@ def module_spill(engine, module, cm) -> tuple[float | None, float]:
     spill fraction is a pure function of the module and the arch."""
     if not engine.config.model_vmem_capacity:
         return None, 1.0
-    resident = cm.residency
+    # the cached residency is reused only when its scan KIND matches this
+    # module's representation (text scan for lazy, IR walk for eager), so
+    # a run's value cannot depend on which representation populated the
+    # compile store first
+    kind = "text" if callable(
+        getattr(module, "vmem_resident_bytes", None)
+    ) else "ir"
+    resident = cm.residency if cm.residency_kind == kind else None
     if resident is None:
-        resident = cm.residency = _residency_of(module)
+        resident = _residency_of(module)
+        cm.residency, cm.residency_kind = resident, kind
     cap = float(engine.arch.vmem_bytes)
     if resident > cap > 0:
         peak = cm.peak_live
@@ -284,6 +295,9 @@ def price_module(engine, module, backend: str) -> EngineResult:
     end = _price_computation(ctx, entry_of(module, cm), 0.0, result, 0)
     result.cycles = end
     result.seconds = engine.arch.cycles_to_seconds(end)
+    from tpusim_torch.fastpath.store import maybe_persist_compiled
+
+    maybe_persist_compiled(cm)
     return result
 
 

@@ -263,6 +263,13 @@ class TraceOp:
         return f"TraceOp({self.name}: {self.opcode} -> {self.result})"
 
 
+#: process-wide count of ops added to computations — the observable
+#: behind the durable compile store's cold-path contract (a warm store
+#: prices with zero IR construction).  A mutable holder, so the parse
+#: loop pays no import or call to maintain it.
+ir_build_counter = {"ops": 0}
+
+
 @dataclass
 class Computation:
     """One HLO computation: a named list of ops, in program (schedule) order."""
@@ -276,6 +283,7 @@ class Computation:
     def add(self, op: TraceOp) -> None:
         self.ops.append(op)
         self._by_name[op.name] = op
+        ir_build_counter["ops"] += 1
 
     def op(self, name: str) -> TraceOp:
         return self._by_name[name]

@@ -14,10 +14,12 @@ Port of ``tpusim/perf/cache.py``, in two tiers of its own:
   An LRU in memory, and on request (``--result-cache[=DIR]``, default
   ``.tpusim_cache/``) JSON records on disk, written atomically (temp +
   ``os.replace``); a corrupt record is moved aside into ``quarantine/``
-  and recomputed with one warning.  A hit returns the exact float-for-
-  float result the engine would have produced (JSON's shortest-repr
-  floats round-trip every counter), so cached replays reproduce stats
-  byte for byte.
+  and recomputed with one warning.  Under a quota (``--cache-quota``)
+  each publish that crosses it runs the LRU garbage collection of
+  :mod:`tpusim_torch.guard.store` over the whole store directory.  A
+  hit returns the exact float-for-float result the engine would have
+  produced (JSON's shortest-repr floats round-trip every counter), so
+  cached replays reproduce stats byte for byte.
 * the **compiled-module tier** of the pricing fastpath: the process-wide
   LRU of :class:`~tpusim_torch.fastpath.compile.CompiledModule`
   instances keyed on
@@ -28,13 +30,16 @@ Port of ``tpusim/perf/cache.py``, in two tiers of its own:
   Scales and topology are deliberately absent from this key: compiled
   columns hold healthy per-op costs and launch-class transforms apply at
   price time, so every degraded class of a module shares one compile.
+  When a durable compile store is active
+  (:mod:`tpusim_torch.fastpath.store`, ``--compile-cache``), the tier
+  consults it before any compile.
 
 Keys hash the port's own sources (:func:`parser_version`, and
 ``model_version`` over its timing model), so the port and the JAX package
 never read each other's records, even in one cache directory.
 
-Not ported yet: the store quota and its garbage collection (ROADMAP A11)
-and the durable compile store (A6).
+Not ported yet: the ``durable`` (fsync) write mode and the memory
+watchdog's LRU shrink (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -78,9 +83,6 @@ CACHE_FORMAT_VERSION = 1
 #: the ``--result-cache`` flag's bare form resolves here (cwd-relative)
 DEFAULT_CACHE_DIR = ".tpusim_cache"
 
-#: where a corrupt disk record is moved, inside the cache directory
-QUARANTINE_DIR = "quarantine"
-
 _REPO = Path(__file__).resolve().parents[2]
 
 #: sources outside the timing model that still decide how hashed module
@@ -91,6 +93,7 @@ _REPO = Path(__file__).resolve().parents[2]
 _PARSER_FILES: tuple[str, ...] = (
     "tpusim_torch/ir.py",
     "tpusim_torch/trace/hlo_text.py",
+    "tpusim_torch/trace/lazy.py",
     "tpusim_torch/trace/loop_analysis.py",
     "tpusim_torch/trace/format.py",
     "tpusim_torch/fastpath/compile.py",
@@ -155,45 +158,30 @@ def _stage_write(tmp: Path, text: str) -> None:
         f.write(text)
 
 
-def _quarantine_record(path: Path) -> bool:
-    """Move one bad record into the cache's quarantine dir (atomic rename;
-    a pid suffix keeps two processes quarantining the same record from
-    colliding).  Returns False when the record was already gone — someone
-    else quarantined or replaced it first, which is the same outcome."""
-    qdir = path.parent / QUARANTINE_DIR
-    try:
-        qdir.mkdir(parents=True, exist_ok=True)
-        os.replace(path, qdir / f"{path.name}.{os.getpid()}")
-        return True
-    except FileNotFoundError:
-        return False
-    except OSError:
-        # quarantine dir unwritable: deleting still heals the lookup path
-        try:
-            path.unlink()
-            return True
-        except OSError:
-            return False
-
-
 def module_fingerprint(module) -> str | None:
     """Content digest of one module.
 
     ``load_trace`` stamps ``meta["content_hash"]`` from the module text;
-    modules built in memory fall back to a structural walk over their
-    ops.  Returns None when no stable fingerprint exists (the shared tier
-    is then skipped for that module, never wrong)."""
+    lazy modules hash their raw text (fingerprinting must not force a
+    parse); modules built in memory fall back to a structural walk over
+    their ops.  Returns None when no stable fingerprint exists (the
+    shared tier is then skipped for that module, never wrong)."""
     cached = getattr(module, "_fingerprint_cache", None)
     if cached is not None:
         return cached
+    fp = None
     content = module.meta.get("content_hash") if module.meta else None
     if content:
         fp = str(content)
     else:
-        try:
-            fp = _structural_fingerprint(module)
-        except (AttributeError, TypeError):
-            fp = None
+        text = getattr(module, "_text", None)  # LazyModuleTrace
+        if isinstance(text, str):
+            fp = _sha(text)
+        else:
+            try:
+                fp = _structural_fingerprint(module)
+            except (AttributeError, TypeError):
+                fp = None
     try:
         module._fingerprint_cache = fp
     except (AttributeError, TypeError):
@@ -244,13 +232,29 @@ def topology_signature(topo) -> str | None:
     return sig
 
 
+#: collective base opcodes whose presence makes a module's price
+#: topology-dependent; used for the cheap raw-text scan of lazy modules
+_COLLECTIVE_MARKERS = (
+    "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+    "collective-permute", "collective-broadcast",
+)
+
+
 def module_uses_ici(module) -> bool:
     """Does pricing this module consult the topology (any collective op)?
-    Memoized on the module (it is not mutated after parse)."""
+    Memoized on the module (it is not mutated after parse).
+
+    Conservative for lazy modules: a raw-text marker scan may over-match
+    (a comment mentioning ``all-reduce``), which only narrows cache
+    sharing — it can never produce a wrong hit."""
     cached = getattr(module, "_uses_ici_cache", None)
     if cached is not None:
         return cached
-    uses = any(op.is_collective for op in module.all_ops())
+    text = getattr(module, "_text", None)
+    if isinstance(text, str):
+        uses = any(m in text for m in _COLLECTIVE_MARKERS)
+    else:
+        uses = any(op.is_collective for op in module.all_ops())
     try:
         module._uses_ici_cache = uses
     except (AttributeError, TypeError):
@@ -323,9 +327,21 @@ class ResultCache:
         self,
         disk_dir: str | Path | None = None,
         max_entries: int = 1024,
+        quota_bytes: int | None = None,
+        quota_entries: int | None = None,
     ):
         self.disk_dir = Path(disk_dir) if disk_dir else None
         self.max_entries = max(int(max_entries), 1)
+        # byte/count quota on the disk tier.  None = unbounded (zero
+        # added work, zero added stats keys).  With a quota, a put that
+        # pushes the store's estimated size past it runs the crash-safe
+        # LRU GC of tpusim_torch.guard.store (whole-record deletes by
+        # mtime; hits touch mtime, so recency is usage, not write order)
+        self.quota_bytes = int(quota_bytes) if quota_bytes else None
+        self.quota_entries = int(quota_entries) if quota_entries else None
+        from tpusim_torch.guard.store import QuotaEstimate
+
+        self._quota = QuotaEstimate()
         self._mem: OrderedDict[str, EngineResult] = OrderedDict()
         # guards the LRU mutations (move_to_end racing an eviction would
         # KeyError), not the disk tier (atomic writes)
@@ -339,6 +355,12 @@ class ResultCache:
         self.disk_hits = 0
         self.disk_errors = 0
         self.quarantined = 0
+        self.gc_runs = 0
+        self.gc_deleted = 0
+        self.gc_freed_bytes = 0
+        # the reference's memory watchdog shrinks the LRU and counts it
+        # here; the port has no watchdog yet, so this stays 0
+        self.lru_shrinks = 0
         # once a staging write fails with a medium-level errno, this
         # instance stops writing (one warning ever) and keeps serving from
         # memory and the records already on disk
@@ -392,6 +414,14 @@ class ResultCache:
                 self._mem.move_to_end(key)
                 self.hits += 1
         if result is not None:
+            if self.disk_dir is not None and self._governed():
+                # under a quota, a memory hit is still use of the disk
+                # record: without the touch, a record the LRU serves for
+                # hours looks oldest to every peer's GC and dies first
+                try:
+                    os.utime(self._path_for(key))
+                except OSError:
+                    pass  # evicted by a peer / read-only: plain aging
             return result
         if self.disk_dir is not None:
             result = self._disk_get(key)
@@ -433,7 +463,13 @@ class ResultCache:
                 raise ValueError("stored key mismatch (hash collision?)")
             if doc.get("model_version") != self._model_version:
                 return None  # stale: model bumped under the same name
-            return result_from_doc(doc["result"])
+            result = result_from_doc(doc["result"])
+            try:
+                # LRU recency lives in the mtime: a disk hit refreshes it
+                os.utime(path)
+            except OSError:
+                pass  # read-only store: GC order degrades to FIFO
+            return result
         except FileNotFoundError:
             # replaced or quarantined by a peer between the existence
             # check and the read: a plain miss, never damage
@@ -442,7 +478,9 @@ class ResultCache:
             self.disk_errors += 1
             # move the bad record off the lookup path on first detection,
             # so the recompute's put heals it and no later lookup warns
-            if _quarantine_record(path):
+            from tpusim_torch.guard.store import quarantine_record
+
+            if quarantine_record(path):
                 self.quarantined += 1
             warnings.warn(
                 f"tpusim_torch.perf: corrupt result-cache entry {path} "
@@ -471,7 +509,18 @@ class ResultCache:
                 f".{os.getpid()}.{threading.get_ident()}.tmp"
             )
             _stage_write(tmp, json.dumps(doc))
+            governed = self._governed()
+            old_size = 0
+            if governed:
+                # an overwrite replaces bytes: the estimate takes the
+                # delta, or re-puts of hot keys cross the quota early
+                try:
+                    old_size = path.stat().st_size
+                except OSError:
+                    old_size = 0
             os.replace(tmp, path)  # atomic: readers never see a torn file
+            if governed:
+                self._quota_gc(path, old_size)
         except OSError as e:
             self.disk_errors += 1
             if tmp is not None:
@@ -494,6 +543,40 @@ class ResultCache:
                 RuntimeWarning,
                 stacklevel=2,
             )
+
+    # -- quota ---------------------------------------------------------------
+
+    def _governed(self) -> bool:
+        return self.quota_bytes is not None or self.quota_entries is not None
+
+    def _quota_gc(self, new_path: Path, old_size: int) -> None:
+        """Post-publish quota enforcement
+        (:meth:`tpusim_torch.guard.store.QuotaEstimate.publish`), with the
+        GC's work counted for the ``guard_*`` stats."""
+        res = self._quota.publish(self.disk_dir, new_path, old_size,
+                                  self.quota_bytes, self.quota_entries)
+        if res is not None:
+            with self._lock:
+                self.gc_runs += 1
+                self.gc_deleted += res.deleted
+                self.gc_freed_bytes += res.freed_bytes
+
+    def guard_stats_dict(self) -> dict[str, float]:
+        """Quota/GC accounting, stamped by the driver under the
+        ``guard_`` prefix only when a quota is set (un-governed runs
+        stay key-identical)."""
+        with self._lock:
+            return {
+                "store_quota_bytes": self.quota_bytes or 0,
+                "store_quota_entries": self.quota_entries or 0,
+                "store_bytes_est": self._quota.bytes or 0,
+                "store_entries_est": self._quota.entries,
+                "store_gc_runs_total": self.gc_runs,
+                "store_gc_deleted_total": self.gc_deleted,
+                "store_gc_freed_bytes_total": self.gc_freed_bytes,
+                "store_quarantined_total": self.quarantined,
+                "lru_shrinks_total": self.lru_shrinks,
+            }
 
     def flush(self) -> int:
         """Ensure every in-memory entry has its disk record (no-op for
@@ -595,6 +678,9 @@ def compiled_for(module, engine):
         attr[ckey] = cm
         return cm
 
+    from tpusim_torch.fastpath.store import get_compile_store
+
+    store = get_compile_store()
     with _compiled_lock:
         cm = _COMPILED.get(key)
         if cm is not None:
@@ -604,8 +690,27 @@ def compiled_for(module, engine):
         # the tier holds only a weak module ref; rebind the live object
         # (same content by key construction, so the columns transfer)
         cm.bind(module, engine.cost)
+        if store is not None and cm._store_key is None:
+            # a store activated after this instance was minted: adopt
+            # it, so the columns publish at the next pricing walk
+            cm._store_key = compiled_key_str(key)
         return cm
+    if store is not None:
+        # durable tier: map the columns a peer process (or an earlier
+        # run) compiled — BEFORE any lazy compile, which is what lets a
+        # warm store price a lazily-loaded module with zero IR built
+        keystr = compiled_key_str(key)
+        cm = store.load(keystr, module, engine)
+        if cm is not None:
+            cm._store_key = keystr
+            with _compiled_lock:
+                _COMPILED[key] = cm
+                while len(_COMPILED) > COMPILED_CACHE_MAX:
+                    _COMPILED.popitem(last=False)
+            return cm
     cm = compile_module(module, engine.cost, engine.config)
+    if store is not None:
+        cm._store_key = compiled_key_str(key)
     with _compiled_lock:
         _compiled_misses += 1
         _COMPILED[key] = cm
@@ -635,12 +740,25 @@ def set_compiled_cache_max(max_entries: int) -> None:
 
 def compiled_cache_stats() -> dict[str, float]:
     """Counters of the ``fastpath_`` stats block (stamped by the driver
-    only when a pricing backend was explicitly requested)."""
-    return {
+    only when a pricing backend was explicitly requested or a durable
+    compile store is active).  The ``store_*`` keys and ``ir_ops_built``
+    ride only in the latter case."""
+    out = {
         "compile_hits": _compiled_hits,
         "compile_misses": _compiled_misses,
         "compiled_modules": len(_COMPILED),
     }
+    from tpusim_torch.fastpath.store import get_compile_store
+
+    store = get_compile_store()
+    if store is not None:
+        out.update(store.stats_dict())
+        # the cold-path contract's observable: the IR ops this process
+        # has built (a warm store holds it at zero)
+        from tpusim_torch.ir import ir_build_counter
+
+        out["ir_ops_built"] = ir_build_counter["ops"]
+    return out
 
 
 # ---------------------------------------------------------------------------

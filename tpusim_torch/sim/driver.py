@@ -9,7 +9,8 @@ the group's devices, and emit the same stats keys as the JAX package —
 ``power_enabled``.
 
 Every engine prices through the backend ``pricing_backend`` requests
-(None: auto-resolved); an explicit request stamps ``fastpath_*`` stats.
+(None: auto-resolved); an explicit request, or an active durable compile
+store (``compile_cache=``), stamps ``fastpath_*`` stats.
 
 Degraded pods: a fault schedule (``faults=``) is bound to the pod's
 topology once; kernels price under their chip's multipliers and
@@ -17,10 +18,12 @@ standalone collectives under the link view active at their issue cycle,
 and the report carries the schedule's ``faults_*`` stats.  An engine-
 result cache (``result_cache=``, ``cache_*`` stats) and a worker count
 (``workers=``: the distinct launch classes priced over a process pool
-up front, ``pool_*`` stats) leave every other stat unchanged.
+up front, ``pool_*`` stats) leave every other stat unchanged; a cache
+under a quota adds ``guard_*`` stats.
 
-Not ported yet: the compile store (ROADMAP A6), validation (A9), the
-observability layer and its "faults" lane (A10) and cancellation (A11).
+Not ported yet: validation (ROADMAP A9), the observability layer and its
+"faults" lane (A10), cancellation and the wall-clock and memory limits
+(A11).
 """
 
 from __future__ import annotations
@@ -137,6 +140,7 @@ class SimDriver:
         result_cache=None,
         workers: int | None = None,
         pricing_backend: str | None = None,
+        compile_cache=None,
     ):
         self.config = config
         self.arch = config.arch
@@ -155,6 +159,14 @@ class SimDriver:
         # EXPLICIT request also stamps the fastpath_* stats block, so
         # default runs stay key-identical)
         self.pricing_backend = pricing_backend
+        # the durable compiled-module tier (a CompileStore, a dir path, or
+        # True for the default dir).  Activation is process-wide —
+        # compiled_for consults it before any compile, the pricing walks
+        # publish after — so the driver only coerces it and stamps its
+        # stats.  None leaves whatever is already active untouched.
+        from tpusim_torch.fastpath.store import as_compile_store
+
+        self.compile_store = as_compile_store(compile_cache)
 
     def run(self, pod: PodTrace) -> SimReport:
         t_start = time.perf_counter()
@@ -507,16 +519,29 @@ class SimDriver:
             report.stats.update(
                 self.result_cache.stats_dict(), prefix="cache_"
             )
+            if (
+                self.result_cache.quota_bytes is not None
+                or self.result_cache.quota_entries is not None
+            ):
+                # guard_* keys ride the report ONLY when a store quota is
+                # governing (un-governed runs stay key-identical)
+                report.stats.update(
+                    self.result_cache.guard_stats_dict(), prefix="guard_"
+                )
         if pool_segments:
             report.stats.update(
                 {"workers": workers, "parallel_segments": pool_segments},
                 prefix="pool_",
             )
-        if self.pricing_backend is not None:
+        from tpusim_torch.fastpath.store import get_compile_store
+
+        if self.pricing_backend is not None or \
+                get_compile_store() is not None:
             # fastpath accounting rides the report ONLY when a backend was
-            # explicitly requested.  The stamped name is what actually
-            # priced: under op-granularity checkpoint/resume the fastpath
-            # disengages and every run took the serial walk.
+            # explicitly requested or a durable compile store is active
+            # (default runs stay key-identical).  The stamped name is what
+            # actually priced: under op-granularity checkpoint/resume the
+            # fastpath disengages and every run took the serial walk.
             from tpusim_torch.fastpath.price import resolve_backend
             from tpusim_torch.perf.cache import compiled_cache_stats
 
@@ -562,6 +587,7 @@ def simulate_trace(
     result_cache=None,
     workers: int | None = None,
     pricing_backend: str | None = None,
+    compile_cache=None,
 ) -> SimReport:
     """Load a trace dir, compose the config, replay.
 
@@ -576,7 +602,16 @@ def simulate_trace(
     ``$TPUSIM_WORKERS``) fans module pricing over a process pool — both
     give the serial path's stats.  ``pricing_backend`` (the
     ``--pricing-backend`` flag / ``$TPUSIM_PRICING_BACKEND``) pins the
-    pricing backend; all backends give the same stats."""
+    pricing backend; all backends give the same stats.  ``compile_cache``
+    (the ``--compile-cache[=DIR]`` flag) activates the durable compiled-
+    module tier before the trace loads, so the parse defers and a warm
+    store prices with zero IR built."""
+    # activated BEFORE the load: load_trace defers the parse exactly when
+    # the compiled tier may serve it (the coerced instance rides into the
+    # driver, so its counters are not split across two instances)
+    from tpusim_torch.fastpath.store import as_compile_store
+
+    compile_cache = as_compile_store(compile_cache)
     pod = load_trace(trace_path, lenient=lenient)
     if arch is None and config is None:
         kind = str(pod.meta.get("device_kind", ""))
@@ -586,4 +621,5 @@ def simulate_trace(
     return SimDriver(
         cfg, topology=topology, faults=faults, result_cache=result_cache,
         workers=workers, pricing_backend=pricing_backend,
+        compile_cache=compile_cache,
     ).run(pod)

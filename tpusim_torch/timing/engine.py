@@ -332,10 +332,14 @@ def _vmem_peak_live_bytes(module: ModuleTrace) -> float:
 
 def _residency_of(module: ModuleTrace) -> float:
     """:func:`_vmem_resident_bytes`, memoized on the module (it is not
-    mutated after parse)."""
+    mutated after parse).  A lazy module answers with its raw-text scan
+    (``vmem_resident_bytes``), so the check does not force a parse."""
     cached = getattr(module, "_residency_cache", None)
     if cached is None:
-        cached = module._residency_cache = _vmem_resident_bytes(module)
+        fast = getattr(module, "vmem_resident_bytes", None)
+        cached = module._residency_cache = (
+            fast() if callable(fast) else _vmem_resident_bytes(module)
+        )
     return cached
 
 

@@ -9,9 +9,10 @@ other::
       modules/<name>.hlo         HLO text (one per module; .hlo.gz if large)
       commandlist.jsonl          per-device program streams
 
-The loader parses every module eagerly with the port's Python parser; the
-JAX package's lazy, streaming and native parsers are host-side
-accelerators that are not ported yet.
+The loader parses modules eagerly with the port's Python parser, or
+lazily (:mod:`tpusim_torch.trace.lazy`) when they are large or a durable
+compile store is active.  The JAX package's streaming and native parsers
+are host-side accelerators that are not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -168,43 +169,92 @@ def save_trace(
     return TraceDir(path=path, meta=meta)
 
 
-def load_trace(path: str | Path, lenient: bool = False) -> PodTrace:
-    """Load a trace directory into a :class:`PodTrace`, parsing every
-    module.  ``lenient=True`` skips malformed HLO lines with a counted
-    warning instead of raising on the first one."""
+def load_trace(
+    path: str | Path, lenient: bool = False,
+    defer_parse: bool | None = None,
+) -> PodTrace:
+    """Load a trace directory into a :class:`PodTrace`.
+
+    Modules load in the reference's order: plain ``.hlo`` files sorted by
+    name, then gzipped ``.hlo.gz`` files sorted by name (a name present
+    in both keeps its first position and the gzipped text).  A trace
+    without a command list launches each module once on device 0 in that
+    order.
+
+    ``lenient=True`` skips malformed HLO lines with a counted warning
+    instead of raising on the first one; lenient parsing is always eager.
+    ``defer_parse=True`` builds every module lazily (computations parse
+    on first IR access, :mod:`tpusim_torch.trace.lazy`).  The default
+    (``None``) defers exactly when a durable compile store is active
+    (:func:`tpusim_torch.fastpath.store.compile_store_active`), so a warm
+    store prices from its stored columns and the parse never happens.
+    Modules of :data:`~tpusim_torch.trace.lazy.LAZY_THRESHOLD_BYTES` or
+    more parse lazily either way.  The lazy module stamps the same
+    ``content_hash`` as the eager path, so every cache key is identical."""
     path = Path(path)
-    if not path.is_dir():
-        raise FileNotFoundError(f"trace directory not found: {path}")
-    modules_dir = path / "modules"
-    cl = path / "commandlist.jsonl"
-    if not modules_dir.is_dir() and not cl.is_file():
+    # one directory read answers every existence question
+    try:
+        with os.scandir(path) as it:
+            root_names = {de.name for de in it}
+    except (FileNotFoundError, NotADirectoryError):
+        raise FileNotFoundError(
+            f"trace directory not found: {path}"
+        ) from None
+    if "modules" not in root_names and \
+            "commandlist.jsonl" not in root_names:
         raise FileNotFoundError(
             f"{path} is not a trace directory (no modules/ or "
             f"commandlist.jsonl)"
         )
     meta: dict = {}
-    if (path / "meta.json").is_file():
+    if "meta.json" in root_names:
         with open(path / "meta.json") as f:
             meta = json.load(f)
 
+    from tpusim_torch.trace.lazy import (
+        LAZY_THRESHOLD_BYTES,
+        parse_hlo_module_lazy,
+    )
+
+    if defer_parse is None and not lenient:
+        from tpusim_torch.fastpath.store import compile_store_active
+
+        defer_parse = compile_store_active()
+
     pod = PodTrace(meta=meta)
-    texts: dict[str, str] = {}
-    if modules_dir.is_dir():
-        for fp in sorted(modules_dir.glob("*.hlo")):
-            texts[fp.stem] = fp.read_text()
-        for fp in sorted(modules_dir.glob("*.hlo.gz")):
-            with gzip.open(fp, "rt") as f:
-                texts[fp.name[: -len(".hlo.gz")]] = f.read()
-    for key in sorted(texts):
-        mod = parse_hlo_module(texts[key], name_hint=key, strict=not lenient)
+    plain: list[tuple[str, str]] = []
+    gzipped: list[tuple[str, str]] = []
+    try:
+        with os.scandir(path / "modules") as it:
+            for de in it:
+                n = de.name
+                if n.endswith(".hlo"):
+                    plain.append((n[:-4], de.path))
+                elif n.endswith(".hlo.gz"):
+                    gzipped.append((n[: -len(".hlo.gz")], de.path))
+    except (FileNotFoundError, NotADirectoryError):
+        pass
+    entries: list[tuple[str, str]] = []
+    for key, fp in sorted(plain):
+        with open(fp) as f:
+            entries.append((key, f.read()))
+    for key, fp in sorted(gzipped):
+        with gzip.open(fp, "rt") as f:
+            entries.append((key, f.read()))
+    for key, text in entries:
+        if lenient:
+            mod = parse_hlo_module(text, name_hint=key, strict=False)
+        elif defer_parse or len(text) >= LAZY_THRESHOLD_BYTES:
+            mod = parse_hlo_module_lazy(text, name_hint=key)
+        else:
+            mod = parse_hlo_module(text, name_hint=key)
         # file name is the trace key; HloModule header name may differ
         pod.modules[key] = mod
         mod.meta.setdefault("trace_key", key)
-        # content digest of the module text — the address half of the
-        # fastpath's compiled-module key (computed here, where the text is
-        # in hand)
+        # content digest of the module text — the address half of every
+        # cache key (computed here, where the text is in hand)
         mod.meta.setdefault(
-            "content_hash", hashlib.sha256(texts[key].encode()).hexdigest()[:24]
+            "content_hash", hashlib.sha256(text.encode()).hexdigest()[:24]
         )
         # capture-time facts ride on every module: the cost model gates
         # capture-backend dtype normalization on the platform
@@ -212,8 +262,8 @@ def load_trace(path: str | Path, lenient: bool = False) -> PodTrace:
             if k in meta:
                 mod.meta.setdefault(k, meta[k])
 
-    if cl.is_file():
-        for cmd in parse_commandlist(cl):
+    if "commandlist.jsonl" in root_names:
+        for cmd in parse_commandlist(path / "commandlist.jsonl"):
             pod.device(cmd.device_id).commands.append(cmd)
     else:
         # modules but no command stream: one launch per module on device 0
