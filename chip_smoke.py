@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Drives the port's main path, ``tpusim_torch capture → simulate``, at the
-registered width of ``flash_attention_pallas`` ([32, 1024, 128] f32), and
-simulate's lane-batched pricing with its row scans on the card, and holds
-each CUDA kernel against its plain PyTorch version.  Phases, in order (any
-failure exits non-zero and prints no result):
+registered width of ``flash_attention_pallas`` ([32, 1024, 128] f32),
+simulate's lane-batched pricing with its row scans on the card, and the
+campaign and fleet layers whose scenario-batched warm runs those scans,
+and holds each CUDA kernel against its plain PyTorch version.  Phases, in
+order (any failure exits non-zero and prints no result):
 
 1. the card's name and power limit (``nvidia-smi``) and the CUDA version;
 2. build every kernel from ``tpusim_torch/csrc`` with nvcc (timed), and
@@ -79,7 +80,27 @@ failure exits non-zero and prints no result):
    ``vectorized``; (d) the ``cache`` CLI over (a)'s store: ``stats`` counts
    both tiers, ``verify`` finds no corrupt record, a record with one byte
    flipped is quarantined once, ``gc --quota`` leaves the store under the
-   quota; (e) phase 7 (e) again, each of its four legs in a fresh process.
+   quota; (e) phase 7 (e) again, each of its four legs in a fresh process;
+9. compound-fault campaigns and the fleet twin on the card's host, each
+   part with its host seconds and the kernels' launch counters set to 0
+   just before each run and read just after: (a) ``run_campaign`` on the
+   campaign and DCN smoke specs and ``run_fleet`` on the fleet smoke spec
+   of ``ci/check_golden.py`` (copied here), each with ``scenario_batch``
+   ``False``, ``"vectorized"`` and ``"cuda"``: the three reports equal by
+   bytes, ``cuda`` launching ``scan_rows`` and the others nothing; each
+   report against its golden (``model_version`` masked, non-floats equal,
+   floats within a relative 1e-12, the count of differing floats and the
+   largest gap printed) and the smoke's contract checks; (b) ``python -m
+   tpusim_torch campaign`` (the campaign smoke at 256 scenarios a slice)
+   and ``fleet`` ((d)'s fleet) in fresh processes: uninterrupted, cancelled by
+   ``--max-wall-s`` (exit 3) with work journaled, then ``--resume``,
+   whose report equals the uninterrupted one by bytes with the journaled
+   work resumed, not priced; (c) the campaign smoke's fault model on a
+   v5p 4x4x4 pod, 1024 scenarios, under the three legs: reports equal by
+   bytes, ``scan_rows`` launches and lanes per launch, ``BatchStats``;
+   (d) the fleet smoke's traffic and policies on 8 pods over 300 s with
+   frontier targets 12 and 48 req/s up to 16 pods, ``False`` and
+   ``"cuda"``, reports equal by bytes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and the one before that the kernels'
@@ -96,6 +117,7 @@ import json
 import math
 import os
 import random
+import re
 import shutil
 import statistics
 import subprocess
@@ -1195,6 +1217,442 @@ def durable_store(card_name: str, work: Path) -> dict:
     return out
 
 
+#: phase 9: the smoke specs of ``ci/check_golden.py`` (``CAMPAIGN_SMOKE_SPEC``,
+#: ``DCN_SMOKE_SPEC``, ``FLEET_SMOKE_SPEC``), copied; their goldens
+#: (``ci/golden/{campaign,dcn,fleet}_smoke.json``) are read as data
+CAMPAIGN_SMOKE_SPEC = {
+    "name": "ci-campaign-smoke",
+    "seed": 3,
+    "scenarios": 16,
+    "arch": "v5p",
+    "chips": 8,
+    "tuned": False,
+    "faults": {
+        "count": {"dist": "uniform", "min": 0, "max": 3},
+        "kinds": {"link_down": 1.0, "link_degraded": 1.0,
+                  "chip_straggler": 0.5, "hbm_throttle": 0.5},
+        "scale": {"min": 0.4, "max": 0.9},
+    },
+    "correlated_groups": [
+        {"name": "cable-bundle-y", "prob": 0.06, "axis": 1},
+        {"name": "cable-bundle-z", "prob": 0.06, "axis": 2},
+    ],
+    "slo": {"step_time_ms": 0.55, "percentile": 90},
+    "candidate_slices": [{"arch": "v5p", "chips": 4},
+                         {"arch": "v5p", "chips": 16}],
+}
+DCN_SMOKE_SPEC = {
+    "name": "ci-dcn-smoke",
+    "seed": 7,
+    "scenarios": 8,
+    "arch": "v5p",
+    "chips": 4,
+    "tuned": False,
+    "dcn": {
+        "num_slices": 2,
+        "nics_per_slice": 2,
+        "nic_bandwidth": 25e9,
+        "hop_latency": 1e-5,
+    },
+    "faults": {
+        "count": {"dist": "uniform", "min": 1, "max": 2},
+        "kinds": {"slice_down": 2.0, "dcn_link_down": 1.0,
+                  "link_degraded": 0.5},
+        "scale": {"min": 0.4, "max": 0.9},
+    },
+}
+FLEET_SMOKE_SPEC = {
+    "name": "ci-fleet-smoke",
+    "seed": 3,
+    "pods": 2,
+    "arch": "v5p",
+    "chips": 8,
+    "tuned": False,
+    "horizon_s": 30.0,
+    "traffic": {
+        "shape": "bursty",
+        "load_points": [5.0, 30.0],
+        "burst": {"factor": 4.0, "fraction": 0.1, "period_s": 20.0},
+        "mix": [{"name": "chat", "weight": 3.0, "steps": 100},
+                {"name": "batch", "weight": 1.0, "steps": 400}],
+    },
+    "faults": {
+        "count": {"dist": "uniform", "min": 0, "max": 2},
+        "kinds": {"link_down": 1.0, "hbm_throttle": 1.0},
+        "scale": {"min": 0.4, "max": 0.9},
+        "window": {"min_s": 10.0, "max_s": 30.0},
+        "pod_loss": {"prob": 0.9},
+    },
+    "policies": {
+        "max_inflight": 1,
+        "queue_depth": 4,
+        "deadline_s": 0.5,
+        "restart_backoff_s": 5.0,
+    },
+    "slo": {"latency_ms": 400.0, "percentile": 95},
+    "frontier": {"target_rps": [12.0], "max_pods": 4},
+}
+#: a smoke report against its golden: ``model_version`` masked, every
+#: non-float equal, every float within this relative gap.  The goldens'
+#: means (``sum(values) / len(values)``) were summed by an interpreter
+#: whose float ``sum`` rounds differently from Python 3.12's, so the JAX
+#: package itself misses them by bytes in their last one or two digits
+SMOKE_RTOL = 1e-12
+#: ``scenario_batch`` of phase 9's legs: no batching, the host row scans,
+#: the row scans on the card (``scan_rows``)
+BATCH_LEGS = (False, "vectorized", "cuda")
+#: phase 9 (c): the campaign smoke's fault model on a v5p 4x4x4 pod
+BIG_CAMPAIGN_CHIPS = 64
+BIG_CAMPAIGN_SCENARIOS = 1024
+#: phase 9 (d): the fleet smoke's traffic and policies on 8 pods over 300 s
+BIG_FLEET_PODS = 8
+BIG_FLEET_HORIZON_S = 300.0
+BIG_FLEET_FRONTIER = {"target_rps": [12.0, 48.0], "max_pods": 16}
+
+
+def report_bytes(doc: dict) -> bytes:
+    """A report as ``ci/check_golden.py`` writes it."""
+    return (json.dumps(doc, indent=1, sort_keys=True) + "\n").encode()
+
+
+def golden_gaps(got, want, path: str = "") -> list[float]:
+    """The relative gaps of the floats that differ between a report and
+    its golden (``model_version`` masked by the caller); raises when a
+    non-float differs or a float is further than :data:`SMOKE_RTOL`."""
+    if isinstance(want, float) and isinstance(got, float):
+        if got == want:
+            return []
+        gap = abs(got - want) / max(abs(got), abs(want))
+        if not gap <= SMOKE_RTOL:
+            raise AssertionError(f"{path}: {got!r} vs golden {want!r}")
+        return [gap]
+    if type(got) is not type(want):
+        raise AssertionError(f"{path}: {got!r} vs golden {want!r}")
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(
+                f"{path}: keys {sorted(set(got) ^ set(want))}")
+        return [g for k in sorted(want)
+                for g in golden_gaps(got[k], want[k], f"{path}.{k}")]
+    if isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: {len(got)} vs {len(want)} items")
+        return [g for i, (a, b) in enumerate(zip(got, want))
+                for g in golden_gaps(a, b, f"{path}[{i}]")]
+    if got != want:
+        raise AssertionError(f"{path}: {got!r} vs golden {want!r}")
+    return []
+
+
+def smoke_contract(name: str, doc: dict, stats: dict) -> None:
+    """The contract checks of ``ci/check_golden.py``'s campaign, dcn and
+    fleet smokes (beyond the golden comparison)."""
+    if name == "campaign":
+        primary = doc["slices"][0]
+        if not all(isinstance(primary["inflation"].get(k), float)
+                   for k in ("p50", "p95", "p99", "max")):
+            raise AssertionError("campaign smoke: inflation percentiles")
+        if not any(s["partition_rate"] > 0 for s in doc["slices"]):
+            raise AssertionError("campaign smoke: no partitioned scenario")
+        cap = doc.get("capacity")
+        if not cap or cap.get("smallest_meeting_slice") is None:
+            raise AssertionError("campaign smoke: capacity answer missing")
+        if not all(isinstance(r.get("healthy_watts"), float)
+                   for r in cap["table"]):
+            raise AssertionError("campaign smoke: table rows miss watts")
+        if stats["campaign_partitioned_total"] < 1:
+            raise AssertionError("campaign smoke: no partition counted")
+    elif name == "dcn":
+        sl = doc["slices"][0]
+        dcn = sl.get("dcn")
+        if not dcn or dcn["slice_loss_scenarios"] < 1:
+            raise AssertionError("dcn smoke: no slice-loss scenario")
+        if sum(dcn["slices_ok_hist"].values()) != sl["scenarios"]:
+            raise AssertionError("dcn smoke: histogram misses scenarios")
+        for row in doc["rows"]:
+            if row["dcn"]["slices_lost"] > 0 and \
+                    row.get("status") != "partitioned":
+                raise AssertionError(f"dcn smoke: row {row['index']}")
+    else:
+        for row in doc["curve"]:
+            lat = row["latency_ms"]
+            if lat is None or not all(isinstance(lat.get(k), float)
+                                      for k in ("p50", "p99")):
+                raise AssertionError("fleet smoke: curve latency missing")
+            if row["served"] and row["energy_per_request_j"] is None:
+                raise AssertionError("fleet smoke: energy per request")
+        if stats["fleet_lost_shed_total"] < 1:
+            raise AssertionError("fleet smoke: no shedding loss")
+        if stats["fleet_pod_losses_total"] < 1 or not doc["recovery"]:
+            raise AssertionError("fleet smoke: no pod loss / recovery row")
+        if any(r["time_to_recover_s"] <= 0 for r in doc["recovery"]):
+            raise AssertionError("fleet smoke: time to recover <= 0")
+        table = doc["frontier"]["table"]
+        if not table or table[0]["pods_needed"] is None:
+            raise AssertionError("fleet smoke: frontier answer is null")
+
+
+def lanes_text(lanes: list[int]) -> str:
+    if not lanes:
+        return "scan_rows 0 launches"
+    return (f"scan_rows {len(lanes)} launches, lanes per launch "
+            f"{min(lanes)}-{max(lanes)} (median "
+            f"{statistics.median(lanes):g})")
+
+
+def lanes_record(lanes: list[int]) -> dict:
+    return {"calls": len(lanes), "lanes_min": min(lanes, default=0),
+            "lanes_max": max(lanes, default=0),
+            "lanes_median": statistics.median(lanes) if lanes else 0}
+
+
+@contextlib.contextmanager
+def scan_lanes():
+    """Record the lanes of every ``scan_rows`` call the batched pricer
+    makes (its matrix goes over ops-major, ``[k, S]``)."""
+    lanes: list[int] = []
+    real = sr.scan_rows
+
+    def counted(seeds, mat):
+        lanes.append(int(mat.shape[1]))
+        return real(seeds, mat)
+    sr.scan_rows = counted
+    try:
+        yield lanes
+    finally:
+        sr.scan_rows = real
+
+
+def batch_legs(run, spec: dict, legs=None) -> dict:
+    """``run`` (``run_campaign`` or ``run_fleet``) over the fixture under
+    each ``scenario_batch`` leg, the kernels' launch counters set to 0
+    just before each leg and read just after.  Returns, per leg, the
+    result, the report's bytes, host seconds, launches and the lanes of
+    each ``scan_rows`` call; raises unless every leg's report is equal by
+    bytes, ``cuda`` launches ``scan_rows`` and the host legs launch
+    nothing."""
+    out = {}
+    for leg in legs or BATCH_LEGS:
+        for *_, reset in KERNELS:
+            reset()
+        with scan_lanes() as lanes:
+            t0 = time.perf_counter()
+            res = run(spec, trace_path=FIXTURES / "llama_tiny_tp2dp2",
+                      scenario_batch=leg)
+            host_s = time.perf_counter() - t0
+        if leg == "cuda":
+            torch.cuda.synchronize()  # the counts are read after the card
+        launches = {name: count() for name, _, _, count, _ in KERNELS}
+        out[str(leg)] = {"res": res, "bytes": report_bytes(res.doc),
+                         "host_s": host_s, "launches": launches,
+                         "lanes": list(lanes)}
+    if len({leg["bytes"] for leg in out.values()}) != 1:
+        raise AssertionError(f"{spec['name']}: reports differ across "
+                             f"scenario_batch legs {list(out)}")
+    for leg, rec in out.items():
+        want_scan = rec["launches"]["scan_rows"] >= 1 if leg == "cuda" \
+            else rec["launches"]["scan_rows"] == 0
+        if not want_scan or rec["launches"]["flash_attention"]:
+            raise AssertionError(f"{spec['name']} leg {leg}: launches "
+                                 f"{rec['launches']}")
+    return out
+
+
+def smokes(card_name: str) -> dict:
+    """Phase 9 (a): the campaign, DCN and fleet smokes under every leg,
+    each against its golden and its contract checks."""
+    from tpusim_torch.campaign import run_campaign
+    from tpusim_torch.fleet import run_fleet
+
+    out = {}
+    for name, run, spec in (("campaign", run_campaign, CAMPAIGN_SMOKE_SPEC),
+                            ("dcn", run_campaign, DCN_SMOKE_SPEC),
+                            ("fleet", run_fleet, FLEET_SMOKE_SPEC)):
+        legs = batch_legs(run, spec)
+        res = legs["False"]["res"]
+        golden = json.loads(
+            (REPO / "ci" / "golden" / f"{name}_smoke.json").read_text())
+        doc = dict(res.doc)
+        doc["model_version"] = golden["model_version"] = "masked"
+        gaps = golden_gaps(doc, golden)
+        smoke_contract(name, res.doc, res.stats.stats_dict())
+        print(f"  (a) {name} smoke: reports equal by bytes under "
+              f"{'/'.join(legs)}; golden: {len(gaps)} float(s) differ, "
+              f"largest relative gap {max(gaps, default=0.0):.3g}; "
+              f"contract holds; host s " + " / ".join(
+                  f"{leg} {rec['host_s']:.4f}" for leg, rec in legs.items())
+              + f"; {lanes_text(legs[str(BATCH_LEGS[-1])]['lanes'])}"
+              f" (card: {card_name})")
+        out[name] = {leg: {"host_s": rec["host_s"],
+                           "launches": rec["launches"]["scan_rows"]}
+                     for leg, rec in legs.items()}
+    return out
+
+
+def cli_process(argv: list[str], timeout: float = 600) -> tuple[int, str]:
+    """``python -m tpusim_torch ARGV`` in a fresh process."""
+    proc = subprocess.run([sys.executable, "-m", "tpusim_torch", *argv],
+                          capture_output=True, text=True, cwd=REPO,
+                          timeout=timeout)
+    if proc.returncode not in (0, 3):
+        raise RuntimeError(f"tpusim_torch {' '.join(argv)} exited "
+                           f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.returncode, proc.stdout
+
+
+#: phase 9 (b): the most ``--max-wall-s`` runs the search for a deadline
+#: that cancels mid-run may take, and the campaign's scenarios a slice
+CANCEL_TRIES = 10
+CLI_CAMPAIGN_SCENARIOS = 256
+
+
+def journaled(journal: Path, kind: str) -> int:
+    """Records of ``kind`` in a campaign or fleet journal."""
+    if not journal.is_file():
+        return 0
+    return sum(json.loads(line).get("kind") == kind
+               for line in journal.read_text().splitlines() if line)
+
+
+def cli_resume(card_name: str, work: Path) -> dict:
+    """Phase 9 (b): ``campaign`` and ``fleet`` through the CLI in fresh
+    processes: uninterrupted, cancelled by ``--max-wall-s`` (exit 3) once
+    some work is journaled, then ``--resume``: the resumed report equals
+    the uninterrupted one by bytes and journaled work is not priced
+    again.  The deadline is found by bisection between 0 and twice the
+    uninterrupted run's own seconds: a run that ends is too late, one
+    cancelled with nothing journaled too early.  The campaign is the
+    smoke's spec at :data:`CLI_CAMPAIGN_SCENARIOS` scenarios a slice and
+    the fleet (d)'s: the smokes journal all their work within 0.2 s (the
+    fleet's within 20 ms on the card's host) at the end of a run whose
+    start (torch's import, the parse, the compile) varies more than that
+    from one fresh process to the next."""
+    trace = str(FIXTURES / "llama_tiny_tp2dp2")
+    out = {}
+    for cmd, spec, kind, wall_re, resumed_re in (
+            ("campaign", dict(CAMPAIGN_SMOKE_SPEC,
+                              scenarios=CLI_CAMPAIGN_SCENARIOS), "scenario",
+             r"failed \((\d+\.\d+)s\)", r"(\d+) resumed from journal"),
+            ("fleet", big_fleet_spec(), "state", r"; (\d+\.\d+)s\)",
+             r"fleet_states_resumed = (\d+)")):
+        spec_path = work / f"{cmd}_spec.json"
+        spec_path.write_text(json.dumps(spec))
+        full = work / f"{cmd}_full"
+        t0 = time.perf_counter()
+        _, text = cli_process([cmd, str(spec_path), "--trace", trace,
+                               "--out", str(full)])
+        full_s = time.perf_counter() - t0
+        lo, hi = 0.0, 2.0 * float(re.search(wall_re, text).group(1))
+        part = work / f"{cmd}_part"
+        tries = []
+        for _ in range(CANCEL_TRIES):
+            deadline = (lo + hi) / 2
+            shutil.rmtree(part, ignore_errors=True)
+            rc, _ = cli_process([cmd, str(spec_path), "--trace", trace,
+                                 "--out", str(part), "--max-wall-s",
+                                 repr(deadline)])
+            done = journaled(part / "journal.jsonl", kind)
+            tries.append((round(deadline, 4), rc, done))
+            if rc == 0:
+                hi = deadline
+            elif done == 0:
+                lo = deadline
+            else:
+                break
+        else:
+            raise AssertionError(f"{cmd}: no --max-wall-s deadline "
+                                 f"cancelled mid-run: {tries}")
+        rc, text = cli_process([cmd, str(spec_path), "--trace", trace,
+                                "--out", str(part), "--resume"])
+        resumed = int(re.search(resumed_re, text).group(1))
+        if rc != 0 or resumed != done:
+            raise AssertionError(f"{cmd} --resume: rc {rc}, {resumed} "
+                                 f"resumed of {done} journaled")
+        if (part / "report.json").read_bytes() != \
+                (full / "report.json").read_bytes():
+            raise AssertionError(f"{cmd}: resumed report differs")
+        print(f"  (b) {cmd} CLI: uninterrupted {full_s:.2f} s; "
+              f"--max-wall-s tries (deadline s, exit, journaled) {tries}; "
+              f"--resume: {resumed} resumed, report equal by bytes "
+              f"(card: {card_name})")
+        out[cmd] = {"resumed": resumed, "max_wall_s": tries[-1][0]}
+    return out
+
+
+def big_campaign(card_name: str) -> dict:
+    """Phase 9 (c): the campaign smoke's fault model on a v5p 4x4x4 pod,
+    1024 scenarios, under every leg."""
+    from tpusim_torch.campaign import run_campaign
+
+    spec = {k: v for k, v in CAMPAIGN_SMOKE_SPEC.items()
+            if k not in ("slo", "candidate_slices")}
+    spec.update(name="campaign-v5p-64", chips=BIG_CAMPAIGN_CHIPS,
+                scenarios=BIG_CAMPAIGN_SCENARIOS)
+    legs = batch_legs(run_campaign, spec)
+    lanes = legs[str(BATCH_LEGS[-1])]["lanes"]
+    stats = legs["False"]["res"].stats.stats_dict()
+    print(f"  (c) campaign v5p-{BIG_CAMPAIGN_CHIPS}, "
+          f"{BIG_CAMPAIGN_SCENARIOS} scenarios "
+          f"({stats['campaign_scenarios_priced']} priced, "
+          f"{stats['campaign_partitioned_total']} partitioned): "
+          f"reports equal by bytes; host s " + " / ".join(
+              f"{leg} {rec['host_s']:.4f}" for leg, rec in legs.items())
+          + f"; {lanes_text(lanes)}; batch stats "
+          + "; ".join(f"{leg} {rec['res'].batch_stats.stats_dict()}"
+                      for leg, rec in legs.items() if leg != "False")
+          + f" (card: {card_name})")
+    return {leg: {"host_s": rec["host_s"],
+                  "launches": rec["launches"]["scan_rows"]}
+            for leg, rec in legs.items()} | lanes_record(lanes)
+
+
+def big_fleet_spec() -> dict:
+    """Phase 9 (d)'s fleet: the smoke's traffic and policies at a size
+    users run."""
+    return dict(FLEET_SMOKE_SPEC, name="fleet-8x300s", pods=BIG_FLEET_PODS,
+                horizon_s=BIG_FLEET_HORIZON_S, frontier=BIG_FLEET_FRONTIER)
+
+
+def big_fleet(card_name: str) -> dict:
+    """Phase 9 (d): the fleet smoke's traffic and policies on 8 pods
+    over 300 s, frontier targets 12 and 48 req/s up to 16 pods, without
+    batching and with the card's row scans."""
+    from tpusim_torch.fleet import run_fleet
+
+    legs = batch_legs(run_fleet, big_fleet_spec(),
+                      legs=(False, BATCH_LEGS[-1]))
+    res = legs["False"]["res"]
+    stats = res.stats.stats_dict()
+    lanes = legs[str(BATCH_LEGS[-1])]["lanes"]
+    needed = [row["pods_needed"] for row in res.doc["frontier"]["table"]]
+    print(f"  (d) fleet {BIG_FLEET_PODS} pods x {BIG_FLEET_HORIZON_S:g} s: "
+          f"{stats['fleet_states_priced']} states priced, "
+          f"{stats['fleet_requests_total']} requests, "
+          f"{stats['fleet_cells_total']} cells, pods needed {needed}; "
+          f"reports equal by bytes; host s " + " / ".join(
+              f"{leg} {rec['host_s']:.4f}" for leg, rec in legs.items())
+          + f"; {lanes_text(lanes)}; batch stats "
+          f"{legs[str(BATCH_LEGS[-1])]['res'].batch_stats.stats_dict()} "
+          f"(card: {card_name})")
+    return {leg: {"host_s": rec["host_s"],
+                  "launches": rec["launches"]["scan_rows"]}
+            for leg, rec in legs.items()} | lanes_record(lanes)
+
+
+def campaign_fleet(card_name: str, work: Path) -> dict:
+    """Phase 9: (a)-(d) in ``work`` (an empty directory).  Raises on any
+    failure."""
+    out = {}
+    t0 = time.perf_counter()
+    out["a"] = smokes(card_name)
+    out["b"] = cli_resume(card_name, work)
+    out["c"] = big_campaign(card_name)
+    out["d"] = big_fleet(card_name)
+    print(f"campaign and fleet: {time.perf_counter() - t0:.1f} s "
+          f"(card: {card_name})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1279,6 +1737,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         store = durable_store(card_name, Path(tmp))
 
+    phase(9, "compound-fault campaigns and the fleet twin")
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet = campaign_fleet(card_name, Path(tmp))
+
     record = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1326,6 +1788,9 @@ def main() -> int:
         "warm_states_vectorized_ms": store["c"]["vectorized"]["ms"],
         "store_golden_host_s": {f"{g}|{run}": v for (g, run), v
                                 in store["a"]["seconds"].items()},
+        "campaign_smokes": fleet["a"],
+        "campaign_v5p64_1024": fleet["c"],
+        "fleet_8x300s": fleet["d"],
     }]}
     keys = ("ms", "plain_ms", "library_ms", "library_fused_ms")
     times = [f32[k] for k in keys] + [bf16[k] for k in keys] + [

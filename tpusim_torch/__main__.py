@@ -18,11 +18,25 @@
                                     [--compile-cache[=DIR]]
     python -m tpusim_torch cache    {stats,verify,gc,clear} [--dir DIR]
                                     [--quota SIZE] [--max-entries N]
+    python -m tpusim_torch campaign <spec.json> --trace DIR [--out DIR]
+                                    [--resume] [--workers N]
+                                    [--result-cache[=DIR]]
+                                    [--compile-cache[=DIR]] [--max-wall-s S]
+                                    [--no-scenario-batch] [--json F]
+                                    [--verbose]
+    python -m tpusim_torch fleet    <spec.json> --trace DIR [--out DIR]
+                                    [--resume] [--workers N]
+                                    [--result-cache[=DIR]]
+                                    [--compile-cache[=DIR]] [--max-wall-s S]
+                                    [--no-scenario-batch] [--json F]
+                                    [--verbose]
     python -m tpusim_torch info     <trace-dir>
     python -m tpusim_torch workloads
 
-The output format is the reference's.  Its other subcommands wait for
-their slices of the port (see ROADMAP.md).
+The output format is the reference's (errors and refusals on stderr
+under the ``tpusim_torch`` prefix; a cancelled campaign or fleet run
+exits 3, a refused spec 1).  ``campaign`` has no ``--nodes`` yet.  The
+other subcommands wait for their slices of the port (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -183,6 +197,211 @@ def _cmd_cache(args: argparse.Namespace) -> int:
         return 0
     removed = clear_store(d)  # clear
     print(f"store: {d}\n  removed: {removed} file(s)")
+    return 0
+
+
+def _cmd_campaign(args: argparse.Namespace) -> int:
+    """Monte-Carlo compound-fault campaign: sample N fault scenarios
+    per pod slice from a seeded spec, price each through the shared
+    result cache, and report inflation distributions + the SLO
+    capacity answer.  Crash-safe: re-run with --resume to continue a
+    killed campaign from its last journaled scenario."""
+    from tpusim_torch.analysis import ValidationError
+    from tpusim_torch.campaign import JournalError, run_campaign
+    from tpusim_torch.guard.cancel import CancelToken, OperationCancelled
+
+    progress = None
+    if args.verbose:
+        def progress(msg: str) -> None:
+            print(f"  {msg}", file=sys.stderr)
+    cancel = None
+    if getattr(args, "max_wall_s", None):
+        cancel = CancelToken.after(args.max_wall_s)
+    try:
+        res = run_campaign(
+            args.spec,
+            trace_path=args.trace,
+            out_dir=args.out,
+            resume=args.resume,
+            result_cache=args.result_cache,
+            workers=args.workers,
+            progress=progress,
+            cancel=cancel,
+            compile_cache=args.compile_cache,
+            scenario_batch=(
+                False if args.no_scenario_batch else None),
+        )
+    except OperationCancelled as e:
+        hint = (
+            f"re-run with --resume --out {args.out} to continue from "
+            f"the last journaled scenario" if args.out
+            else "pass --out DIR to make cancelled campaigns resumable"
+        )
+        print(f"tpusim_torch campaign: cancelled: {e}; {hint}",
+              file=sys.stderr)
+        return 3
+    except ValidationError as e:
+        print(f"tpusim_torch campaign: spec refused:\n{e}",
+              file=sys.stderr)
+        return 1
+    except JournalError as e:
+        # existing-journal / foreign-resume refusals are user errors
+        # with a clear next step, not tracebacks
+        print(f"tpusim_torch campaign: {e}", file=sys.stderr)
+        return 1
+    doc = res.doc
+    s = res.stats
+    print(f"tpusim campaign: {doc['campaign']!r} seed={doc['seed']} "
+          f"spec={doc['spec_hash']} trace={doc['trace']}")
+    print(f"  {s.priced} scenario(s) priced, {s.resumed} resumed from "
+          f"journal, {s.partitioned} partitioned, {s.failed} failed "
+          f"({res.wall_seconds:.2f}s)")
+    for sl in doc["slices"]:
+        infl = sl["inflation"]
+        line = (f"  {sl['label']:12s} {sl['scenarios']} scenarios, "
+                f"partition rate {sl['partition_rate']:.1%}")
+        if infl is not None:
+            line += (f"; inflation p50 {infl['p50']:.3f}x "
+                     f"p95 {infl['p95']:.3f}x p99 {infl['p99']:.3f}x "
+                     f"max {infl['max']:.3f}x")
+        slo = sl.get("slo")
+        if slo is not None:
+            at = slo["step_ms_at_percentile"]
+            shown = f"{at:.3f}ms" if at is not None else "unbounded"
+            line += (f"; p{slo['percentile']:g} step {shown} vs SLO "
+                     f"{slo['step_time_ms']:g}ms -> "
+                     f"{'MEETS' if slo['meets'] else 'MISSES'}")
+        print(line)
+    cap = doc.get("capacity")
+    if cap is not None:
+        best = cap["smallest_meeting_slice"]
+        print(f"  capacity: smallest slice meeting "
+              f"{cap['slo_step_time_ms']:g}ms @ p{cap['percentile']:g} "
+              f"under sampled degradation: {best or 'NONE'}")
+    for k, v in s.stats_dict().items():
+        print(f"  {k} = {v:.0f}")
+    bs = getattr(res, "batch_stats", None)
+    if bs is not None and (bs.states or bs.lanes_cached or bs.skipped):
+        # only-when-active: batch accounting prints only when the
+        # lane-axis warm pass actually engaged this run
+        for k, v in bs.stats_dict().items():
+            print(f"  {k} = {v:.0f}")
+    if res.report_path is not None:
+        print(f"  report written to {res.report_path}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(doc, f, indent=2, sort_keys=True)
+            f.write("\n")
+        print(f"  report also written to {args.json}")
+    return 0
+
+
+def _cmd_fleet(args: argparse.Namespace) -> int:
+    """Traffic-driven fleet digital twin: a seeded discrete-event
+    simulation of N serving pods under an open-loop arrival process
+    with a campaign-style fault stream, governed by the serve daemon's
+    admission policies — goodput/MFU/p99-vs-load curves, a pods-needed
+    capacity frontier, energy per served request, and per-policy loss
+    attribution.  Crash-safe: re-run with --resume to continue with
+    zero journaled pricing intervals re-priced."""
+    from tpusim_torch.analysis import ValidationError
+    from tpusim_torch.fleet import FleetSpecError, JournalError, run_fleet
+    from tpusim_torch.guard.cancel import CancelToken, OperationCancelled
+
+    progress = None
+    if args.verbose:
+        def progress(msg: str) -> None:
+            print(f"  {msg}", file=sys.stderr)
+    cancel = None
+    if getattr(args, "max_wall_s", None):
+        cancel = CancelToken.after(args.max_wall_s)
+    try:
+        res = run_fleet(
+            args.spec,
+            trace_path=args.trace,
+            out_dir=args.out,
+            resume=args.resume,
+            result_cache=args.result_cache,
+            workers=args.workers,
+            progress=progress,
+            cancel=cancel,
+            compile_cache=args.compile_cache,
+            scenario_batch=(
+                False if args.no_scenario_batch else None),
+        )
+    except OperationCancelled as e:
+        hint = (
+            f"re-run with --resume --out {args.out} to continue from "
+            f"the last journaled pricing interval" if args.out
+            else "pass --out DIR to make cancelled fleet runs resumable"
+        )
+        print(f"tpusim_torch fleet: cancelled: {e}; {hint}", file=sys.stderr)
+        return 3
+    except FleetSpecError as e:
+        print(f"tpusim_torch fleet: spec refused ({e.code}): {e}",
+              file=sys.stderr)
+        return 1
+    except ValidationError as e:
+        print(f"tpusim_torch fleet: spec refused:\n{e}", file=sys.stderr)
+        return 1
+    except JournalError as e:
+        print(f"tpusim_torch fleet: {e}", file=sys.stderr)
+        return 1
+    doc = res.doc
+    s = res.stats
+    print(f"tpusim fleet: {doc['fleet']!r} seed={doc['seed']} "
+          f"spec={doc['spec_hash']} trace={doc['trace']}")
+    print(f"  {doc['pods']} pod(s) x {doc['chips']} {doc['arch']} "
+          f"chips over {doc['horizon_s']:g}s; healthy step "
+          f"{doc['healthy']['step_ms']:.3f}ms "
+          f"({s.states_priced} state(s) priced, {s.states_resumed} "
+          f"resumed, {s.pod_losses} pod loss(es); "
+          f"{res.wall_seconds:.2f}s)")
+    for r in doc["curve"]:
+        lat = r["latency_ms"]
+        line = (f"  {r['offered_rps']:8.1f} req/s -> "
+                f"{r['goodput_rps']:8.1f} goodput, "
+                f"mfu {r['mfu']:.3f}")
+        if lat is not None:
+            line += (f", p50 {lat['p50']:.1f}ms p99 {lat['p99']:.1f}ms")
+        losses = r["losses"]
+        line += (f"; lost: {losses['shed']} shed, "
+                 f"{losses['deadline']} deadline, "
+                 f"{losses['partition']} partition, "
+                 f"{losses['restart']} restart")
+        if r.get("slo") is not None:
+            line += f" -> {'MEETS' if r['slo']['meets'] else 'MISSES'}"
+        print(line)
+    frontier = doc.get("frontier")
+    if frontier is not None:
+        for row in frontier["table"]:
+            need = row["pods_needed"]
+            shown = (str(need) if need is not None
+                     else f"MORE THAN {frontier['max_pods']}")
+            print(f"  frontier: {row['target_rps']:g} req/s at "
+                  f"p{frontier['percentile']:g} <= "
+                  f"{frontier['slo_latency_ms']:g}ms needs "
+                  f"{shown} pod(s)")
+    for r in doc["recovery"]:
+        print(f"  recovery: pod {r['pod']} lost at {r['at_s']:.1f}s, "
+              f"{r['survivors']} survivor(s), re-shard "
+              f"{r['chosen'] or 'none'}, recover in "
+              f"{r['time_to_recover_s']:.1f}s")
+    for k, v in s.stats_dict().items():
+        print(f"  {k} = {v:.0f}")
+    bs = getattr(res, "batch_stats", None)
+    if bs is not None and (bs.states or bs.lanes_cached or bs.skipped):
+        # only-when-active: batch accounting prints only when the
+        # lane-axis warm pass actually engaged this run
+        for k, v in bs.stats_dict().items():
+            print(f"  {k} = {v:.0f}")
+    if res.report_path is not None:
+        print(f"  report written to {res.report_path}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(doc, f, indent=2, sort_keys=True)
+            f.write("\n")
+        print(f"  report also written to {args.json}")
     return 0
 
 
@@ -377,6 +596,107 @@ def main(argv: list[str] | None = None) -> int:
     pca.add_argument("--max-entries", type=int, default=None, metavar="N",
                      help="gc: record-count quota to collect down to")
     pca.set_defaults(fn=_cmd_cache)
+
+    pcm = sub.add_parser(
+        "campaign",
+        help="seeded Monte-Carlo compound-fault campaign: N sampled "
+             "degradation scenarios per pod slice -> inflation "
+             "distributions (p50/p95/p99/max), partition rate, energy "
+             "deltas, and the smallest slice meeting a step-time SLO",
+    )
+    pcm.add_argument("spec", help="campaign spec JSON")
+    pcm.add_argument("--trace", required=True,
+                     help="trace directory the campaign replays")
+    pcm.add_argument("--out", default=None, metavar="DIR",
+                     help="campaign state dir: crash-safe journal.jsonl "
+                          "+ report.json (required for --resume)")
+    pcm.add_argument("--resume", action="store_true",
+                     help="continue a killed campaign from the last "
+                          "journaled scenario in --out (completed "
+                          "scenarios are never re-priced)")
+    pcm.add_argument("--workers", type=int, default=None, metavar="N",
+                     help="fan each replay's module pricing over N "
+                          "processes (scenarios run serially so the "
+                          "journal stays a true prefix)")
+    pcm.add_argument("--result-cache", nargs="?", const=True,
+                     default=None, metavar="DIR",
+                     help="share the engine-result cache on disk "
+                          "(in-memory sharing across scenarios is "
+                          "always on; this persists it across runs)")
+    pcm.add_argument("--compile-cache", nargs="?", const=True,
+                     default=None, metavar="DIR",
+                     help="durable compiled-module tier: a fresh "
+                          "campaign over an already-compiled trace "
+                          "parses and compiles nothing "
+                          "(tpusim_torch.fastpath.store)")
+    pcm.add_argument("--max-wall-s", type=float, default=None, metavar="S",
+                     help="cooperative wall-clock budget: the campaign "
+                          "cancels at the next scenario boundary with "
+                          "everything completed journaled — --resume "
+                          "re-prices nothing (exit 3)")
+    pcm.add_argument("--no-scenario-batch", action="store_true",
+                     help="disable scenario-batched pricing (the "
+                          "lane-axis batch pass that warms the result "
+                          "cache per slice; report bytes are identical "
+                          "either way — this only trades speed for a "
+                          "pure per-state walk)")
+    pcm.add_argument("--json", default=None,
+                     help="also write the report document here")
+    pcm.add_argument("--verbose", action="store_true",
+                     help="per-scenario progress on stderr")
+    pcm.set_defaults(fn=_cmd_campaign)
+
+    pfl = sub.add_parser(
+        "fleet",
+        help="traffic-driven fleet digital twin: N simulated serving "
+             "pods under an open-loop arrival process with a seeded "
+             "fault stream and the serve daemon's admission policies "
+             "-> goodput/MFU/p99-vs-load curves, a pods-needed "
+             "capacity frontier, energy per request, and per-policy "
+             "loss attribution",
+    )
+    pfl.add_argument("spec", help="fleet spec JSON")
+    pfl.add_argument("--trace", required=True,
+                     help="trace directory the fleet serves")
+    pfl.add_argument("--out", default=None, metavar="DIR",
+                     help="fleet state dir: crash-safe journal.jsonl "
+                          "+ report.json (required for --resume)")
+    pfl.add_argument("--resume", action="store_true",
+                     help="continue a killed fleet run from its "
+                          "journal in --out (journaled pricing "
+                          "intervals are never re-priced)")
+    pfl.add_argument("--workers", type=int, default=None, metavar="N",
+                     help="fan each replay's module pricing over N "
+                          "processes (states price serially so the "
+                          "journal stays a true prefix)")
+    pfl.add_argument("--result-cache", nargs="?", const=True,
+                     default=None, metavar="DIR",
+                     help="share the engine-result cache on disk "
+                          "(in-memory sharing across states is "
+                          "always on; this persists it across runs)")
+    pfl.add_argument("--compile-cache", nargs="?", const=True,
+                     default=None, metavar="DIR",
+                     help="durable compiled-module tier: a fresh "
+                          "fleet run over an already-compiled trace "
+                          "parses and compiles nothing "
+                          "(tpusim_torch.fastpath.store)")
+    pfl.add_argument("--max-wall-s", type=float, default=None, metavar="S",
+                     help="cooperative wall-clock budget: the run "
+                          "cancels at the next pricing/cell boundary "
+                          "with everything priced so far journaled — "
+                          "--resume re-prices nothing (exit 3)")
+    pfl.add_argument("--no-scenario-batch", action="store_true",
+                     help="disable scenario-batched pricing (the "
+                          "lane-axis batch pass that warms the result "
+                          "cache per pod; report bytes are identical "
+                          "either way — this only trades speed for a "
+                          "pure per-state walk)")
+    pfl.add_argument("--json", default=None,
+                     help="also write the report document here")
+    pfl.add_argument("--verbose", action="store_true",
+                     help="per-state/per-cell progress on stderr")
+    pfl.set_defaults(fn=_cmd_fleet)
+
 
     pc = sub.add_parser("capture", help="capture a registered workload")
     pc.add_argument("workload")

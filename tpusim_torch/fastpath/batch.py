@@ -40,11 +40,11 @@ Byte-identity discipline (extends price.py's invariants per lane):
 
 :func:`warm_states` batch-prices the launch classes of a set of
 degradation states and publishes each lane into a result cache under the
-key the per-state walk looks up.  Its callers, campaign and fleet, wait
-for their slice (ROADMAP A8).
+key the per-state walk looks up; the campaign and fleet executors warm
+their pending degradation states through it.  A cancel token is checked
+between steps, states and modules.
 
-Not ported yet: cancellation of a batch pass (A11) and the ``native``
-batch kernel (A10).
+Not ported yet: the ``native`` batch kernel (A10).
 """
 
 from __future__ import annotations
@@ -214,10 +214,12 @@ class _BatchCtx:
         "overlap", "cs_col", "hs_col", "ovh_col", "deg_col",
         "any_degraded", "coll_memo", "scan_rows", "step_cache",
         "uniform_memo", "seen_cyc", "seen_hbm", "seen_flops", "seen_mxu",
+        "cancel",
     )
 
-    def __init__(self, engine, cm, lanes, spill_frac, backend):
+    def __init__(self, engine, cm, lanes, spill_frac, backend, cancel):
         self.cm = cm
+        self.cancel = cancel
         self.lanes = lanes
         self.S = len(lanes)
         self.views = {}
@@ -350,8 +352,8 @@ class _BatchCtx:
 # ---------------------------------------------------------------------------
 
 
-def price_module_batch(module, engines, backend: str | None = None
-                       ) -> list[EngineResult]:
+def price_module_batch(module, engines, backend: str | None = None,
+                       cancel=None) -> list[EngineResult]:
     """Price one module under S launch classes in one lane-axis pass.
 
     ``engines`` is one :class:`~tpusim_torch.timing.engine.Engine` per
@@ -359,7 +361,9 @@ def price_module_batch(module, engines, backend: str | None = None
     ``topology``.  Returns one :class:`EngineResult` per lane,
     byte-identical to what the serial walk produces for that lane.
     ``backend="serial"`` degenerates to the per-lane serial walk;
-    ``"cuda"`` runs the row scans on the card and raises without one."""
+    ``"cuda"`` runs the row scans on the card and raises without one.
+    ``cancel`` (a :class:`~tpusim_torch.guard.cancel.CancelToken`) is
+    checked once per step, for every lane at once."""
     from tpusim_torch.perf.cache import compiled_for, topology_signature
 
     backend = resolve_batch_backend(backend)
@@ -390,7 +394,7 @@ def price_module_batch(module, engines, backend: str | None = None
     if resident is not None:
         for r in results:
             r.vmem_resident_bytes = resident
-    ctx = _BatchCtx(engine, cm, lanes, spill_frac, backend)
+    ctx = _BatchCtx(engine, cm, lanes, spill_frac, backend, cancel)
     ends = _price_comp_batch(
         ctx, entry_of(module, cm), [0.0] * len(lanes), results, 0
     )
@@ -589,8 +593,12 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
     dma_names: list[set[str]] = [set() for _ in range(S)]
     dma_busy_until = list(t0s)
     dma_segments: list[list[list[float]]] = [[] for _ in range(S)]
+    cancel = ctx.cancel
 
     for si, step in enumerate(cc.steps):
+        # one check covers every lane of the step
+        if cancel is not None:
+            cancel.check()
         kind = step[0]
 
         # ---- clean run of ordinary sync ops ---------------------------
@@ -1041,6 +1049,7 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
 
 def warm_states(
     pod, cfg, topo, states, cache, *, backend: str | None = None,
+    cancel=None,
 ) -> BatchStats:
     """Batch-price the launch classes a set of degradation states will
     consume and publish each lane under its exact per-state cache key.
@@ -1053,7 +1062,8 @@ def warm_states(
     keys minted here are exactly the ones ``CachedEngine.run`` looks up:
     a per-state driver walk that follows consumes pure cache hits and
     its bytes cannot move.  ``backend="cuda"`` runs the lanes' row scans
-    on the card (``scan_rows``) and must be asked for explicitly."""
+    on the card (``scan_rows``) and must be asked for explicitly.
+    ``cancel`` is checked before each state and each module's pass."""
     from tpusim_torch.faults import TopologyPartitionedError
     from tpusim_torch.ir import CommandKind
 
@@ -1073,6 +1083,8 @@ def warm_states(
     lanes_by_module: dict[str, list] = {}
     seen_keys: set[str] = set()
     for state in states:
+        if cancel is not None:
+            cancel.check()
         if state is not None and state.windowed:
             stats.skipped += 1
             continue
@@ -1106,6 +1118,8 @@ def warm_states(
                 )
 
     for mod_name, lanes in lanes_by_module.items():
+        if cancel is not None:
+            cancel.check()
         module = pod.modules[mod_name]
         engines = [
             Engine(cfg, topology=tk, clock_scale=cs, hbm_scale=hs)
@@ -1115,7 +1129,9 @@ def warm_states(
             stats.skipped += len(lanes)
             continue
         try:
-            results = price_module_batch(module, engines, backend=backend)
+            results = price_module_batch(
+                module, engines, backend=backend, cancel=cancel,
+            )
         except TopologyPartitionedError:
             # a lane whose dead links disconnect this module's chips:
             # leave the whole group to the per-state walk, which records

@@ -153,11 +153,13 @@ class _Ctx:
     __slots__ = (
         "cm", "coll", "views", "arch", "config", "degraded", "cs", "hs",
         "spill_frac", "hbm_bpc", "vmem_bpc", "overhead", "dma_lat",
-        "contend", "overlap",
+        "contend", "overlap", "cancel",
     )
 
     def __init__(self, engine, cm, coll, spill_frac):
         self.cm = cm
+        # cooperative cancellation: checked between compiled blocks
+        self.cancel = engine.cancel
         self.coll = coll
         self.views = {}
         a = engine.arch
@@ -341,8 +343,11 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
     dma_names: set[str] = set()
     dma_busy_until = t0
     dma_segments: list[list[float]] = []
+    cancel = ctx.cancel
 
     for step in cc.steps:
+        if cancel is not None:
+            cancel.check()
         kind = step[0]
 
         # ---- clean run of ordinary sync ops ---------------------------

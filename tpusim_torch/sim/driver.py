@@ -19,10 +19,12 @@ and the report carries the schedule's ``faults_*`` stats.  An engine-
 result cache (``result_cache=``, ``cache_*`` stats) and a worker count
 (``workers=``: the distinct launch classes priced over a process pool
 up front, ``pool_*`` stats) leave every other stat unchanged; a cache
-under a quota adds ``guard_*`` stats.
+under a quota adds ``guard_*`` stats.  A cancel token (``cancel=``,
+:mod:`tpusim_torch.guard.cancel`) is checked before every command and
+before the pool forks, and rides into every engine.
 
 Not ported yet: validation (ROADMAP A9), the observability layer and its
-"faults" lane (A10), cancellation and the wall-clock and memory limits
+"faults" lane (A10), the wall-clock and memory limits of ``simulate``
 (A11).
 """
 
@@ -57,6 +59,7 @@ def _price_segment_worker(item):
     Pure: same engine math as the serial path, so the returned counters
     are bit-identical to an in-process run."""
     name, scales = item
+    # tokens are process-local: a worker prices its segment to completion
     cfg, topo, modules, cache, backend = pool_context()
     return CachedEngine(
         cfg, topology=topo, clock_scale=scales[0], hbm_scale=scales[1],
@@ -141,9 +144,13 @@ class SimDriver:
         workers: int | None = None,
         pricing_backend: str | None = None,
         compile_cache=None,
+        cancel=None,
     ):
         self.config = config
         self.arch = config.arch
+        # cooperative cancellation (tpusim_torch.guard.CancelToken | None):
+        # checked at command grain here and inside every engine walk
+        self.cancel = cancel
         # None = the default torus for the pod's device count
         self.topology = topology
         # fault schedule (FaultSchedule | path | JSON text | dict); None =
@@ -172,6 +179,7 @@ class SimDriver:
         t_start = time.perf_counter()
         cfg = self.config
         arch = self.arch
+        cancel = self.cancel
 
         n_devices = max(
             (int(pod.meta.get("num_devices", 0) or 0)),
@@ -214,7 +222,7 @@ class SimDriver:
                 e = engines[scales] = CachedEngine(
                     cfg, topology=topo, clock_scale=scales[0],
                     hbm_scale=scales[1], result_cache=self.result_cache,
-                    pricing_backend=self.pricing_backend,
+                    pricing_backend=self.pricing_backend, cancel=cancel,
                 )
             return e
 
@@ -332,6 +340,10 @@ class SimDriver:
                 else:
                     remaining.append(mkey)
             if len(remaining) > 1:
+                if cancel is not None:
+                    # last check before forking; the parent checks again
+                    # at every command below
+                    cancel.check()
                 priced = map_ordered(
                     _price_segment_worker, remaining, workers=workers,
                     context=(cfg, topo, pod.modules, self.result_cache,
@@ -370,6 +382,10 @@ class SimDriver:
             # order — the stream-window gate
             kernel_ends: list[float] = []
             for cmd in dev.commands:
+                # a cancel cannot split a command: the whole launch
+                # prices or the walk raises before it starts
+                if cancel is not None:
+                    cancel.check()
                 key = (dev_id, cmd.stream_id)
                 ready = stream_free[key]
                 if len(kernel_ends) >= window:

@@ -20,9 +20,10 @@ core.
 ``_run_serial`` kept here as the reference.  A degraded chip (a straggler
 clock, a throttled HBM) prices through the ``clock_scale``/``hbm_scale``
 multipliers, which the driver takes from the fault schedule's view at
-each kernel's issue cycle (:mod:`tpusim_torch.faults`).  Not ported yet:
-the observability sampler (ROADMAP A10) and cooperative cancellation
-(A11).
+each kernel's issue cycle (:mod:`tpusim_torch.faults`).  A cancel token
+(:mod:`tpusim_torch.guard.cancel`) is checked every ``CHECK_EVERY_OPS``
+ops of the serial walk and between the fastpath's compiled blocks.  Not
+ported yet: the observability sampler (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -354,8 +355,12 @@ class Engine:
         clock_scale: float = 1.0,
         hbm_scale: float = 1.0,
         pricing_backend: str | None = None,
+        cancel=None,
     ):
         self.config = config
+        # cooperative cancellation (tpusim_torch.guard.CancelToken | None):
+        # changes whether a result is produced, never its value
+        self.cancel = cancel
         self.arch = config.arch
         self.cost = CostModel(self.arch)
         # pricing backend (tpusim_torch.fastpath): None/"auto" resolves to
@@ -473,8 +478,15 @@ class Engine:
         resume_op = self.config.resume_op if depth == 0 else 0
         checkpoint_op = self.config.checkpoint_op if depth == 0 else 0
         skipped_starts: set[str] = set()
+        # one pointer compare per op when ungoverned; a real check every
+        # CHECK_EVERY_OPS ops
+        cancel = self.cancel
+        if cancel is not None:
+            from tpusim_torch.guard.cancel import CHECK_EVERY_OPS as _stride
 
         for op_index, op in enumerate(comp.ops):
+            if cancel is not None and op_index % _stride == 0:
+                cancel.check()
             if checkpoint_op and op_index >= checkpoint_op:
                 break
             if resume_op and op_index < resume_op:
