@@ -12,7 +12,9 @@ order (any failure exits non-zero and prints no result):
 
 1. the card's name and power limit (``nvidia-smi``) and the CUDA version;
 2. build every kernel from ``tpusim_torch/csrc`` with nvcc (timed), and
-   print ptxas's registers and spills for every instantiation;
+   the instruction probes (``mma_probe.cu``), one nvcc per source, all
+   started together; print ptxas's registers, shared memory and spills for
+   every instantiation, and fail on a kernel's spill;
 3. kernel vs plain version on the card, at the main path's shapes and at
    shapes that take the kernel's edges (a sequence that is not a multiple
    of the key tile, padded and unaligned head dims), in f32 and bf16;
@@ -36,12 +38,20 @@ order (any failure exits non-zero and prints no result):
    host seconds; (b) ``price_module_batch`` over ``llama_tiny_tp2dp2``'s
    module at v5p with 64 degraded lanes (seeded scales in (0.5, 1]) with
    ``backend="cuda"`` — the ``scan_rows`` kernel — with the launch counters
-   set to 0 just before and read just after, every lane's result equal to
+   set to 0 just before and read just after: one launch per run step
+   (printed with the lanes per launch), every lane's result equal to
    ``"vectorized"``'s and to the lane's serial walk; (c) ``scan_rows``
    against its plain version by bytes on seeded matrices, S in {1, 64,
-   4096} lanes x k in {1, 47, 4096} ops, values from 1e-3 to 1e9; (d) the
-   times of (b) and (c): kernel, plain version, the host row scan,
-   ``torch.cumsum`` on the card as the yardstick, and the bound;
+   4096} lanes x k in {1, 47, 4096} ops, values from 1e-3 to 1e9, and its
+   segmented entry ``scan_segments`` by bytes on every step launch of (b),
+   on the same steps at 746 lanes, and on ragged segments (empty, one row,
+   repeated and unsorted rows, 4096 rows) at 1, 32, 33 and 746 lanes,
+   ops-major and at lane stride 0; (d) the times of (b) and (c): the
+   batched call per backend, each step launch of (b) at 64 and 746 lanes
+   (the kernel alone and the route's round trip), the latency of a
+   dependent float64 add (``mma_probe.cu``), and at every shape of (c)
+   kernel, plain version, the host row scan, ``torch.cumsum`` on the card
+   as the yardstick, the chain floor (k dependent adds) and the bound;
 7. degraded pods on the card's host, with the kernels' launch counters set
    to 0 just before and read just after (they must stay 0: this path
    launches no kernel), each part with its host seconds: (a) the faults
@@ -74,7 +84,8 @@ order (any failure exits non-zero and prints no result):
    one cold llama run inside this process, which holds CUDA; (c)
    ``warm_states`` over 64 seeded chip-degradation states of
    ``llama_tiny_tp2dp2`` @ v5p with ``backend="cuda"`` (``scan_rows``
-   launches > 0) and ``"vectorized"`` (0 launches), each into a fresh disk
+   launches > 0, and lanes per launch) and ``"vectorized"`` (0 launches),
+   each into a fresh disk
    result cache, every published record equal by bytes to the one the
    per-state ``CachedEngine.run`` writes, ``auto`` still resolving to
    ``vectorized``; (d) the ``cache`` CLI over (a)'s store: ``stats`` counts
@@ -139,6 +150,7 @@ from tpusim_torch.kernels.bench import (  # noqa: E402
     REPS,
     SAMPLES,
     card,
+    dadd_latency,
     inputs,
     time_ms,
 )
@@ -318,17 +330,27 @@ CHECKS = (
 )
 
 
+#: sources built in phase 2: every kernel, and the instruction probes whose
+#: dependent-add latency phase 6 (d) reads
+BUILT = tuple(k[0] for k in KERNELS) + ("mma_probe",)
+
+
 def build_kernels() -> None:
-    """Phase 2: build every kernel, one nvcc per source, all started
-    together; print ptxas's registers and spills."""
+    """Phase 2: build every kernel and the probes, one nvcc per source, all
+    started together; print ptxas's registers, shared memory and spills,
+    and fail on a spill in a kernel."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
-        libs = list(pool.map(build.build_library, [k[0] for k in KERNELS]))
-    for so in libs:
+    with ThreadPoolExecutor(max_workers=len(BUILT)) as pool:
+        libs = list(pool.map(build.build_library, BUILT))
+    for name, so in zip(BUILT, libs):
         log = (so.parent / "build.log").read_text()
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+                print(f"  ptxas {name}: {line.strip()}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                               line)
+            if name != "mma_probe" and spills and spills.groups() != ("0", "0"):
+                raise AssertionError(f"{name} spills: {line.strip()}")
     print(f"build: {time.perf_counter() - t0:.1f} s")
 
 
@@ -543,19 +565,47 @@ def docs(results) -> list[str]:
     return [json.dumps(result_to_doc(r)) for r in results]
 
 
+def run_steps(cm, comp: str, depth: int = 0) -> int:
+    """Run steps the batched walk visits from ``comp`` (a while body's, a
+    callee's and every branch's once per visit): the ``cuda`` route's
+    launches when no lane's accumulators diverge."""
+    if depth > 32:
+        return 0
+    n = 0
+    for step in cm.comp(comp).steps:
+        if step[0] == "run":
+            n += 1
+        elif step[0] in ("while", "call"):
+            n += run_steps(cm, step[4], depth + 1)
+        elif step[0] == "cond":
+            n += sum(run_steps(cm, b, depth + 1) for b in step[4])
+    return n
+
+
 def batch_on_card(module, engines) -> dict:
     """Phase 6 (b): the batched pricing call with its row scans on the
-    card, the kernels' counters set to 0 just before and read just after;
-    every lane against the host row scans and against its serial walk."""
+    card, the kernels' counters set to 0 just before and read just after
+    (one ``scan_rows`` launch per run step); every lane against the host
+    row scans and against its serial walk."""
+    from tpusim_torch.fastpath.price import entry_of
+    from tpusim_torch.perf.cache import compiled_for
+
+    lanes_engines = engines()
+    cm = compiled_for(module, lanes_engines[0])
+    steps = run_steps(cm, entry_of(module, cm))
     for *_, reset in KERNELS:
         reset()
-    got = price_module_batch(module, engines(), backend="cuda")
-    torch.cuda.synchronize()
+    with scan_lanes() as lanes:
+        got = price_module_batch(module, lanes_engines, backend="cuda")
+        torch.cuda.synchronize()
     launches = {name: count() for name, _, _, count, _ in KERNELS}
     print(f"  price_module_batch llama_tiny_tp2dp2 @ v5p, {BATCH_LANES} lanes, "
-          f"backend cuda: kernel launches {launches}")
-    if launches["scan_rows"] < 1:
-        raise AssertionError("the batched pricing call never launched scan_rows")
+          f"backend cuda: kernel launches {launches}; {steps} run steps; "
+          f"{lanes_text(lanes)} a call")
+    if launches["scan_rows"] != steps or len(lanes) != steps:
+        raise AssertionError(f"the batched pricing call launched scan_rows "
+                             f"{launches['scan_rows']} times for {steps} run "
+                             f"steps")
     got = docs(got)
     host = docs(price_module_batch(module, engines(), backend="vectorized"))
     serial = docs(e._run_serial(module) for e in engines())
@@ -599,11 +649,188 @@ def check_scan_rows() -> float:
     return worst
 
 
-def time_fastpath(module, engines, card_name: str) -> dict:
-    """Phase 6 (d): the batched call under both backends (host clock), and
-    scan_rows at every shape of (c) and at SCAN_TIMED: kernel (CUDA
+#: phase 6 (c): ragged segments over a [RAGGED_OPS, S] matrix — a run,
+#: empty ones (whole chain and end only), one row, repeated and unsorted
+#: rows, and one longer than the kernel's ring — at these lane counts, on
+#: an ops-major matrix and on one column shared by every lane (stride 0)
+RAGGED_OPS = 4096
+RAGGED = (
+    (list(range(3, 20)), True),
+    ([], True),
+    ([7], False),
+    ([], False),
+    ([5, 5, 5, 2], False),
+    ([4095, 0, 17, 8, 8, 30], True),
+    (list(range(RAGGED_OPS))[::-1], True),
+    (list(range(0, RAGGED_OPS, 3)), False),
+)
+RAGGED_LANES = (1, 32, 33, 746)
+#: phase 6 (c, d): the lanes of a 1024-scenario campaign's warm group
+#: (phase 9 c), beside phase 6 (b)'s 64
+CAMPAIGN_LANES = 746
+
+
+def log_uniform(shape, seed: int) -> torch.Tensor:
+    """Seeded float64 values, log-uniform from 1e-3 to 1e9, on the CPU."""
+    return torch.from_numpy(np.exp(np.random.default_rng(seed).uniform(
+        math.log(1e-3), math.log(1e9), size=shape)))
+
+
+@contextlib.contextmanager
+def step_scans():
+    """Record the (plan, seeds, matrix on the card) of every launch the
+    ``cuda`` route makes."""
+    rec = []
+    real = fp_batch._CardScans.scan
+
+    def scan(self, plan, seeds, mat=None, column=None):
+        rec.append((plan, seeds, mat if column is None else column.cuda()))
+        return real(self, plan, seeds, mat=mat, column=column)
+    fp_batch._CardScans.scan = scan
+    try:
+        yield rec
+    finally:
+        fp_batch._CardScans.scan = real
+
+
+def segment_args(plan, seeds: torch.Tensor, mat: torch.Tensor) -> tuple:
+    """``scan_segments``' arguments on the card for a plan, ``[n_seg, S]``
+    seeds and a matrix (``[n]``: one column shared by every lane)."""
+    table, idx = plan.split(plan.head.cuda())
+    seeds = seeds.cuda()
+    mat = mat.cuda()
+    if mat.dim() == 1:
+        mat = mat[:, None].expand(mat.shape[0], seeds.shape[1])
+    return mat, idx, table, seeds, plan.out_rows
+
+
+def path_steps(module, engines) -> list:
+    """The plans, seeds and matrices of the ``cuda`` route's launches in
+    phase 6 (b)'s call."""
+    with step_scans() as rec:
+        price_module_batch(module, engines(), backend="cuda")
+    torch.cuda.synchronize()
+    return rec
+
+
+def check_scan_segments(steps) -> float:
+    """Phase 6 (c), the segmented entry: the kernel against its plain
+    version by bytes on every step launch of (b) (64 lanes), on the same
+    steps at :data:`CAMPAIGN_LANES` lanes, and on :data:`RAGGED` at
+    :data:`RAGGED_LANES` lanes, ops-major and at lane stride 0; returns
+    the largest absolute difference (0)."""
+    cases = []
+    for i, (plan, seeds, mat) in enumerate(steps):
+        cases.append((f"llama step {i}", plan,
+                      torch.tensor(seeds, dtype=torch.float64), mat))
+        cases.append((f"llama step {i}", plan,
+                      log_uniform((plan.n_seg, CAMPAIGN_LANES), SCAN_SEED + i),
+                      log_uniform((mat.shape[0], CAMPAIGN_LANES), SCAN_SEED)))
+    ragged = sr.pack_segments(RAGGED)
+    for lanes in RAGGED_LANES:
+        seeds = log_uniform((len(RAGGED), lanes), SCAN_SEED + lanes)
+        cases.append(("ragged", ragged, seeds,
+                      log_uniform((RAGGED_OPS, lanes), SCAN_SEED)))
+        cases.append(("ragged, lane stride 0", ragged, seeds,
+                      log_uniform((RAGGED_OPS,), SCAN_SEED)))
+    worst = 0.0
+    for what, plan, seeds, mat in cases:
+        args = segment_args(plan, seeds, mat)
+        got = sr.scan_segments(*args).cpu()
+        want = sr.scan_segments_reference(*(a.cpu() for a in args[:4]),
+                                          plan.out_rows)
+        same = got.numpy().tobytes() == want.numpy().tobytes()
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        if not same or what.startswith(("ragged", "llama step 0")):
+            print(f"  scan_segments {what}, {plan.n_seg} segments of "
+                  f"{min(n for _, n, _ in plan.spans)}-"
+                  f"{max(n for _, n, _ in plan.spans)} rows, "
+                  f"{seeds.shape[1]} lanes: bytes "
+                  f"{'equal' if same else 'DIFFER'} to the plain version "
+                  f"(max abs diff {err:.3g})")
+        if not same:
+            raise AssertionError(f"scan_segments differs: {what}, "
+                                 f"{seeds.shape[1]} lanes")
+    print(f"  scan_segments: {len(cases)} cases equal by bytes to the plain "
+          f"version ({len(steps)} llama steps at {BATCH_LANES} and "
+          f"{CAMPAIGN_LANES} lanes, ragged and stride-0 at {RAGGED_LANES})")
+    return worst
+
+
+#: phase 6 (d): calls a device timing enqueues behind one sleep kernel of
+#: DEVICE_SLEEP cycles (about 2 ms), longer than the host takes to enqueue
+#: them
+DEVICE_REPS = 40
+DEVICE_SLEEP = 4_000_000
+
+
+def device_ms(fn) -> float:
+    """The card's time for one call of ``fn``, median of SAMPLES: a sleep
+    kernel holds the card while the host enqueues DEVICE_REPS calls, so
+    the events around them time the card's work and not the host's
+    enqueueing (at a run step's shapes a call's host work outlasts its
+    kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(SAMPLES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(DEVICE_SLEEP)
+        start.record()
+        for _ in range(DEVICE_REPS):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / DEVICE_REPS)
+    return statistics.median(times)
+
+
+def time_steps(steps, card_name: str) -> dict:
+    """Phase 6 (d), the time the path pays: each of (b)'s step launches at
+    64 and :data:`CAMPAIGN_LANES` lanes: the wrapper's call back to back
+    (CUDA events; at these shapes its host work, a launch's overhead), the
+    kernel on the card (:func:`device_ms`), and the route's whole round
+    trip (host clock: staging, the copy over, the launch, the copy back and
+    the synchronisation); min / median / max over the steps and their sum,
+    a batched call's scan time."""
+    card = fp_batch._CardScans("cuda")
+    out = {}
+    for lanes in (BATCH_LANES, CAMPAIGN_LANES):
+        call, device, trip = [], [], []
+        for i, (plan, seeds, mat) in enumerate(steps):
+            if lanes != BATCH_LANES:
+                seeds = log_uniform((plan.n_seg, lanes), SCAN_SEED + i).tolist()
+                mat = log_uniform((mat.shape[0], lanes), SCAN_SEED).cuda()
+            args = segment_args(plan, torch.tensor(seeds, dtype=torch.float64),
+                                mat)
+            call.append(time_ms(lambda: sr.scan_segments(*args)))
+            device.append(device_ms(lambda: sr.scan_segments(*args)))
+            trip.append(host_ms(lambda: card.scan(plan, seeds, mat=mat),
+                                samples=9))
+        out[lanes] = {"call_ms": call, "device_ms": device,
+                      "round_trip_ms": trip}
+        rows = [n for p, _, _ in steps for _, n, _ in p.spans]
+        print(f"time scan_segments, {len(steps)} llama step launches at "
+              f"{lanes} lanes ({min(rows)}-{max(rows)} rows a segment), min / "
+              f"median / max and sum over the steps: the wrapper's call "
+              f"{min(call):.4f} / {statistics.median(call):.4f} / "
+              f"{max(call):.4f} ms, sum {sum(call):.4f} (CUDA events, back to "
+              f"back); the kernel on the card {min(device):.4f} / "
+              f"{statistics.median(device):.4f} / {max(device):.4f} ms, sum "
+              f"{sum(device):.4f}; the round trip {min(trip):.4f} / "
+              f"{statistics.median(trip):.4f} / {max(trip):.4f} ms, sum "
+              f"{sum(trip):.4f} (host clock) (card: {card_name})")
+    return out
+
+
+def time_fastpath(module, engines, steps, card_name: str) -> dict:
+    """Phase 6 (d): the batched call under both backends (host clock), the
+    step launches of (b) (:func:`time_steps`), the latency of a dependent
+    float64 add, and scan_rows at every shape of (c): kernel (CUDA
     events), plain version and host row scan (host clock), torch.cumsum on
-    the card as the yardstick, and the bound."""
+    the card as the yardstick, the chain floor and the bound."""
     out = {}
     for backend in ("cuda", "vectorized"):
         out[f"batch_{backend}_ms"] = host_ms(
@@ -616,6 +843,12 @@ def time_fastpath(module, engines, card_name: str) -> dict:
           f"{out['batch_vectorized_ms']:.2f} ms, the lanes' serial walks "
           f"{out['serial_walk_ms']:.2f} ms (host clock, median; card: "
           f"{card_name})")
+    out["steps"] = time_steps(steps, card_name)
+    lat = dadd_latency()
+    out["dadd"] = lat
+    print(f"latency of a dependent __dadd_rn: {lat['cycles_per_add']:.3f} "
+          f"cycles, {lat['ns_per_add']:.4f} ns at {lat['clock_ghz']:.3f} GHz "
+          f"(one warp, {lat['adds']} adds; card: {card_name})")
     for lanes in SCAN_LANES:
         for ops in SCAN_OPS:
             seeds, mat = scan_inputs(lanes, ops, SCAN_SEED + 1)
@@ -635,7 +868,12 @@ def time_fastpath(module, engines, card_name: str) -> dict:
                 == sr.scan_rows_reference(seeds, mat).numpy().tobytes())
             nbytes = 2 * lanes * (ops + 1) * 8
             bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
-            ops_ms = lanes * ops / PEAK_F64_FLOPS * 1e3
+            # a lane's adds are dependent: the operations take at least the
+            # chain (k adds, each one dependent add's latency), and at least
+            # all of them at the f64 peak rate
+            t["chain_floor_ms"] = ops * lat["ns_per_add"] * 1e-6
+            ops_ms = max(lanes * ops / PEAK_F64_FLOPS * 1e3,
+                         t["chain_floor_ms"])
             t["bound_ms"] = max(bytes_ms, ops_ms)
             t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
             print(f"time scan_rows [{ops}, {lanes}]: kernel {t['ms']:.4f} ms, "
@@ -643,8 +881,12 @@ def time_fastpath(module, engines, card_name: str) -> dict:
                   f"{t['host_vectorized_ms']:.4f} ms, torch.cumsum on the "
                   f"card {t['library_ms']:.4f} ms (bytes equal: "
                   f"{t['library_bytes_equal']}), bound {t['bound_ms']:.6f} ms "
-                  f"({t['bound_by']}: {nbytes} B / 3.35 TB/s, {lanes * ops} "
-                  f"dependent-chain adds / 34 TFLOP/s f64) (card: {card_name})")
+                  f"({t['bound_by']}: {nbytes} B / 3.35 TB/s = "
+                  f"{bytes_ms:.6f} ms; chain floor {ops} dependent adds x "
+                  f"{lat['ns_per_add']:.4f} ns = {t['chain_floor_ms']:.6f} ms; "
+                  f"{lanes * ops} adds / 34 TFLOP/s f64); the kernel reaches "
+                  f"{t['bound_ms'] / t['ms']:.1%} of the bound (card: "
+                  f"{card_name})")
             out[(lanes, ops)] = t
     return out
 
@@ -1101,7 +1343,11 @@ def warm_states_phase(card_name: str, work: Path,
         for *_, reset in KERNELS:
             reset()
         cache = ResultCache(disk_dir=work / f"warm_{backend}")
-        stats = warm_states(pod, cfg, topo, states, cache, backend=backend)
+        with scan_lanes() as lanes:
+            stats = warm_states(pod, cfg, topo, states, cache,
+                                backend=backend)
+            if backend == "cuda":
+                torch.cuda.synchronize()
         launches = {name: count() for name, _, _, count, _ in KERNELS}
         got = records(work / f"warm_{backend}")
         if got != want or stats.states != len(want):
@@ -1114,13 +1360,13 @@ def warm_states_phase(card_name: str, work: Path,
             raise AssertionError(f"warm_states {backend}: launches {launches}")
         ms = host_ms(lambda: warm_states(pod, cfg, topo, states, ResultCache(),
                                          backend=backend), samples=5)
-        out[backend] = {"launches": launches, "ms": ms}
+        out[backend] = {"launches": launches, "ms": ms} | lanes_record(lanes)
         print(f"  (c) warm_states {len(states)} states llama_tiny_tp2dp2 @ "
               f"v5p, backend {backend}: {stats.states} lanes in "
               f"{stats.groups} group(s), {len(got)} records equal by bytes "
-              f"to the per-state walk's; kernel launches {launches}; host "
-              f"{ms:.2f} ms (median of 5, fresh memory cache each; card: "
-              f"{card_name})")
+              f"to the per-state walk's; kernel launches {launches} "
+              f"({lanes_text(lanes)}); host {ms:.2f} ms (median of 5, fresh "
+              f"memory cache each; card: {card_name})")
     return out
 
 
@@ -1408,19 +1654,24 @@ def lanes_record(lanes: list[int]) -> dict:
 
 @contextlib.contextmanager
 def scan_lanes():
-    """Record the lanes of every ``scan_rows`` call the batched pricer
-    makes (its matrix goes over ops-major, ``[k, S]``)."""
+    """Record the lanes of every call of the ``scan_rows`` kernel's wrapper
+    entries (``scan_rows``, ``scan_segments``) the batched pricer makes
+    (its matrices are ops-major, ``[k, S]``)."""
     lanes: list[int] = []
-    real = sr.scan_rows
+    rows, segments = sr.scan_rows, sr.scan_segments
 
-    def counted(seeds, mat):
+    def on_rows(seeds, mat):
         lanes.append(int(mat.shape[1]))
-        return real(seeds, mat)
-    sr.scan_rows = counted
+        return rows(seeds, mat)
+
+    def on_segments(mat, *rest):
+        lanes.append(int(mat.shape[1]))
+        return segments(mat, *rest)
+    sr.scan_rows, sr.scan_segments = on_rows, on_segments
     try:
         yield lanes
     finally:
-        sr.scan_rows = real
+        sr.scan_rows, sr.scan_segments = rows, segments
 
 
 def batch_legs(run, spec: dict, legs=None) -> dict:
@@ -1724,8 +1975,9 @@ def main() -> int:
     cell_seconds = fastpath_cells(card_name)
     module, engines = batch_module_and_engines()
     batch_launches = batch_on_card(module, engines)
-    scan_err = check_scan_rows()
-    fp_times = time_fastpath(module, engines, card_name)
+    steps = path_steps(module, engines)
+    scan_err = max(check_scan_rows(), check_scan_segments(steps))
+    fp_times = time_fastpath(module, engines, steps, card_name)
     scan = fp_times[SCAN_TIMED]
     torch.cuda.synchronize()
 
@@ -1776,6 +2028,14 @@ def main() -> int:
         "bound_by": scan["bound_by"],
         "library_ms": scan["library_ms"],
         "shape_ops_lanes": [SCAN_TIMED[1], SCAN_TIMED[0]],
+        "chain_floor_ms": scan["chain_floor_ms"],
+        "dadd_latency": fp_times["dadd"],
+        "shapes": {f"{ops}x{lanes}": {
+            k: fp_times[(lanes, ops)][k] for k in (
+                "ms", "bound_ms", "bound_by", "chain_floor_ms", "library_ms")}
+            for lanes in SCAN_LANES for ops in SCAN_OPS},
+        "step_launches": {str(lanes): t for lanes, t
+                          in fp_times["steps"].items()},
         "host_vectorized_ms": scan["host_vectorized_ms"],
         "library_bytes_equal": scan["library_bytes_equal"],
         "batch_cuda_ms": fp_times["batch_cuda_ms"],
@@ -1784,6 +2044,8 @@ def main() -> int:
         "golden_host_s": {f"{g}|{run}": list(v)
                           for (g, run), v in cell_seconds.items()},
         "warm_states_launches": store["c"]["cuda"]["launches"]["scan_rows"],
+        "warm_states_lanes_per_launch": [store["c"]["cuda"]["lanes_min"],
+                                         store["c"]["cuda"]["lanes_max"]],
         "warm_states_cuda_ms": store["c"]["cuda"]["ms"],
         "warm_states_vectorized_ms": store["c"]["vectorized"]["ms"],
         "store_golden_host_s": {f"{g}|{run}": v for (g, run), v

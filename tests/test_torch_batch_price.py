@@ -79,15 +79,19 @@ def _engines(cfg, lanes=LANES):
 
 @pytest.fixture
 def cuda_route_on_cpu(monkeypatch):
-    """``backend="cuda"`` with its row scans sent to the CPU: the same
-    ops-major route into the ``scan_rows`` wrapper, which takes the
-    kernel's plain version for CPU tensors (launching nothing)."""
+    """``backend="cuda"`` with its scans sent to the CPU: the same route
+    (columns staged ops-major, a run step's scans packed into one call of
+    ``scan_segments``) into the kernel's wrappers, whose plain versions
+    run for CPU tensors (launching nothing).  Records the matrix shape of
+    every call of either wrapper entry."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(port_batch, "_SCAN_DEVICE", "cpu")
     calls = []
-    real = sr.scan_rows
+    rows, segments = sr.scan_rows, sr.scan_segments
     monkeypatch.setattr(sr, "scan_rows",
-                        lambda s, m: calls.append(m.shape) or real(s, m))
+                        lambda s, m: calls.append(m.shape) or rows(s, m))
+    monkeypatch.setattr(sr, "scan_segments", lambda m, *a: calls.append(
+        m.shape) or segments(m, *a))
     return calls
 
 
@@ -324,10 +328,12 @@ def test_scan_rows_source_and_build_command(tmp_path):
     assert 'extern "C" int tpusim_scan_rows(' in text
     assert "tpusim/fastpath/jax_backend.py" in text
     assert "bound" in text
-    # strict serial adds, one thread per lane over an ops-major matrix
+    assert 'extern "C" int tpusim_scan_segments(' in text
+    # strict serial adds, one thread per lane of a segment, its rows
+    # staged through shared memory by asynchronous copies
     assert "__dadd_rn" in text
     assert "fma" not in text
-    assert "lanes + s" in text
+    assert "cp.async" in text
     cmd = build.nvcc_command("scan_rows", tmp_path / "lib.so", nvcc="nvcc")
     assert cmd[0] == "nvcc" and cmd[-1] == str(src)
     assert "arch=compute_90a,code=sm_90a" in " ".join(cmd)
@@ -352,13 +358,16 @@ def test_chip_smoke_fastpath_phase_on_cpu(capsys, monkeypatch,
     out = capsys.readouterr().out
     assert out.count("serial and vectorized pass, stats equal") == 5
 
-    real = sr.scan_rows
+    rows, segments = sr.scan_rows, sr.scan_segments
 
-    def counted(seeds, mat):
-        sr._launches += 1
-        return real(seeds, mat)
+    def counted(real):
+        def call(*args):
+            sr._launches += 1
+            return real(*args)
+        return call
 
-    monkeypatch.setattr(sr, "scan_rows", counted)
+    monkeypatch.setattr(sr, "scan_rows", counted(rows))
+    monkeypatch.setattr(sr, "scan_segments", counted(segments))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     module, engines = smoke.batch_module_and_engines()
     launches = smoke.batch_on_card(module, engines)

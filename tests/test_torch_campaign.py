@@ -5,8 +5,8 @@ JAX package's, live and in the same process.
   ``run_campaign``: the report document and ``stats_dict()`` equal the
   JAX package's (``==``, ``model_version`` dropped: each package stamps
   its own) with scenario batching on (``None``), off (``False``) and on
-  the card's route (``"cuda"``, its row scans sent to the CPU through the
-  ``scan_rows`` wrapper, which is counted);
+  the card's route (``"cuda"``, its scans sent to the CPU through the
+  kernel's wrappers, which are counted);
 * ``spec_hash`` and every sampled schedule document of every slice;
 * the seeded bad specs of ``tests/test_campaign.py``: the same codes,
   severities and messages;
@@ -126,15 +126,19 @@ def _ref(name: str):
 
 @pytest.fixture
 def cuda_route_on_cpu(monkeypatch):
-    """``backend="cuda"`` with its row scans sent to the CPU: the same
-    ops-major route into the ``scan_rows`` wrapper, whose plain version
-    runs for CPU tensors."""
+    """``backend="cuda"`` with its scans sent to the CPU: the same route
+    (columns staged ops-major, a run step's scans packed into one call of
+    ``scan_segments``) into the kernel's wrappers, whose plain versions
+    run for CPU tensors (launching nothing).  Records the matrix shape of
+    every call of either wrapper entry."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(port_batch, "_SCAN_DEVICE", "cpu")
     calls = []
-    real = sr.scan_rows
+    rows, segments = sr.scan_rows, sr.scan_segments
     monkeypatch.setattr(sr, "scan_rows",
-                        lambda s, m: calls.append(m.shape) or real(s, m))
+                        lambda s, m: calls.append(m.shape) or rows(s, m))
+    monkeypatch.setattr(sr, "scan_segments", lambda m, *a: calls.append(
+        m.shape) or segments(m, *a))
     return calls
 
 
@@ -423,9 +427,9 @@ def test_failed_host_warm_leaves_the_report(batch, monkeypatch):
 
 
 def test_failed_cuda_warm_raises(cuda_route_on_cpu, monkeypatch):
-    def launch_failure(seeds, mat):
-        raise RuntimeError("scan_rows: launch failed")
-    monkeypatch.setattr(sr, "scan_rows", launch_failure)
+    def launch_failure(*args):
+        raise RuntimeError("scan_segments: launch failed")
+    monkeypatch.setattr(sr, "scan_segments", launch_failure)
     with pytest.raises(RuntimeError, match="launch failed"):
         run_campaign(base_spec(), trace_path=TRACE, scenario_batch="cuda")
 

@@ -4,8 +4,8 @@ package's, live and in the same process.
 * the fleet smoke spec of ``ci/check_golden.py`` through ``run_fleet``:
   the report document and ``stats_dict()`` equal the JAX package's
   (``==``, ``model_version`` dropped) with scenario batching on, off and
-  on the card's route (``"cuda"``, row scans sent to the CPU through the
-  counted ``scan_rows`` wrapper);
+  on the card's route (``"cuda"``, scans sent to the CPU through the
+  kernel's counted wrappers);
 * the seeded inputs: ``sample_arrivals`` and ``sample_pod_stream`` at
   seeds 0-3 for each traffic shape, and the degradation timelines;
 * the event walk's hand-built scenarios of ``tests/test_fleet.py``;
@@ -137,15 +137,19 @@ def _ref_smoke():
 
 @pytest.fixture
 def cuda_route_on_cpu(monkeypatch):
-    """``backend="cuda"`` with its row scans sent to the CPU: the same
-    ops-major route into the ``scan_rows`` wrapper, whose plain version
-    runs for CPU tensors."""
+    """``backend="cuda"`` with its scans sent to the CPU: the same route
+    (columns staged ops-major, a run step's scans packed into one call of
+    ``scan_segments``) into the kernel's wrappers, whose plain versions
+    run for CPU tensors (launching nothing).  Records the matrix shape of
+    every call of either wrapper entry."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(port_batch, "_SCAN_DEVICE", "cpu")
     calls = []
-    real = sr.scan_rows
+    rows, segments = sr.scan_rows, sr.scan_segments
     monkeypatch.setattr(sr, "scan_rows",
-                        lambda s, m: calls.append(m.shape) or real(s, m))
+                        lambda s, m: calls.append(m.shape) or rows(s, m))
+    monkeypatch.setattr(sr, "scan_segments", lambda m, *a: calls.append(
+        m.shape) or segments(m, *a))
     return calls
 
 

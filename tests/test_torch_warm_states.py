@@ -107,15 +107,19 @@ def _fresh_tier():
 
 @pytest.fixture
 def cuda_route_on_cpu(monkeypatch):
-    """``backend="cuda"`` with its row scans sent to the CPU: the same
-    ops-major route into the ``scan_rows`` wrapper, whose plain version
-    runs for CPU tensors."""
+    """``backend="cuda"`` with its scans sent to the CPU: the same route
+    (columns staged ops-major, a run step's scans packed into one call of
+    ``scan_segments``) into the kernel's wrappers, whose plain versions
+    run for CPU tensors (launching nothing).  Records the matrix shape of
+    every call of either wrapper entry."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(port_batch, "_SCAN_DEVICE", "cpu")
     calls = []
-    real = sr.scan_rows
+    rows, segments = sr.scan_rows, sr.scan_segments
     monkeypatch.setattr(sr, "scan_rows",
-                        lambda s, m: calls.append(m.shape) or real(s, m))
+                        lambda s, m: calls.append(m.shape) or rows(s, m))
+    monkeypatch.setattr(sr, "scan_segments", lambda m, *a: calls.append(
+        m.shape) or segments(m, *a))
     return calls
 
 

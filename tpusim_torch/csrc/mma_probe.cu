@@ -2,8 +2,9 @@
 // on the card at hand: warp-level mma.sync in TF32 (m16n8k8) and bf16
 // (m16n8k16), and the TF32 rounding of a float32, by cvt.rna.tf32.f32 and by
 // two integer operations.  Each warp runs ILP independent chains; nothing is
-// read from memory.  Run through `python -m tpusim_torch.kernels.bench
-// ceiling`.
+// read from memory.  Beside them, the latency of one dependent float64 add
+// (__dadd_rn), which bounds each lane's chain in scan_rows.cu.  Run through
+// `python -m tpusim_torch.kernels.bench ceiling`.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,9 +65,48 @@ __global__ void round_probe(float* out, int iters) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
+// One warp adds x to acc iters x kChainUnroll times, each add waiting for the
+// one before.  clock64 and the global timer (ns) around the chain give its
+// cycles and nanoseconds; the asm statements pin the chain between them.
+constexpr int kChainUnroll = 16;
+
+__global__ void dadd_chain_probe(const double* in, double* out,
+                                 long long* stamps, int iters) {
+  double acc = in[0];
+  const double x = in[1];
+  long long c0, c1, g0, g1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0)::"memory");
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(c0)::"memory");
+  asm volatile("" : "+d"(acc)::"memory");
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < kChainUnroll; ++j) acc = __dadd_rn(acc, x);
+  asm volatile("" : "+d"(acc)::"memory");
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(c1)::"memory");
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1)::"memory");
+  out[threadIdx.x] = acc;
+  if (threadIdx.x == 0) {
+    stamps[0] = c1 - c0;
+    stamps[1] = g1 - g0;
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// The dependent-add chain on one warp: in holds {acc, x}, out 32 doubles
+// (each lane's acc + iters * kChainUnroll * x), stamps {cycles, ns} of the
+// second of two runs.  Returns a cudaError_t.
+int tpusim_dadd_chain_probe(int iters, const double* in, double* out,
+                            long long* stamps, void* stream) {
+  for (int rep = 0; rep < 2; ++rep)
+    dadd_chain_probe<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        in, out, stamps, iters);
+  return (int)cudaGetLastError();
+}
+
+int tpusim_dadd_chain_unroll() { return kChainUnroll; }
 
 // which: 0 = mma tf32, 1 = mma bf16, 2 = cvt.rna.tf32, 3 = integer rounding.
 // Runs the probe twice (the first warms up) and puts the second run's time

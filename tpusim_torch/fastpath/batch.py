@@ -16,8 +16,13 @@ the ops axis of a CPU float64 tensor, a strict serial scan per row) or,
 when explicitly requested, on the card (``cuda``: the hand-written
 kernel of :mod:`tpusim_torch.kernels.scan_rows`, one thread per lane,
 serial over ops, the counterpart of the JAX package's ``jax`` backend).
-Both give the bytes of the per-state walk; ``cuda`` without a card, or
-with a kernel that fails to build or launch, raises.
+Under ``cuda`` each computation's lane-variant duration column goes to
+the card once per call, ops-major (one shared column when no lane
+differs), and each run step's scans — its time chain and its unit and
+opcode groups — are one launch of ``scan_segments``: one host→card copy
+of the step's table and seeds, one card→host copy of its chains.  Both
+give the bytes of the per-state walk; ``cuda`` without a card, or with a
+kernel that fails to build or launch, raises.
 
 Byte-identity discipline (extends price.py's invariants per lane):
 
@@ -49,6 +54,9 @@ Not ported yet: the ``native`` batch kernel (A10).
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from tpusim_torch.ici.detailed import make_collective_model
@@ -136,16 +144,77 @@ def _scan_rows_host(seeds, mat: torch.Tensor) -> torch.Tensor:
 _SCAN_DEVICE = "cuda"
 
 
-def _scan_rows_cuda(seeds, mat: torch.Tensor) -> torch.Tensor:
-    """:func:`_scan_rows_host`'s result, scanned on the card by the
-    ``scan_rows`` kernel: the matrix goes over ops-major (``[k, S]``, so a
-    warp's loads are coalesced) and the scans come back transposed."""
-    from tpusim_torch.kernels.scan_rows import scan_rows
+class _CardScans:
+    """The ``cuda`` backend's scans, for one batched call: columns go to
+    the scan device once, and each launch of ``scan_segments`` takes one
+    staging copy there (table, indices, seeds and, for a shared column,
+    its values) and one copy of its output back.  On the CPU (the tests'
+    rehearsal) the same packing, gathering and unpacking run through the
+    kernel's plain version."""
 
-    dev = torch.device(_SCAN_DEVICE)
-    seeds_d = torch.as_tensor(seeds, dtype=torch.float64).to(dev)
-    mat_d = mat.t().contiguous().to(dev)
-    return scan_rows(seeds_d, mat_d).cpu().t()
+    __slots__ = ("dev", "cuda")
+
+    def __init__(self, device: str):
+        self.dev = torch.device(device)
+        self.cuda = self.dev.type == "cuda"
+
+    def upload(self, dur2: torch.Tensor) -> torch.Tensor:
+        """A view's ``(S, n)`` duration column on the scan device,
+        ops-major ``[n, S]``, or ``[n]`` when every lane shares it (the
+        kernel then reads it with a lane stride of 0)."""
+        if dur2.stride(0) == 0:
+            return dur2[0].to(self.dev)
+        return dur2.t().contiguous().to(self.dev)
+
+    def scan(self, plan, seeds, mat=None, column=None) -> torch.Tensor:
+        """One launch of ``plan`` over ``mat`` (on the scan device, as
+        :meth:`upload` gives it) or over a host ``column`` that travels
+        with the staging copy; ``seeds`` is one list of S floats per
+        segment.  Returns the ``[out_rows, S]`` output on the host."""
+        from tpusim_torch.kernels import scan_rows as sr
+
+        n_seg, S = len(seeds), len(seeds[0])
+        nh = plan.head.numel()
+        ns = nh + n_seg * S
+        total = ns + (column.numel() if column is not None else 0)
+        stage = torch.empty(total, dtype=torch.int64, pin_memory=self.cuda)
+        # filled through numpy: a list of lists goes in without a tensor
+        # built from it first
+        fill = stage.numpy()
+        fill[:nh] = plan.head.numpy()
+        fill = fill.view(np.float64)
+        fill[nh:ns].reshape(n_seg, S)[:] = seeds
+        if column is not None:
+            fill[ns:] = column.numpy()
+        stage = stage.to(self.dev, non_blocking=True)
+        table, idx = plan.split(stage)
+        words = stage.view(torch.float64)
+        if column is not None:
+            mat = words[ns:]
+        if mat.dim() == 1:
+            mat = mat[:, None].expand(mat.shape[0], S)
+        out = sr.scan_segments(mat, idx, table, words[nh:ns].view(n_seg, S),
+                               plan.out_rows)
+        if not self.cuda:
+            return out
+        back = torch.empty(out.shape, dtype=torch.float64, pin_memory=True)
+        back.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(self.dev).synchronize()
+        return back
+
+    def scan_column(self, seeds: list, col: torch.Tensor) -> list:
+        """The ends of a lane-invariant column's chains from per-lane
+        seeds: one end-only segment over the whole column."""
+        plan = _column_plan(col.shape[0])
+        return self.scan(plan, [seeds], column=col)[0].tolist()
+
+
+@functools.lru_cache(maxsize=256)
+def _column_plan(n: int):
+    """One end-only segment over rows 0 .. n."""
+    from tpusim_torch.kernels import scan_rows as sr
+
+    return sr.pack_segments([(range(n), False)])
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +230,7 @@ class _BatchView:
 
     __slots__ = (
         "dur2", "compute2", "hrs2", "vrs2", "hbm", "vmem", "spilled",
-        "_cc", "_shared_lists", "_lane_lists",
+        "dur_card", "_cc", "_shared_lists", "_lane_lists",
     )
 
     def __init__(self, cc, dur2, compute2, hrs2, vrs2, hbm, vmem,
@@ -174,6 +243,8 @@ class _BatchView:
         self.hbm = hbm
         self.vmem = vmem
         self.spilled = spilled
+        #: ``dur2`` on the scan device (``cuda`` backend only)
+        self.dur_card = None
         self._shared_lists = {}
         self._lane_lists = {}
 
@@ -212,7 +283,7 @@ class _BatchCtx:
         "cm", "lanes", "S", "views", "arch", "config", "spill_frac",
         "hbm_bpc", "vmem_bpc", "overhead", "dma_lat", "contend",
         "overlap", "cs_col", "hs_col", "ovh_col", "deg_col",
-        "any_degraded", "coll_memo", "scan_rows", "step_cache",
+        "any_degraded", "coll_memo", "card", "step_cache",
         "uniform_memo", "seen_cyc", "seen_hbm", "seen_flops", "seen_mxu",
         "cancel",
     )
@@ -268,14 +339,18 @@ class _BatchCtx:
         #: comp_name -> True when every lane provably builds identical
         #: count/opcode/traffic/async per-op dicts (see _comp_uniform)
         self.uniform_memo: dict[str, bool] = {}
-        self.scan_rows = (
-            _scan_rows_cuda if backend == "cuda" else _scan_rows_host
-        )
+        #: the ``cuda`` backend's scans (None: the host's row scans)
+        self.card = _CardScans(_SCAN_DEVICE) if backend == "cuda" else None
 
     def view(self, cc) -> _BatchView:
         v = self.views.get(cc.name)
-        if v is not None:
-            return v
+        if v is None:
+            v = self.views[cc.name] = self._build_view(cc)
+            if self.card is not None:
+                v.dur_card = self.card.upload(v.dur2)
+        return v
+
+    def _build_view(self, cc) -> _BatchView:
         S = self.S
         n = len(cc.names)
         spill = self.spill_frac < 1.0 and cc.any_vmem
@@ -286,14 +361,12 @@ class _BatchCtx:
         hbm = cc.hbm
         vmem = cc.vmem
         if not self.any_degraded and not spill:
-            v = _BatchView(
+            return _BatchView(
                 cc,
                 cycles.expand(S, n), compute.expand(S, n),
                 hrs.expand(S, n), vrs.expand(S, n),
                 hbm, vmem, None,
             )
-            self.views[cc.name] = v
-            return v
         if self.any_degraded:
             # the per-state degraded-chip block, lane-broadcast: same
             # elementwise ops in the same order; mask2 selects only
@@ -341,10 +414,8 @@ class _BatchCtx:
                 ),
                 cycles2,
             )
-        v = _BatchView(cc, cycles2, compute2, hrs2, vrs2, hbm, vmem,
-                       spilled)
-        self.views[cc.name] = v
-        return v
+        return _BatchView(cc, cycles2, compute2, hrs2, vrs2, hbm, vmem,
+                          spilled)
 
 
 # ---------------------------------------------------------------------------
@@ -432,8 +503,11 @@ def _acc_shared(ctx, results, attr: str, col, cache) -> None:
         first = vals[0]
         cur = first if vals.count(first) == len(vals) else vals
     if type(cur) is list:
-        mat = col.expand(len(cur), col.shape[0])
-        cache[attr] = ctx.scan_rows(cur, mat)[:, -1].tolist()
+        if ctx.card is not None:
+            cache[attr] = ctx.card.scan_column(cur, col)
+        else:
+            mat = col.expand(len(cur), col.shape[0])
+            cache[attr] = _scan_rows_host(cur, mat)[:, -1].tolist()
     else:
         cache[attr] = _chain(cur, col)
 
@@ -536,6 +610,54 @@ def _merge_add(dst, proto) -> None:
     dst.update(d)
 
 
+def _run_scans(ctx, cc, v, si: int, lo: int, hi: int, want_tb: bool,
+               t: list, ugroups, ogroups, results):
+    """A run step's serial scans: the lanes' time chain over ops ``lo ..
+    hi`` and each unit and opcode group's busy-cycle chain, whose ends go
+    into the lanes' dicts.  Returns the lanes' times after the step and,
+    when ``want_tb``, the ``(S, n)`` times before each op.  On the host,
+    one row scan each; under ``cuda``, one launch for them all."""
+    card = ctx.card
+    if card is None:
+        tarr2 = _scan_rows_host(t, v.dur2[:, lo:hi])
+        for u, idx in ugroups:
+            seeds = [r.unit_busy_cycles[u] for r in results]
+            ends = _scan_rows_host(seeds, v.dur2[:, idx])[:, -1].tolist()
+            for r, e in zip(results, ends):
+                r.unit_busy_cycles[u] = e
+        for b, idx in ogroups:
+            seeds = [r.opcode_cycles[b] for r in results]
+            ends = _scan_rows_host(seeds, v.dur2[:, idx])[:, -1].tolist()
+            for r, e in zip(results, ends):
+                r.opcode_cycles[b] = e
+        return tarr2[:, -1].tolist(), (tarr2[:, :-1] if want_tb else None)
+
+    from tpusim_torch.kernels import scan_rows as sr
+
+    plan = cc.scan_plans.get(si)
+    if plan is None:
+        plan = cc.scan_plans[si] = sr.pack_segments(
+            [(range(lo, hi), want_tb)]
+            + [(idx, False) for _, idx in ugroups]
+            + [(idx, False) for _, idx in ogroups]
+        )
+    seeds = [t]
+    seeds += [[r.unit_busy_cycles[u] for r in results] for u, _ in ugroups]
+    seeds += [[r.opcode_cycles[b] for r in results] for b, _ in ogroups]
+    chain, *ends = sr.unpack_segments(
+        plan, card.scan(plan, seeds, mat=v.dur_card))
+    nu = len(ugroups)
+    for (u, _), e in zip(ugroups, ends[:nu]):
+        for r, x in zip(results, e.tolist()):
+            r.unit_busy_cycles[u] = x
+    for (b, _), e in zip(ogroups, ends[nu:]):
+        for r, x in zip(results, e.tolist()):
+            r.opcode_cycles[b] = x
+    if want_tb:
+        return chain[-1].tolist(), chain[:-1].t()
+    return chain.tolist(), None
+
+
 def _comp_uniform(ctx, comp_name: str) -> bool:
     """True when every lane of a batch provably builds IDENTICAL
     count/opcode/traffic/async per-op dicts walking ``comp_name``: no
@@ -608,9 +730,8 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
             n = hi - lo
             spill_on = v.spilled is not None
             want_tb = len(emit) > 0
-            tarr2 = ctx.scan_rows(t, v.dur2[:, lo:hi])
-            t = tarr2[:, -1].tolist()
-            tb2 = tarr2[:, :-1] if want_tb else None
+            t, tb2 = _run_scans(ctx, cc, v, si, lo, hi, want_tb, t, ugroups,
+                                ogroups, results)
             _acc_shared(ctx, results, "flops", cc.flops[lo:hi], acc_cache)
             _acc_shared(ctx, results, "mxu_flops", cc.mxu[lo:hi],
                         acc_cache)
@@ -623,16 +744,6 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
             if spill_on:
                 _acc_shared(ctx, results, "vmem_spill_bytes",
                             v.spilled[lo:hi], acc_cache)
-            for u, idx in ugroups:
-                seeds = [r.unit_busy_cycles[u] for r in results]
-                ends = ctx.scan_rows(seeds, v.dur2[:, idx])[:, -1].tolist()
-                for r, e in zip(results, ends):
-                    r.unit_busy_cycles[u] = e
-            for b, idx in ogroups:
-                seeds = [r.opcode_cycles[b] for r in results]
-                ends = ctx.scan_rows(seeds, v.dur2[:, idx])[:, -1].tolist()
-                for r, e in zip(results, ends):
-                    r.opcode_cycles[b] = e
             for r in results:
                 r.op_count += n
             prep = ctx.step_cache.get((comp_name, si))

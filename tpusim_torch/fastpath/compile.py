@@ -83,6 +83,9 @@ class CompiledComputation:
     any_vmem: bool = False
     #: cached .tolist() views of the healthy columns (built lazily)
     _lists: dict = field(default_factory=dict, repr=False)
+    #: step index -> the run step's scans packed for one launch of the
+    #: ``scan_rows`` kernel (the ``cuda`` batch route; built lazily)
+    scan_plans: dict = field(default_factory=dict, repr=False)
 
     def col_list(self, attr: str) -> list:
         cached = self._lists.get(attr)

@@ -7,7 +7,9 @@
 ``ceiling`` runs ``csrc/mma_probe.cu``: the throughput of warp-level
 ``mma.sync`` in TF32 (m16n8k8) and bf16 (m16n8k16), and of rounding a
 float32 to TF32 by ``cvt.rna.tf32.f32`` and by integer operations -- what
-the attention kernel can reach with the instructions it is built from.
+the attention kernel can reach with the instructions it is built from --
+and the latency of one dependent float64 add, which times the chain floor
+of a ``scan_rows`` lane (k adds take at least k times it).
 
 ``compare`` builds ``flash_attention.cu`` from each ``--build LABEL=DIR``
 (a csrc directory, such as one unpacked from another commit with ``git
@@ -64,6 +66,31 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
+def dadd_latency(iters: int = 1 << 16) -> dict:
+    """The latency of one dependent ``__dadd_rn`` on the card, from one
+    warp's chain of ``iters`` x 16 adds: cycles (``clock64``) and
+    nanoseconds (the global timer) per add, and the clock they imply."""
+    lib = ctypes.CDLL(str(build.build_library("mma_probe")))
+    fn = lib.tpusim_dadd_chain_probe
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    adds = iters * lib.tpusim_dadd_chain_unroll()
+    inp = torch.tensor([1.0, 1.0], dtype=torch.float64, device="cuda")
+    out = torch.empty(32, dtype=torch.float64, device="cuda")
+    stamps = torch.zeros(2, dtype=torch.int64, device="cuda")
+    err = fn(iters, inp.data_ptr(), out.data_ptr(), stamps.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"dadd chain probe failed: cudaError {err}")
+    torch.cuda.synchronize()
+    if out.tolist() != [1.0 + adds] * 32:
+        raise AssertionError(f"dadd chain probe: {out[0].item()} != "
+                             f"{1.0 + adds}")
+    cycles, ns = stamps.tolist()
+    return {"adds": adds, "cycles_per_add": cycles / adds,
+            "ns_per_add": ns / adds, "clock_ghz": cycles / ns}
+
+
 def ceiling() -> None:
     lib = ctypes.CDLL(str(build.build_library("mma_probe")))
     lib.tpusim_mma_probe.argtypes = [ctypes.c_int] * 4 + [
@@ -91,6 +118,10 @@ def ceiling() -> None:
                 rate = f"{n / seconds / SM_COUNT / 1e9:.1f} G roundings/s per SM"
             print(f"ceiling {what}: {rate} ({threads // 32} warps a block, "
                   f"4 blocks an SM, {ilp} chains a warp; card: {name})")
+    lat = dadd_latency()
+    print(f"latency __dadd_rn, dependent: {lat['cycles_per_add']:.3f} cycles, "
+          f"{lat['ns_per_add']:.4f} ns an add at {lat['clock_ghz']:.3f} GHz "
+          f"(one warp, {lat['adds']} adds; card: {name})")
 
 
 def _compile(label: str, src: Path):

@@ -101,6 +101,7 @@ _PARSER_FILES: tuple[str, ...] = (
     "tpusim_torch/fastpath/batch.py",
     "tpusim_torch/kernels/scan_rows.py",
     "tpusim_torch/csrc/scan_rows.cu",
+    "tpusim_torch/csrc/ptx.cuh",
 )
 
 _parser_version_cache: str | None = None
