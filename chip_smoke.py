@@ -5,10 +5,11 @@
 
 Drives the port's main path, ``tpusim_torch capture → simulate``, at the
 registered width of ``flash_attention_pallas`` ([32, 1024, 128] f32),
-simulate's lane-batched pricing with its row scans on the card, and the
+simulate's lane-batched pricing with its row scans on the card, the
 campaign and fleet layers whose scenario-batched warm runs those scans,
-and holds each CUDA kernel against its plain PyTorch version.  Phases, in
-order (any failure exits non-zero and prints no result):
+and the sharding advisor on the card's host, and holds each CUDA kernel
+against its plain PyTorch version.  Phases, in order (any failure exits
+non-zero and prints no result):
 
 1. the card's name and power limit (``nvidia-smi``) and the CUDA version;
 2. build every kernel from ``tpusim_torch/csrc`` with nvcc (timed), and
@@ -111,12 +112,32 @@ order (any failure exits non-zero and prints no result):
    bytes, ``scan_rows`` launches and lanes per launch, ``BatchStats``;
    (d) the fleet smoke's traffic and policies on 8 pods over 300 s with
    frontier targets 12 and 48 req/s up to 16 pods, ``False`` and
-   ``"cuda"``, reports equal by bytes.
+   ``"cuda"``, reports equal by bytes;
+10. the sharding advisor on the card's host, each part with its host
+   seconds and the kernels' launch counters set to 0 just before it and
+   read just after (they must stay 0: the advisor prices on the host):
+   (a) ``run_advise`` on ``ci/check_golden.py``'s advise smoke spec
+   (copied here) against ``ci/golden/advise_smoke.json`` under phase 9's
+   float rule (the count of differing floats and the largest gap
+   printed) and the smoke's contract (>= 12 ranked cells with the contract
+   columns, ``dp4xtp2`` with 14 collectives per chip, a recommendation); a
+   warm pass through the same result cache walks no module and gives the
+   same bytes; golden cells 1-5 still pass after the sweep; (b) ``python
+   -m tpusim_torch advise`` on the same spec in fresh processes, cold and
+   warm through one ``--result-cache`` directory: both ``--json`` reports
+   equal by bytes and to (a)'s; (c) a v5p-64 sweep (``dp``, ``tp``,
+   ``dp_tp``, ``sp``, ``pp`` and the pinned ``dp4xtp4xpp4``, 10 cells)
+   cold, warm and with 4 pricing workers, reports equal by bytes, the
+   warm pass walking no module, with per-cell seconds and, in the cold
+   leg, each cell's calls of and seconds in ``permute_seconds``; (d) the
+   critical-path analyzer on every module of the 12-trace corpus at
+   v5p: critical path <= the engine's cycles <= the serial sum.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the card's name and power limit, and the one before that the kernels'
-JSON record.  Needs no network and one card; exits non-zero without a
-CUDA device or without the rest of the repository beside it.
+the card's name and power limit, the one before that the kernels' JSON
+record, and the one before that phase 10's (``advisor: {...}``).  Needs
+no network and one card; exits non-zero without a CUDA device or without
+the rest of the repository beside it.
 """
 
 from __future__ import annotations
@@ -270,11 +291,9 @@ def run_cli(argv: list[str]) -> str:
     return buf.getvalue()
 
 
-def simulate_cells(card_name: str) -> None:
-    """Phase 4, simulate half: the five golden cells against
-    ``ci/golden/*.json``, each with its host seconds, then the
-    multi-device path through the CLI with the kernels' counters set to 0
-    just before and read just after.  Raises on any difference."""
+def golden_cells(card_name: str) -> None:
+    """The five golden cells against ``ci/golden/*.json``, each with its
+    host seconds.  Raises on any difference."""
     for fixture, arch, overlays, golden in GOLDEN_CELLS:
         t0 = time.perf_counter()
         report = simulate_trace(FIXTURES / fixture, arch=arch,
@@ -286,6 +305,13 @@ def simulate_cells(card_name: str) -> None:
             raise AssertionError("\n".join(errors))
         print(f"  golden {golden}: {len(stats)} stats match; host "
               f"{host_s:.4f} s (card: {card_name})")
+
+
+def simulate_cells(card_name: str) -> None:
+    """Phase 4, simulate half: the five golden cells, then the
+    multi-device path through the CLI with the kernels' counters set to 0
+    just before and read just after.  Raises on any difference."""
+    golden_cells(card_name)
 
     # the multi-device path: collectives on the detailed ICI network and
     # the power model, through the CLI; host Python, no kernel
@@ -1904,6 +1930,279 @@ def campaign_fleet(card_name: str, work: Path) -> dict:
     return out
 
 
+#: phase 10: ``ci/check_golden.py``'s ``ADVISE_SMOKE_SPEC`` (copied; a test
+#: holds the two equal) and the golden it is held to
+ADVISE_SMOKE_SPEC = {
+    "name": "ci-advise-smoke",
+    "strategies": ["dp", "tp", "dp_tp", "sp", "pp"],
+    "slices": [{"arch": "v5p", "chips": 8},
+               {"arch": "v5e", "chips": 8}],
+    "meshes": [{"dp": 2, "tp": 2, "pp": 2}],
+    "tuned": False,
+    "slo": {"step_time_ms": 1.0},
+}
+#: phase 10 (c): a sweep at a size users run — a v5p 4x4x4 slice, the
+#: single-axis strategies, every dp x tp factorization and one pinned
+#: three-axis mesh (10 cells), also with the pricing pool this wide
+BIG_ADVISE_CHIPS = 64
+BIG_ADVISE_STRATEGIES = ["dp", "tp", "dp_tp", "sp", "pp"]
+BIG_ADVISE_MESH = {"dp": 4, "tp": 4, "pp": 4}
+BIG_ADVISE_WORKERS = 4
+#: phase 10 (d): the traces of the corpus that are not silicon captures
+FIXTURES_CORPUS = (FIXTURES / "llama_tiny_tp2dp2", FIXTURES / "matmul_512")
+
+
+def big_advise_spec() -> dict:
+    """Phase 10 (c)'s sweep."""
+    return {"name": "v5p-64", "strategies": list(BIG_ADVISE_STRATEGIES),
+            "slices": [{"arch": "v5p", "chips": BIG_ADVISE_CHIPS}],
+            "meshes": [dict(BIG_ADVISE_MESH)], "tuned": False,
+            "slo": {"step_time_ms": 1.0}}
+
+
+def critpath_corpus() -> tuple:
+    """Phase 10 (d)'s traces: the two fixtures and every silicon capture."""
+    silicon = REPO / "reports" / "silicon"
+    return FIXTURES_CORPUS + tuple(sorted(
+        d for d in silicon.iterdir() if (d / "modules").is_dir()))
+
+
+def no_launches(part: str) -> dict:
+    """The kernels' launch counts since their reset; raises unless 0."""
+    launches = {name: count() for name, _, _, count, _ in KERNELS}
+    if any(launches.values()):
+        raise AssertionError(f"{part} launched kernels: {launches}")
+    return launches
+
+
+def advise_smoke(card_name: str) -> dict:
+    """Phase 10 (a): the advise smoke through ``run_advise`` against its
+    golden (the float rule of phase 9) and ``ci/check_golden.py``'s
+    contract; a warm pass through the same cache walks no module; golden
+    cells 1-5 still pass after the sweep."""
+    from tpusim_torch.advise import run_advise
+
+    for *_, reset in KERNELS:
+        reset()
+    cache = ResultCache()
+    with counting_engine_runs() as cold_walks:
+        t0 = time.perf_counter()
+        res = run_advise(ADVISE_SMOKE_SPEC,
+                         trace_path=FIXTURES / "llama_tiny_tp2dp2",
+                         result_cache=cache)
+        cold_s = time.perf_counter() - t0
+    golden = json.loads(
+        (REPO / "ci" / "golden" / "advise_smoke.json").read_text())
+    doc = dict(res.doc)
+    doc["model_version"] = golden["model_version"] = "masked"
+    gaps = golden_gaps(doc, golden)
+    cells = res.doc["cells"]
+    if len(cells) < 12 or res.doc["recommendation"] is None:
+        raise AssertionError(f"advise smoke: {len(cells)} cells, "
+                             f"recommendation {res.doc['recommendation']}")
+    for col in ("step_ms", "ici_bytes", "hbm_resident_gib", "watts",
+                "slo_ok", "collectives_per_chip"):
+        if any(col not in r for r in cells):
+            raise AssertionError(f"advise smoke: cell column {col!r} missing")
+    dp4tp2 = [r for r in cells if r["mesh"] == {"dp": 4, "tp": 2}]
+    if not dp4tp2 or dp4tp2[0]["collectives_per_chip"] != 14:
+        raise AssertionError("advise smoke: dp=4 x tp=2 cell does not "
+                             "synthesize the 14-collective step")
+    with counting_engine_runs() as warm_walks:
+        t0 = time.perf_counter()
+        warm = run_advise(ADVISE_SMOKE_SPEC,
+                          trace_path=FIXTURES / "llama_tiny_tp2dp2",
+                          result_cache=cache)
+        warm_s = time.perf_counter() - t0
+    if warm_walks["n"] != 0 or report_bytes(warm.doc) != report_bytes(res.doc):
+        raise AssertionError(f"advise smoke: warm pass walked "
+                             f"{warm_walks['n']} module(s) or differs")
+    launches = no_launches("the advise smoke")
+    print(f"  (a) advise smoke: {len(cells)} cells, "
+          f"{sum(r['feasible'] for r in cells)} feasible, recommendation "
+          f"{res.doc['recommendation']['cell']}; golden: {len(gaps)} "
+          f"float(s) differ, largest relative gap {max(gaps, default=0.0):.3g}"
+          f"; contract holds; engine walks cold {cold_walks['n']} / warm "
+          f"{warm_walks['n']}, warm report equal by bytes; host s cold "
+          f"{cold_s:.4f} / warm {warm_s:.4f}; kernel launches {launches} "
+          f"(card: {card_name})")
+    golden_cells(card_name)
+    return {"res": res, "cells": len(cells), "cold_s": cold_s,
+            "warm_s": warm_s, "warm_walks": warm_walks["n"],
+            "golden_floats_differ": len(gaps),
+            "golden_max_gap": max(gaps, default=0.0)}
+
+
+def advise_cli(card_name: str, work: Path, doc: dict) -> dict:
+    """Phase 10 (b): ``python -m tpusim_torch advise`` in fresh processes,
+    cold and then warm through one disk result cache: both JSON reports
+    equal by bytes, and equal to (a)'s document."""
+    spec = work / "advise_spec.json"
+    spec.write_text(json.dumps(ADVISE_SMOKE_SPEC))
+    cache = work / "advise_rc"
+    out = {}
+    for leg in ("cold", "warm"):
+        path = work / f"advise_{leg}.json"
+        for *_, reset in KERNELS:
+            reset()
+        t0 = time.perf_counter()
+        _, text = cli_process(["advise", str(spec), "--trace",
+                               str(FIXTURES / "llama_tiny_tp2dp2"),
+                               "--result-cache", str(cache),
+                               "--json", str(path)])
+        out[leg] = {"s": time.perf_counter() - t0,
+                    "bytes": path.read_bytes(),
+                    "stats": [ln.strip() for ln in text.splitlines()
+                              if ln.strip().startswith("advise_")]}
+        no_launches(f"the advise CLI ({leg})")
+    # ``advise --json`` writes indent 2
+    want = (json.dumps(doc, indent=2, sort_keys=True) + "\n").encode()
+    if not out["cold"]["bytes"] == out["warm"]["bytes"] == want:
+        raise AssertionError("advise CLI: cold, warm and (a)'s reports differ")
+    print(f"  (b) advise CLI in fresh processes: cold "
+          f"{out['cold']['s']:.2f} s / warm {out['warm']['s']:.2f} s; "
+          f"reports equal by bytes and to (a)'s; "
+          f"{'; '.join(out['warm']['stats'])} (card: {card_name})")
+    return {leg: rec["s"] for leg, rec in out.items()}
+
+
+@contextlib.contextmanager
+def timing_permutes():
+    """Per cell, the calls of the analytic collective model's
+    ``permute_seconds``, the pairs they price (one ``hop_distance`` each)
+    and the host seconds inside them; the cell is the one whose progress
+    line comes next."""
+    from tpusim_torch.ici.collectives import CollectiveModel
+
+    per_cell: list[dict] = []
+    cur = {"calls": 0, "pairs": 0, "s": 0.0}
+    orig = CollectiveModel.permute_seconds
+
+    def timed(self, payload, pairs):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, payload, pairs)
+        finally:
+            cur["s"] += time.perf_counter() - t0
+            cur["calls"] += 1
+            cur["pairs"] += len(pairs)
+
+    def next_cell() -> None:
+        per_cell.append(dict(cur))
+        cur.update(calls=0, pairs=0, s=0.0)
+
+    CollectiveModel.permute_seconds = timed
+    try:
+        yield per_cell, next_cell
+    finally:
+        CollectiveModel.permute_seconds = orig
+
+
+def big_advise(card_name: str) -> dict:
+    """Phase 10 (c): :func:`big_advise_spec` cold, warm through the same
+    cache, and with :data:`BIG_ADVISE_WORKERS` pricing workers into a
+    fresh cache; reports equal by bytes; per-cell seconds from
+    ``progress``, and in the cold leg each cell's seconds inside
+    ``permute_seconds``."""
+    from tpusim_torch.advise import run_advise
+
+    spec = big_advise_spec()
+    cache = ResultCache()
+    legs = {}
+    for leg, kw in (("cold", {"result_cache": cache}),
+                    ("warm", {"result_cache": cache}),
+                    (f"workers {BIG_ADVISE_WORKERS}",
+                     {"workers": BIG_ADVISE_WORKERS})):
+        stamps = []
+        for *_, reset in KERNELS:
+            reset()
+        with counting_engine_runs() as walks, timing_permutes() as (
+                permutes, next_cell):
+            def progress(msg: str) -> None:
+                stamps.append((msg.split(":")[0], time.perf_counter()))
+                next_cell()
+            t0 = time.perf_counter()
+            res = run_advise(spec, trace_path=FIXTURES / "llama_tiny_tp2dp2",
+                             progress=progress, **kw)
+            total = time.perf_counter() - t0
+        no_launches(f"the v5p-{BIG_ADVISE_CHIPS} advise sweep ({leg})")
+        starts = [t0] + [t for _, t in stamps[:-1]]
+        legs[leg] = {"res": res, "s": total, "walks": walks["n"],
+                     "cells": {c: t - s for (c, t), s in zip(stamps, starts)},
+                     "permutes": dict(zip((c for c, _ in stamps), permutes))}
+    if len({report_bytes(rec["res"].doc) for rec in legs.values()}) != 1:
+        raise AssertionError(f"v5p-{BIG_ADVISE_CHIPS} advise: reports differ "
+                             f"across {list(legs)}")
+    if legs["warm"]["walks"] != 0:
+        raise AssertionError(f"v5p-{BIG_ADVISE_CHIPS} advise: warm pass "
+                             f"walked {legs['warm']['walks']} module(s)")
+    doc = legs["cold"]["res"].doc
+    for leg, rec in legs.items():
+        print(f"  (c) advise v5p-{BIG_ADVISE_CHIPS} {leg}: "
+              f"{len(doc['cells'])} cells, {rec['walks']} engine walks, "
+              f"host {rec['s']:.4f} s; per cell s " + ", ".join(
+                  f"{c} {t:.4f}" for c, t in rec["cells"].items())
+              + f" (card: {card_name})")
+    print(f"  (c) reports equal by bytes; recommendation "
+          f"{doc['recommendation']['cell'] if doc['recommendation'] else None}")
+    cold = legs["cold"]
+    for cell, p in cold["permutes"].items():
+        if p["calls"]:
+            print(f"  (c) cold {cell}: permute_seconds {p['calls']} calls, "
+                  f"{p['pairs']} pairs (hop_distance calls), {p['s']:.4f} of "
+                  f"the cell's {cold['cells'][cell]:.4f} host s "
+                  f"({p['s'] / cold['cells'][cell]:.1%})")
+    return {"cells": len(doc["cells"]),
+            "host_s": {leg: rec["s"] for leg, rec in legs.items()},
+            "cell_s": cold["cells"], "permutes": cold["permutes"]}
+
+
+def critpath_check(card_name: str) -> dict:
+    """Phase 10 (d): the critical-path analyzer on every module of the
+    corpus at v5p: critical path <= the engine's cycles <= serial sum."""
+    from tpusim_torch.analysis import analyze_module_perf
+
+    cfg = load_config(arch="v5p", tuned=False)
+    for *_, reset in KERNELS:
+        reset()
+    t0 = time.perf_counter()
+    modules = 0
+    for trace_dir in critpath_corpus():
+        pod = load_trace(trace_dir)
+        for name, mod in sorted(pod.modules.items()):
+            mp = analyze_module_perf(mod, cfg)
+            eng = Engine(cfg).run(mod).cycles
+            tol = 1e-6 * max(eng, 1.0)
+            if not (mp.critical_path_cycles <= eng + tol
+                    and eng <= mp.serial_cycles + tol):
+                raise AssertionError(
+                    f"{trace_dir.name}/{name}: critical path "
+                    f"{mp.critical_path_cycles}, engine {eng}, serial "
+                    f"{mp.serial_cycles}")
+            modules += 1
+    host_s = time.perf_counter() - t0
+    no_launches("the critical-path analyzer")
+    print(f"  (d) critical path <= engine <= serial sum on {modules} "
+          f"modules of {len(critpath_corpus())} traces at v5p; host "
+          f"{host_s:.4f} s (card: {card_name})")
+    return {"modules": modules, "host_s": host_s}
+
+
+def advisor(card_name: str, work: Path) -> dict:
+    """Phase 10: (a)-(d) in ``work`` (an empty directory), the kernels'
+    launch counters set to 0 just before each part and read just after
+    (this path runs on the host).  Raises on any failure."""
+    t0 = time.perf_counter()
+    a = advise_smoke(card_name)
+    out = {"a": {k: v for k, v in a.items() if k != "res"}}
+    out["b"] = advise_cli(card_name, work, a["res"].doc)
+    out["c"] = big_advise(card_name)
+    out["d"] = critpath_check(card_name)
+    print(f"sharding advisor: {time.perf_counter() - t0:.1f} s "
+          f"(card: {card_name})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1992,6 +2291,11 @@ def main() -> int:
     phase(9, "compound-fault campaigns and the fleet twin")
     with tempfile.TemporaryDirectory() as tmp:
         fleet = campaign_fleet(card_name, Path(tmp))
+
+    phase(10, "the sharding advisor on the card's host")
+    with tempfile.TemporaryDirectory() as tmp:
+        advise = advisor(card_name, Path(tmp))
+    print("advisor: " + json.dumps(advise))
 
     record = {"kernels": [{
         "name": "flash_attention",

@@ -30,12 +30,17 @@
                                     [--compile-cache[=DIR]] [--max-wall-s S]
                                     [--no-scenario-batch] [--json F]
                                     [--verbose]
+    python -m tpusim_torch advise   <spec.json> --trace DIR [--top N]
+                                    [--workers N] [--result-cache[=DIR]]
+                                    [--compile-cache[=DIR]] [--json F]
+                                    [--verbose]
     python -m tpusim_torch info     <trace-dir>
     python -m tpusim_torch workloads
 
 The output format is the reference's (errors and refusals on stderr
 under the ``tpusim_torch`` prefix; a cancelled campaign or fleet run
-exits 3, a refused spec 1).  ``campaign`` has no ``--nodes`` yet.  The
+exits 3, a refused spec 1).  ``campaign`` has no ``--nodes`` yet, and
+there is no ``lint`` (so no ``lint --advise``) yet.  The
 other subcommands wait for their slices of the port (see ROADMAP.md).
 """
 
@@ -405,6 +410,86 @@ def _cmd_fleet(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_advise(args: argparse.Namespace) -> int:
+    """Parallelism-strategy sweep & sharding advisor: price the
+    slices x strategies x meshes cross-product of one traced workload
+    through the shared engine-result cache and print the ranked
+    step-time / ICI-bytes / HBM-residency / watts table with the
+    recommended sharding."""
+    from tpusim_torch.advise import AdviseSpecError, run_advise
+    from tpusim_torch.analysis import ValidationError
+
+    progress = None
+    if args.verbose:
+        def progress(msg: str) -> None:
+            print(f"  {msg}", file=sys.stderr)
+    try:
+        res = run_advise(
+            args.spec,
+            trace_path=args.trace,
+            result_cache=args.result_cache,
+            workers=args.workers,
+            progress=progress,
+            compile_cache=args.compile_cache,
+        )
+    except AdviseSpecError as e:
+        print(f"tpusim_torch advise: spec refused ({e.code}): {e}",
+              file=sys.stderr)
+        return 1
+    except ValidationError as e:
+        print(f"tpusim_torch advise: spec refused:\n{e}", file=sys.stderr)
+        return 1
+    doc = res.doc
+    cap = doc["capture"]
+    print(f"tpusim advise: {doc['advise']!r} spec={doc['spec_hash']} "
+          f"trace={doc['trace']}")
+    print(f"  capture: {cap['chips']} chips (dp={cap['dp']} "
+          f"tp={cap['tp']}), {cap['collective_sites']['tp']} tp / "
+          f"{cap['collective_sites']['dp']} dp / "
+          f"{cap['collective_sites']['ep']} ep collective sites")
+    header = (f"  {'#':>3s} {'cell':26s} {'strategy':8s} "
+              f"{'step_ms':>9s} {'ici_mb':>8s} {'coll':>5s} "
+              f"{'hbm_gib':>8s} {'exp%':>6s} {'watts':>7s} "
+              f"{'pf/W':>7s} flags")
+    print(header)
+    shown = doc["cells"][: args.top] if args.top else doc["cells"]
+    for r in shown:
+        flags = []
+        if not r["fits_hbm"]:
+            flags.append("OOM")
+        if r["slo_ok"] is False:
+            flags.append("SLO-MISS")
+        elif r["slo_ok"] is True:
+            flags.append("slo-ok")
+        w = f"{r['watts']:.1f}" if r["watts"] is not None else "-"
+        pw = (f"{r['perf_per_watt']:.4f}"
+              if r["perf_per_watt"] is not None else "-")
+        ef = r.get("exposed_comm_frac")
+        ef = f"{100.0 * ef:.1f}" if ef is not None else "-"
+        print(f"  {r['rank']:3d} {r['cell']:26s} {r['strategy']:8s} "
+              f"{r['step_ms']:9.4f} {r['ici_bytes'] / 1e6:8.2f} "
+              f"{r['collectives_per_chip']:5d} "
+              f"{r['hbm_resident_gib']:8.4f} {ef:>6s} {w:>7s} {pw:>7s} "
+              f"{','.join(flags) or 'ok'}")
+    for s in doc["skipped"]:
+        print(f"      {s['cell']:26s} skipped: {s['reason']}")
+    rec = doc["recommendation"]
+    if rec is not None:
+        print(f"  recommendation: {rec['cell']} "
+              f"({rec['strategy']}, mesh {rec['mesh']}) at "
+              f"{rec['step_ms']:.4f}ms/step")
+    else:
+        print("  recommendation: NONE (no feasible cell)")
+    for k, v in res.stats.stats_dict().items():
+        print(f"  {k} = {v:.0f}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(doc, f, indent=2, sort_keys=True)
+            f.write("\n")
+        print(f"  report written to {args.json}")
+    return 0
+
+
 def _parse_sets(items: list[str] | None) -> dict:
     """``--set k=v`` overrides (ints/floats/json parsed, else string)."""
     out = {}
@@ -696,6 +781,40 @@ def main(argv: list[str] | None = None) -> int:
     pfl.add_argument("--verbose", action="store_true",
                      help="per-state/per-cell progress on stderr")
     pfl.set_defaults(fn=_cmd_fleet)
+
+    pad = sub.add_parser(
+        "advise",
+        help="parallelism-strategy sweep & sharding advisor: price the "
+             "slices x strategies x meshes cross-product of one traced "
+             "workload on modeled tori -> ranked step-time/ICI-bytes/"
+             "HBM/watts table + recommended sharding",
+    )
+    pad.add_argument("spec", help="advise spec JSON (see "
+                                  "docs/ARCHITECTURE.md)")
+    pad.add_argument("--trace", required=True,
+                     help="trace directory of the workload to advise on")
+    pad.add_argument("--top", type=int, default=0,
+                     help="print only the best N cells (0 = all)")
+    pad.add_argument("--workers", type=int, default=None, metavar="N",
+                     help="fan each cell's module pricing over N "
+                          "processes (cells run serially so the report "
+                          "is byte-identical)")
+    pad.add_argument("--result-cache", nargs="?", const=True,
+                     default=None, metavar="DIR",
+                     help="share the engine-result cache on disk "
+                          "(in-memory sharing across cells is always "
+                          "on; this persists it — a warm re-run prices "
+                          "zero engine walks)")
+    pad.add_argument("--compile-cache", nargs="?", const=True,
+                     default=None, metavar="DIR",
+                     help="durable compiled-module tier: cell clones "
+                          "compile once ever per (content, config) "
+                          "(tpusim_torch.fastpath.store)")
+    pad.add_argument("--json", default=None,
+                     help="also write the ranked report document here")
+    pad.add_argument("--verbose", action="store_true",
+                     help="per-cell progress on stderr")
+    pad.set_defaults(fn=_cmd_advise)
 
 
     pc = sub.add_parser("capture", help="capture a registered workload")

@@ -3,14 +3,25 @@
 Port of the parts of ``tpusim/analysis/`` the campaign and fleet layers
 run: the shared diagnostics core (:mod:`~tpusim_torch.analysis.
 diagnostics`, the code registry whole), :class:`ValidationError`, and
-the spec passes — campaign (TL21x), DCN (TL23x) and fleet (TL24x).  The
-trace, config, schedule, memory, collective, perf, stats-key and
-self-audit passes, ``lint`` and ``simulate --validate`` are ROADMAP A9.
+the spec passes — campaign (TL21x), advise (TL22x), DCN (TL23x) and
+fleet (TL24x) — and the two analyzers the advisor reads: the
+whole-trace dataflow engine (:mod:`~tpusim_torch.analysis.dataflow`,
+per-space liveness and peaks) and the critical-path analyzer
+(:mod:`~tpusim_torch.analysis.critpath`).  The trace, config,
+schedule, memory, collective, perf, stats-key and self-audit passes,
+``lint``, ``perf-report`` and ``simulate --validate`` are ROADMAP A9.
 """
 
 from __future__ import annotations
 
+from tpusim_torch.analysis.advise_passes import analyze_advise_spec
 from tpusim_torch.analysis.campaign_passes import analyze_campaign_spec
+from tpusim_torch.analysis.critpath import (
+    CritBuilder,
+    ModulePerf,
+    analyze_module_perf,
+    module_perf_doc,
+)
 from tpusim_torch.analysis.diagnostics import (
     CODE_FAMILIES,
     CODES,
@@ -27,14 +38,19 @@ __all__ = [
     "CODES",
     "CODE_FAMILIES",
     "CodeInfo",
+    "CritBuilder",
     "Diagnostic",
     "Diagnostics",
+    "ModulePerf",
     "Severity",
     "ValidationError",
+    "analyze_advise_spec",
     "analyze_campaign_spec",
     "analyze_fleet_spec",
+    "analyze_module_perf",
     "family_of",
     "list_code_lines",
+    "module_perf_doc",
 ]
 
 

@@ -38,7 +38,8 @@ from tpusim_torch.ir import (
 )
 from tpusim_torch.timing.config import ArchConfig
 
-__all__ = ["OpCost", "CostModel", "dot_dims", "conv_dims", "while_trip_count"]
+__all__ = ["OpCost", "CostModel", "classify_bound", "dot_dims", "conv_dims",
+           "shape_memory_bytes", "while_trip_count"]
 
 
 # ---------------------------------------------------------------------------
@@ -609,6 +610,20 @@ def _memory_bytes(
     return hbm, vmem
 
 
+def shape_memory_bytes(
+    comp: Computation,
+    op: TraceOp,
+    module: ModuleTrace | None = None,
+) -> tuple[float, float]:
+    """Public view of the operand+result byte accounting: the
+    ``(hbm_bytes, vmem_bytes)`` an op's *shapes* imply, before any
+    kernel-declared ``cost_estimate`` override or region capping.  The
+    perf analyzer (:mod:`tpusim_torch.analysis.critpath`) compares this
+    shape-derived traffic against the priced traffic to catch kernels
+    whose own accounting contradicts their roofline (TL503)."""
+    return _memory_bytes(comp, op, module)
+
+
 # ---------------------------------------------------------------------------
 # Cost record
 # ---------------------------------------------------------------------------
@@ -647,6 +662,33 @@ class OpCost:
         self.mxu_flops += other.mxu_flops
         self.transcendentals += other.transcendentals
         self.truncated = self.truncated or other.truncated
+
+
+def classify_bound(cost: OpCost, arch: ArchConfig) -> str:
+    """Roofline classification of one priced op from the cost model's own
+    term breakdown: which resource pins the op's cycles.
+
+    Returns one of ``"ici"`` (collective), ``"none"`` (free), ``"hbm"`` /
+    ``"vmem"`` (memory-bound, split by which port's stream time won the
+    roofline max), ``"mxu"`` / ``"vpu"`` (compute-bound, split by unit),
+    or ``"overhead"`` (issue overhead dominates both terms).  This is the
+    term arithmetic the engine itself prices with — the perf analyzer's
+    TL503 roofline check must not re-derive it differently."""
+    if cost.unit is Unit.ICI:
+        return "ici"
+    if cost.cycles <= 0:
+        return "none"
+    if cost.mem_cycles > cost.compute_cycles:
+        hbm_t = cost.hbm_bytes / (
+            arch.hbm_bytes_per_cycle * max(cost.hbm_rate_scale, 1e-6)
+        )
+        vmem_t = cost.vmem_bytes / (
+            arch.vmem_bytes_per_cycle * max(cost.vmem_rate_scale, 1e-6)
+        )
+        return "hbm" if hbm_t >= vmem_t else "vmem"
+    if cost.compute_cycles > 0:
+        return "mxu" if (cost.mxu_flops > 0 or cost.unit is Unit.MXU) else "vpu"
+    return "overhead"
 
 
 # ---------------------------------------------------------------------------
