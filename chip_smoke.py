@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's main path, ``tpusim_torch capture → simulate``, at the
-registered width of ``flash_attention_pallas`` ([32, 1024, 128] f32),
+registered width of ``flash_attention_pallas`` ([32, 1024, 128] f32) and
+of the ten workloads the general lowering captures,
 simulate's lane-batched pricing with its row scans on the card, the
 campaign and fleet layers whose scenario-batched warm runs those scans,
 and the sharding advisor on the card's host, and holds each CUDA kernel
@@ -131,11 +132,27 @@ non-zero and prints no result):
    warm pass walking no module, with per-cell seconds and, in the cold
    leg, each cell's calls of and seconds in ``permute_seconds``; (d) the
    critical-path analyzer on every module of the 12-trace corpus at
-   v5p: critical path <= the engine's cycles <= the serial sum.
+   v5p: critical path <= the engine's cycles <= the serial sum;
+11. the general lowering (core ATen -> fused HLO) on the ten workloads
+   with committed silicon traces, each at its registered width on the
+   card, with the kernels' launch counters set to 0 just before and read
+   just after (they must stay 0: the workloads run through plain torch
+   ops): (a) ``capture W DIR --launches 2 --snapshot`` through the CLI
+   entry function, timed; (b) the module text captured on the card equals
+   by bytes the text the same torch lowers from CPU tensors of the same
+   shapes; (c) every snapshot buffer against a CPU run of the same module
+   on the same inputs, the first launch elementwise within rtol = atol =
+   1e-4 (float32) or 2e-2 (bfloat16), later launches (which start from
+   state that already differs) and matmul_chain's ill-conditioned chain
+   norm-wise; (d) the trace simulated at v5e and v5p, per-step totals
+   beside ``reports/silicon/W``'s divided by its ``n_steps``, with the
+   ratios at the registered width and from a capture at the silicon
+   trace's own shapes; (e) ``measure_wall_time``'s median on the card.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, the one before that the kernels' JSON
-record, and the one before that phase 10's (``advisor: {...}``).  Needs
+record, the one before that phase 11's (``lowered: {...}``) and before
+it phase 10's (``advisor: {...}``).  Needs
 no network and one card; exits non-zero without a CUDA device or without
 the rest of the repository beside it.
 """
@@ -199,6 +216,13 @@ from tpusim_torch.sim.stats import EXIT_SENTINEL  # noqa: E402
 from tpusim_torch.timing.config import load_config  # noqa: E402
 from tpusim_torch.timing.engine import Engine  # noqa: E402
 from tpusim_torch.trace.format import load_trace  # noqa: E402
+from tpusim_torch.models import get_workload  # noqa: E402
+from tpusim_torch.tracer.capture import (  # noqa: E402
+    capture_to_dir,
+    export_to_hlo,
+    measure_wall_time,
+    snapshot_buffers,
+)
 
 #: published H100 SXM peaks (NVIDIA data sheet, dense): the tensor cores in
 #: TF32 (the fastest unit that takes f32 operands) and in bf16, f32 on the
@@ -2203,6 +2227,183 @@ def advisor(card_name: str, work: Path) -> dict:
     return out
 
 
+#: phase 11: the workloads the general lowering captures — the ten with
+#: committed silicon traces (``reports/silicon/manifest.json``), in the
+#: order the port took them
+LOWERED = ("elementwise_stream", "transcendental", "reduction",
+           "matmul_chain", "attention_1chip", "conv2d", "embedding_lookup",
+           "mlp_train_step", "decode_step", "lstm_layer")
+#: phase 11 (c): rtol = atol per input dtype (tests/test_torch_workloads.py),
+#: at the registered width (no workload takes the card's host 10 s there)
+TOL_LOWERED = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: phase 11 (c): a later launch runs on the state the launch before it
+#: left, which already differs between the card and the CPU by that
+#: launch's rounding, so later launches are held norm-wise, ||card - cpu||
+#: <= tol ||cpu||: conv2d and matmul_chain feed their unnormalised outputs
+#: back as inputs, and near-zero outputs there carry the first launch's
+#: differences past an elementwise bound.  Workloads held norm-wise from
+#: the first launch on: matmul_chain's layers of unscaled N(0, 1) weights grow its values to
+#: ~7e6 after four layers and ~8e12 after the second launch; outputs that
+#: cancel to near zero carry the libraries' different summation orders
+#: past any elementwise bound (a card run read 48652 of 4194304 elements
+#: past 2e-2 in bfloat16, and 71 even in float32, at norm-wise 1.6e-3
+#: and 1.4e-6)
+NORMWISE = frozenset({"matmul_chain"})
+#: phase 11 (d): the shapes each silicon trace was captured at (its entry
+#: parameters); seven differ from the registered width, so the ratios to
+#: the silicon totals are taken from a port capture at these shapes
+SILICON_SHAPES = {
+    "elementwise_stream": dict(elems=33554432),
+    "transcendental": dict(elems=8388608),
+    "reduction": dict(rows=4096, cols=4096),
+    "matmul_chain": dict(m=2048, k=2048, depth=4),
+    "attention_1chip": dict(batch=4, seq=1024, heads=8, head_dim=128),
+    "conv2d": dict(batch=16, hw=56, cin=64, cout=64, ksize=3),
+    "embedding_lookup": dict(vocab=131072, dim=1024, lookups=8192),
+    "mlp_train_step": dict(batch=256, width=1024, depth=2),
+    # the trace's pos is a runtime value; pricing reads only shapes
+    "decode_step": dict(batch=8, seq_cache=1024, heads=8, head_dim=128,
+                        layers=2, pos=512),
+    "lstm_layer": dict(batch=64, hidden=1024, seq=64),
+}
+#: phase 11 (d): kernel cycles are tot_sim_cycles less memcpy_cycles: the
+#: silicon traces hold no host copies
+#: phase 11 (d): the totals set beside the silicon traces'
+SIM_KEYS = ("tot_mxu_flops", "tot_flops", "tot_hbm_bytes", "tot_sim_cycles",
+            "kernel_cycles")
+
+
+def per_step(stats: dict, steps: int) -> dict:
+    stats = dict(stats, kernel_cycles=stats["tot_sim_cycles"]
+                 - stats["memcpy_cycles"])
+    return {k: stats[k] / steps for k in SIM_KEYS}
+
+
+def card_vs_cpu(name: str, card_dir: Path, work: Path) -> dict:
+    """Phase 11 (c): the snapshot buffers of the CLI's capture on the card
+    (in ``card_dir``) against a CPU run of the same module on the same
+    inputs (2 launches each)."""
+    module, args = get_workload(name).build(device="cuda")
+    tol = TOL_LOWERED[args[0].dtype]
+    on_card = sorted(card_dir.glob("*.npy"))
+    t0 = time.perf_counter()
+    on_cpu = snapshot_buffers(module, *(a.cpu() for a in args),
+                              out_dir=work / "cpu", launches=2)
+    cpu_s = time.perf_counter() - t0
+    on_cpu = sorted(on_cpu)
+    if [p.name for p in on_card] != [p.name for p in on_cpu]:
+        raise AssertionError(f"{name}: snapshot files differ")
+    worst, err = 0.0, 0.0
+    for a, b in zip(on_card, on_cpu):
+        x, y = np.load(a), np.load(b)
+        if x.shape != y.shape or not np.isfinite(x).all():
+            raise AssertionError(f"{name}: bad snapshot {a.name}")
+        gap = np.abs(x - y)
+        err = max(err, float(gap.max(initial=0.0)))
+        if name in NORMWISE or not a.name.startswith("launch0_"):
+            frac = float(np.linalg.norm(gap.astype(np.float64))
+                         / np.linalg.norm(y.astype(np.float64)) / tol)
+        else:
+            frac = float((gap / (tol + tol * np.abs(y))).max(initial=0.0))
+        worst = max(worst, frac)
+    if worst > 1.0:
+        raise AssertionError(
+            f"{name}: card and CPU snapshots differ beyond {tol} "
+            f"(worst {worst:.3g} of the tolerance)")
+    return {"max_abs_err": err, "tol": tol, "worst_of_tol": worst,
+            "normwise": name in NORMWISE, "cpu_s": cpu_s,
+            "buffers": len(on_card)}
+
+
+def lowered_workloads(card_name: str, work: Path) -> dict:
+    """Phase 11: each workload at its registered width on the card — (a)
+    capture through the CLI, (b) the same HLO on the CPU, (c) the
+    snapshots against the CPU, (d) simulated per step at v5e and v5p
+    beside the silicon trace's totals per step, (e) the step's median time
+    on the card, (f) no custom kernel launched."""
+    manifest = json.loads(
+        (REPO / "reports" / "silicon" / "manifest.json").read_text())
+    n_steps = {w["name"]: w["n_steps"] for w in manifest["workloads"]}
+    for *_, reset in KERNELS:
+        reset()
+    t_phase = time.perf_counter()
+    rows = {}
+    for name in LOWERED:
+        trace = work / name
+        t0 = time.perf_counter()
+        run_cli(["capture", name, str(trace), "--launches", "2",
+                 "--snapshot"])
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        module, args = get_workload(name).build(device="cuda")
+        card_text = (trace / "modules" / f"{name}.hlo").read_text()
+        # the CPU capture only reads shapes and dtypes
+        cpu_args = tuple(a.cpu() if a.dim() == 0 else
+                         torch.empty(a.shape, dtype=a.dtype) for a in args)
+        cpu_text, _ = export_to_hlo(module, cpu_args, name)
+        if cpu_text != card_text:
+            raise AssertionError(f"{name}: the card's HLO differs from the "
+                                 f"CPU's")
+        check = card_vs_cpu(name, trace / "checkpoint_files",
+                            work / f"{name}_snapshots")
+        shutil.rmtree(trace / "checkpoint_files")
+        shutil.rmtree(work / f"{name}_snapshots")
+        sim = {}
+        for arch in ("v5e", "v5p"):
+            st = stats_of(simulate_trace(trace, arch=arch, tuned=False))
+            if st["tot_unknown_trip_loops"]:
+                raise AssertionError(f"{name}: unresolved loop trip count")
+            sim[arch] = per_step(st, st["kernel_launches"])
+        silicon = per_step(stats_of(simulate_trace(
+            REPO / "reports" / "silicon" / name, arch="v5e", tuned=False)),
+            n_steps[name])
+        at = work / f"{name}_silicon_shapes"
+        sil_module, sil_args = get_workload(name).build(
+            device="cuda", **SILICON_SHAPES[name])
+        capture_to_dir(at, sil_module, *sil_args, name=name)
+        same = per_step(stats_of(simulate_trace(at, arch="v5e",
+                                                tuned=False)), 1)
+        ratio = {k: (same[k] / silicon[k] if silicon[k] else None)
+                 for k in SIM_KEYS}
+        ratio_registered = {
+            k: (sim["v5e"][k] / silicon[k] if silicon[k] else None)
+            for k in SIM_KEYS}
+        wall = measure_wall_time(module, *args, iters=5, warmup=2)
+        rows[name] = {
+            "params": get_workload(name).params, "capture_s": capture_s,
+            "hlo_bytes": len(card_text), "card_vs_cpu": check,
+            "sim_per_step": sim, "silicon_v5e_per_step": silicon,
+            "n_steps": n_steps[name], "silicon_shapes": SILICON_SHAPES[name],
+            "v5e_at_silicon_shapes": same, "v5e_over_silicon": ratio,
+            "registered_v5e_over_silicon": ratio_registered,
+            "median_ms": wall["median_s"] * 1e3,
+        }
+        print(f"  {name}: capture {capture_s:.2f} s, HLO card == CPU "
+              f"({len(card_text)} B); card vs CPU max |err| "
+              f"{check['max_abs_err']:.3g} ({check['worst_of_tol']:.3g} of "
+              f"tol {check['tol']}{', norm-wise' if check['normwise'] else ''}); "
+              f"median "
+              f"{rows[name]['median_ms']:.4f} ms on {card_name}", flush=True)
+        for arch in ("v5e", "v5p"):
+            print(f"    {arch} per step: " + ", ".join(
+                f"{k} {sim[arch][k]:.6g}" for k in SIM_KEYS))
+        print("    silicon v5e per step (/" + str(n_steps[name]) + "): "
+              + ", ".join(f"{k} {silicon[k]:.6g}" for k in SIM_KEYS))
+        for tag, r in (("registered", ratio_registered),
+                       ("at the silicon shapes", ratio)):
+            print(f"    v5e / silicon, {tag}: " + ", ".join(
+                f"{k} {r[k]:.4g}" if r[k] is not None else f"{k} n/a"
+                for k in SIM_KEYS))
+        torch.cuda.empty_cache()
+    launches = {name: count() for name, _, _, count, _ in KERNELS}
+    if any(launches.values()):
+        raise AssertionError(f"phase 11 launched a custom kernel: {launches}")
+    seconds = time.perf_counter() - t_phase
+    print(f"  kernel launches across phase 11: {launches}; {seconds:.1f} s")
+    return {"workloads": rows, "launches": launches, "seconds": seconds,
+            "card": card_name}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -2296,6 +2497,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         advise = advisor(card_name, Path(tmp))
     print("advisor: " + json.dumps(advise))
+
+    phase(11, "the general lowering: ten workloads at registered width")
+    with tempfile.TemporaryDirectory() as tmp:
+        lowered = lowered_workloads(card_name, Path(tmp))
+    print("lowered: " + json.dumps(lowered))
 
     record = {"kernels": [{
         "name": "flash_attention",

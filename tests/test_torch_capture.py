@@ -156,13 +156,14 @@ def test_cli_capture_without_a_card_refuses(tmp_path, monkeypatch, capsys):
 
 
 def test_capture_refuses_other_graph_nodes():
-    class Doubled(torch.nn.Module):
+    # a node outside the lowering's op table (cumsum) is refused by name
+    class Summed(torch.nn.Module):
         def forward(self, q, k, v):
-            return FlashAttention()(q, k, v) * 2
+            return torch.cumsum(FlashAttention()(q, k, v), dim=1)
 
     q = torch.zeros(1, 64, 32)
-    with pytest.raises(NotImplementedError, match="A5"):
-        capture(Doubled(), q, q, q)
+    with pytest.raises(NotImplementedError, match="cumsum.*A5"):
+        capture(Summed(), q, q, q)
 
 
 def test_capture_to_dir_single_launch(tmp_path):
@@ -179,3 +180,29 @@ def test_measure_wall_time_keys():
     res = measure_wall_time(module, *args, iters=2, warmup=1)
     assert set(res) == {"iters", "fence_s", "min_s", "median_s", "mean_s"}
     assert res["iters"] == 6 and res["min_s"] <= res["median_s"]
+
+
+@pytest.mark.parametrize("compress,gz", [(True, True), (False, False),
+                                         ("auto", False)])
+def test_capture_to_dir_compress(tmp_path, compress, gz):
+    module, args = get_workload(WORKLOAD).build(device="cpu", **SMALL)
+    out = tmp_path / "c"
+    capture_to_dir(out, module, *args, name=WORKLOAD, compress=compress)
+    names = sorted(p.name for p in (out / "modules").iterdir())
+    assert names == [f"{WORKLOAD}.hlo.gz" if gz else f"{WORKLOAD}.hlo"]
+    # both packages load the module, gzipped or not, and price it alike
+    assert [o.opcode for o in ref_load(out).modules[WORKLOAD].entry.ops] == [
+        "parameter"] * 3 + ["custom-call"]
+    want = _stats(ref_simulate(out, arch="v5e", tuned=False))
+    assert _stats(port_simulate(out, arch="v5e", tuned=False)) == want
+
+
+def test_save_trace_auto_gzips_large_modules(tmp_path, monkeypatch):
+    from tpusim_torch.trace import format as fmt
+
+    module, args = get_workload(WORKLOAD).build(device="cpu", **SMALL)
+    monkeypatch.setattr(fmt, "COMPRESS_THRESHOLD_BYTES", 16)
+    capture_to_dir(tmp_path / "a", module, *args, name=WORKLOAD)
+    assert (tmp_path / "a" / "modules" / f"{WORKLOAD}.hlo.gz").exists()
+    with pytest.raises(ValueError, match="compress"):
+        fmt.save_trace(tmp_path / "b", {}, [], compress="always")

@@ -5,4 +5,8 @@ torch)."""
 
 from tpusim_torch.models.registry import Workload, get_workload, list_workloads, register
 
+# import for registration side effects
+from tpusim_torch.models import microbench as _microbench  # noqa: F401
+from tpusim_torch.models import attention as _attention  # noqa: F401
+from tpusim_torch.models import decode as _decode  # noqa: F401
 from tpusim_torch.models import flash_attention as _flash_attention  # noqa: F401

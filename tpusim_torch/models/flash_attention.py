@@ -24,7 +24,12 @@ from tpusim_torch.kernels.flash_attention import (
     flash_attention_fwd,
     flash_attention_reference,
 )
-from tpusim_torch.models.registry import register
+from tpusim_torch.models.registry import (
+    register,
+    resolve_device,
+    tensor_from_numpy,
+    torch_dtype,
+)
 
 __all__ = ["flash_attention", "flash_attention_reference", "FlashAttention",
            "build_flash_attention", "from_numpy", "resolve_device"]
@@ -63,31 +68,13 @@ class FlashAttention(nn.Module):
         return flash_attention(q, k, v, block_q=self.block_q)
 
 
-def resolve_device(device: str | torch.device | None) -> torch.device:
-    """``cuda`` unless the caller asks for something else; raises when
-    CUDA is asked for and there is no card."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device 'cuda' requested but no CUDA device is available "
-            "(pass --device cpu / device='cpu' to run on the CPU)"
-        )
-    return dev
-
-
-_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
 def from_numpy(q: np.ndarray, k: np.ndarray, v: np.ndarray, *,
                device: str | torch.device | None = None,
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The port's tensors for inputs a caller made with numpy (the JAX
     side takes the same arrays through ``jnp.asarray``)."""
     dev = resolve_device(device)
-    return tuple(
-        torch.as_tensor(np.ascontiguousarray(a), device=dev)
-        for a in (q, k, v)
-    )
+    return tuple(tensor_from_numpy(a, dev) for a in (q, k, v))
 
 
 @register(
@@ -104,13 +91,12 @@ def build_flash_attention(batch: int, seq: int, heads: int, head_dim: int,
     a ``torch.Generator`` seeded 0.  The numbers differ from the JAX
     builder's ``PRNGKey(0)``; pricing depends only on shapes."""
     dev = resolve_device(device)
-    if dtype not in _TORCH_DTYPES:
-        raise ValueError(f"dtype {dtype!r} not in {sorted(_TORCH_DTYPES)}")
+    dt = torch_dtype(dtype)
     gen = torch.Generator(device=dev).manual_seed(0)
     shape = (batch * heads, seq, head_dim)
     q, k, v = (
         torch.randn(shape, generator=gen, device=dev,
-                    dtype=_TORCH_DTYPES[dtype])
+                    dtype=dt)
         for _ in range(3)
     )
     return FlashAttention(), (q, k, v)

@@ -9,7 +9,43 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
-__all__ = ["Workload", "register", "get_workload", "list_workloads"]
+import numpy as np
+import torch
+
+__all__ = ["Workload", "register", "get_workload", "list_workloads",
+           "resolve_device", "torch_dtype", "tensor_from_numpy"]
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """``cuda`` unless the caller asks for something else; raises when
+    CUDA is asked for and there is no card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but no CUDA device is available "
+            "(pass --device cpu / device='cpu' to run on the CPU)"
+        )
+    return dev
+
+
+def torch_dtype(dtype: str) -> torch.dtype:
+    """The torch dtype of a workload's ``dtype`` parameter."""
+    if dtype not in _TORCH_DTYPES:
+        raise ValueError(f"dtype {dtype!r} not in {sorted(_TORCH_DTYPES)}")
+    return _TORCH_DTYPES[dtype]
+
+
+def tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
+    """A tensor on ``device`` holding a numpy array's values (or a numpy
+    scalar's); bfloat16 arrays (``ml_dtypes``, what ``np.asarray`` gives
+    for a JAX bfloat16 array) arrive exactly as torch bfloat16."""
+    a = np.array(a, order="C")      # a writable copy; 0-d stays 0-d
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(a).to(device)
 
 
 @dataclass

@@ -143,9 +143,14 @@ def save_trace(
     modules: dict[str, str],
     commands: list[TraceCommand],
     meta: dict | None = None,
+    compress: bool | str = "auto",
 ) -> TraceDir:
-    """Write a trace directory.  ``modules`` maps module name → HLO text;
-    modules of :data:`COMPRESS_THRESHOLD_BYTES` or more are gzipped."""
+    """Write a trace directory.  ``modules`` maps module name → HLO text.
+
+    ``compress``: True = always gzip module text, False = never, "auto" =
+    gzip modules of :data:`COMPRESS_THRESHOLD_BYTES` or more."""
+    if compress not in (True, False, "auto"):
+        raise ValueError(f"compress={compress!r}: want True, False or 'auto'")
     path = Path(path)
     (path / "modules").mkdir(parents=True, exist_ok=True)
     meta = dict(meta or {})
@@ -154,7 +159,10 @@ def save_trace(
         json.dump(meta, f, indent=2, default=str)
     for name, text in modules.items():
         safe = name.replace(os.sep, "_")
-        if len(text) >= COMPRESS_THRESHOLD_BYTES:
+        gz = compress is True or (
+            compress == "auto" and len(text) >= COMPRESS_THRESHOLD_BYTES
+        )
+        if gz:
             with gzip.open(
                 path / "modules" / f"{safe}.hlo.gz", "wt",
                 compresslevel=6,

@@ -1,21 +1,22 @@
 """PyTorch → trace capture.
 
 Port of ``tpusim/tracer/capture.py``.  Where the JAX package runs
-``jax.jit → lower → compile`` and stores XLA's HLO text, the port runs
-``torch.export.export`` on the workload's module and writes HLO text for
-the exported graph in the parser's own syntax:
+``jax.jit → lower → compile`` and stores XLA's HLO text, the port takes
+the workload's graph in core ATen ops (:func:`capture_graph`: ``torch.
+export`` for a forward module, ``make_fx`` for a train step), lowers it
+to HLO (:mod:`tpusim_torch.tracer.lower`), fuses it
+(:mod:`tpusim_torch.tracer.fuse`) and writes the text in the parser's
+own syntax, with a tuple ``ROOT`` when the workload returns several
+tensors.  The custom op ``tpusim_torch::flash_attention`` stays one
+``custom-call`` with ``custom_call_target="tpu_custom_call"`` and no
+``cost_estimate`` — what a TPU capture of the Pallas kernel holds.
 
-* one ``parameter(i)`` per placeholder;
-* one ``custom-call`` with ``custom_call_target="tpu_custom_call"`` per
-  call of the custom op ``tpusim_torch::flash_attention`` — what a TPU
-  capture of the Pallas kernel holds.  No ``cost_estimate`` is written:
-  the JAX ``flash_attention`` passes none to ``pallas_call`` either;
-* ``ROOT`` for the output.
-
-Any other graph node raises ``NotImplementedError``: general aten→HLO
-lowering is ROADMAP A5.  Like the reference, :func:`capture` runs nothing
-on the device (export runs the op's fake implementation);
-:func:`snapshot_buffers` and :func:`measure_wall_time` run the kernel.
+A graph node outside the lowering's op table raises
+``NotImplementedError``.  Like the reference, :func:`capture` runs
+nothing on the device (the graph is traced over fake tensors);
+:func:`snapshot_buffers` and :func:`measure_wall_time` run the workload.
+The meta keeps the reference's keys; ``xla_cost_analysis`` and
+``memory_analysis`` stay empty, as there is no XLA here.
 """
 
 from __future__ import annotations
@@ -34,99 +35,42 @@ import torch
 
 from tpusim_torch.ir import CommandKind, TraceCommand
 from tpusim_torch.trace.format import TraceDir, save_trace
+from tpusim_torch.tracer.lower import lower_graph
 
-__all__ = ["Capture", "capture", "capture_to_dir", "export_to_hlo",
+__all__ = ["Capture", "capture", "capture_to_dir", "capture_graph",
+           "export_to_hlo",
            "snapshot_buffers", "measure_wall_time"]
 
-#: torch dtype → HLO primitive type, for the dtypes the custom ops take
-_HLO_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+def capture_graph(module: torch.nn.Module,
+                  args: tuple[torch.Tensor, ...]) -> torch.fx.GraphModule:
+    """The module's graph in core ATen ops: ``torch.export`` then
+    ``run_decompositions()``, or, for a module whose ``train_step`` is
+    true (a step that calls ``torch.autograd.grad``, which export does
+    not take), ``make_fx`` over fake tensors with the core ATen
+    decompositions.  Neither runs anything on the device."""
+    if getattr(module, "train_step", False):
+        from torch._decomp import core_aten_decompositions
+        from torch.fx.experimental.proxy_tensor import make_fx
 
-#: custom ops the capture writes as a TPU custom-call
-_CUSTOM_CALL_OPS = ("tpusim_torch::flash_attention",)
-
-
-def _hlo_shape(t: torch.Tensor, layout: bool = True) -> str:
-    try:
-        dt = _HLO_DTYPES[t.dtype]
-    except KeyError:
-        raise NotImplementedError(
-            f"no HLO type for torch dtype {t.dtype}"
-        ) from None
-    dims = ",".join(str(int(d)) for d in t.shape)
-    if not layout:
-        return f"{dt}[{dims}]"
-    # row-major: minor-to-major is the reversed dim order
-    minor = ",".join(str(i) for i in range(t.dim() - 1, -1, -1))
-    return f"{dt}[{dims}]{{{minor}}}"
+        return make_fx(module,
+                       decomposition_table=core_aten_decompositions(),
+                       tracing_mode="fake")(*args)
+    ep = torch.export.export(module, args).run_decompositions()
+    for spec in ep.graph_signature.input_specs:
+        if spec.kind != torch.export.graph_signature.InputKind.USER_INPUT:
+            raise NotImplementedError(
+                f"capture takes modules without parameters or buffers; "
+                f"input {spec.arg.name} is a {spec.kind.name}"
+            )
+    return ep.graph_module
 
 
 def export_to_hlo(module: torch.nn.Module, args: tuple[torch.Tensor, ...],
-                  name: str) -> tuple[str, torch.Tensor]:
-    """HLO text of ``torch.export.export(module, args)``'s graph, and the
-    (fake) output tensor export inferred."""
-    ep = torch.export.export(module, args)
-    graph = ep.graph_module.graph
-    lines: list[str] = []
-    params: list[torch.Tensor] = []
-    values: dict[str, str] = {}    # fx node name -> HLO value name
-    root: str | None = None
-    root_val: torch.Tensor | None = None
-    for node in graph.nodes:
-        val = node.meta.get("val")
-        if node.op == "placeholder":
-            values[node.name] = node.name
-            lines.append(
-                f"  %{node.name} = {_hlo_shape(val)} parameter({len(params)})"
-            )
-            params.append(val)
-        elif node.op == "call_function" and getattr(
-            node.target, "name", lambda: ""
-        )().split(".")[0] in _CUSTOM_CALL_OPS:
-            tensors = [a for a in node.args if isinstance(a, torch.fx.Node)]
-            values[node.name] = node.name
-            operands = ", ".join(f"%{values[a.name]}" for a in tensors)
-            lines.append(
-                f"  %{node.name} = {_hlo_shape(val)} custom-call({operands}), "
-                f'custom_call_target="tpu_custom_call"'
-            )
-        elif node.op == "output":
-            outs = node.args[0]
-            if len(outs) != 1 or not isinstance(outs[0], torch.fx.Node):
-                raise NotImplementedError(
-                    "capture writes one tensor output; general outputs "
-                    "wait for ROADMAP A5"
-                )
-            root = values[outs[0].name]
-            root_val = outs[0].meta["val"]
-        else:
-            raise NotImplementedError(
-                f"capture lowers only the custom ops {_CUSTOM_CALL_OPS}; "
-                f"graph node {node.op} {node.target} needs the general "
-                f"aten->HLO lowering of ROADMAP A5"
-            )
-    if root is None or root_val is None:
-        raise NotImplementedError("exported graph has no tensor output")
-    # the output is the last instruction the graph defines; mark it ROOT
-    for i in range(len(lines) - 1, -1, -1):
-        if lines[i].startswith(f"  %{root} = "):
-            lines[i] = "  ROOT " + lines[i][2:]
-            break
-    else:
-        raise NotImplementedError("a graph that returns an input is not lowered")
-    param_layouts = ", ".join(_hlo_shape(p) for p in params)
-    header = (
-        f"HloModule {name}, is_scheduled=true, "
-        f"entry_computation_layout={{({param_layouts})->"
-        f"{_hlo_shape(root_val)}}}"
-    )
-    sig = ", ".join(
-        f"{values[n.name]}: {_hlo_shape(p, layout=False)}"
-        for n, p in zip(
-            [n for n in graph.nodes if n.op == "placeholder"], params
-        )
-    )
-    entry = f"ENTRY %main ({sig}) -> {_hlo_shape(root_val, layout=False)} {{"
-    return "\n".join([header, "", entry, *lines, "}", ""]), root_val
+                  name: str) -> tuple[str, list[torch.Tensor]]:
+    """HLO text of the module's lowered and fused graph, and the (fake)
+    output tensors in order."""
+    hlo, outs = lower_graph(capture_graph(module, args), name)
+    return hlo.text(), outs
 
 
 @dataclass
@@ -184,7 +128,7 @@ def capture(module: torch.nn.Module, *args: torch.Tensor,
     """Capture ``module(*args)`` as a trace: export, write HLO, and take
     the memcpy sizes from the inputs and the exported output."""
     cap_name = name or type(module).__name__
-    hlo_text, out_val = export_to_hlo(module, args, cap_name)
+    hlo_text, out_vals = export_to_hlo(module, args, cap_name)
     meta: dict[str, Any] = {
         "capture_name": cap_name,
         **_device_meta(_device_of(args)),
@@ -194,13 +138,15 @@ def capture(module: torch.nn.Module, *args: torch.Tensor,
     }
     return Capture(name=cap_name, hlo_text=hlo_text, meta=meta,
                    in_bytes=sum(_nbytes(a) for a in args),
-                   out_bytes=_nbytes(out_val))
+                   out_bytes=sum(_nbytes(v) for v in out_vals))
 
 
 def capture_to_dir(path: str | Path, module: torch.nn.Module,
                    *args: torch.Tensor, name: str | None = None,
-                   launches: int = 1) -> TraceDir:
-    """Capture and write a trace directory (module + commandlist + meta)."""
+                   launches: int = 1,
+                   compress: bool | str = "auto") -> TraceDir:
+    """Capture and write a trace directory (module + commandlist + meta);
+    ``compress`` as in :func:`~tpusim_torch.trace.format.save_trace`."""
     cap = capture(module, *args, name=name)
     cmds: list[TraceCommand] = []
     for i in range(launches):
@@ -217,7 +163,8 @@ def capture_to_dir(path: str | Path, module: torch.nn.Module,
             ]
         cmds.extend(launch_cmds)
     return save_trace(
-        path, modules={cap.name: cap.hlo_text}, commands=cmds, meta=cap.meta
+        path, modules={cap.name: cap.hlo_text}, commands=cmds, meta=cap.meta,
+        compress=compress,
     )
 
 

@@ -1,0 +1,950 @@
+"""Core ATen → HLO lowering.
+
+The port's counterpart of XLA's lowering, which the JAX package gets from
+``jax.jit(...).lower().compile()`` (``tpusim/tracer/capture.py``).  It
+turns an FX graph of core ATen ops — ``torch.export(...)
+.run_decompositions()`` of a forward module, or ``make_fx`` of a train
+step — into an :class:`~tpusim_torch.tracer.hlo_ir.HloModule`:
+
+* ``mm`` / ``bmm`` / ``addmm`` → ``dot``; ``convolution`` → ``convolution``
+  with ``window`` and ``dim_labels``;
+* elementwise arithmetic, ``exp``, ``tanh``, ``sigmoid`` (``logistic``),
+  ``relu`` (``maximum``), ``pow`` by a scalar, ``where`` (``select``),
+  comparisons, ``gelu`` and ``_softmax`` (as the ops ``jax.nn`` emits) and
+  dtype casts (``convert``);
+* ``sum`` / ``mean`` / ``amax`` → ``reduce`` with a ``to_apply`` region;
+* views → ``bitcast`` (every array is dense row-major), ``permute`` →
+  ``transpose``, ``expand`` → ``broadcast``;
+* ``full`` / ``scalar_tensor`` / ``arange`` → ``constant`` / ``broadcast``
+  / ``iota``; ``index_select`` / ``embedding`` → ``gather``; ``slice`` /
+  ``split`` → ``slice``; ``cat`` → ``concatenate``;
+* the custom op ``tpusim_torch::dynamic_update_slice`` →
+  ``dynamic-update-slice``; ``tpusim_torch::flash_attention`` → one
+  ``custom-call`` with ``custom_call_target="tpu_custom_call"`` and no
+  ``cost_estimate`` (what a TPU capture of the Pallas kernel holds);
+* the ``higher_order.scan`` node → ``while`` with a ``tuple`` carry led by
+  an ``s32`` induction variable, a condition ``compare(iv, N)`` and
+  ``backend_config={"known_trip_count":{"n":"N"}}``, the scanned inputs
+  read with ``dynamic-slice`` and the stacked outputs written with
+  ``dynamic-update-slice``, as XLA lowers ``lax.scan``.
+
+Types are ``f32``, ``bf16``, ``s32`` and ``pred``.  Any node outside the
+table raises ``NotImplementedError`` naming it: nothing is skipped but
+the export's metadata asserts, which compute nothing.
+
+After lowering, transposes fold into the dots and convolutions that read
+them (XLA's transpose folding; a dot keeps its batch dims leading, the
+form XLA's dot canonicalisation gives), and :mod:`tpusim_torch.tracer.fuse`
+fuses what XLA's fusion would.
+"""
+
+from __future__ import annotations
+
+import math
+import operator
+from typing import Any, Sequence
+
+import torch
+
+from tpusim_torch.tracer.hlo_ir import Array, Computation, HloModule, Instr
+
+__all__ = ["lower_graph", "hlo_dtype", "LoweringError"]
+
+_HLO_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.int32: "s32", torch.bool: "pred"}
+
+#: ops that only check metadata and compute nothing
+_ASSERT_OPS = frozenset({
+    "aten._assert_tensor_metadata.default", "aten._assert_async.default",
+    "aten._assert_async.msg", "aten._assert_scalar.default",
+})
+
+
+class LoweringError(NotImplementedError):
+    """A graph node the lowering's op table does not hold."""
+
+
+def hlo_dtype(dtype: torch.dtype) -> str:
+    try:
+        return _HLO_DTYPES[dtype]
+    except KeyError:
+        raise LoweringError(
+            f"no HLO type for torch dtype {dtype} (the lowering knows "
+            f"{', '.join(str(d) for d in _HLO_DTYPES)})"
+        ) from None
+
+
+def _array(val: Any) -> Array:
+    return Array(hlo_dtype(val.dtype), tuple(int(d) for d in val.shape))
+
+
+def _ints(xs: Sequence[int]) -> str:
+    return "{" + ",".join(str(int(x)) for x in xs) + "}"
+
+
+def _literal(dtype: str, value: Any) -> str:
+    if dtype == "pred":
+        return "true" if value else "false"
+    if dtype == "s32":
+        return str(int(value))
+    v = float(value)
+    if math.isnan(v):
+        return "nan"
+    if math.isinf(v):
+        return "inf" if v > 0 else "-inf"
+    return repr(v)
+
+
+class _Builder:
+    """Emits instructions into one computation."""
+
+    def __init__(self, module: HloModule, comp: Computation,
+                 registry: list | None = None):
+        self.module = module
+        self.comp = comp
+        #: every builder of the module (the entry's and the loop bodies')
+        self.registry = registry if registry is not None else []
+        self.registry.append(self)
+        self.shapes: dict[str, Any] = {}
+        self.by_name: dict[str, Instr] = {}
+        #: (lhs_batch, lhs_contracting, rhs_batch, rhs_contracting) per dot
+        self.dots: dict[str, tuple] = {}
+        #: permutation of each transpose emitted here
+        self.perms: dict[str, list[int]] = {}
+        self._consts: dict[tuple[str, str], str] = {}
+
+    def emit(self, base: str, shape, opcode: str,
+             operands: Sequence[str] = (), attrs: Sequence[str] = (),
+             arg: str | None = None) -> str:
+        name = self.module.fresh(base)
+        instr = Instr(name, shape, opcode, list(operands), list(attrs), arg)
+        self.comp.add(instr)
+        self.shapes[name] = shape
+        self.by_name[name] = instr
+        return name
+
+    def shape(self, name: str) -> Array:
+        return self.shapes[name]
+
+    def defining(self, name: str) -> Instr | None:
+        return self.by_name.get(name)
+
+    def strip_bitcasts(self, name: str) -> str:
+        while True:
+            d = self.defining(name)
+            if d is None or d.opcode != "bitcast":
+                return name
+            name = d.operands[0]
+
+    def transpose(self, name: str, perm: Sequence[int]) -> str:
+        dims = self.shape(name).dims
+        t = self.emit("transpose", Array(self.shape(name).dtype,
+                                         tuple(dims[p] for p in perm)),
+                      "transpose", [name], [f"dimensions={_ints(perm)}"])
+        self.perms[t] = list(perm)
+        return t
+
+    # -- helpers -----------------------------------------------------------
+
+    def const(self, dtype: str, value: Any) -> str:
+        lit = _literal(dtype, value)
+        key = (dtype, lit)
+        if key not in self._consts:
+            self._consts[key] = self.emit("constant", Array(dtype, ()),
+                                          "constant", arg=lit)
+        return self._consts[key]
+
+    def bitcast(self, name: str, dims: Sequence[int]) -> str:
+        src = self.shape(name)
+        dims = tuple(int(d) for d in dims)
+        if src.dims == dims:
+            return name
+        if math.prod(dims) != math.prod(src.dims):
+            raise LoweringError(f"reshape {src.dims} -> {dims}")
+        return self.emit(f"{name}.bitcast", Array(src.dtype, dims),
+                         "bitcast", [name])
+
+    def convert(self, name: str, dtype: str) -> str:
+        src = self.shape(name)
+        if src.dtype == dtype:
+            return name
+        return self.emit(f"{name}.convert", Array(dtype, src.dims),
+                         "convert", [name])
+
+    def broadcast_to(self, name: str, dims: Sequence[int]) -> str:
+        """numpy-style broadcast of ``name`` to ``dims``."""
+        src = self.shape(name)
+        dims = tuple(int(d) for d in dims)
+        if src.dims == dims:
+            return name
+        offset = len(dims) - src.rank
+        if offset < 0:
+            raise LoweringError(f"broadcast {src.dims} -> {dims}")
+        kept = [i for i, d in enumerate(src.dims) if d == dims[i + offset]]
+        for i, d in enumerate(src.dims):
+            if d != dims[i + offset] and d != 1:
+                raise LoweringError(f"broadcast {src.dims} -> {dims}")
+        squeezed = self.bitcast(name, [src.dims[i] for i in kept])
+        return self.emit(f"{name}.broadcast", Array(src.dtype, dims),
+                         "broadcast", [squeezed],
+                         [f"dimensions={_ints(i + offset for i in kept)}"])
+
+    def splat(self, dtype: str, value: Any, dims: Sequence[int]) -> str:
+        c = self.const(dtype, value)
+        dims = tuple(int(d) for d in dims)
+        if not dims:
+            return c
+        return self.emit("broadcast", Array(dtype, dims), "broadcast", [c],
+                         ["dimensions={}"])
+
+    def region(self, kind: str, dtype: str) -> str:
+        """The ``to_apply`` computation of a reduce (one per kind/dtype)."""
+        key = f"{kind}.{dtype}"
+        cache = self.module.regions
+        if key not in cache:
+            comp = self.module.new_computation(f"region_{kind}_{dtype}")
+            b = _Builder(self.module, comp)
+            s = Array(dtype, ())
+            a = b.emit("lhs", s, "parameter", arg="0")
+            c = b.emit("rhs", s, "parameter", arg="1")
+            comp.root = b.emit(kind, s, kind, [a, c])
+            cache[key] = comp.name
+        return cache[key]
+
+    def reduce(self, name: str, dims: Sequence[int], kind: str,
+               init: Any, dtype: str | None = None) -> str:
+        src = self.shape(name)
+        dt = dtype or src.dtype
+        x = self.convert(name, dt)
+        dims = sorted({d % src.rank for d in dims}) if src.rank else []
+        out = tuple(d for i, d in enumerate(src.dims) if i not in dims)
+        return self.emit("reduce", Array(dt, out), "reduce",
+                         [x, self.const(dt, init)],
+                         [f"dimensions={_ints(dims)}",
+                          f"to_apply=%{self.region(kind, dt)}"])
+
+
+# ---------------------------------------------------------------------------
+# Graph lowering
+# ---------------------------------------------------------------------------
+
+_BINARY = {
+    "add": "add", "sub": "subtract", "mul": "multiply", "div": "divide",
+    "maximum": "maximum", "minimum": "minimum",
+}
+_COMPARE = {"eq": "EQ", "ne": "NE", "lt": "LT", "le": "LE", "gt": "GT",
+            "ge": "GE"}
+_UNARY = {
+    "exp": "exponential", "tanh": "tanh", "sigmoid": "logistic",
+    "neg": "negate", "abs": "abs", "sqrt": "sqrt", "rsqrt": "rsqrt",
+    "log": "log",
+}
+_IDENTITY = frozenset({"alias", "clone", "detach"})
+_VIEWS = frozenset({"view", "_unsafe_view", "reshape", "squeeze",
+                    "unsqueeze"})
+
+
+def _packet(node) -> str:
+    """``aten.add.Tensor`` → ``add``; ``tpusim_torch.x.default`` → the
+    qualified ``tpusim_torch::x``."""
+    target = node.target
+    name = getattr(target, "name", None)
+    if callable(name):
+        qual = name()            # e.g. "aten::add.Tensor"
+        ns, _, rest = qual.partition("::")
+        base = rest.split(".")[0]
+        return base if ns == "aten" else f"{ns}::{base}"
+    return str(target)
+
+
+def _target_text(node) -> str:
+    return f"{node.op} {node.target}"
+
+
+class _GraphLowering:
+    """Lowers one FX graph into one computation's builder."""
+
+    def __init__(self, builder: _Builder, gm: torch.fx.GraphModule):
+        self.b = builder
+        self.gm = gm
+        self.env: dict[Any, Any] = {}
+
+    # -- values ------------------------------------------------------------
+
+    def val(self, a: Any) -> Any:
+        if isinstance(a, torch.fx.Node):
+            return self.env[a]
+        if isinstance(a, (list, tuple)):
+            return type(a)(self.val(x) for x in a)
+        return a
+
+    def run(self, inputs: Sequence[Any]) -> list[Any]:
+        placeholders = [n for n in self.gm.graph.nodes
+                        if n.op == "placeholder"]
+        if len(placeholders) != len(inputs):
+            raise LoweringError(
+                f"graph takes {len(placeholders)} inputs, got {len(inputs)}")
+        for n, v in zip(placeholders, inputs):
+            self.env[n] = v
+        for node in self.gm.graph.nodes:
+            if node.op == "placeholder":
+                continue
+            if node.op == "output":
+                outs = node.args[0]
+                outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+                return [self.val(o) for o in outs]
+            if node.op == "get_attr":
+                self.env[node] = getattr(self.gm, node.target)
+                continue
+            if node.op != "call_function":
+                raise LoweringError(
+                    f"graph node {_target_text(node)} is not in the "
+                    f"lowering's op table (ROADMAP A5)")
+            if str(node.target) in _ASSERT_OPS:
+                continue
+            self.env[node] = self.call(node)
+        raise LoweringError("graph has no output node")
+
+    def out_array(self, node) -> Array:
+        return _array(node.meta["val"])
+
+    def call(self, node) -> Any:
+        if node.target is operator.getitem:
+            seq, i = node.args
+            return self.val(seq)[i]
+        if (isinstance(node.target, torch._ops.HigherOrderOperator)
+                and node.target.name() == "scan"):
+            return self.lower_scan(node)
+        p = _packet(node)
+        args = [self.val(a) for a in node.args]
+        kwargs = {k: self.val(v) for k, v in node.kwargs.items()}
+        handler = _HANDLERS.get(p)
+        if handler is not None:
+            return handler(self, node, args, kwargs)
+        if p in _BINARY:
+            return self.binary(node, _BINARY[p], args, kwargs)
+        if p in _COMPARE:
+            return self.compare(node, _COMPARE[p], args)
+        if p in _UNARY:
+            out = self.out_array(node)
+            return self.b.emit(node.name, out, _UNARY[p],
+                               [self.b.convert(args[0], out.dtype)])
+        if p in _IDENTITY:
+            return args[0]
+        if p in _VIEWS:
+            return self.b.bitcast(args[0], self.out_array(node).dims)
+        raise LoweringError(
+            f"graph node {node.name}: {node.target} is not in the "
+            f"lowering's op table (ROADMAP A5)")
+
+    # -- elementwise -------------------------------------------------------
+
+    def operand(self, a: Any, dtype: str, dims: Sequence[int]) -> str:
+        """A tensor value or python scalar as an array of ``dtype`` and
+        ``dims``."""
+        if isinstance(a, str):
+            return self.b.broadcast_to(self.b.convert(a, dtype), dims)
+        if isinstance(a, (bool, int, float)):
+            return self.b.splat(dtype, a, dims)
+        raise LoweringError(f"operand {a!r} of type {type(a).__name__}")
+
+    def binary(self, node, opcode: str, args, kwargs) -> str:
+        out = self.out_array(node)
+        x, y = args[0], args[1]
+        alpha = kwargs.get("alpha", 1)
+        if alpha != 1:
+            y = self.binary_value("multiply", y, alpha, out)
+        return self.b.emit(node.name, out, opcode,
+                           [self.operand(x, out.dtype, out.dims),
+                            self.operand(y, out.dtype, out.dims)])
+
+    def binary_value(self, opcode: str, x, y, out: Array) -> str:
+        return self.b.emit(opcode, out, opcode,
+                           [self.operand(x, out.dtype, out.dims),
+                            self.operand(y, out.dtype, out.dims)])
+
+    def compare(self, node, direction: str, args) -> str:
+        out = self.out_array(node)
+        vals = [a.meta["val"] if isinstance(a, torch.fx.Node) else a
+                for a in node.args[:2]]
+        dt = hlo_dtype(torch.result_type(*vals))
+        return self.b.emit(node.name, out, "compare",
+                           [self.operand(a, dt, out.dims) for a in args[:2]],
+                           [f"direction={direction}"])
+
+    # -- transposes --------------------------------------------------------
+
+    def transpose(self, name: str, perm: Sequence[int]) -> str:
+        """``permute``: drop the unit dims, compose with a transpose that
+        produced the operand, and emit a bitcast when the non-unit dims
+        keep their order."""
+        b = self.b
+        src = b.shape(name)
+        perm = [p % src.rank for p in perm] if src.rank else []
+        out_dims = tuple(src.dims[p] for p in perm)
+        big = [i for i, d in enumerate(src.dims) if d != 1]
+        big_dims = tuple(src.dims[i] for i in big)
+        # source dims (as indices into the non-unit dims) in output order
+        sq_perm = [big.index(p) for p in perm if src.dims[p] != 1]
+        inner = b.defining(b.strip_bitcasts(name))
+        if (inner is not None and inner.opcode == "transpose"
+                and inner.shape.dims == big_dims):
+            p1 = b.perms[inner.name]
+            sq_perm = [p1[p] for p in sq_perm]
+            base = inner.operands[0]
+        else:
+            base = b.bitcast(name, big_dims)
+        if sq_perm == sorted(sq_perm):
+            return b.bitcast(base, out_dims)
+        return b.bitcast(b.transpose(base, sq_perm), out_dims)
+
+
+# ---------------------------------------------------------------------------
+# The op table: handlers by ATen op name
+# ---------------------------------------------------------------------------
+
+
+def _dims_arg(dims, rank: int) -> list[int]:
+    if dims is None or (isinstance(dims, (list, tuple)) and not dims):
+        return list(range(rank))
+    if isinstance(dims, int):
+        dims = [dims]
+    return sorted({int(d) % rank for d in dims}) if rank else []
+
+
+def _h_where(L: _GraphLowering, node, args, kwargs):
+    out = L.out_array(node)
+    pred = L.operand(args[0], "pred", out.dims)
+    return L.b.emit(node.name, out, "select",
+                    [pred, L.operand(args[1], out.dtype, out.dims),
+                     L.operand(args[2], out.dtype, out.dims)])
+
+
+def _h_pow(L, node, args, kwargs):
+    out = L.out_array(node)
+    x, e = L.b.convert(args[0], out.dtype), args[1]
+    if not isinstance(e, (int, float)):
+        return L.binary(node, "power", args, kwargs)
+    if e == 1:
+        return x
+    if e in (2, 3):
+        # jax's integer_pow: repeated multiplies
+        y = L.b.emit(node.name, out, "multiply", [x, x])
+        return y if e == 2 else L.b.emit(node.name, out, "multiply", [y, x])
+    if e == 0.5:
+        return L.b.emit(node.name, out, "sqrt", [x])
+    return L.b.emit(node.name, out, "power",
+                    [x, L.b.splat(out.dtype, e, out.dims)])
+
+
+def _h_relu(L, node, args, kwargs):
+    out = L.out_array(node)
+    return L.b.emit(node.name, out, "maximum",
+                    [args[0], L.b.splat(out.dtype, 0, out.dims)])
+
+
+def _h_gelu(L, node, args, kwargs):
+    """``jax.nn.gelu``'s ops: the tanh form
+    ``x · ½(1 + tanh(√(2/π)(x + 0.044715 x³)))`` or the exact
+    ``x · ½(1 + erf(x/√2))``."""
+    out = L.out_array(node)
+    b, x = L.b, args[0]
+
+    def c(v):
+        return b.splat(out.dtype, v, out.dims)
+
+    if kwargs.get("approximate", "none") == "tanh":
+        x3 = b.emit("integer_pow", out, "multiply",
+                    [b.emit("integer_pow", out, "multiply", [x, x]), x])
+        inner = b.emit("add", out, "add",
+                       [x, b.emit("mul", out, "multiply", [x3, c(0.044715)])])
+        t = b.emit("tanh", out, "tanh",
+                   [b.emit("mul", out, "multiply",
+                           [inner, c(math.sqrt(2.0 / math.pi))])])
+    else:
+        t = b.emit("erf", out, "erf",
+                   [b.emit("mul", out, "multiply",
+                           [x, c(1.0 / math.sqrt(2.0))])])
+    cdf = b.emit("mul", out, "multiply",
+                 [b.emit("add", out, "add", [t, c(1.0)]), c(0.5)])
+    return b.emit(node.name, out, "multiply", [x, cdf])
+
+
+def _h_softmax(L, node, args, kwargs):
+    """``exp(x - max) / sum(exp(x - max))`` along one dim."""
+    out = L.out_array(node)
+    b = L.b
+    x = b.convert(args[0], out.dtype)
+    dim = int(args[1]) % out.rank
+    kept = [d for i, d in enumerate(out.dims) if i != dim]
+    bdims = [f"dimensions={_ints(i for i in range(out.rank) if i != dim)}"]
+    m = b.reduce(x, [dim], "maximum", float("-inf"))
+    e = b.emit("exp", out, "exponential",
+               [b.emit("sub", out, "subtract",
+                       [x, b.emit("broadcast", out, "broadcast", [m], bdims)])])
+    s = b.reduce(e, [dim], "add", 0.0)
+    assert b.shape(s).dims == tuple(kept)
+    return b.emit(node.name, out, "divide",
+                  [e, b.emit("broadcast", out, "broadcast", [s], bdims)])
+
+
+def _h_to_copy(L, node, args, kwargs):
+    return L.b.convert(args[0], L.out_array(node).dtype)
+
+
+def _reduction(kind: str, init: float):
+    def handler(L, node, args, kwargs):
+        out = L.out_array(node)
+        src = L.b.shape(args[0])
+        dims = _dims_arg(args[1] if len(args) > 1 else kwargs.get("dim"),
+                         src.rank)
+        r = L.b.reduce(args[0], dims, kind, init, out.dtype)
+        return L.b.bitcast(r, out.dims)     # keepdim
+    return handler
+
+
+def _h_mean(L, node, args, kwargs):
+    out = L.out_array(node)
+    src = L.b.shape(args[0])
+    dims = _dims_arg(args[1] if len(args) > 1 else kwargs.get("dim"),
+                     src.rank)
+    count = math.prod(src.dims[d] for d in dims)
+    r = L.b.reduce(args[0], dims, "add", 0.0, out.dtype)
+    r = L.b.emit(node.name, L.b.shape(r), "divide",
+                 [r, L.b.splat(out.dtype, count, L.b.shape(r).dims)])
+    return L.b.bitcast(r, out.dims)
+
+
+def _h_permute(L, node, args, kwargs):
+    return L.transpose(args[0], args[1])
+
+
+def _h_t(L, node, args, kwargs):
+    rank = L.b.shape(args[0]).rank
+    return args[0] if rank < 2 else L.transpose(args[0], [1, 0])
+
+
+def _h_transpose(L, node, args, kwargs):
+    rank = L.b.shape(args[0]).rank
+    perm = list(range(rank))
+    i, j = int(args[1]) % rank, int(args[2]) % rank
+    perm[i], perm[j] = perm[j], perm[i]
+    return L.transpose(args[0], perm)
+
+
+def _h_expand(L, node, args, kwargs):
+    return L.b.broadcast_to(args[0], L.out_array(node).dims)
+
+
+def _h_full(L, node, args, kwargs):
+    out = L.out_array(node)
+    return L.b.splat(out.dtype, args[1], out.dims)
+
+
+def _h_scalar_tensor(L, node, args, kwargs):
+    return L.b.const(L.out_array(node).dtype, args[0])
+
+
+def _h_arange(L, node, args, kwargs):
+    out = L.out_array(node)
+    p = str(node.target)
+    if p.endswith(".default"):
+        start, step = 0, 1
+    else:
+        start = args[0]
+        step = args[2] if len(args) > 2 else kwargs.get("step", 1)
+    r = L.b.emit(node.name, out, "iota", [], ["iota_dimension=0"])
+    if step != 1:
+        r = L.b.emit("mul", out, "multiply",
+                     [r, L.b.splat(out.dtype, step, out.dims)])
+    if start != 0:
+        r = L.b.emit("add", out, "add",
+                     [r, L.b.splat(out.dtype, start, out.dims)])
+    return r
+
+
+def _gather(L, node, table: str, dim: int, ids: str) -> str:
+    out = L.out_array(node)
+    tshape = L.b.shape(table)
+    ishape = L.b.shape(ids)
+    if ishape.dtype != "s32":
+        raise LoweringError(f"{node.name}: indices of type {ishape.dtype}")
+    dim %= tshape.rank
+    batch = list(range(dim, dim + ishape.rank))
+    offset = [i for i in range(out.rank) if i not in batch]
+    sizes = [1 if i == dim else d for i, d in enumerate(tshape.dims)]
+    return L.b.emit(node.name, out, "gather", [table, ids], [
+        f"offset_dims={_ints(offset)}", f"collapsed_slice_dims={{{dim}}}",
+        f"start_index_map={{{dim}}}", f"index_vector_dim={ishape.rank}",
+        f"slice_sizes={_ints(sizes)}",
+    ])
+
+
+def _h_index_select(L, node, args, kwargs):
+    return _gather(L, node, args[0], int(args[1]), args[2])
+
+
+def _h_embedding(L, node, args, kwargs):
+    return _gather(L, node, args[0], 0, args[1])
+
+
+def _slice(L, name: str, dim: int, start: int, end: int, step: int = 1,
+           base: str = "slice") -> str:
+    src = L.b.shape(name)
+    dim %= src.rank
+    n = src.dims[dim]
+    start = max(0, min(n, start + n if start < 0 else start))
+    end = max(start, min(n, end + n if end < 0 else end))
+    if (start, end, step) == (0, n, 1):
+        return name
+    spec = []
+    for i, d in enumerate(src.dims):
+        if i == dim:
+            spec.append(f"[{start}:{end}]" if step == 1
+                        else f"[{start}:{end}:{step}]")
+        else:
+            spec.append(f"[0:{d}]")
+    dims = list(src.dims)
+    dims[dim] = -(-(end - start) // step)
+    return L.b.emit(base, Array(src.dtype, tuple(dims)), "slice", [name],
+                    ["slice={" + ", ".join(spec) + "}"])
+
+
+def _h_slice(L, node, args, kwargs):
+    dim = args[1] if len(args) > 1 else 0
+    start = args[2] if len(args) > 2 and args[2] is not None else 0
+    end = args[3] if len(args) > 3 and args[3] is not None else 2 ** 62
+    step = args[4] if len(args) > 4 else 1
+    return _slice(L, args[0], dim, start, end, step, node.name)
+
+
+def _h_select(L, node, args, kwargs):
+    dim, i = int(args[1]), int(args[2])
+    s = _slice(L, args[0], dim, i, i + 1 if i != -1 else 2 ** 62)
+    return L.b.bitcast(s, L.out_array(node).dims)
+
+
+def _split(L, name: str, sizes: Sequence[int], dim: int) -> list[str]:
+    out, at = [], 0
+    for n in sizes:
+        out.append(_slice(L, name, dim, at, at + n))
+        at += n
+    return out
+
+
+def _h_split_with_sizes(L, node, args, kwargs):
+    dim = args[2] if len(args) > 2 else kwargs.get("dim", 0)
+    return _split(L, args[0], args[1], dim)
+
+
+def _h_split(L, node, args, kwargs):
+    src = L.b.shape(args[0])
+    dim = (args[2] if len(args) > 2 else kwargs.get("dim", 0)) % src.rank
+    n, size = src.dims[dim], int(args[1])
+    return _split(L, args[0], [min(size, n - i) for i in range(0, n, size)],
+                  dim)
+
+
+def _h_cat(L, node, args, kwargs):
+    out = L.out_array(node)
+    dim = (args[1] if len(args) > 1 else kwargs.get("dim", 0)) % out.rank
+    parts = [L.b.convert(t, out.dtype) for t in args[0]
+             if L.b.shape(t).dims[dim] > 0]
+    if len(parts) == 1:
+        return parts[0]
+    return L.b.emit(node.name, out, "concatenate", parts,
+                    [f"dimensions={{{dim}}}"])
+
+
+def _dot_attrs(lb, lc, rb, rc) -> list[str]:
+    attrs = []
+    if lb:
+        attrs.append(f"lhs_batch_dims={_ints(lb)}")
+    attrs.append(f"lhs_contracting_dims={_ints(lc)}")
+    if rb:
+        attrs.append(f"rhs_batch_dims={_ints(rb)}")
+    attrs.append(f"rhs_contracting_dims={_ints(rc)}")
+    return attrs
+
+
+def _dot(L, name: str, out: Array, lhs: str, rhs: str, lb, lc, rb, rc):
+    d = L.b.emit(name, out, "dot", [lhs, rhs], _dot_attrs(lb, lc, rb, rc))
+    L.b.dots[d] = (list(lb), list(lc), list(rb), list(rc))
+    return d
+
+
+def _h_mm(L, node, args, kwargs):
+    return _dot(L, node.name, L.out_array(node), args[0], args[1],
+                [], [1], [], [0])
+
+
+def _h_bmm(L, node, args, kwargs):
+    return _dot(L, node.name, L.out_array(node), args[0], args[1],
+                [0], [2], [0], [1])
+
+
+def _h_addmm(L, node, args, kwargs):
+    out = L.out_array(node)
+    beta, alpha = kwargs.get("beta", 1), kwargs.get("alpha", 1)
+    d = _dot(L, f"{node.name}.dot", out, args[1], args[2], [], [1], [], [0])
+    if alpha != 1:
+        d = L.binary_value("multiply", d, alpha, out)
+    bias = L.operand(args[0], out.dtype, out.dims)
+    if beta != 1:
+        bias = L.binary_value("multiply", bias, beta, out)
+    return L.b.emit(node.name, out, "add", [d, bias])
+
+
+def _h_convolution(L, node, args, kwargs):
+    x, w, bias, stride, padding, dilation, transposed, _, groups = args[:9]
+    if transposed:
+        raise LoweringError(f"{node.name}: transposed convolution")
+    out = L.out_array(node)
+    nsp = len(stride)
+    sp = "".join(str(i) for i in range(nsp))
+    window = [f"size={'x'.join(str(d) for d in L.b.shape(w).dims[2:])}"]
+    if any(s != 1 for s in stride):
+        window.append(f"stride={'x'.join(str(s) for s in stride)}")
+    if any(p != 0 for p in padding):
+        window.append("pad=" + "x".join(f"{p}_{p}" for p in padding))
+    if any(d != 1 for d in dilation):
+        window.append(f"rhs_dilate={'x'.join(str(d) for d in dilation)}")
+    attrs = ["window={" + " ".join(window) + "}",
+             f"dim_labels=bf{sp}_oi{sp}->bf{sp}"]
+    if groups != 1:
+        attrs.append(f"feature_group_count={groups}")
+    c = L.b.emit(node.name if bias is None else f"{node.name}.conv", out,
+                 "convolution", [x, w], attrs)
+    if bias is None:
+        return c
+    return L.b.emit(node.name, out, "add",
+                    [c, L.b.emit("broadcast", out, "broadcast", [bias],
+                                 ["dimensions={1}"])])
+
+
+def _h_flash_attention(L, node, args, kwargs):
+    tensors = [a for a in args if isinstance(a, str)]
+    return L.b.emit(node.name, L.out_array(node), "custom-call", tensors,
+                    ['custom_call_target="tpu_custom_call"'])
+
+
+def _h_dynamic_update_slice(L, node, args, kwargs):
+    operand, update, index, dim = args
+    out = L.out_array(node)
+    zero = L.b.const("s32", 0)
+    starts = [index if i == dim % out.rank else zero
+              for i in range(out.rank)]
+    return L.b.emit(node.name, out, "dynamic-update-slice",
+                    [operand, L.b.convert(update, out.dtype), *starts])
+
+
+_HANDLERS = {
+    "where": _h_where, "pow": _h_pow, "relu": _h_relu, "gelu": _h_gelu,
+    "_softmax": _h_softmax, "_to_copy": _h_to_copy,
+    "sum": _reduction("add", 0.0), "amax": _reduction("maximum",
+                                                      float("-inf")),
+    "mean": _h_mean,
+    "permute": _h_permute, "t": _h_t, "transpose": _h_transpose,
+    "expand": _h_expand, "full": _h_full, "full_like": _h_full,
+    "scalar_tensor": _h_scalar_tensor, "arange": _h_arange,
+    "index_select": _h_index_select, "embedding": _h_embedding,
+    "slice": _h_slice, "select": _h_select,
+    "split_with_sizes": _h_split_with_sizes, "split": _h_split,
+    "cat": _h_cat, "mm": _h_mm, "bmm": _h_bmm, "addmm": _h_addmm,
+    "convolution": _h_convolution,
+    "tpusim_torch::flash_attention": _h_flash_attention,
+    "tpusim_torch::dynamic_update_slice": _h_dynamic_update_slice,
+}
+
+
+# ---------------------------------------------------------------------------
+# scan → while
+# ---------------------------------------------------------------------------
+
+
+def _lower_scan(L: _GraphLowering, node) -> list[str]:
+    combine, init, xs, additional = node.args[:4]
+    if len(node.args) > 4 or node.kwargs:
+        raise LoweringError(f"{node.name}: scan with extra arguments")
+    gm = L.val(combine)
+    init_v = [L.val(a) for a in init]
+    xs_v = [L.val(a) for a in xs]
+    add_v = [L.val(a) for a in additional]
+    b, module = L.b, L.b.module
+    nc = len(init_v)
+    if not xs_v:
+        raise LoweringError(f"{node.name}: scan over no inputs")
+    n = b.shape(xs_v[0]).dims[0]
+    ys_shapes = [_array(v) for v in node.meta["val"][nc:]]
+    s32 = Array("s32", ())
+    carry = (s32, *(b.shape(v) for v in init_v), *ys_shapes,
+             *(b.shape(v) for v in xs_v), *(b.shape(v) for v in add_v))
+
+    # the body: slice the inputs at the induction variable, run the
+    # combine graph, write its outputs into the stacked buffers
+    body = module.new_computation(f"{node.name}_body")
+    body.fusible = True
+    bb = _Builder(module, body, b.registry)
+    arg = bb.emit("arg_tuple", carry, "parameter", arg="0")
+    gtes = [bb.emit("get-tuple-element", s, "get-tuple-element", [arg],
+                    [f"index={i}"]) for i, s in enumerate(carry)]
+    iv = gtes[0]
+    carries = gtes[1:1 + nc]
+    bufs = gtes[1 + nc:1 + nc + len(ys_shapes)]
+    xs_b = gtes[1 + nc + len(ys_shapes):1 + nc + len(ys_shapes) + len(xs_v)]
+    add_b = gtes[1 + nc + len(ys_shapes) + len(xs_v):]
+    zero = bb.const("s32", 0)
+    slices = []
+    for x in xs_b:
+        s = bb.shape(x)
+        sizes = (1, *s.dims[1:])
+        ds = bb.emit("dynamic-slice", Array(s.dtype, sizes), "dynamic-slice",
+                     [x, iv] + [zero] * (s.rank - 1),
+                     [f"dynamic_slice_sizes={_ints(sizes)}"])
+        slices.append(bb.bitcast(ds, s.dims[1:]))
+    outs = _GraphLowering(bb, gm).run([*carries, *slices, *add_b])
+    new_bufs = []
+    for buf, y in zip(bufs, outs[nc:]):
+        s = bb.shape(buf)
+        y1 = bb.bitcast(bb.convert(y, s.dtype), (1, *s.dims[1:]))
+        new_bufs.append(bb.emit("dynamic-update-slice", s,
+                                "dynamic-update-slice",
+                                [buf, y1, iv] + [zero] * (s.rank - 1)))
+    nxt = bb.emit("add", s32, "add", [iv, bb.const("s32", 1)])
+    body.root = bb.emit("tuple", carry, "tuple",
+                        [nxt, *outs[:nc], *new_bufs, *xs_b, *add_b])
+
+    # the condition: iv < n
+    cond = module.new_computation(f"{node.name}_cond")
+    cb = _Builder(module, cond)
+    carg = cb.emit("arg_tuple", carry, "parameter", arg="0")
+    civ = cb.emit("get-tuple-element", s32, "get-tuple-element", [carg],
+                  ["index=0"])
+    cond.root = cb.emit("lt", Array("pred", ()), "compare",
+                        [civ, cb.const("s32", n)], ["direction=LT"])
+
+    bufs0 = [b.splat(s.dtype, 0, s.dims) for s in ys_shapes]
+    init_t = b.emit("tuple", carry, "tuple",
+                    [b.const("s32", 0), *init_v, *bufs0, *xs_v, *add_v])
+    w = b.emit("while", carry, "while", [init_t], [
+        f"condition=%{cond.name}", f"body=%{body.name}",
+        'backend_config={"known_trip_count":{"n":"%d"}}' % n,
+    ])
+    return [b.emit("get-tuple-element", carry[1 + i], "get-tuple-element",
+                   [w], [f"index={1 + i}"])
+            for i in range(nc + len(ys_shapes))]
+
+
+_GraphLowering.lower_scan = _lower_scan
+
+
+# ---------------------------------------------------------------------------
+# Transpose folding
+# ---------------------------------------------------------------------------
+
+
+def _rename(comp: Computation, old: str, new: str) -> None:
+    for i in comp.instrs:
+        i.operands = [new if o == old else o for o in i.operands]
+    if comp.root == old:
+        comp.root = new
+
+
+def _fold_transposes(b: _Builder) -> None:
+    """Fold transposes into the dots and convolutions that read them, and
+    a convolution's lone transposing user into its output labels."""
+    comp = b.comp
+    for instr in list(comp.instrs):
+        if instr.opcode == "dot":
+            lb, lc, rb, rc = b.dots[instr.name]
+            dims = [[lb, lc], [rb, rc]]
+            for side in (0, 1):
+                t = b.defining(instr.operands[side])
+                if t is None or t.opcode != "transpose":
+                    continue
+                perm = b.perms[t.name]
+                batch, contr = dims[side]
+                free = [i for i in range(len(perm))
+                        if i not in batch and i not in contr]
+                nb = [perm[i] for i in batch]
+                mapped_free = [perm[i] for i in free]
+                # keep batch dims leading and free dims in order, or the
+                # dot's output order would change
+                if nb != list(range(len(nb))) or mapped_free != sorted(
+                        mapped_free):
+                    continue
+                dims[side] = [nb, [perm[i] for i in contr]]
+                instr.operands[side] = t.operands[0]
+            (lb, lc), (rb, rc) = dims
+            b.dots[instr.name] = (lb, lc, rb, rc)
+            instr.attrs = _dot_attrs(lb, lc, rb, rc)
+        elif instr.opcode == "convolution":
+            k = next(j for j, a in enumerate(instr.attrs)
+                     if a.startswith("dim_labels="))
+            lhs_l, rest = instr.attrs[k][len("dim_labels="):].split("_", 1)
+            rhs_l, out_l = rest.split("->")
+            labels = [lhs_l, rhs_l]
+            for side in (0, 1):
+                t = b.defining(instr.operands[side])
+                if t is None or t.opcode != "transpose":
+                    continue
+                perm = b.perms[t.name]
+                new = [""] * len(perm)
+                for i, p in enumerate(perm):
+                    new[p] = labels[side][i]
+                labels[side] = "".join(new)
+                instr.operands[side] = t.operands[0]
+            users = comp.users()[instr.name]
+            if len(users) == 1 and comp.root != instr.name:
+                u = b.defining(users[0])
+                if u.opcode == "transpose":
+                    perm = b.perms[u.name]
+                    out_l = "".join(out_l[p] for p in perm)
+                    instr.shape = u.shape
+                    _rename(comp, u.name, instr.name)
+                    u.operands = []
+            instr.attrs[k] = f"dim_labels={labels[0]}_{labels[1]}->{out_l}"
+    comp.remove_dead()
+
+
+# ---------------------------------------------------------------------------
+# Entry point
+# ---------------------------------------------------------------------------
+
+
+def lower_graph(gm: torch.fx.GraphModule, name: str) -> tuple[HloModule,
+                                                              list[Any]]:
+    """Lower ``gm`` (core ATen ops; placeholders are the module's inputs
+    in order) to a fused HLO module.  Returns the module and the graph's
+    output values (fake tensors) in order."""
+    from tpusim_torch.tracer.fuse import fuse_module
+
+    module = HloModule(name)
+    entry = module.new_computation("main", is_entry=True)
+    b = _Builder(module, entry)
+    params = []
+    for i, n in enumerate(x for x in gm.graph.nodes if x.op == "placeholder"):
+        val = n.meta.get("val")
+        if not isinstance(val, torch.Tensor):
+            raise LoweringError(f"input {n.name} is not a tensor ({val!r})")
+        params.append(b.emit(n.name, _array(val), "parameter", arg=str(i)))
+    outs = _GraphLowering(b, gm).run(params)
+    out_node = next(n for n in gm.graph.nodes if n.op == "output")
+    leaves = out_node.args[0]
+    leaves = list(leaves) if isinstance(leaves, (list, tuple)) else [leaves]
+    out_vals = [n.meta["val"] for n in leaves]
+    if len(outs) == 1:
+        root = outs[0]
+        if b.defining(root).opcode == "parameter":
+            root = b.emit(f"{root}.copy", b.shape(root), "copy", [root])
+        entry.root = root
+    else:
+        entry.root = b.emit("tuple", tuple(b.shape(o) for o in outs),
+                            "tuple", outs)
+    for comp in module.computations:
+        comp.remove_dead()
+    for bld in b.registry:
+        if bld.comp.fusible:
+            _fold_transposes(bld)
+    fuse_module(module)
+    return module, out_vals
