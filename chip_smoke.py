@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's main path, ``tpusim_torch capture → simulate``, at the
-registered width of ``flash_attention_pallas`` ([32, 1024, 128] f32) and
-of the ten workloads the general lowering captures,
+registered width of ``flash_attention_pallas`` ([32, 1024, 128] f32), of
+the ten workloads the general lowering captures and of the seven
+multi-device workloads (all their ranks on the one card),
 simulate's lane-batched pricing with its row scans on the card, the
 campaign and fleet layers whose scenario-batched warm runs those scans,
 and the sharding advisor on the card's host, and holds each CUDA kernel
@@ -148,11 +149,28 @@ non-zero and prints no result):
    beside ``reports/silicon/W``'s divided by its ``n_steps``, with the
    ratios at the registered width and from a capture at the silicon
    trace's own shapes; (e) ``measure_wall_time``'s median on the card.
+12. multi-device capture: the seven multi-device workloads
+   (``ici_allreduce`` over 8 devices, ``ulysses_attention_sp8``,
+   ``moe_ep4``, ``llama_tiny``, ``llama_tiny_tp2dp2``,
+   ``decode_step_tp8``, ``ring_attention_sp8``) at registered width, every
+   rank of a workload on the one card through the rank runner
+   (``tpusim_torch.spmd.run_ranks``), the kernels' counters set to
+   0 just before and read just after (they must stay 0): (a) ``capture W
+   DIR --snapshot`` through the CLI, timed; (b) the card's HLO equals by
+   bytes the CPU's; (c) the N ranks' global outputs against the
+   workload's unsharded computation on the card (global attention, the
+   round-robin MoE of each token shard with every expert on one device,
+   the single-rank llama step on the whole batch, the plain decode, the
+   mean of ``x``'s shards; ``llama_tiny``, one device, against the CPU)
+   within rtol = atol = 1e-4 (float32) or 2e-2 (bfloat16); (d) simulated
+   at v5p, ``llama_tiny_tp2dp2`` also at golden cells 3-5's arches beside
+   the fixture (MXU flops equal); (e) the median of a whole N-rank step.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, the one before that the kernels' JSON
-record, the one before that phase 11's (``lowered: {...}``) and before
-it phase 10's (``advisor: {...}``).  Needs
+record, the one before that phase 12's (``multidevice: {...}``), before
+it phase 11's (``lowered: {...}``) and before that phase 10's
+(``advisor: {...}``).  Needs
 no network and one card; exits non-zero without a CUDA device or without
 the rest of the repository beside it.
 """
@@ -283,8 +301,22 @@ KERNELS = (
 )
 
 
-def phase(n: int, title: str) -> None:
-    print(f"== phase {n}: {title}", flush=True)
+#: host seconds of each phase, from its start to the next one's
+PHASE_SECONDS: dict[int, float] = {}
+_PHASE_START: list = []
+
+
+def phase(n: int | None, title: str = "") -> None:
+    """Start phase ``n`` (``None``: end the last one), printing how long
+    the one before it took."""
+    now = time.perf_counter()
+    if _PHASE_START:
+        last, t0 = _PHASE_START.pop()
+        PHASE_SECONDS[last] = now - t0
+        print(f"  phase {last} took {now - t0:.1f} s", flush=True)
+    if n is not None:
+        _PHASE_START.append((n, now))
+        print(f"== phase {n}: {title}", flush=True)
 
 
 def compare_golden(name: str, stats: dict) -> list[str]:
@@ -2404,6 +2436,195 @@ def lowered_workloads(card_name: str, work: Path) -> dict:
             "card": card_name}
 
 
+#: phase 12: the multi-device workloads, each at its registered width
+#: (ici_allreduce over 8 devices: its world is a build override)
+MULTI = ("ici_allreduce", "ulysses_attention_sp8", "moe_ep4", "llama_tiny",
+         "llama_tiny_tp2dp2", "decode_step_tp8", "ring_attention_sp8")
+MULTI_SETS = {"ici_allreduce": {"world": 8}}
+#: phase 12 (d): golden cells 3-5's (arch, overlays, name), for
+#: llama_tiny_tp2dp2; the others at the first
+GOLDEN_ARCHES = tuple(
+    (arch, overlays, " ".join([arch, *(json.dumps(o) for o in overlays)]))
+    for _, arch, overlays, _ in GOLDEN_CELLS[2:])
+#: phase 12 (d): the totals printed beside the fixture's
+MULTI_KEYS = ("tot_mxu_flops", "tot_collective_count", "tot_ici_bytes",
+              "tot_hbm_bytes", "tot_sim_cycles")
+#: phase 12 (c): attention's unsharded reference runs this many query rows
+#: at a time (softmax rows are independent; a whole [1, 16, 16384, 16384]
+#: f32 score matrix is 16 GiB)
+ATTN_QUERY_BLOCK = 2048
+
+
+def unsharded(name: str, module, args) -> list[torch.Tensor]:
+    """Phase 12 (c): the workload's unsharded computation, on the device
+    its arguments lie on."""
+    from tpusim_torch.models.attention import attention
+    from tpusim_torch.models.decode import DecodeStep
+    from tpusim_torch.models.llama import LlamaTrainStep
+    from tpusim_torch.models.moe import round_robin_moe
+
+    with torch.no_grad():
+        if name == "ici_allreduce":
+            x = args[0]
+            n = module.world
+            return [(x.view(n, -1).sum(0) * (1.0 / n)).repeat(n)]
+        if name in ("ulysses_attention_sp8", "ring_attention_sp8"):
+            q, k, v = args
+            return [torch.cat([attention(qb, k, v) for qb in
+                               q.split(ATTN_QUERY_BLOCK, dim=1)], dim=1)]
+        if name == "moe_ep4":
+            return [round_robin_moe(*args, ep=module.world)]
+        if name == "decode_step_tp8":
+            hidden, ck = args[0], args[1]
+            return list(DecodeStep(hidden.shape[0], ck.shape[2],
+                                   module.heads, module.head_dim)(*args))
+        if name == "llama_tiny_tp2dp2":
+            step = LlamaTrainStep(module.cfg, None, module.batch, module.lr)
+            return list(step(*args))
+        if name == "llama_tiny":
+            # a single-chip workload: the same module on the CPU
+            return [module(*(a.cpu() for a in args))]
+    raise KeyError(name)
+
+
+def grads_held(module, args) -> dict:
+    """Phase 12 (c) for ``llama_tiny_tp2dp2``: the float32 gradients the
+    dp all-reduce carries, from the N ranks, against the single-rank step's
+    on the whole batch, each within 2e-2 of its norm (the bfloat16
+    tolerance).  A bf16 SGD step of 3e-4 leaves most parameters unchanged,
+    so only the gradients show the backward."""
+    from tpusim_torch.models.llama import LlamaTrainStep
+
+    single = LlamaTrainStep(module.cfg, None, module.batch, module.lr)
+    got, want = module.grads(*args), single.grads(*args)
+    errs = [float((g.double() - w.double()).norm() / w.double().norm())
+            for g, w in zip(got[1:], want[1:])]
+    loss_err = abs(got[0].item() - want[0].item())
+    if max(errs) > TOL_LOWERED[torch.bfloat16] or loss_err > 1e-4 * abs(
+            want[0].item()):
+        raise AssertionError(f"llama_tiny_tp2dp2: gradients differ from the "
+                             f"single-rank step's (norm-wise errors up to "
+                             f"{max(errs):.3g}, loss {loss_err:.3g})")
+    return {"leaves": len(errs), "max_norm_err": max(errs),
+            "min_norm_err": min(errs), "loss_abs_err": loss_err}
+
+
+def held_to(name: str, snaps: list[Path], want: list[torch.Tensor]) -> dict:
+    """Phase 12 (c): the CLI's snapshot buffers (the N ranks' global
+    outputs) against the unsharded computation, elementwise within
+    |x - y| <= tol + tol |y| at the outputs' dtype."""
+    if len(snaps) != len(want):
+        raise AssertionError(f"{name}: {len(snaps)} snapshots, "
+                             f"{len(want)} outputs")
+    worst, err = 0.0, 0.0
+    for path, w in zip(snaps, want):
+        tol = TOL_LOWERED[w.dtype] if w.is_floating_point() else 0.0
+        x = np.load(path)
+        y = w.detach().float().cpu().numpy() if w.is_floating_point() \
+            else w.cpu().numpy()
+        if x.shape != y.shape or not np.isfinite(x).all():
+            raise AssertionError(f"{name}: bad snapshot {path.name} "
+                                 f"{x.shape} vs {y.shape}")
+        gap = np.abs(x.astype(np.float64) - y.astype(np.float64))
+        err = max(err, float(gap.max(initial=0.0)))
+        if tol:
+            worst = max(worst, float((gap / (tol + tol * np.abs(y)))
+                                     .max(initial=0.0)))
+        elif gap.any():
+            worst = math.inf
+    if worst > 1.0:
+        raise AssertionError(f"{name}: the {len(snaps)} outputs differ from "
+                             f"the unsharded computation (worst {worst:.3g} "
+                             f"of the tolerance)")
+    return {"max_abs_err": err, "worst_of_tol": worst}
+
+
+def multi_device(card_name: str, work: Path) -> dict:
+    """Phase 12: the multi-device workloads at registered width, all of a
+    workload's ranks on the one card through ``run_ranks`` — (a)
+    ``capture W DIR --snapshot`` through the CLI, timed; (b) the module
+    text captured on the card equals by bytes the text the same torch
+    lowers from CPU tensors of the same shapes; (c) the snapshots (the
+    global outputs of the N ranks) against the workload's unsharded
+    computation on the card; (d) simulated at v5p, and llama_tiny_tp2dp2
+    also at golden cells 3-5's arches, beside the fixture; (e) the median
+    of a whole N-rank step; (f) no custom kernel launched."""
+    from tpusim_torch.tracer.capture import capture
+
+    for *_, reset in KERNELS:
+        reset()
+    t_phase = time.perf_counter()
+    rows = {}
+    fixture = {cell: stats_of(simulate_trace(
+        FIXTURES / "llama_tiny_tp2dp2", arch=arch, tuned=False,
+        overlays=overlays)) for arch, overlays, cell in GOLDEN_ARCHES}
+    for name in MULTI:
+        sets = MULTI_SETS.get(name, {})
+        trace = work / name
+        t0 = time.perf_counter()
+        run_cli(["capture", name, str(trace), "--snapshot",
+                 *(f"--set={k}={v}" for k, v in sets.items())])
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        module, args = get_workload(name).build(device="cuda", **sets)
+        card_text = (trace / "modules" / f"{name}.hlo").read_text()
+        cpu_args = tuple(a.cpu() if a.dim() == 0 else
+                         torch.empty(a.shape, dtype=a.dtype) for a in args)
+        if capture(module, *cpu_args, name=name).hlo_text != card_text:
+            raise AssertionError(f"{name}: the card's HLO differs from the "
+                                 f"CPU's")
+        del cpu_args
+        snaps = sorted((trace / "checkpoint_files").glob("launch0_*.npy"),
+                       key=lambda p: int(p.stem.split("buf")[1]))
+        check = held_to(name, snaps, unsharded(name, module, args))
+        if name == "llama_tiny_tp2dp2":
+            check["grads"] = grads_held(module, args)
+            print(f"  {name}: gradients vs the single-rank step, "
+                  f"{check['grads']['leaves']} leaves, norm-wise error "
+                  f"{check['grads']['min_norm_err']:.4g}-"
+                  f"{check['grads']['max_norm_err']:.4g}; loss |err| "
+                  f"{check['grads']['loss_abs_err']:.3g} ({card_name})",
+                  flush=True)
+        shutil.rmtree(trace / "checkpoint_files")
+        torch.cuda.empty_cache()
+        cells = {}
+        for arch, overlays, cell in (GOLDEN_ARCHES
+                                     if name == "llama_tiny_tp2dp2"
+                                     else GOLDEN_ARCHES[:1]):
+            st = stats_of(simulate_trace(trace, arch=arch, tuned=False,
+                                         overlays=overlays))
+            cells[cell] = {k: st[k] for k in MULTI_KEYS}
+        wall = measure_wall_time(module, *args, iters=3, warmup=1)
+        world = getattr(module, "world", 1)
+        rows[name] = {"world": world, "capture_s": capture_s,
+                      "hlo_bytes": len(card_text), "vs_unsharded": check,
+                      "sim": cells, "median_ms": wall["median_s"] * 1e3}
+        print(f"  {name} ({world} ranks): capture {capture_s:.2f} s, HLO "
+              f"card == CPU ({len(card_text)} B); vs unsharded max |err| "
+              f"{check['max_abs_err']:.3g} ({check['worst_of_tol']:.3g} of "
+              f"tol); median step {rows[name]['median_ms']:.4f} ms on "
+              f"{card_name}", flush=True)
+        for cell, st in cells.items():
+            line = ", ".join(f"{k} {st[k]:.10g}" for k in MULTI_KEYS)
+            print(f"    {cell}: {line}")
+            if name == "llama_tiny_tp2dp2":
+                fx = fixture[cell]
+                print("      fixture: " + ", ".join(
+                    f"{k} {fx[k]:.10g}" for k in MULTI_KEYS))
+                if st["tot_mxu_flops"] != fx["tot_mxu_flops"]:
+                    raise AssertionError(f"{name} @ {cell}: MXU flops "
+                                         f"differ from the fixture's")
+        del module, args
+        torch.cuda.empty_cache()
+    launches = {name: count() for name, _, _, count, _ in KERNELS}
+    if any(launches.values()):
+        raise AssertionError(f"phase 12 launched a custom kernel: {launches}")
+    seconds = time.perf_counter() - t_phase
+    print(f"  kernel launches across phase 12: {launches}; {seconds:.1f} s")
+    return {"workloads": rows, "launches": launches, "seconds": seconds,
+            "card": card_name}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -2502,6 +2723,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         lowered = lowered_workloads(card_name, Path(tmp))
     print("lowered: " + json.dumps(lowered))
+
+    phase(12, "multi-device capture: seven workloads, all ranks on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        multi = multi_device(card_name, Path(tmp))
+    phase(None)
+    multi["phase_seconds"] = PHASE_SECONDS
+    print("multidevice: " + json.dumps(multi))
 
     record = {"kernels": [{
         "name": "flash_attention",

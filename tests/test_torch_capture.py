@@ -110,7 +110,10 @@ def test_commandlist_matches_reference_capture(port_trace, tmp_path):
     ref_meta = json.loads((ref_dir / "meta.json").read_text())
     meta = json.loads((port_trace / "meta.json").read_text())
     assert list(meta) == list(ref_meta)
-    assert meta["platform"] == "cpu" and meta["num_devices"] == 1
+    # one platform for the port's lowered HLO on every device (C2); the
+    # device is in device_kind
+    assert meta["platform"] == "tpusim_torch" and meta["num_devices"] == 1
+    assert meta["device_kind"] == "cpu"
     assert meta["xla_cost_analysis"] == {} and meta["memory_analysis"] == {}
 
 
@@ -206,3 +209,48 @@ def test_save_trace_auto_gzips_large_modules(tmp_path, monkeypatch):
     assert (tmp_path / "a" / "modules" / f"{WORKLOAD}.hlo.gz").exists()
     with pytest.raises(ValueError, match="compress"):
         fmt.save_trace(tmp_path / "b", {}, [], compress="always")
+
+
+class _F32Dot(torch.nn.Module):
+    """A genuine f32 dot beside a larger bf16 input (C2)."""
+
+    def forward(self, big, a, b):
+        return big * 2, a.float() @ b.float()
+
+
+@pytest.mark.parametrize("arch", ["v5e", "v5p"])
+def test_f32_dot_prices_alike_captured_on_cpu_or_card(arch, tmp_path):
+    """C2: the same lowered trace prices the same whichever device it was
+    captured on.  The card's capture differs only in ``device_kind``; a
+    ``cpu`` platform (what the port stamped before) would price the f32
+    dot at the bf16 parameters' rate."""
+    big = torch.zeros(4096, 4096, dtype=torch.bfloat16)
+    a = torch.ones(1024, 1024, dtype=torch.bfloat16)
+    cpu_dir = tmp_path / "cpu"
+    capture_to_dir(cpu_dir, _F32Dot(), big, a, a.clone(), name="f32dot")
+    card_dir = tmp_path / "card"
+    import shutil
+
+    shutil.copytree(cpu_dir, card_dir)
+    meta = json.loads((card_dir / "meta.json").read_text())
+    assert meta["platform"] == "tpusim_torch"
+    meta["device_kind"] = "NVIDIA H100 80GB HBM3"
+    (card_dir / "meta.json").write_text(json.dumps(meta))
+    old_cpu = tmp_path / "old_cpu"
+    shutil.copytree(cpu_dir, old_cpu)
+    meta["platform"] = "cpu"
+    (old_cpu / "meta.json").write_text(json.dumps(meta))
+
+    got = {d: _stats(port_simulate(d, arch=arch, tuned=False))
+           for d in (cpu_dir, card_dir, old_cpu)}
+    keys = ("tot_busy_cycles_mxu", "tot_sim_cycles", "tot_mxu_flops")
+    for k in keys:
+        assert got[cpu_dir][k] == got[card_dir][k], k
+    # the reference prices the port's trace the same way
+    want = _stats(ref_simulate(card_dir, arch=arch, tuned=False))
+    assert {k: want[k] for k in keys} == {k: got[card_dir][k] for k in keys}
+    # the dot is priced as f32: a "cpu" platform widens it back to bf16
+    # and takes fewer MXU cycles for the same flops
+    assert got[old_cpu]["tot_mxu_flops"] == got[cpu_dir]["tot_mxu_flops"]
+    assert (got[old_cpu]["tot_busy_cycles_mxu"]
+            < got[cpu_dir]["tot_busy_cycles_mxu"])

@@ -1,6 +1,7 @@
 """The core ATen → HLO lowering and its fusion pass, op by op.
 
-Each entry of the op table gets a small graph.  The graph is captured on
+Each entry of the op table gets a small graph (the collectives of
+``tpusim_torch.spmd`` one each, over meshes of 4 and 8 devices).  The graph is captured on
 the CPU, its trace dir loaded by both ``tpusim.trace.format.load_trace``
 and the port's loader and simulated in both packages at v5e, and the
 stats must be equal (``simulation_rate_kops`` and ``silicon_slowdown``
@@ -23,7 +24,9 @@ import torch.nn.functional as F  # noqa: E402
 
 from tpusim.sim.driver import simulate_trace as ref_simulate  # noqa: E402
 from tpusim.trace.format import load_trace as ref_load  # noqa: E402
+from tpusim_torch import spmd  # noqa: E402
 from tpusim_torch.models.decode import dynamic_update_slice  # noqa: E402
+from tpusim_torch.spmd import Mesh  # noqa: E402
 from tpusim_torch.sim.driver import simulate_trace as port_simulate  # noqa: E402
 from tpusim_torch.trace.format import load_trace as port_load  # noqa: E402
 from tpusim_torch.trace.hlo_text import parse_hlo_module  # noqa: E402
@@ -129,6 +132,17 @@ CASES = [
      (_t(2, 16, 4), _t(2, 1, 4), torch.tensor(3, dtype=torch.int32)),
      "dynamic-update-slice("),
     ("tuple_output", lambda a: (a * 2, a.sum()), (_t(4, 8),), "tuple("),
+    ("cos_sin", lambda a: torch.cos(a) * torch.sin(a), (_t(4, 8),),
+     "cosine("),
+    ("pow_scalar_base", lambda a: torch.pow(10000.0, a), (_t(4, 8),),
+     "power("),
+    ("bitwise_and", lambda a: torch.where((a > 0) & (a < 1), a, 0.0),
+     (_t(4, 8),), "and("),
+    ("bitwise_not", lambda a: torch.where(~(a > 0), a, 1.0), (_t(4, 8),),
+     "not("),
+    ("scatter_add_rows", lambda g, i: torch.ops.tpusim_torch.scatter_add_rows(
+        g, i, 64), (_t(2, 5, 16), _ids(10, 64).reshape(2, 5)),
+     "scatter("),
     ("scan", _scan_cell, (_t(5, 2, 4), _t(4, 4)), "while("),
 ]
 
@@ -155,6 +169,140 @@ def test_lowered_graph_prices_the_same_in_both_packages(case, tmp_path):
     got = _stats(port_simulate(out, arch="v5e", tuned=False))
     assert got == want
     assert got["tot_unknown_trip_loops"] == 0
+
+
+#: (case id, function, args, text its HLO must hold): one collective each
+_M4 = Mesh((4,), ("x",))
+_M22 = Mesh((2, 2), ("dp", "tp"))
+_M8 = Mesh((2, 4), ("dp", "tp"))
+COLLECTIVE_CASES = [
+    ("psum", lambda a: spmd.psum(a, _M4, "x"), (_t(4, 8),),
+     "all-reduce(%args_0), channel_id=1, replica_groups=[1,4]<=[4], "
+     "use_global_device_ids=true, to_apply="),
+    ("psum_tp", lambda a: spmd.psum(a, _M22, "tp"), (_t(4, 8),),
+     "replica_groups=[2,2]<=[4]"),
+    ("psum_dp", lambda a: spmd.psum(a, _M22, "dp"), (_t(4, 8),),
+     "replica_groups=[2,2]<=[2,2]T(1,0)"),
+    ("psum_both_axes", lambda a: spmd.psum(a, _M8, ("dp", "tp")),
+     (_t(4, 8),), "replica_groups=[1,8]<=[8]"),
+    ("pmax_bf16", lambda a: spmd.pmax(a, _M8, "tp"),
+     (_t(4, 8, dtype=torch.bfloat16),), "bf16[4,8]{1,0} all-reduce("),
+    ("psum_coalesced", lambda a, b: spmd.psum_coalesced([a, b], _M22, "dp"),
+     (_t(4, 8), _t(16)), "(f32[4,8]{1,0}, f32[16]{0}) all-reduce(%args_0, %args_1)"),
+    ("all_gather", lambda a: spmd.all_gather(a, _M8, "tp", 1), (_t(4, 8),),
+     "f32[4,32]{1,0} all-gather(%args_0), channel_id=1, "
+     "replica_groups=[2,4]<=[8], dimensions={1}"),
+    ("psum_scatter", lambda a: spmd.psum_scatter(a, _M4, "x", 0),
+     (_t(8, 8),), "f32[2,8]{1,0} reduce-scatter(%args_0)"),
+    ("all_to_all_same_dim", lambda a: spmd.all_to_all(a, _M4, "x", 0, 0),
+     (_t(8, 8),), "all-to-all(%args_0), channel_id=1, replica_groups=[1,4]<=[4], "
+     "dimensions={0}"),
+    ("all_to_all_heads", lambda a: spmd.all_to_all(a, _M8, "tp", 2, 1) * 2,
+     (_t(1, 4, 8, 16),), "dimensions={2}"),
+    ("ppermute_ring", lambda a: spmd.ppermute(
+        a, _M4, "x", [(j, (j + 1) % 4) for j in range(4)]), (_t(4, 8),),
+     "source_target_pairs={{0,1},{1,2},{2,3},{3,0}}"),
+    ("ppermute_tp", lambda a: spmd.ppermute(a, _M22, "tp", [(0, 1)]),
+     (_t(4, 8),), "source_target_pairs={{0,1},{2,3}}"),
+    ("axis_index", lambda a: a + spmd.axis_index(a, _M8, "dp"),
+     (torch.zeros(4, 8, dtype=torch.int32),), "partition-id()"),
+    ("axis_index_minor", lambda a: a * spmd.axis_index(a, _M8, "tp"),
+     (torch.zeros(4, 8, dtype=torch.int32),), "remainder("),
+]
+
+
+@pytest.mark.parametrize("case", COLLECTIVE_CASES,
+                         ids=[c[0] for c in COLLECTIVE_CASES])
+def test_collective_is_read_and_priced_alike_by_both_packages(case,
+                                                               tmp_path):
+    """Both parsers read what the lowering writes — kind, replica groups,
+    channel, pairs, the header's ``num_partitions`` — and both packages
+    price it the same on the ICI model."""
+    name, fn, args, want_text = case
+    out = tmp_path / name
+    capture_to_dir(out, Fn(fn), *args, name=name)
+    text = (out / "modules" / f"{name}.hlo").read_text()
+    assert want_text in text
+    n = int(re.search(r"num_partitions=(\d+)", text).group(1))
+    ref, port = ref_load(out).modules[name], port_load(out).modules[name]
+    assert ref.num_devices == port.num_devices == n
+
+    def colls(mod):
+        return [(op.opcode, op.collective.replica_groups,
+                 op.collective.channel_id,
+                 op.collective.source_target_pairs,
+                 op.collective.use_global_device_ids)
+                for op in mod.entry.ops if op.collective is not None]
+
+    assert colls(ref) == colls(port)
+    assert ([o.opcode for o in ref.entry.ops]
+            == [o.opcode for o in port.entry.ops])
+    want = _stats(ref_simulate(out, arch="v5p", tuned=False))
+    got = _stats(port_simulate(out, arch="v5p", tuned=False))
+    assert got == want
+    assert got["num_devices"] == n
+    if name.startswith("axis_index"):
+        assert got["tot_collective_count"] == 0
+    else:
+        assert got["tot_collective_count"] == 1
+        assert got["tot_ici_bytes"] > 0
+
+
+@pytest.mark.parametrize("shape,axes", [
+    ((8,), (0,)), ((2, 2), (1,)), ((2, 2), (0,)), ((2, 4), (0, 1)),
+    ((2, 3, 4), (1,)), ((2, 3, 4), (0, 2)), ((2, 3, 4), (2, 0)),
+])
+def test_replica_groups_text_names_the_rank_runners_groups(shape, axes):
+    """The iota text the lowering writes, read by both parsers, holds the
+    groups ``run_ranks`` exchanges data in."""
+    from tpusim.trace.hlo_text import _parse_replica_groups as ref_parse
+    from tpusim_torch.trace.hlo_text import _parse_replica_groups
+    from tpusim_torch.tracer.lower import _replica_groups
+
+    text = _replica_groups(shape, axes).split("=", 1)[1]
+    want = tuple(tuple(g) for g in spmd.groups(shape, axes))
+    assert _parse_replica_groups(text) == ref_parse(text) == want
+
+
+def test_collectives_inside_a_scan_land_in_the_while_body():
+    mesh = Mesh((4,), ("x",))
+
+    def ring(a, xs):
+        from torch._higher_order_ops.scan import scan
+
+        def body(c, x):
+            c = spmd.ppermute(c, mesh, "x", [(j, (j + 1) % 4)
+                                             for j in range(4)])
+            return spmd.psum(c * x, mesh, "x"), x.clone()
+
+        return scan(body, a, xs)[0]
+
+    mod, text = _entry(ring, _t(4, 8), _t(3, 4, 8))
+    entry_ops = {o.opcode for o in mod.entry.ops}
+    assert "while" in entry_ops and not entry_ops & {"all-reduce",
+                                                     "collective-permute"}
+    body = [c for name, c in mod.computations.items() if "body" in name]
+    assert {o.opcode for c in body for o in c.ops} >= {
+        "all-reduce", "collective-permute"}
+    assert "channel_id=1" in text and "channel_id=2" in text
+
+
+def test_collectives_and_partition_id_stay_top_level():
+    mod, text = _entry(lambda a: spmd.psum(
+        a * 2 + spmd.axis_index(a, _M4, "x").float(), _M4, "x") + 1,
+        _t(4, 8))
+    for comp in mod.computations.values():
+        if comp.name != mod.entry_name:
+            assert not {o.opcode for o in comp.ops} & {
+                "all-reduce", "partition-id"}
+    assert {"all-reduce", "partition-id"} <= {o.opcode
+                                             for o in mod.entry.ops}
+
+
+def test_a_mesh_of_another_size_is_refused():
+    with pytest.raises(NotImplementedError, match="devices"):
+        capture(Fn(lambda a: spmd.psum(spmd.psum(a, _M4, "x"), _M8, "tp")),
+                _t(4, 8))
 
 
 def _entry(fn, *args):

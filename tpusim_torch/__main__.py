@@ -823,7 +823,9 @@ def main(argv: list[str] | None = None) -> int:
     pc.add_argument("--launches", type=int, default=1)
     pc.add_argument("--snapshot", action="store_true",
                     help="also run the workload and dump every output "
-                         "buffer per launch to <out>/checkpoint_files/")
+                         "buffer per launch to <out>/checkpoint_files/ "
+                         "(a multi-device workload runs all its devices' "
+                         "programs on the one device)")
     pc.add_argument("--set", action="append", metavar="K=V",
                     help="workload builder parameter override(s)")
     pc.add_argument("--device", default="cuda",

@@ -10,3 +10,5 @@ from tpusim_torch.models import microbench as _microbench  # noqa: F401
 from tpusim_torch.models import attention as _attention  # noqa: F401
 from tpusim_torch.models import decode as _decode  # noqa: F401
 from tpusim_torch.models import flash_attention as _flash_attention  # noqa: F401
+from tpusim_torch.models import llama as _llama  # noqa: F401
+from tpusim_torch.models import moe as _moe  # noqa: F401

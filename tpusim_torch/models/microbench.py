@@ -18,7 +18,11 @@ HLO the reference's capture holds (:mod:`tpusim_torch.tracer.lower`):
   taken by ``torch.autograd.grad``; capture traces it with ``make_fx``
   (:attr:`MlpTrainStep.train_step`);
 * ``lstm_layer`` runs its cell through the ``scan`` higher-order op,
-  which lowers to one ``while``, as ``lax.scan`` does.
+  which lowers to one ``while``, as ``lax.scan`` does;
+* ``ici_allreduce`` is one psum over every device of a 1-D mesh
+  (:mod:`tpusim_torch.spmd`); the reference takes "all visible
+  devices", the port a ``world`` build override (not a registered
+  parameter) that defaults to the visible card count.
 
 Builders draw from a ``torch.Generator`` seeded 0 on the asked device
 (default ``cuda``); the numbers differ from the JAX builders' PRNG keys,
@@ -41,9 +45,11 @@ from tpusim_torch.models.registry import (
     tensor_from_numpy,
     torch_dtype,
 )
+from tpusim_torch.spmd import Mesh, P, SpmdModule, psum
 
 __all__ = ["ElementwiseStream", "Transcendental", "Reduction", "MatmulChain",
-           "Conv2d", "EmbeddingLookup", "MlpTrainStep", "LstmLayer"]
+           "Conv2d", "EmbeddingLookup", "MlpTrainStep", "LstmLayer",
+           "IciAllreduce"]
 
 
 def _arrays(arrays: Sequence[Any], device) -> tuple[torch.Tensor, ...]:
@@ -186,6 +192,20 @@ class LstmLayer(nn.Module):
         return _arrays([xs, w, u, b], device)
 
 
+class IciAllreduce(SpmdModule):
+    """``x`` sharded over a 1-D mesh ``d``: every shard becomes the mean
+    of all shards (``psum(x) / n``)."""
+
+    def __init__(self, world: int):
+        super().__init__()
+        self.mesh = Mesh((world,), ("d",))
+        self.in_specs = (P("d"),)
+        self.out_specs = P("d")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return psum(x, self.mesh, "d") * (1.0 / self.world)
+
+
 # ---------------------------------------------------------------------------
 # Registration (names, parameters and descriptions are the reference's)
 # ---------------------------------------------------------------------------
@@ -310,3 +330,20 @@ def build_lstm_layer(batch: int, hidden: int, seq: int, dtype: str,
     u = _randn(gen, (hidden, 4 * hidden), dt, dev) * (hidden ** -0.5)
     b = torch.zeros(4 * hidden, dtype=dt, device=dev)
     return LstmLayer(), (xs, w, u, b)
+
+
+@register(
+    "ici_allreduce",
+    description="psum over all local devices (ICI bandwidth/latency fit "
+    "on multi-chip hosts)",
+    suite="ubench",
+    num_devices=0,  # uses all available
+    elems=8 * 1024 * 1024, dtype="float32",
+)
+def build_ici_allreduce(elems: int, dtype: str, device=None,
+                        world: int | None = None):
+    dev, dt = resolve_device(device), torch_dtype(dtype)
+    if world is None:
+        world = max(torch.cuda.device_count(), 1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return IciAllreduce(world), (_randn(gen, (world * elems,), dt, dev),)

@@ -11,6 +11,13 @@ tensors.  The custom op ``tpusim_torch::flash_attention`` stays one
 ``custom-call`` with ``custom_call_target="tpu_custom_call"`` and no
 ``cost_estimate`` — what a TPU capture of the Pallas kernel holds.
 
+A multi-device workload (:class:`~tpusim_torch.spmd.SpmdModule`)
+is captured as the program of one device (``$TPUSIM_TRACE_DEVICE``,
+default 0) over its shards, with ``num_partitions`` in the header and the
+mesh size as ``num_devices`` in the meta; its snapshots and timings run
+every device's program at once on the one card
+(:func:`~tpusim_torch.spmd.run_ranks`).
+
 A graph node outside the lowering's op table raises
 ``NotImplementedError``.  Like the reference, :func:`capture` runs
 nothing on the device (the graph is traced over fake tensors);
@@ -21,6 +28,7 @@ The meta keeps the reference's keys; ``xla_cost_analysis`` and
 
 from __future__ import annotations
 
+import math
 import os
 import shutil
 import statistics
@@ -34,6 +42,7 @@ import numpy as np
 import torch
 
 from tpusim_torch.ir import CommandKind, TraceCommand
+from tpusim_torch.spmd import SpmdModule, global_shape
 from tpusim_torch.trace.format import TraceDir, save_trace
 from tpusim_torch.tracer.lower import lower_graph
 
@@ -66,10 +75,13 @@ def capture_graph(module: torch.nn.Module,
 
 
 def export_to_hlo(module: torch.nn.Module, args: tuple[torch.Tensor, ...],
-                  name: str) -> tuple[str, list[torch.Tensor]]:
+                  name: str, num_partitions: int = 1
+                  ) -> tuple[str, list[torch.Tensor]]:
     """HLO text of the module's lowered and fused graph, and the (fake)
-    output tensors in order."""
-    hlo, outs = lower_graph(capture_graph(module, args), name)
+    output tensors in order.  ``num_partitions``: the devices of an SPMD
+    program (``args`` are then one device's shards)."""
+    hlo, outs = lower_graph(capture_graph(module, args), name,
+                            num_partitions=num_partitions)
     return hlo.text(), outs
 
 
@@ -113,32 +125,69 @@ def _device_of(args: tuple[torch.Tensor, ...]) -> torch.device:
     return devs.pop()
 
 
-def _device_meta(dev: torch.device) -> dict[str, Any]:
-    if dev.type == "cuda":
-        return {
-            "platform": "cuda",
-            "device_kind": torch.cuda.get_device_name(dev),
-            "num_devices": torch.cuda.device_count(),
-        }
-    return {"platform": dev.type, "device_kind": dev.type, "num_devices": 1}
+#: the ``platform`` every capture of the port stamps.  The cost model
+#: undoes XLA:CPU's FloatNormalization (every bf16 dot widened to f32)
+#: only for a ``cpu`` or ``interpreter`` platform; the port's lowering
+#: never widens a dot, so its f32 dot is a genuine f32 dot on either
+#: device, and the same HLO text prices the same wherever it was
+#: captured.  The device stays in ``device_kind``.
+PLATFORM = "tpusim_torch"
+
+
+def _device_meta(dev: torch.device, num_devices: int) -> dict[str, Any]:
+    kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else dev.type)
+    return {"platform": PLATFORM, "device_kind": kind,
+            "num_devices": num_devices}
 
 
 def capture(module: torch.nn.Module, *args: torch.Tensor,
             name: str | None = None) -> Capture:
     """Capture ``module(*args)`` as a trace: export, write HLO, and take
-    the memcpy sizes from the inputs and the exported output."""
+    the memcpy sizes from the inputs and the exported output.
+
+    For an SPMD workload (:class:`~tpusim_torch.spmd.SpmdModule`),
+    ``args`` are the global arrays: the trace is the program of device
+    ``$TPUSIM_TRACE_DEVICE`` (default 0) over its shards — every device
+    runs the same program — with ``num_partitions`` and ``num_devices``
+    the mesh size, and the memcpys carry the global arrays' bytes, as the
+    reference counts them."""
     cap_name = name or type(module).__name__
-    hlo_text, out_vals = export_to_hlo(module, args, cap_name)
+    spmd = isinstance(module, SpmdModule)
+    world = module.world if spmd else 1
+    trace_device = int(os.environ.get("TPUSIM_TRACE_DEVICE", "0") or 0)
+    local = args
+    if spmd:
+        if not 0 <= trace_device < world:
+            raise ValueError(f"TPUSIM_TRACE_DEVICE={trace_device} is not a "
+                             f"device of the {world}-device mesh")
+        local = module.local_args(*args, rank=trace_device)
+    hlo_text, out_vals = export_to_hlo(module, local, cap_name,
+                                       num_partitions=world)
     meta: dict[str, Any] = {
         "capture_name": cap_name,
-        **_device_meta(_device_of(args)),
-        "trace_device": int(os.environ.get("TPUSIM_TRACE_DEVICE", "0") or 0),
+        **_device_meta(_device_of(args), world),
+        "trace_device": trace_device,
         "xla_cost_analysis": {},
         "memory_analysis": {},
     }
+    if spmd:
+        specs = module.out_specs
+        specs = specs if len(out_vals) > 1 else (specs,)
+        out_bytes = sum(
+            math.prod(global_shape(v.shape, module.mesh, s))
+            * v.element_size() for v, s in zip(out_vals, specs))
+    else:
+        out_bytes = sum(_nbytes(v) for v in out_vals)
     return Capture(name=cap_name, hlo_text=hlo_text, meta=meta,
                    in_bytes=sum(_nbytes(a) for a in args),
-                   out_bytes=sum(_nbytes(v) for v in out_vals))
+                   out_bytes=out_bytes)
+
+
+def _runner(module: torch.nn.Module):
+    """What runs one launch of the workload on global arrays: the rank
+    runner for an SPMD workload, else the module."""
+    return module.run if isinstance(module, SpmdModule) else module
 
 
 def capture_to_dir(path: str | Path, module: torch.nn.Module,
@@ -227,9 +276,10 @@ def snapshot_buffers(module: torch.nn.Module, *args: torch.Tensor,
             paths.append(path)
         return len(leaves)
 
+    step = _runner(module)
     cur_args = args
     with torch.no_grad():
-        out = module(*cur_args)
+        out = step(*cur_args)
         n_bufs = _save(0, out)
         for i in range(1, launches):
             cur_args, changed = _thread(out, cur_args)
@@ -251,7 +301,7 @@ def snapshot_buffers(module: torch.nn.Module, *args: torch.Tensor,
                             shutil.copyfile(src, dst)
                         paths.append(dst)
                 break
-            out = module(*cur_args)
+            out = step(*cur_args)
             _save(i, out)
     return paths
 
@@ -263,6 +313,7 @@ def measure_wall_time(module: torch.nn.Module, *args: torch.Tensor,
     timed with CUDA events (``fence_s`` is 0: the events need no host
     readback); on the CPU with the host clock."""
     dev = _device_of(args)
+    module = _runner(module)
     with torch.no_grad():
         for _ in range(max(warmup, 1)):
             module(*args)

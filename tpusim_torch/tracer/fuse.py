@@ -8,8 +8,10 @@ Over the entry computation and every loop body:
   ``fusion(...)``, ``kind=kLoop``, ``calls=%fused_computation.N``;
 * a ``reduce`` becomes the root of a ``kind=kInput`` fusion with its
   elementwise producers (a reduce is never fused into a consumer);
-* ``dot``, ``convolution``, ``gather``, ``dynamic-update-slice``,
-  ``while``, ``custom-call``, tuples and parameters stay top level;
+* ``dot``, ``convolution``, ``gather``, ``scatter``,
+  ``dynamic-update-slice``, ``while``, ``custom-call``, the collectives,
+  ``partition-id``, tuples and parameters stay top level, as on the JAX
+  package's traces;
 * a producer with more than one user is fused into none of them, except
   scalar constants and broadcasts of them, which are copied into every
   fusion that reads them;
@@ -31,7 +33,8 @@ __all__ = ["fuse_module", "fuse_computation", "FUSIBLE"]
 FUSIBLE = frozenset({
     "add", "subtract", "multiply", "divide", "maximum", "minimum", "power",
     "exponential", "tanh", "logistic", "negate", "abs", "sqrt", "rsqrt",
-    "log", "erf", "compare", "select", "convert",
+    "log", "erf", "sine", "cosine", "remainder", "and", "or", "not",
+    "compare", "select", "convert",
     "broadcast", "bitcast", "constant", "iota", "transpose", "slice",
     "concatenate", "dynamic-slice",
 })

@@ -130,6 +130,14 @@ class HloModule:
         self._counters: dict[str, int] = {}
         #: reduce regions by kind and dtype, shared across the module
         self.regions: dict[str, str] = {}
+        #: devices of the SPMD program (``num_partitions`` in the header)
+        self.num_partitions = 1
+        self._channels = 0
+
+    def channel(self) -> int:
+        """A fresh ``channel_id`` for a collective (1, 2, ...)."""
+        self._channels += 1
+        return self._channels
 
     def fresh(self, base: str) -> str:
         """A module-unique name from ``base``."""
@@ -158,8 +166,11 @@ class HloModule:
         entry = self.entry
         params = ", ".join(shape_text(p.shape) for p in entry.params)
         out = shape_text(entry.root_instr().shape)
-        parts = [f"HloModule {self.name}, is_scheduled=true, "
-                 f"entry_computation_layout={{({params})->{out}}}", ""]
+        head = (f"HloModule {self.name}, is_scheduled=true, "
+                f"entry_computation_layout={{({params})->{out}}}")
+        if self.num_partitions > 1:
+            head += f", num_partitions={self.num_partitions}"
+        parts = [head, ""]
         for c in self.computations:
             if not c.is_entry:
                 parts += [c.text(), ""]

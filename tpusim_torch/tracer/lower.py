@@ -26,11 +26,23 @@ step — into an :class:`~tpusim_torch.tracer.hlo_ir.HloModule`:
   an ``s32`` induction variable, a condition ``compare(iv, N)`` and
   ``backend_config={"known_trip_count":{"n":"N"}}``, the scanned inputs
   read with ``dynamic-slice`` and the stacked outputs written with
-  ``dynamic-update-slice``, as XLA lowers ``lax.scan``.
+  ``dynamic-update-slice``, as XLA lowers ``lax.scan``;
+* the collectives of :mod:`tpusim_torch.spmd` → ``all-reduce``
+  (with an add or max region; a tuple for ``all_reduce_coalesced``),
+  ``all-gather``, ``reduce-scatter``, ``all-to-all`` (the TPU's one-array
+  form over the split dim, then a transpose to the concat dim) and
+  ``collective-permute``, each with a fresh ``channel_id`` and XLA's
+  iota ``replica_groups``; ``axis_index`` → ``partition-id`` and the
+  integer arithmetic that reads an axis's coordinate out of it; the
+  header then carries ``num_partitions``;
+* ``tpusim_torch::scatter_add_rows`` (an embedding's gradient) →
+  ``scatter`` with an add region; ``cos`` / ``sin``, the logical ops and
+  a scalar base to a tensor power.
 
-Types are ``f32``, ``bf16``, ``s32`` and ``pred``.  Any node outside the
-table raises ``NotImplementedError`` naming it: nothing is skipped but
-the export's metadata asserts, which compute nothing.
+Types are ``f32``, ``bf16``, ``s32`` and ``pred`` (and the ``u32`` of
+``partition-id``).  Any node outside the table raises
+``NotImplementedError`` naming it: nothing is skipped but the export's
+metadata asserts, which compute nothing.
 
 After lowering, transposes fold into the dots and convolutions that read
 them (XLA's transpose folding; a dot keeps its batch dims leading, the
@@ -46,6 +58,7 @@ from typing import Any, Sequence
 
 import torch
 
+from tpusim_torch.spmd import groups
 from tpusim_torch.tracer.hlo_ir import Array, Computation, HloModule, Instr
 
 __all__ = ["lower_graph", "hlo_dtype", "LoweringError"]
@@ -237,8 +250,11 @@ _COMPARE = {"eq": "EQ", "ne": "NE", "lt": "LT", "le": "LE", "gt": "GT",
 _UNARY = {
     "exp": "exponential", "tanh": "tanh", "sigmoid": "logistic",
     "neg": "negate", "abs": "abs", "sqrt": "sqrt", "rsqrt": "rsqrt",
-    "log": "log",
+    "log": "log", "cos": "cosine", "sin": "sine",
+    "bitwise_not": "not", "logical_not": "not",
 }
+_LOGICAL = {"bitwise_and": "and", "logical_and": "and", "bitwise_or": "or",
+            "logical_or": "or"}
 _IDENTITY = frozenset({"alias", "clone", "detach"})
 _VIEWS = frozenset({"view", "_unsafe_view", "reshape", "squeeze",
                     "unsqueeze"})
@@ -325,6 +341,8 @@ class _GraphLowering:
             return self.binary(node, _BINARY[p], args, kwargs)
         if p in _COMPARE:
             return self.compare(node, _COMPARE[p], args)
+        if p in _LOGICAL:
+            return self.binary(node, _LOGICAL[p], args, kwargs)
         if p in _UNARY:
             out = self.out_array(node)
             return self.b.emit(node.name, out, _UNARY[p],
@@ -422,6 +440,11 @@ def _h_where(L: _GraphLowering, node, args, kwargs):
 
 def _h_pow(L, node, args, kwargs):
     out = L.out_array(node)
+    if isinstance(args[0], (int, float)):
+        # a scalar base to a tensor power
+        return L.b.emit(node.name, out, "power",
+                        [L.b.splat(out.dtype, args[0], out.dims),
+                         L.b.convert(args[1], out.dtype)])
     x, e = L.b.convert(args[0], out.dtype), args[1]
     if not isinstance(e, (int, float)):
         return L.binary(node, "power", args, kwargs)
@@ -738,7 +761,172 @@ def _h_dynamic_update_slice(L, node, args, kwargs):
                     [operand, L.b.convert(update, out.dtype), *starts])
 
 
+def _h_scatter_add_rows(L, node, args, kwargs):
+    """``tpusim_torch::scatter_add_rows``: a zero table with the update
+    rows added at the ids — one ``scatter`` with an add region."""
+    grad, ids, rows = args
+    out = L.out_array(node)
+    b = L.b
+    ishape = b.shape(ids)
+    zero = b.splat(out.dtype, 0, out.dims)
+    return b.emit(node.name, out, "scatter",
+                  [zero, ids, b.convert(grad, out.dtype)], [
+                      f"update_window_dims={{{ishape.rank}}}",
+                      "inserted_window_dims={0}",
+                      "scatter_dims_to_operand_dims={0}",
+                      f"index_vector_dim={ishape.rank}",
+                      f"to_apply=%{b.region('add', out.dtype)}"])
+
+
+# -- collectives (tpusim_torch.spmd) -----------------------------------------
+
+
+def _replica_groups(mesh: Sequence[int], axes: Sequence[int]) -> str:
+    """XLA's iota form: ``[G,S]<=[N]`` when the group's axes are the mesh's
+    minor axes in order, else ``[G,S]<=[m0,m1,..]T(perm)`` with the other
+    axes first (e.g. ``[2,2]<=[2,2]T(1,0)``, the strided groups of the
+    major axis of a ``(dp, tp)`` mesh)."""
+    rest = [i for i in range(len(mesh)) if i not in axes]
+    perm = rest + list(axes)
+    g = math.prod(mesh[i] for i in rest)
+    s = math.prod(mesh[a] for a in axes)
+    if perm == sorted(perm):
+        return f"replica_groups=[{g},{s}]<=[{math.prod(mesh)}]"
+    return (f"replica_groups=[{g},{s}]<=[{','.join(map(str, mesh))}]"
+            f"T({','.join(map(str, perm))})")
+
+
+def _spmd_module(L: _GraphLowering, mesh: Sequence[int]) -> HloModule:
+    module = L.b.module
+    n = math.prod(mesh)
+    if module.num_partitions not in (1, n):
+        raise LoweringError(f"collectives over {n} and "
+                            f"{module.num_partitions} devices in one module")
+    module.num_partitions = n
+    return module
+
+
+def _h_all_reduce(L, node, args, kwargs):
+    x, mesh, axes, op = args
+    module = _spmd_module(L, mesh)
+    out = L.b.shape(x)
+    kind = {"sum": "add", "max": "maximum"}[op]
+    return L.b.emit(node.name, out, "all-reduce", [x], [
+        f"channel_id={module.channel()}", _replica_groups(mesh, axes),
+        "use_global_device_ids=true",
+        f"to_apply=%{L.b.region(kind, out.dtype)}"])
+
+
+def _h_all_reduce_coalesced(L, node, args, kwargs):
+    xs, mesh, axes = args
+    module = _spmd_module(L, mesh)
+    shapes = tuple(L.b.shape(x) for x in xs)
+    dtypes = {s.dtype for s in shapes}
+    if len(dtypes) != 1:
+        raise LoweringError(f"{node.name}: one all-reduce over dtypes "
+                            f"{sorted(dtypes)}")
+    t = L.b.emit(node.name, shapes, "all-reduce", list(xs), [
+        f"channel_id={module.channel()}", _replica_groups(mesh, axes),
+        "use_global_device_ids=true",
+        f"to_apply=%{L.b.region('add', dtypes.pop())}"])
+    return [L.b.emit("get-tuple-element", s, "get-tuple-element", [t],
+                     [f"index={i}"]) for i, s in enumerate(shapes)]
+
+
+def _h_all_gather(L, node, args, kwargs):
+    x, mesh, axes, dim = args
+    module = _spmd_module(L, mesh)
+    return L.b.emit(node.name, L.out_array(node), "all-gather", [x], [
+        f"channel_id={module.channel()}", _replica_groups(mesh, axes),
+        f"dimensions={{{dim}}}", "use_global_device_ids=true"])
+
+
+def _h_reduce_scatter(L, node, args, kwargs):
+    x, mesh, axes, dim = args
+    module = _spmd_module(L, mesh)
+    out = L.out_array(node)
+    return L.b.emit(node.name, out, "reduce-scatter", [x], [
+        f"channel_id={module.channel()}", _replica_groups(mesh, axes),
+        "use_global_device_ids=true", f"dimensions={{{dim}}}",
+        f"to_apply=%{L.b.region('add', out.dtype)}"])
+
+
+def _h_all_to_all(L, node, args, kwargs):
+    """The TPU's array ``all-to-all`` over the split dim (chunk j of the
+    split dim goes to the group's j-th member, and the received chunks
+    take their places in member order), then the received chunks move
+    from the split dim to the concat dim: a bitcast when they are the
+    same dim, else a transpose between two bitcasts."""
+    x, mesh, axes, split, concat = args
+    module = _spmd_module(L, mesh)
+    b = L.b
+    src = b.shape(x)
+    a2a = b.emit(node.name, src, "all-to-all", [x], [
+        f"channel_id={module.channel()}", _replica_groups(mesh, axes),
+        f"dimensions={{{split}}}"])
+    if split == concat:
+        return a2a
+    g = math.prod(mesh[a] for a in axes)
+    dims = list(src.dims)
+    parts = dims[:split] + [g, dims[split] // g] + dims[split + 1:]
+    # the member dim sits at `split`; move it to just before the concat
+    # dim (whose index in `parts` shifts by one when it follows split)
+    c = concat + 1 if concat > split else concat
+    order = [i for i in range(len(parts)) if i != split]
+    at = order.index(c)
+    order.insert(at, split)
+    moved = L.transpose(b.bitcast(a2a, parts), order)
+    return b.bitcast(moved, L.out_array(node).dims)
+
+
+def _h_collective_permute(L, node, args, kwargs):
+    x, mesh, axes, pairs = args
+    module = _spmd_module(L, mesh)
+    flat = [(grp[s], grp[d]) for grp in groups(mesh, axes)
+            for s, d in zip(pairs[0::2], pairs[1::2])]
+    text = ",".join(f"{{{s},{d}}}" for s, d in flat)
+    return L.b.emit(node.name, L.b.shape(x), "collective-permute", [x], [
+        f"channel_id={module.channel()}",
+        f"source_target_pairs={{{text}}}"])
+
+
+def _h_axis_index(L, node, args, kwargs):
+    """``partition-id`` and the arithmetic that reads one axis's
+    coordinate (or the linear index over several) out of it."""
+    _, mesh, axes = args
+    _spmd_module(L, mesh)
+    b = L.b
+    s32 = Array("s32", ())
+    pid = b.convert(b.emit("partition-id", Array("u32", ()),
+                           "partition-id"), "s32")
+    n = math.prod(mesh)
+    lin = None
+    for a in axes:
+        stride = math.prod(mesh[a + 1:])
+        c = pid
+        if stride > 1:
+            c = b.emit("divide", s32, "divide", [c, b.const("s32", stride)])
+        if stride * mesh[a] < n:
+            c = b.emit("remainder", s32, "remainder",
+                       [c, b.const("s32", mesh[a])])
+        if lin is None:
+            lin = c
+        else:
+            lin = b.emit("add", s32, "add", [
+                b.emit("multiply", s32, "multiply",
+                       [lin, b.const("s32", mesh[a])]), c])
+    return lin
+
+
 _HANDLERS = {
+    "tpusim_torch::all_reduce": _h_all_reduce,
+    "tpusim_torch::all_reduce_coalesced": _h_all_reduce_coalesced,
+    "tpusim_torch::all_gather": _h_all_gather,
+    "tpusim_torch::reduce_scatter": _h_reduce_scatter,
+    "tpusim_torch::all_to_all": _h_all_to_all,
+    "tpusim_torch::collective_permute": _h_collective_permute,
+    "tpusim_torch::axis_index": _h_axis_index,
+    "tpusim_torch::scatter_add_rows": _h_scatter_add_rows,
     "where": _h_where, "pow": _h_pow, "relu": _h_relu, "gelu": _h_gelu,
     "_softmax": _h_softmax, "_to_copy": _h_to_copy,
     "sum": _reduction("add", 0.0), "amax": _reduction("maximum",
@@ -912,14 +1100,16 @@ def _fold_transposes(b: _Builder) -> None:
 # ---------------------------------------------------------------------------
 
 
-def lower_graph(gm: torch.fx.GraphModule, name: str) -> tuple[HloModule,
-                                                              list[Any]]:
+def lower_graph(gm: torch.fx.GraphModule, name: str,
+                num_partitions: int = 1) -> tuple[HloModule, list[Any]]:
     """Lower ``gm`` (core ATen ops; placeholders are the module's inputs
     in order) to a fused HLO module.  Returns the module and the graph's
-    output values (fake tensors) in order."""
+    output values (fake tensors) in order.  ``num_partitions``: the
+    devices of an SPMD program, whose collectives must span as many."""
     from tpusim_torch.tracer.fuse import fuse_module
 
     module = HloModule(name)
+    module.num_partitions = num_partitions
     entry = module.new_computation("main", is_entry=True)
     b = _Builder(module, entry)
     params = []
