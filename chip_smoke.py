@@ -5,8 +5,9 @@
 
 Drives the port's main path, ``tpusim_torch capture → simulate``, at the
 registered width of ``flash_attention_pallas`` ([32, 1024, 128] f32), of
-the ten workloads the general lowering captures and of the seven
-multi-device workloads (all their ranks on the one card),
+the ten workloads the general lowering captures, of the seven
+multi-device workloads (all their ranks on the one card) and of the
+model suite (the two 64-device steps over meta tensors),
 simulate's lane-batched pricing with its row scans on the card, the
 campaign and fleet layers whose scenario-batched warm runs those scans,
 and the sharding advisor on the card's host, and holds each CUDA kernel
@@ -165,12 +166,33 @@ non-zero and prints no result):
    within rtol = atol = 1e-4 (float32) or 2e-2 (bfloat16); (d) simulated
    at v5p, ``llama_tiny_tp2dp2`` also at golden cells 3-5's arches beside
    the fixture (MXU flops equal); (e) the median of a whole N-rank step.
+13. the model suite (``llama_tiny_train``, ``llama7b``, ``moe_ep8_train``,
+   ``pipeline_pp4``, ``resnet50``, ``resnet50_train``, ``resnet50_dp8``,
+   ``llama7b_tp8dp8``, ``llama7b_aot_v5p64``) at registered width, the
+   kernels' counters set to 0 just before and read just after (they must
+   stay 0): (a) ``capture W DIR`` through the CLI, timed (the 64-device
+   steps over meta tensors, their ``--snapshot`` refused); (b) the
+   concrete ones' HLO on the card equals by bytes the CPU's; (c) each
+   one's check — the card against the CPU (``llama7b`` at 2 layers, seq
+   256, norm-wise; the ResNets at batch 2, the forward in float32 and the
+   train step in float64, and in bfloat16 the forward's logits, the train
+   step's loss and each batch-norm layer alone on its input, output and
+   vjp), the ranks against the unsharded step (``moe_ep8_train``;
+   ``pipeline_pp4`` against ``reference_forward``; ``resnet50_dp8`` in
+   float64 at batch 64, and its batch-norms synchronized over 8 ranks in
+   bfloat16 against the CPU's, layer by layer; the
+   64-device steps at a small configuration, and the AOT step's reversed
+   scan of hand-written layer backwards against autograd of the unrolled
+   layers), replicas bit for bit; (d) simulated at v5p: MXU flops,
+   collectives, ICI bytes; (e) the median step and the peak of
+   ``torch.cuda.max_memory_allocated``, beside the card's name and power
+   limit.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, the one before that the kernels' JSON
-record, the one before that phase 12's (``multidevice: {...}``), before
-it phase 11's (``lowered: {...}``) and before that phase 10's
-(``advisor: {...}``).  Needs
+record, the one before that phase 13's (``models: {...}``), before it
+phase 12's (``multidevice: {...}``), phase 11's (``lowered: {...}``) and
+phase 10's (``advisor: {...}``).  Needs
 no network and one card; exits non-zero without a CUDA device or without
 the rest of the repository beside it.
 """
@@ -2625,6 +2647,399 @@ def multi_device(card_name: str, work: Path) -> dict:
             "card": card_name}
 
 
+#: phase 13: the model suite, each at its registered width
+MODELS = ("llama_tiny_train", "llama7b", "moe_ep8_train", "pipeline_pp4",
+          "resnet50", "resnet50_train", "resnet50_dp8", "llama7b_tp8dp8",
+          "llama7b_aot_v5p64")
+#: phase 13 (c): the small configuration the 64-way step's ranks run at
+#: on the card (7B's structure cut to size, as tests/test_torch_models.py)
+LLAMA_SMALL = dict(vocab=512, dim=256, layers=2, heads=8, kv_heads=8,
+                   ffn=512, batch=16, seq=32)
+#: phase 13 (c): the card-vs-CPU runs' cuts of registered width.  The
+#: ResNets are held end to end in float32 (and the train step in
+#: float64): a batch-norm network at init spreads rounding with depth, so
+#: in bfloat16 the card's and the CPU's gradients lie 127% apart at 224²,
+#: batch 2; their bfloat16 is held where it is well conditioned
+#: (:func:`resnet_bf16_held`)
+CARD_VS_CPU = {"llama7b": dict(layers=2, seq=256),
+               "resnet50": dict(batch=2, dtype="float32"),
+               "resnet50_train": dict(batch=2, dtype="float32")}
+#: phase 13 (c): the ResNets' float32 logits, norm-wise (the JAX
+#: package's own float32 logits lie 1.7e-4 from its float64 ones,
+#: norm-wise, at batch 8, 32²)
+TOL_RESNET_F32 = 1e-3
+#: phase 13 (c): the train step runs card and CPU in float64 (its float32
+#: gradients at batch 2 spread by 3% between the two, as the network's
+#: conditioning amplifies the convolutions' rounding), each output and
+#: gradient within this of the CPU's norm
+F64_CHECK = {"resnet50_train": 1e-9}
+#: phase 13 (c): resnet50_dp8's ranks against the one-rank step, float64
+DP8_F64_BATCH = 64
+#: phase 13 (c): the ResNets in bfloat16, norm-wise, card against CPU:
+#: resnet50's logits and resnet50_train's loss at 224², batch 2 (every
+#: other output of the step is the network's conditioning's), and each
+#: batch-norm layer alone on its input of the CPU forward at 224², batch
+#: 8 (:func:`bn_layers_held`): its output and its vjp.  Readings on an
+#: H100 80GB HBM3 at 700 W: logits 4.8e-2, loss 9.9e-4, batch-norm
+#: outputs 2.8e-4, vjps 8e-6 (one device) and 4.3e-3 (8 ranks)
+RESNET_BF16 = dict(batch=2, dtype="bfloat16")
+BN_BATCH = 8
+TOL_RESNET_BF16 = {"logits": 0.1, "loss": 0.02, "bn_out": 2e-3,
+                   "bn_grad": 2e-2}
+SIM_MODEL_KEYS = ("tot_mxu_flops", "tot_collective_count", "tot_ici_bytes")
+
+
+def close(name: str, got, want, tol: float, normwise: bool) -> dict:
+    """Phase 13 (c): ``got`` against ``want`` (tensors, any device),
+    elementwise within ``tol + tol |y|`` or norm-wise within ``tol``."""
+    worst, err = 0.0, 0.0
+    for g, w in zip(got, want):
+        x, y = g.detach().double().cpu(), w.detach().double().cpu()
+        if x.shape != y.shape or not torch.isfinite(x).all():
+            raise AssertionError(f"{name}: bad output {tuple(x.shape)} vs "
+                                 f"{tuple(y.shape)}")
+        gap = (x - y).abs()
+        err = max(err, float(gap.max()) if gap.numel() else 0.0)
+        if normwise:
+            if float(y.norm()) > 0:
+                worst = max(worst, float(gap.norm() / y.norm()) / tol)
+        else:
+            worst = max(worst, float((gap / (tol + tol * y.abs())).max()))
+    if worst > 1.0:
+        raise AssertionError(f"{name}: outputs differ beyond {tol} "
+                             f"({'norm-wise' if normwise else 'elementwise'}"
+                             f", worst {worst:.3g} of the tolerance)")
+    return {"max_abs_err": err, "worst_of_tol": worst, "tol": tol,
+            "normwise": normwise, "outputs": len(got)}
+
+
+def _listed(out) -> list:
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def module_text(trace: Path, name: str) -> str:
+    """A trace's module text, stored plain or (a large one) gzipped."""
+    import gzip
+
+    plain = trace / "modules" / f"{name}.hlo"
+    if plain.exists():
+        return plain.read_text()
+    return gzip.decompress((trace / "modules" / f"{name}.hlo.gz")
+                           .read_bytes()).decode()
+
+
+def model_numerics(name: str) -> dict:
+    """Phase 13 (c): each workload's check: the card
+    against the CPU for the single-chip ones (at a cut of registered width
+    where one is listed), the ranks against the unsharded computation on
+    the card for the sharded ones; replicated outputs of the rank runner
+    equal bit for bit (``unshard`` refuses a disagreeing replica)."""
+    from tpusim_torch.models.moe import MoeTrainStep
+    from tpusim_torch.models.pipeline import reference_forward
+    from tpusim_torch.models.resnet import ResNet50Train
+
+    wl = get_workload(name)
+    kw = CARD_VS_CPU.get(name, {})
+    # the train steps' gradients come from function transforms, which an
+    # outer no_grad does not reach
+    with torch.no_grad():
+        if name == "moe_ep8_train":
+            module, args = wl.build(device="cuda")
+            single = MoeTrainStep(1, module.tokens, shards=module.world)
+            out = close(name, module.run(*args), single(*args),
+                        TOL_LOWERED[torch.float32], False)
+            got, want = module.grads(*args), single.grads(*args)
+            out["grads"] = close(name, got, want, 2e-2, True)
+            return out
+        if name == "pipeline_pp4":
+            module, args = wl.build(device="cuda")
+            return close(name, [module.run(*args)], [reference_forward(*args)],
+                         TOL_LOWERED[torch.float32], False)
+        if name == "resnet50_dp8":
+            # in float64 at 224² and 8 samples a rank: in float32 the two
+            # sum the batch-norm statistics in another order, which the
+            # network's conditioning spreads to 2.3% on the gradients at
+            # batch 256 (bf16: up to 10%, CPU, 224², batch 16); float64 at
+            # batch 256 would not fit twice in 80 GB
+            module, args = wl.build(device="cuda", batch=DP8_F64_BATCH,
+                                    dtype="float32")
+            args = tuple(a.double() if a.is_floating_point() else a
+                         for a in args)
+            single = ResNet50Train(1000, module.batch)
+            got = module.grads(*args)
+            gc.collect()
+            torch.cuda.empty_cache()
+            want = single.grads(*args)
+            out = close(name, got[:1], want[:1], 1e-9, True)
+            out["grads"] = close(name, got[1:], want[1:], 1e-9, True)
+            out["cut"] = {"batch": DP8_F64_BATCH, "dtype": "float64"}
+            del module, args, single, got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["bf16"] = {"bn_layers": bn_layers_held(8)}
+            return out
+        if name in ("llama7b_tp8dp8", "llama7b_aot_v5p64"):
+            small = dict(LLAMA_SMALL, dtype="float32")
+            module, args = wl.build(device="cuda", **small)
+            single, _ = wl.build(device="cuda", dp=1, tp=1, **small)
+            got, want = module.grads(*args), single.grads(*args)
+            out = close(name, got[:1], want[:1], TOL_LOWERED[torch.float32],
+                        False)
+            out["grads"] = close(name, got[1:], want[1:], 2e-2, True)
+            out["ranks"] = module.world
+            if name == "llama7b_aot_v5p64":
+                out["scan_backward"] = scan_backward_held(single, args, want)
+            return out
+        # single chip: the card against the CPU on the same inputs
+        out = card_against_cpu(name, kw)
+        if name.startswith("resnet50"):
+            out["bf16"] = resnet_bf16_held(name)
+        return out
+
+
+def resnet_bf16_held(name: str) -> dict:
+    """Phase 13 (c), bfloat16 (:data:`TOL_RESNET_BF16`): ``resnet50``'s
+    logits or ``resnet50_train``'s loss on the card against the CPU at
+    :data:`RESNET_BF16`, every output of the CPU's dtype and finite; for
+    the train step also each batch-norm layer alone."""
+    module, args = get_workload(name).build(device="cuda", **RESNET_BF16)
+    cpu_args = tuple(a.cpu() for a in args)
+    train = getattr(module, "train_step", False)
+    run = module.run if train else module
+    with torch.no_grad():
+        got, want = _listed(run(*args)), _listed(run(*cpu_args))
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: a bfloat16 output of dtype "
+                                 f"{g.dtype} (CPU {w.dtype}) or not finite")
+    key = "loss" if train else "logits"
+    out = close(f"{name} bfloat16 {key}", got[:1], want[:1],
+                TOL_RESNET_BF16[key], True)
+    out["cut"] = RESNET_BF16
+    if train:
+        del module, args, got
+        out["bn_layers"] = bn_layers_held(1)
+    return out
+
+
+_BN_INPUTS: list = []
+
+
+def bn_layers_held(ranks: int) -> dict:
+    """Phase 13 (c), bfloat16: each of ``resnet50``'s 53 batch-norms alone
+    on its input in the CPU forward at 224², batch :data:`BN_BATCH` (the
+    input, scale and bias its ``_BatchNorm`` saw), its output and the vjp
+    of a seeded cotangent (input, scale, bias) on the card against the
+    CPU's, norm-wise: on one device, or synchronized over ``ranks`` (one
+    sample each; the bias's gradient summed over them)."""
+    from tpusim_torch.models import resnet as rn
+    from tpusim_torch.spmd import Mesh, P, psum, run_ranks
+
+    if not _BN_INPUTS:
+        module, args = get_workload("resnet50").build(
+            device="cpu", batch=BN_BATCH, dtype="bfloat16")
+        plain = rn._BatchNorm.plain
+
+        def spy(bn):
+            _BN_INPUTS.append((bn.x, bn.scale, bn.bias))
+            return plain(bn)
+
+        rn._BatchNorm.plain = spy
+        try:
+            with torch.no_grad():
+                module(*args)
+        finally:
+            rn._BatchNorm.plain = plain
+    mesh = Mesh((ranks,), ("dp",))
+
+    def vjp(x, scale, bias, ct, mesh=None):
+        def norm(x, s, b):
+            net = rn._Net({"scale": s, "bias": b}, mesh, BN_BATCH)
+            return net.norm(x, "scale", "bias")
+
+        y, back = torch.func.vjp(norm, x, scale, bias)
+        return (y, *back(ct))
+
+    def rank(x, scale, bias, ct):
+        y, dx, ds, db = vjp(x, scale, bias, ct, mesh)
+        return y, dx, ds, psum(db, mesh, "dp")
+
+    gen = torch.Generator().manual_seed(7)
+    worst = [0.0, 0.0]
+    for x, scale, bias in _BN_INPUTS:
+        ct = torch.randn(x.shape, generator=gen).to(x.dtype)
+        want = vjp(x, scale, bias, ct)
+        card = [t.cuda() for t in (x, scale, bias, ct)]
+        if ranks == 1:
+            got = vjp(*card)
+        else:
+            got = run_ranks(rank, mesh, *card,
+                            in_specs=(P("dp"), P(), P(), P("dp")),
+                            out_specs=(P("dp"), P("dp"), P(), P()))
+        errs = [float((g.double().cpu() - w.double()).norm()
+                      / w.double().norm()) for g, w in zip(got, want)]
+        worst = [max(worst[0], errs[0]), max(worst[1], *errs[1:])]
+    tol = (TOL_RESNET_BF16["bn_out"], TOL_RESNET_BF16["bn_grad"])
+    if worst[0] > tol[0] or worst[1] > tol[1]:
+        raise AssertionError(f"resnet50 batch-norms over {ranks} ranks, "
+                             f"bfloat16: output {worst[0]:.3g} (tol "
+                             f"{tol[0]}), vjp {worst[1]:.3g} (tol {tol[1]})")
+    return {"layers": len(_BN_INPUTS), "ranks": ranks, "out": worst[0],
+            "vjp": worst[1], "tol_out": tol[0], "tol_vjp": tol[1],
+            "batch": BN_BATCH}
+
+
+def card_against_cpu(name: str, kw: dict) -> dict:
+    """Phase 13 (c) for a single-chip workload built with ``kw``: its
+    outputs (and a train step's gradients) on the card against a CPU run
+    on the same inputs."""
+    module, args = get_workload(name).build(device="cuda", **kw)
+    f64 = name in F64_CHECK
+    if f64:
+        args = tuple(a.double() if a.is_floating_point() else a
+                     for a in args)
+    cpu_args = tuple(a.cpu() for a in args)
+    train = getattr(module, "train_step", False)
+    # the 53 batch-norms, and the 4096-wide bf16 products of 7B
+    normwise = name.startswith("resnet50") or name == "llama7b"
+    dtype = next(a.dtype for a in args if a.is_floating_point())
+    tol = (F64_CHECK[name] if f64 else TOL_RESNET_F32
+           if name.startswith("resnet50") and dtype == torch.float32
+           else TOL_LOWERED[dtype])
+    run = module.run if train else module
+    with torch.no_grad():
+        pair = (_listed(run(*args)), _listed(run(*cpu_args)))
+    out = close(name, *pair, tol, normwise)
+    if train:
+        out["grads"] = close(name, module.grads(*args),
+                             module.grads(*cpu_args), tol if f64 else 2e-2,
+                             True)
+    out["cut"] = dict(kw, dtype="float64") if f64 else kw
+    return out
+
+
+def scan_backward_held(aot, args, want) -> dict:
+    """Phase 13 (c) for ``llama7b_aot_v5p64``: its hand-written layer
+    backward (the reversed scan) against autograd of the same layers
+    unrolled (``LlamaTrainStep``), one rank, float32, each gradient
+    within 1e-4 of its norm."""
+    from tpusim_torch.models.llama import LAYER_KEYS, LlamaTrainStep
+
+    embed, final_norm, *stacked = args[:-2]
+    flat = [embed, final_norm] + [stacked[j][i]
+                                  for i in range(aot.cfg.layers)
+                                  for j in range(len(LAYER_KEYS))]
+    ref = LlamaTrainStep(aot.cfg, None, aot.batch).grads(*flat, *args[-2:])
+    got = [want[0], want[1], want[2]] + [
+        want[3 + j][i] for i in range(aot.cfg.layers)
+        for j in range(len(LAYER_KEYS))]
+    return close("llama7b_aot_v5p64 scan backward", got, list(ref), 1e-4,
+                 True)
+
+
+def bf16_note(held: dict | None) -> str:
+    """Phase 13's line: the bfloat16 checks' readings beside their
+    limits."""
+    if not held:
+        return ""
+    parts = []
+    if "worst_of_tol" in held:
+        parts.append(f"{held['max_abs_err']:.3g} max |err|, "
+                     f"{held['worst_of_tol']:.3g} of tol {held['tol']}")
+    bn = held.get("bn_layers")
+    if bn:
+        parts.append(f"{bn['layers']} batch-norms over {bn['ranks']} "
+                     f"rank(s): output {bn['out']:.3g} (tol {bn['tol_out']}),"
+                     f" vjp {bn['vjp']:.3g} (tol {bn['tol_vjp']})")
+    return ", bf16 " + "; ".join(parts)
+
+
+def model_suite(card_name: str, work: Path) -> dict:
+    """Phase 13: the model suite at registered width — (a) ``capture W
+    DIR`` through the CLI, timed (the 64-way ``llama7b_tp8dp8`` over meta
+    tensors: nothing materialised, and ``--snapshot`` refused); (b) the
+    concrete ones' HLO captured on the card equals by bytes the text
+    lowered from CPU tensors of the same shapes; (c) each workload's
+    numerics check (:func:`model_numerics`); (d) simulated at v5p: MXU
+    flops, collectives and ICI bytes; (e) the median step on the card and
+    the peak of ``torch.cuda.max_memory_allocated`` over the workload's
+    part; (f) no custom kernel launched."""
+    from tpusim_torch.tracer.capture import capture
+
+    for *_, reset in KERNELS:
+        reset()
+    t_phase = time.perf_counter()
+    rows = {}
+    for name in MODELS:
+        wl = get_workload(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trace = work / name
+        t0 = time.perf_counter()
+        run_cli(["capture", name, str(trace)])
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        text = module_text(trace, name)
+        row = {"world": wl.num_devices, "capture_s": capture_s,
+               "hlo_bytes": len(text), "abstract": wl.abstract}
+        if wl.abstract:
+            buf = io.StringIO()
+            with contextlib.redirect_stderr(buf):
+                rc = cli(["capture", name, str(work / f"{name}_snap"),
+                          "--snapshot"])
+            if rc == 0 or "needs concrete inputs" not in buf.getvalue():
+                raise AssertionError(f"{name}: --snapshot of an abstract "
+                                     f"capture did not refuse")
+            shutil.rmtree(work / f"{name}_snap", ignore_errors=True)
+            row["median_ms"] = None
+        else:
+            module, args = wl.build(device="cuda")
+            cpu_args = tuple(a.cpu() if a.dim() == 0 else
+                             torch.empty(a.shape, dtype=a.dtype)
+                             for a in args)
+            if capture(module, *cpu_args, name=name).hlo_text != text:
+                raise AssertionError(f"{name}: the card's HLO differs from "
+                                     f"the CPU's")
+            del cpu_args
+            wall = measure_wall_time(module, *args, iters=3, warmup=1)
+            row["median_ms"] = wall["median_s"] * 1e3
+            del module, args
+            gc.collect()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        row["check"] = model_numerics(name)
+        row["check_s"] = time.perf_counter() - t0
+        st = stats_of(simulate_trace(trace, arch="v5p", tuned=False))
+        row["v5p"] = {k: st[k] for k in SIM_MODEL_KEYS}
+        row["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        rows[name] = row
+        med = (f"{row['median_ms']:.4f} ms" if row["median_ms"] is not None
+               else "none (abstract)")
+        chk = row["check"]
+        print(f"  {name} ({row['world']} devices): capture {capture_s:.2f} s"
+              f"{' (abstract)' if wl.abstract else ', HLO card == CPU'}; "
+              f"check max |err| {chk['max_abs_err']:.3g} "
+              f"({chk['worst_of_tol']:.3g} of tol {chk['tol']}"
+              f"{', norm-wise' if chk['normwise'] else ''})"
+              + (f", grads {chk['grads']['worst_of_tol']:.3g} of "
+                 f"{chk['grads']['tol']}" if "grads" in chk else "")
+              + bf16_note(chk.get("bf16"))
+              + f"; median step {med}; peak "
+              f"{row['peak_mem_bytes'] / 2**30:.2f} GiB on {card_name}",
+              flush=True)
+        print("    v5p: " + ", ".join(f"{k} {row['v5p'][k]:.10g}"
+                                      for k in SIM_MODEL_KEYS))
+        shutil.rmtree(trace, ignore_errors=True)
+    launches = {name: count() for name, _, _, count, _ in KERNELS}
+    if any(launches.values()):
+        raise AssertionError(f"phase 13 launched a custom kernel: {launches}")
+    seconds = time.perf_counter() - t_phase
+    print(f"  kernel launches across phase 13: {launches}; {seconds:.1f} s")
+    return {"workloads": rows, "launches": launches, "seconds": seconds,
+            "card": card_name}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -2727,9 +3142,14 @@ def main() -> int:
     phase(12, "multi-device capture: seven workloads, all ranks on the card")
     with tempfile.TemporaryDirectory() as tmp:
         multi = multi_device(card_name, Path(tmp))
-    phase(None)
-    multi["phase_seconds"] = PHASE_SECONDS
     print("multidevice: " + json.dumps(multi))
+
+    phase(13, "the model suite at registered width")
+    with tempfile.TemporaryDirectory() as tmp:
+        models = model_suite(card_name, Path(tmp))
+    phase(None)
+    models["phase_seconds"] = PHASE_SECONDS
+    print("models: " + json.dumps(models))
 
     record = {"kernels": [{
         "name": "flash_attention",

@@ -134,12 +134,41 @@ def test_snapshot_matches_pallas_interpret(tmp_path):
                                                            device="cpu"),
                              out_dir=tmp_path / "port", launches=2)
     assert [p.name for p in paths] == ["launch0_buf0.npy", "launch1_buf0.npy"]
+    exact = q
     for p in paths:
         want = np.load(tmp_path / "ref" / p.name)
         # the output has q's shape, so both packages feed it back as q
-        # for the second launch
-        np.testing.assert_allclose(np.load(p), want, rtol=0, atol=2e-5)
+        # for the second launch; the float64 chain does the same
+        exact = _attention_f64(exact, k, v)
+        got = np.load(p)
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-5,
+                                   err_msg=_miss_report(got, want, exact))
     assert fa.launch_count() == 0  # the CPU takes the plain version
+
+
+def _attention_f64(q, k, v) -> np.ndarray:
+    """softmax(q kᵀ/√D) v in float64: the yardstick both sides are read
+    against when they miss each other."""
+    q, k, v = (np.asarray(a, dtype=np.float64) for a in (q, k, v))
+    s = q @ np.swapaxes(k, -1, -2) / np.sqrt(q.shape[-1])
+    w = np.exp(s - s.max(axis=-1, keepdims=True))
+    return (w @ v) / w.sum(axis=-1, keepdims=True)
+
+
+def _miss_report(port: np.ndarray, pallas: np.ndarray,
+                 exact: np.ndarray) -> str:
+    """Which side moved: each side's worst distance from the float64
+    evaluation and the element, beside the worst gap between them."""
+    parts = []
+    for label, x in (("port", port), ("pallas", pallas)):
+        d = np.abs(x.astype(np.float64) - exact)
+        i = tuple(int(j) for j in np.unravel_index(int(d.argmax()), d.shape))
+        parts.append(f"{label} worst |x - f64| {d[i]:.4g} at {i} "
+                     f"(x {float(x[i])!r}, f64 {float(exact[i])!r})")
+    gap = np.abs(port.astype(np.float64) - pallas)
+    i = tuple(int(j) for j in np.unravel_index(int(gap.argmax()), gap.shape))
+    parts.append(f"worst port-pallas gap {gap[i]:.4g} at {i}")
+    return "; ".join(parts)
 
 
 def test_cli_snapshot_writes_buffers(tmp_path):

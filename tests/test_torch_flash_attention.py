@@ -78,6 +78,31 @@ def _attention_tf32(q, k, v, split):
     return _mm_tf32(p, v, split) / p.sum(dim=-1, keepdim=True)
 
 
+def attention_f64(q, k, v) -> np.ndarray:
+    """softmax(q kᵀ/√D) v in float64, the yardstick both sides are read
+    against when they miss each other."""
+    q, k, v = (np.asarray(a, dtype=np.float64) for a in (q, k, v))
+    s = q @ np.swapaxes(k, -1, -2) / math.sqrt(q.shape[-1])
+    p = np.exp(s - s.max(axis=-1, keepdims=True))
+    return (p @ v) / p.sum(axis=-1, keepdims=True)
+
+
+def miss_report(port: np.ndarray, pallas: np.ndarray,
+                exact: np.ndarray) -> str:
+    """Which side moved: each side's worst distance from the float64
+    evaluation, and the element, beside the worst gap between them."""
+    parts = []
+    for label, x in (("port", port), ("pallas", pallas)):
+        d = np.abs(x.astype(np.float64) - exact)
+        i = tuple(int(j) for j in np.unravel_index(int(d.argmax()), d.shape))
+        parts.append(f"{label} worst |x - f64| {d[i]:.4g} at {i} "
+                     f"(x {float(x[i])!r}, f64 {float(exact[i])!r})")
+    gap = np.abs(port.astype(np.float64) - pallas)
+    i = tuple(int(j) for j in np.unravel_index(int(gap.argmax()), gap.shape))
+    parts.append(f"worst port-pallas gap {gap[i]:.4g} at {i}")
+    return "; ".join(parts)
+
+
 @pytest.mark.parametrize("shape,block_q", [
     ((2, 256, 64), 128),
     ((2, 192, 32), 64),
@@ -88,7 +113,9 @@ def test_matches_pallas_interpret(shape, block_q):
     want = _pallas(shape, block_q)
     got = flash_attention(*from_numpy(q, k, v, device="cpu"), block_q=block_q)
     assert got.shape == shape and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(
+        got.numpy(), want, rtol=0, atol=ATOL,
+        err_msg=miss_report(got.numpy(), want, attention_f64(q, k, v)))
 
 
 def test_bf16_computes_in_f32_and_casts_back():

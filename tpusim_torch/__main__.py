@@ -507,6 +507,8 @@ def _cmd_capture(args: argparse.Namespace) -> int:
     from tpusim_torch.tracer.capture import capture_to_dir, snapshot_buffers
 
     wl = get_workload(args.workload)
+    # no --device: the builder's own default (cuda; meta for an abstract
+    # workload, the reference's ShapeDtypeStruct arguments)
     module, wl_args = wl.build(device=args.device, **_parse_sets(args.set))
     capture_to_dir(
         args.out, module, *wl_args, name=wl.name, launches=args.launches
@@ -828,9 +830,11 @@ def main(argv: list[str] | None = None) -> int:
                          "programs on the one device)")
     pc.add_argument("--set", action="append", metavar="K=V",
                     help="workload builder parameter override(s)")
-    pc.add_argument("--device", default="cuda",
+    pc.add_argument("--device", default=None,
                     help="device the workload's tensors live on "
-                         "(default cuda; cpu runs the plain versions)")
+                         "(default cuda, or meta for an abstract workload, "
+                         "which then refuses --snapshot; cpu runs the "
+                         "plain versions)")
     pc.set_defaults(fn=_cmd_capture)
 
     pi = sub.add_parser("info", help="describe a stored trace")

@@ -1,5 +1,6 @@
-"""Llama-2 decoder — port of ``llama_tiny`` and ``llama_tiny_tp2dp2``
-from ``tpusim/models/llama.py``.
+"""Llama-2 decoder — port of ``llama_tiny``, ``llama_tiny_train``,
+``llama_tiny_tp2dp2``, ``llama7b`` and ``llama7b_tp8dp8`` from
+``tpusim/models/llama.py``.
 
 RMSNorm, rotary embeddings, causal attention, SwiGLU MLP and a final
 projection tied to the embedding, as in the reference.  Arguments are the
@@ -10,32 +11,48 @@ memcpy sizes and the trace's parameter order are the JAX capture's.
 
 The train step on a ``(dp, tp)`` mesh is the per-device program GSPMD
 makes of the reference's ``NamedSharding`` specs, written out with the
-collectives of :mod:`tpusim_torch.spmd` (Megatron's f and g):
+collectives of :mod:`tpusim_torch.spmd` (Megatron's f and g), and with
+the all-reduces of the JAX capture's CPU-mesh trace:
 
 * the embedding is vocab-parallel: each rank gathers the rows of its
   vocab shard (``axis_index`` gives the shard's offset), zeroes the
   tokens outside it, and an all-reduce over ``tp`` sums the shards;
-* the Q/K/V and gate/up projections are column-parallel behind
-  :func:`~tpusim_torch.spmd.pvary`, the output and down
-  projections row-parallel with an all-reduce over ``tp`` after them;
-* the tied logits are vocab-parallel, and so is the token NLL: the max
-  over the vocab, the sum of exponentials and the target's logit (a
-  select over the shard's vocab, where the reference's
-  ``take_along_axis`` gathers) are each all-reduced over ``tp``;
+* the Q/K/V and gate/up projections are column-parallel, each behind its
+  own :func:`~tpusim_torch.spmd.pvary` (one tuple all-reduce per group
+  in the backward: XLA keeps the partial input gradients apart), the
+  output and down projections row-parallel with an all-reduce over
+  ``tp`` after them;
+* the tied logits are vocab-parallel, and so is ``log_softmax``: the max
+  over the vocab and the sum of exponentials are each all-reduced over
+  ``tp``, and the target's log-probability (a select over the shard's
+  vocab, where the reference's ``take_along_axis`` gathers) is
+  all-reduced in one tuple with the backward's sum of the
+  ``log_softmax`` cotangent, as XLA's combiner pairs them: the NLL's
+  gradient is written out (``log_softmax``'s backward), and the decoder's
+  taken with ``torch.func.vjp``;
 * the loss and the gradients, in float32, are all-reduced over ``dp`` in
-  one tuple all-reduce.
+  one tuple all-reduce, the tied embedding's two gradient parts (the
+  lookup's and the logits') apart, as in the JAX capture.
 
-So the program holds the fixture's 14 all-reduces: 8 in the forward, 5
-in the backward (the f of each column-parallel input and of the logits)
-and the one over ``dp``.
+So ``llama_tiny_tp2dp2`` holds the fixture's 14 all-reduces: 7 in the
+forward, 6 in the backward (the f of each column-parallel group and of
+the logits, and the ``log_softmax`` tuple) and the one over ``dp``.
 
 Every dot is the one in the JAX capture's per-device program
 (``tests/fixtures/traces/llama_tiny_tp2dp2``), so the simulated MXU flops
 are the same.
+
+``llama7b_tp8dp8`` is captured over abstract (``meta``) tensors: one
+rank's program of the 64-device step, with nothing materialised.  The
+reference materialises it on 64 chips; the port's rank runner would hold
+all 64 ranks on one card, far past its memory, so its numerics are held
+at a small configuration (the build overrides of
+:data:`CONFIG_OVERRIDES`) and its registered width is only captured.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Sequence
 
@@ -57,12 +74,15 @@ from tpusim_torch.spmd import (
     pmax,
     psum,
     psum_coalesced,
+    psum_plain,
     pvary,
+    pvary_coalesced,
     run_ranks,
 )
 
 __all__ = ["LlamaConfig", "PRESETS", "LAYER_KEYS", "LlamaForward",
-           "LlamaTrainStep", "params_from_numpy", "init_params"]
+           "LlamaForwardSharded", "LlamaTrainStep", "params_from_numpy",
+           "init_params", "build_llama"]
 
 
 @dataclass(frozen=True)
@@ -138,8 +158,12 @@ def params_from_numpy(tree: dict, *, device=None) -> tuple[torch.Tensor, ...]:
 
 def init_params(cfg: LlamaConfig, device, seed: int = 0
                 ) -> tuple[torch.Tensor, ...]:
-    """Seeded random parameters: N(0, 0.02) weights, unit norms."""
+    """Seeded random parameters: N(0, 0.02) weights, unit norms (on a
+    ``meta`` device, their shapes and dtypes only)."""
     dt = torch_dtype(cfg.dtype)
+    if torch.device(device).type == "meta":
+        return tuple(torch.empty(shape, dtype=dt, device=device)
+                     for shape in _shapes(cfg))
     gen = torch.Generator(device=device).manual_seed(seed)
     out = []
     for shape in _shapes(cfg):
@@ -237,21 +261,29 @@ def _rmsnorm(x, w, eps):
     return (x32 * inv).to(x.dtype) * w
 
 
-def _rope(q, k, theta):
-    seq, d = q.shape[1], q.shape[-1]
-    pos = torch.arange(seq, dtype=torch.float32, device=q.device)
+def rope_tables(seq: int, d: int, theta: float, device):
+    """The rotary ``cos`` and ``sin`` tables, ``[1, seq, 1, d / 2]``."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)
     freqs = torch.pow(theta, -torch.arange(0, d, 2, dtype=torch.float32,
-                                           device=q.device) / d)
+                                           device=device) / d)
     angles = pos[:, None] * freqs[None, :]
-    cos = torch.cos(angles)[None, :, None, :]
-    sin = torch.sin(angles)[None, :, None, :]
+    return (torch.cos(angles)[None, :, None, :],
+            torch.sin(angles)[None, :, None, :])
 
-    def rot(x):
-        x1, x2 = torch.split(x.float(), d // 2, dim=-1)
-        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
-                         dim=-1).to(x.dtype)
 
-    return rot(q), rot(k)
+def rotate(x, cos, sin, inverse: bool = False):
+    """The rotary rotation of ``x`` [B, S, H, D] (its transpose when
+    ``inverse``), in float32, back in ``x``'s dtype."""
+    d = x.shape[-1] // 2
+    x1, x2 = torch.split(x.float(), d, dim=-1)
+    s = -sin if inverse else sin
+    return torch.cat([x1 * cos - x2 * s, x2 * cos + x1 * s],
+                     dim=-1).to(x.dtype)
+
+
+def causal_mask(s: int, device) -> torch.Tensor:
+    idx = torch.arange(s, dtype=torch.int32, device=device)
+    return idx[:, None] >= idx[None, :]
 
 
 class _Decoder:
@@ -268,8 +300,18 @@ class _Decoder:
     def psum_tp(self, x):
         return psum(x, self.mesh, "tp") if self.tp > 1 else x
 
+    def psum_tp_plain(self, x):
+        return psum_plain([x], self.mesh, "tp")[0] if self.tp > 1 else x
+
     def pvary_tp(self, x):
         return pvary(x, self.mesh, "tp") if self.tp > 1 else x
+
+    def pvary_tp_each(self, x, n: int) -> tuple:
+        """``n`` uses of a replicated ``x`` by rank-varying ops, their
+        partial cotangents all-reduced in one tuple."""
+        if self.tp == 1:
+            return (x,) * n
+        return pvary_coalesced([x] * n, self.mesh, "tp")
 
     def vocab_offset(self, embed, tokens):
         if self.tp == 1:
@@ -284,62 +326,90 @@ class _Decoder:
         rows = _TakeRows.apply(embed, torch.where(valid, ids, 0))
         return self.psum_tp(torch.where(valid[..., None], rows, 0.0))
 
-    def attention(self, x, layer):
+    def psum_tp_sum(self, xs):
+        """The bare tuple all-reduce of column-parallel partial input
+        gradients (one per projection), summed: a hand-written
+        backward's."""
+        if self.tp > 1:
+            xs = psum_plain(xs, self.mesh, "tp")
+        total = xs[0]
+        for x in xs[1:]:
+            total = total + x
+        return total
+
+    def layer(self, h, w: dict, plain: bool = False):
+        """One decoder layer, ``h + attention(norm(h))`` then ``+
+        mlp(norm(...))``: the next ``h`` and the residuals a hand-written
+        backward reads (the rotated queries and keys, the values, the
+        attention probabilities and output, the stream after attention,
+        the MLP's gate and up projections).  ``plain``: the bare
+        collectives and no ``pvary``, for a scan body, which nothing
+        differentiates through."""
         cfg = self.cfg
-        b, s, _ = x.shape
-        hd = cfg.head_dim
-        h = self.pvary_tp(x)
-        heads = cfg.heads // self.tp
-        q = (h @ layer["wq"]).reshape(b, s, heads, hd)
-        k = (h @ layer["wk"]).reshape(b, s, heads, hd)
-        v = (h @ layer["wv"]).reshape(b, s, heads, hd)
-        q, k = _rope(q, k, cfg.rope_theta)
+        b, s, _ = h.shape
+        hd, heads = cfg.head_dim, cfg.heads // self.tp
+        psum_tp = self.psum_tp_plain if plain else self.psum_tp
+        a = _rmsnorm(h, w["attn_norm"], cfg.eps)
+        hq, hk, hv = (a,) * 3 if plain else self.pvary_tp_each(a, 3)
+        q = (hq @ w["wq"]).reshape(b, s, heads, hd)
+        k = (hk @ w["wk"]).reshape(b, s, heads, hd)
+        v = (hv @ w["wv"]).reshape(b, s, heads, hd)
+        cos, sin = rope_tables(s, hd, cfg.rope_theta, h.device)
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / (hd ** 0.5)
-        idx = torch.arange(s, dtype=torch.int32, device=x.device)
-        mask = idx[:, None] >= idx[None, :]
-        scores = torch.where(mask[None, None], scores, -1e30)
-        probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(
+        scores = torch.where(causal_mask(s, h.device)[None, None], scores,
+                             -1e30)
+        probs = torch.softmax(scores.float(), dim=-1).to(h.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(
             b, s, heads * hd)
-        return self.psum_tp(out @ layer["wo"])
-
-    def mlp(self, x, layer):
-        h = self.pvary_tp(x)
-        g = h @ layer["w_gate"]
+        h1 = h + psum_tp(o @ w["wo"])
+        m = _rmsnorm(h1, w["mlp_norm"], cfg.eps)
+        hg, hu = (m, m) if plain else self.pvary_tp_each(m, 2)
+        g = hg @ w["w_gate"]
         gate = g * torch.sigmoid(g)         # jax.nn.silu
-        return self.psum_tp((gate * (h @ layer["w_up"])) @ layer["w_down"])
+        u = hu @ w["w_up"]
+        h2 = h1 + psum_tp((gate * u) @ w["w_down"])
+        return h2, (q, k, v, probs, o, h1, g, u)
 
-    def logits(self, params, tokens):
-        """``(logits of the rank's vocab shard, vocab offset)``."""
+    def logits(self, params, tokens, out_embed=None):
+        """``(logits of the rank's vocab shard, vocab offset)``;
+        ``out_embed``: the tied projection's table, when it is taken apart
+        from the lookup's (for its gradient part)."""
         embed, final_norm, layers = _unflatten(params)
         eps = self.cfg.eps
         offset = self.vocab_offset(embed, tokens)
         x = self.embed(embed, tokens, offset)
         for layer in layers:
-            x = x + self.attention(_rmsnorm(x, layer["attn_norm"], eps),
-                                   layer)
-            x = x + self.mlp(_rmsnorm(x, layer["mlp_norm"], eps), layer)
+            x, _ = self.layer(x, layer)
         x = self.pvary_tp(_rmsnorm(x, final_norm, eps))
-        return x @ embed.T, offset
+        table = embed if out_embed is None else out_embed
+        return x @ table.T, offset
 
-    def nll_sum(self, params, tokens, targets):
-        """Σ −log p(target) over the rank's tokens, over the vocab shards:
-        ``log Σ exp(z) − z[target]`` with ``z`` the logits less their
-        max, the sum and the picked ``z`` each all-reduced over ``tp``.
-        Written so, every value the shards share is only read by
-        replicated ops, and its gradient needs no collective."""
-        logits, offset = self.logits(params, tokens)
+    def nll(self, logits, offset, targets, count: int):
+        """The mean token NLL over ``count`` tokens and its cotangent of
+        the rank's logits: ``log_softmax`` over the vocab shards (the
+        max, its gradient stopped as ``jax.nn.log_softmax`` does, and the
+        sum of exponentials each all-reduced over ``tp``), the target's
+        log-probability picked by a select and all-reduced with the
+        backward's sum of the ``log_softmax`` cotangent in one tuple."""
         logits = logits.float()
-        m = logits.detach().amax(dim=-1)
+        m = logits.amax(dim=-1)
         if self.tp > 1:
             m = pmax(m, self.mesh, "tp")
         z = logits - m[..., None]
-        s = self.psum_tp(torch.exp(z).sum(dim=-1))
+        lse = torch.log(self.psum_tp(torch.exp(z).sum(dim=-1)))
+        logp = z - lse[..., None]
         local = targets if offset is None else targets - offset
         vocab = torch.arange(logits.shape[-1], dtype=torch.int32,
                              device=logits.device)
-        picked = torch.where(vocab == local[..., None], z, 0.0).sum(-1)
-        return (torch.log(s) - self.psum_tp(picked)).sum()
+        onehot = vocab == local[..., None]
+        picked = torch.where(onehot, logp, 0.0).sum(-1, keepdim=True)
+        d_logp = torch.where(onehot, -1.0 / count, 0.0)
+        d_sum = d_logp.sum(-1)
+        if self.tp > 1:
+            picked, d_sum = psum_coalesced([picked, d_sum], self.mesh, "tp")
+        d_z = d_logp - torch.exp(logp) * d_sum[..., None]
+        return -picked.sum() / count, d_z
 
 
 class LlamaForward(nn.Module):
@@ -352,6 +422,22 @@ class LlamaForward(nn.Module):
 
     def forward(self, *flat: torch.Tensor) -> torch.Tensor:
         logits, _ = _Decoder(self.cfg, None).logits(flat[:-1], flat[-1])
+        return logits
+
+
+class LlamaForwardSharded(SpmdModule):
+    """The reference's forward on a ``(dp, tp)`` mesh: ``(*params,
+    tokens) -> logits``, each rank's the vocab shard of its batch shard
+    (the tied projection is vocab-parallel)."""
+
+    def __init__(self, cfg: LlamaConfig, mesh: Mesh):
+        super().__init__()
+        self.cfg, self.mesh = cfg, mesh
+        self.in_specs = param_specs(cfg) + (P("dp"),)
+        self.out_specs = P("dp", None, "tp")
+
+    def forward(self, *flat: torch.Tensor) -> torch.Tensor:
+        logits, _ = _Decoder(self.cfg, self.mesh).logits(flat[:-1], flat[-1])
         return logits
 
 
@@ -387,17 +473,22 @@ class LlamaTrainStep(SpmdModule):
         # the mean over the global batch: each dp rank's share
         count = self.batch * tokens.shape[1]
 
-        def loss_fn(ps):
-            return decoder.nll_sum(ps, tokens, targets) / count
+        def logits_fn(*ps):
+            # the tied table twice: the lookup's and the projection's
+            # gradient parts come apart
+            return decoder.logits(ps[:-1], tokens, out_embed=ps[-1])[0]
 
-        grads, loss = torch.func.grad_and_value(loss_fn)(params)
-        grads = [g.float() for g in grads]
+        logits, vjp_fn = torch.func.vjp(logits_fn, *params, params[0])
+        offset = decoder.vocab_offset(params[0], tokens)
+        loss, d_logits = decoder.nll(logits, offset, targets, count)
+        grads = [g.float() for g in vjp_fn(d_logits.to(logits.dtype))]
         dp = self.mesh.shape[self.mesh.names.index("dp")]
         if self._spmd is not None and dp > 1:
             # one all-reduce of the loss and the float32 gradients (the
             # update reads them in float32), as the JAX capture's combiner
             # makes it
             loss, *grads = psum_coalesced([loss, *grads], self.mesh, "dp")
+        grads[0] = grads[0] + grads.pop()
         return (loss, *grads)
 
     def forward(self, *flat: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -415,27 +506,48 @@ class LlamaTrainStep(SpmdModule):
 
 
 def _tokens(cfg: LlamaConfig, batch: int, seq: int, dev, seed: int = 0):
+    if dev.type == "meta":
+        tokens = torch.empty((batch, seq), dtype=torch.int32, device=dev)
+        return tokens, torch.empty_like(tokens)
     gen = torch.Generator(device="cpu").manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
                            dtype=torch.int32).to(dev)
     return tokens, torch.roll(tokens, -1, dims=1)
 
 
+#: the configuration fields a build may override (cut to size)
+CONFIG_OVERRIDES = ("vocab", "dim", "layers", "heads", "kv_heads", "ffn",
+                    "dtype")
+
+
+def config_for(preset: str, overrides: dict) -> LlamaConfig:
+    """A preset with a build's configuration overrides (its cut to
+    size, :data:`CONFIG_OVERRIDES`)."""
+    bad = sorted(set(overrides) - set(CONFIG_OVERRIDES))
+    if bad:
+        raise ValueError(f"llama build overrides {bad} are not configuration "
+                         f"fields ({', '.join(CONFIG_OVERRIDES)})")
+    return dataclasses.replace(PRESETS[preset], **overrides)
+
+
 def build_llama(preset: str = "tiny", batch: int = 8, seq: int | None = None,
-                dp: int = 1, tp: int = 1, train: bool = True, device=None):
+                dp: int = 1, tp: int = 1, train: bool = True, device=None,
+                **overrides):
     """The reference's ``build_llama_sharded``: seeded random parameters
     (N(0, 0.02) weights) and tokens; the module and its global
-    arguments."""
-    cfg = PRESETS[preset]
+    arguments.  ``overrides``: configuration fields of the preset
+    (:data:`CONFIG_OVERRIDES`), a build's cut to size, not registered
+    parameters."""
+    cfg = config_for(preset, overrides)
     seq = seq or min(cfg.max_seq, 512)
     dev = resolve_device(device)
     params = init_params(cfg, dev)
     tokens, targets = _tokens(cfg, batch, seq, dev)
-    if not train:
-        if dp * tp != 1:
-            raise ValueError("the sharded llama forward is not ported")
-        return LlamaForward(cfg), (*params, tokens)
     mesh = Mesh((dp, tp), ("dp", "tp")) if dp * tp > 1 else None
+    if not train:
+        if mesh is None:
+            return LlamaForward(cfg), (*params, tokens)
+        return LlamaForwardSharded(cfg, mesh), (*params, tokens)
     return LlamaTrainStep(cfg, mesh, batch), (*params, tokens, targets)
 
 
@@ -458,3 +570,43 @@ def build_llama_tiny(device=None, **kw):
 )
 def build_llama_tiny_sharded(device=None, **kw):
     return build_llama(device=device, **kw)
+
+
+@register(
+    "llama_tiny_train",
+    description="multi-layer tiny Llama train step, single chip — the "
+    "held-out full-model silicon workload (VERDICT r4 #2: the refiner "
+    "never trains on it)",
+    suite="models",
+    preset="tiny", batch=4, dp=1, tp=1, train=True,
+)
+def build_llama_tiny_train(device=None, **kw):
+    return build_llama(device=device, **kw)
+
+
+@register(
+    "llama7b",
+    description="Llama-2-7B fwd, single chip (memory permitting)",
+    suite="models",
+    preset="7b", batch=1, seq=2048, train=False,
+)
+def build_llama7b(device=None, **kw):
+    # 6.61e9 parameters (the output tied to the embedding), 13.2 GB in
+    # bfloat16: one H100 holds the whole forward at batch 1, seq 2048
+    return build_llama(device=device, **kw)
+
+
+@register(
+    "llama7b_tp8dp8",
+    description="Llama-2-7B pjit train step on dp8 x tp8 (v5p-64, "
+    "BASELINE config #5)",
+    suite="models",
+    num_devices=64,
+    abstract=True,
+    preset="7b", batch=64, seq=2048, dp=8, tp=8, train=True,
+)
+def build_llama7b_sharded(device=None, **kw):
+    """Abstract by default (``meta``): the reference materialises this
+    step on 64 chips, the port captures one rank's program of it over
+    meta tensors (module docstring)."""
+    return build_llama(device=device or "meta", **kw)

@@ -1,13 +1,19 @@
 """Mixture-of-Experts layer with expert parallelism — port of ``moe_ep4``
-from ``tpusim/models/moe.py``.
+and ``moe_ep8_train`` from ``tpusim/models/moe.py``.
 
 Two all-to-alls bracket the expert FFN matmuls: the first sends each
 expert's tokens to the device that holds the expert, the second brings
 the results back.  Routing is the reference's deterministic round robin
 (token ``t`` to expert ``t // cap``) with a learned gate weighting; the
 gate is a float32 product ``x.float() @ wg.float()``, a genuine f32 dot
-in the trace.  ``moe_ep8_train`` (all-to-all in the backward) is not
-ported yet (ROADMAP A5 a).
+in the trace.
+
+The train step (:class:`MoeTrainStep`) learns the gate and the experts
+on ``((out - roll(x, 1, -1)) ** 2).mean()`` with SGD at lr 0.05.  Its
+backward holds one more all-to-all, the transpose of the combine (the
+dispatch's transpose feeds only ``x``, which takes no gradient), and one
+all-reduce over ``ep``: the loss and the replicated gate's gradient in
+one tuple, as the JAX capture's combiner makes them.
 """
 
 from __future__ import annotations
@@ -15,9 +21,10 @@ from __future__ import annotations
 import torch
 
 from tpusim_torch.models.registry import register, resolve_device, torch_dtype
-from tpusim_torch.spmd import Mesh, P, SpmdModule, all_to_all
+from tpusim_torch.spmd import (Mesh, P, SpmdModule, all_to_all, psum_coalesced,
+                                run_ranks)
 
-__all__ = ["moe_ffn", "MoeEP", "round_robin_moe"]
+__all__ = ["moe_ffn", "MoeEP", "MoeTrainStep", "round_robin_moe"]
 
 
 def moe_ffn(x, wg, w1, w2, mesh: Mesh | None, axis: str = "ep"):
@@ -69,6 +76,59 @@ class MoeEP(SpmdModule):
         return moe_ffn(x, wg, w1, w2, self.mesh)
 
 
+class MoeTrainStep(SpmdModule):
+    """The reference's MoE ``train_step``: ``(wg, w1, w2, x, y) -> (loss,
+    wg', w1', w2')``, one SGD step (lr 0.05) on the mean squared error of
+    the layer's output against ``y``.  ``ep`` 1 is the unsharded step
+    over the whole batch (:func:`round_robin_moe`'s layer per token
+    shard of ``shards`` tokens)."""
+
+    #: capture traces the step with ``make_fx``
+    train_step = True
+
+    def __init__(self, ep: int, tokens: int, lr: float = 0.05,
+                 shards: int | None = None):
+        super().__init__()
+        self.ep, self.tokens, self.lr = ep, tokens, lr
+        self.shards = shards or ep
+        self.mesh = Mesh((ep,), ("ep",))
+        data = P("ep")
+        self.in_specs = (P(None), P("ep"), P("ep"), data, data)
+        self.out_specs = (P(), P(None), P("ep"), P("ep"))
+
+    def loss_and_grads(self, wg, w1, w2, x, y) -> tuple[torch.Tensor, ...]:
+        """One rank's ``(loss, g_wg, g_w1, g_w2)``: the loss over the
+        global batch, and the gate's gradient summed over ``ep`` (in one
+        all-reduce with the loss)."""
+        count = self.tokens * x.shape[-1]
+        mesh = self.mesh if self.ep > 1 else None
+
+        def loss_fn(ps):
+            if mesh is None:
+                out = torch.cat([moe_ffn(xs, *ps, None) for xs in
+                                 x.chunk(self.shards, dim=0)], dim=0)
+            else:
+                out = moe_ffn(x, *ps, mesh)
+            return ((out - y).float() ** 2).sum() / count
+
+        grads, loss = torch.func.grad_and_value(loss_fn)((wg, w1, w2))
+        g_wg, g_w1, g_w2 = grads
+        if mesh is not None:
+            loss, g_wg = psum_coalesced([loss, g_wg], self.mesh, "ep")
+        return loss, g_wg, g_w1, g_w2
+
+    def forward(self, wg, w1, w2, x, y) -> tuple[torch.Tensor, ...]:
+        loss, *grads = self.loss_and_grads(wg, w1, w2, x, y)
+        new = [p - self.lr * g.to(p.dtype)
+               for p, g in zip((wg, w1, w2), grads)]
+        return (loss, *new)
+
+    def grads(self, *global_args: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """``(loss, *grads)`` of the whole step over global arrays."""
+        return run_ranks(self.loss_and_grads, self.mesh, *global_args,
+                         in_specs=self.in_specs, out_specs=self.out_specs)
+
+
 def round_robin_moe(x, wg, w1, w2, ep: int) -> torch.Tensor:
     """The unsharded computation of :class:`MoeEP` on the whole batch:
     each of the ``ep`` token shards through the round-robin layer with
@@ -79,8 +139,6 @@ def round_robin_moe(x, wg, w1, w2, ep: int) -> torch.Tensor:
 
 def _build_moe(tokens: int, d_model: int, d_hidden: int, n_experts: int,
                ep: int, dtype: str, train: bool, device=None):
-    if train:
-        raise ValueError("the MoE train step (moe_ep8_train) is not ported")
     if n_experts % ep:
         raise ValueError("experts must divide evenly across devices")
     dev, dt = resolve_device(device), torch_dtype(dtype)
@@ -93,7 +151,11 @@ def _build_moe(tokens: int, d_model: int, d_hidden: int, n_experts: int,
     wg = randn(d_model, n_experts, dtype=torch.float32) * 0.02
     w1 = randn(n_experts, d_model, d_hidden) * (d_model ** -0.5)
     w2 = randn(n_experts, d_hidden, d_model) * (d_hidden ** -0.5)
-    return MoeEP(ep), (x, wg, w1, w2)
+    if not train:
+        return MoeEP(ep), (x, wg, w1, w2)
+    # the target: a fixed rotation of the input, learnable (reference)
+    y = torch.roll(x, 1, dims=-1)
+    return MoeTrainStep(ep, tokens), (wg, w1, w2, x, y)
 
 
 @register(
@@ -106,4 +168,17 @@ def _build_moe(tokens: int, d_model: int, d_hidden: int, n_experts: int,
     dtype="bfloat16", train=False,
 )
 def build_moe_ep4(device=None, **kw):
+    return _build_moe(device=device, **kw)
+
+
+@register(
+    "moe_ep8_train",
+    description="EP-8 MoE train step (gating + experts learned; "
+    "all-to-all in fwd and bwd)",
+    suite="models",
+    num_devices=8,
+    tokens=4096, d_model=512, d_hidden=2048, n_experts=16, ep=8,
+    dtype="float32", train=True,
+)
+def build_moe_ep8(device=None, **kw):
     return _build_moe(device=device, **kw)

@@ -57,10 +57,14 @@ class Workload:
     params: dict[str, Any] = field(default_factory=dict)
     #: devices the workload wants (1 = single-chip)
     num_devices: int = 1
+    #: captured over abstract (``meta``) tensors unless a device is asked
+    #: for: the port's counterpart of the reference's ``ShapeDtypeStruct``
+    #: arguments
+    abstract: bool = False
 
     def build(self, **overrides: Any) -> tuple[Callable, tuple]:
         """Returns (module, example_args); ``device=`` picks where the
-        inputs live (default cuda)."""
+        inputs live (default cuda; ``meta`` for an abstract workload)."""
         kw = dict(self.params)
         kw.update(overrides)
         return self.builder(**kw)
@@ -75,12 +79,14 @@ def register(
     description: str = "",
     suite: str = "default",
     num_devices: int = 1,
+    abstract: bool = False,
     **params: Any,
 ) -> Callable:
     def deco(builder: Callable) -> Callable:
         _REGISTRY[name] = Workload(
             name=name, builder=builder, description=description,
             suite=suite, params=params, num_devices=num_devices,
+            abstract=abstract,
         )
         return builder
 

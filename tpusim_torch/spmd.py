@@ -41,6 +41,7 @@ import torch
 from torch.library import custom_op, register_vmap
 
 __all__ = ["Mesh", "P", "groups", "psum", "pmax", "psum_coalesced", "pvary",
+           "pvary_coalesced", "psum_plain",
            "all_gather", "psum_scatter", "all_to_all", "ppermute",
            "axis_index", "local_shard", "global_shape", "shard", "unshard",
            "run_ranks", "SpmdModule"]
@@ -422,6 +423,22 @@ class _Pvary(torch.autograd.Function):
         return _Psum.apply(g, *ctx.group), None, None
 
 
+class _PvaryCoalesced(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(shape, axes, *xs):
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[:2]
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *_PsumCoalesced.apply(*ctx.group, *gs))
+
+
 class _PsumCoalesced(torch.autograd.Function):
     generate_vmap_rule = True
 
@@ -535,6 +552,27 @@ def pvary(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
     consume (Megatron's f); backward: the all-reduce of the partial
     cotangents."""
     return _Pvary.apply(x, *_group(mesh, axis))
+
+
+def psum_plain(xs: Sequence[torch.Tensor], mesh: Mesh,
+               axis) -> list[torch.Tensor]:
+    """:func:`psum` of one array or :func:`psum_coalesced` of several, as
+    the bare custom op: for a program that takes no gradient through it
+    (a hand-written backward inside a ``scan`` body, where the autograd
+    wrappers do not trace)."""
+    shape, axes = _group(mesh, axis)
+    if len(xs) == 1:
+        return [_all_reduce(xs[0], shape, axes, "sum")]
+    return list(_all_reduce_coalesced(list(xs), shape, axes))
+
+
+def pvary_coalesced(xs: Sequence[torch.Tensor], mesh: Mesh,
+                    axis) -> tuple[torch.Tensor, ...]:
+    """:func:`pvary` of several values at once; backward: one all-reduce
+    of their partial cotangents (a tuple, as XLA's combiner makes
+    independent ones)."""
+    shape, axes = _group(mesh, axis)
+    return _PvaryCoalesced.apply(shape, axes, *xs)
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axis, dim: int) -> torch.Tensor:

@@ -18,6 +18,12 @@ mesh size as ``num_devices`` in the meta; its snapshots and timings run
 every device's program at once on the one card
 (:func:`~tpusim_torch.spmd.run_ranks`).
 
+An abstract workload (its arguments on the ``meta`` device, the port's
+counterpart of the reference's ``ShapeDtypeStruct`` arguments) is
+captured the same way, without materialising a tensor; it has no values
+to snapshot or time, so :func:`snapshot_buffers` and
+:func:`measure_wall_time` refuse it with ``ValueError``.
+
 A graph node outside the lowering's op table raises
 ``NotImplementedError``.  Like the reference, :func:`capture` runs
 nothing on the device (the graph is traced over fake tensors);
@@ -123,6 +129,16 @@ def _device_of(args: tuple[torch.Tensor, ...]) -> torch.device:
     if len(devs) != 1:
         raise ValueError(f"inputs must lie on one device; got {devs}")
     return devs.pop()
+
+
+def _concrete(args: tuple[torch.Tensor, ...], what: str) -> torch.device:
+    """The inputs' device; abstract (``meta``) inputs are refused."""
+    dev = _device_of(args)
+    if dev.type == "meta":
+        raise ValueError(
+            f"{what} needs concrete inputs; this workload has abstract "
+            f"(meta) arguments (AOT capture) — skip --snapshot and timing")
+    return dev
 
 
 #: the ``platform`` every capture of the port stamps.  The cost model
@@ -243,6 +259,7 @@ def snapshot_buffers(module: torch.nn.Module, *args: torch.Tensor,
     launch; a program none of whose outputs matches an argument is
     stateless, and its launch-0 buffers are replicated for the later
     launches instead of re-running it."""
+    _concrete(args, "snapshot_buffers")
     out_root = Path(out_dir)
     out_root.mkdir(parents=True, exist_ok=True)
     paths: list[Path] = []
@@ -311,8 +328,9 @@ def measure_wall_time(module: torch.nn.Module, *args: torch.Tensor,
     """Time real execution of ``module(*args)``; the same keys as the
     reference.  On a CUDA device each of 3 batches of ``iters`` launches is
     timed with CUDA events (``fence_s`` is 0: the events need no host
-    readback); on the CPU with the host clock."""
-    dev = _device_of(args)
+    readback); on the CPU with the host clock.  Abstract (``meta``)
+    arguments are refused."""
+    dev = _concrete(args, "measure_wall_time")
     module = _runner(module)
     with torch.no_grad():
         for _ in range(max(warmup, 1)):

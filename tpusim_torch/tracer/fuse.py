@@ -36,7 +36,7 @@ FUSIBLE = frozenset({
     "log", "erf", "sine", "cosine", "remainder", "and", "or", "not",
     "compare", "select", "convert",
     "broadcast", "bitcast", "constant", "iota", "transpose", "slice",
-    "concatenate", "dynamic-slice",
+    "concatenate", "dynamic-slice", "pad", "reverse",
 })
 
 #: ops that carry no work of their own

@@ -7,26 +7,46 @@ turns an FX graph of core ATen ops — ``torch.export(...)
 step — into an :class:`~tpusim_torch.tracer.hlo_ir.HloModule`:
 
 * ``mm`` / ``bmm`` / ``addmm`` → ``dot``; ``convolution`` → ``convolution``
-  with ``window`` and ``dim_labels``;
+  with ``window`` and ``dim_labels``; ``convolution_backward`` → the
+  input-gradient convolution (``lhs_dilate`` by the stride, the kernel
+  ``reverse``-d, its feature dims swapped) and the weight-gradient one
+  (the output gradient as the window, ``rhs_dilate`` by the stride,
+  batch and feature swapped), as XLA writes ``conv_general_dilated``'s
+  transpose;
+* ``constant_pad_nd`` → ``pad``, folded into the window ``pad`` of each
+  convolution, ``reduce-window`` or ``select-and-scatter`` that reads it
+  (XLA's fold; a reader outside those keeps the ``pad``), and a crop that
+  undoes a pad → the pad's operand; ``max_pool2d_with_indices`` →
+  ``reduce-window`` with a ``maximum`` region (the indices dropped), its
+  backward → ``select-and-scatter`` (``GE`` select, ``add`` scatter);
 * elementwise arithmetic, ``exp``, ``tanh``, ``sigmoid`` (``logistic``),
   ``relu`` (``maximum``), ``pow`` by a scalar, ``where`` (``select``),
   comparisons, ``gelu`` and ``_softmax`` (as the ops ``jax.nn`` emits) and
   dtype casts (``convert``);
 * ``sum`` / ``mean`` / ``amax`` → ``reduce`` with a ``to_apply`` region;
+  ``var.correction``, ``_log_softmax`` and its backward as the ops
+  ``jnp.var`` and ``jax.nn.log_softmax`` write; ``clamp`` →
+  ``maximum`` / ``minimum``;
 * views → ``bitcast`` (every array is dense row-major), ``permute`` →
   ``transpose``, ``expand`` → ``broadcast``;
 * ``full`` / ``scalar_tensor`` / ``arange`` → ``constant`` / ``broadcast``
-  / ``iota``; ``index_select`` / ``embedding`` → ``gather``; ``slice`` /
-  ``split`` → ``slice``; ``cat`` → ``concatenate``;
-* the custom op ``tpusim_torch::dynamic_update_slice`` →
-  ``dynamic-update-slice``; ``tpusim_torch::flash_attention`` → one
+  / ``iota``; ``index_select`` / ``embedding`` → ``gather``; ``gather``
+  (``take_along_axis``) → ``gather`` and ``scatter_add`` → ``scatter``
+  over full start indices; ``slice`` / ``split`` → ``slice``;
+  ``slice_scatter`` → ``dynamic-update-slice``; ``cat`` →
+  ``concatenate``;
+* the custom ops ``tpusim_torch::dynamic_update_slice`` →
+  ``dynamic-update-slice`` and ``tpusim_torch::dynamic_index`` →
+  ``dynamic-slice``; ``tpusim_torch::flash_attention`` → one
   ``custom-call`` with ``custom_call_target="tpu_custom_call"`` and no
   ``cost_estimate`` (what a TPU capture of the Pallas kernel holds);
 * the ``higher_order.scan`` node → ``while`` with a ``tuple`` carry led by
   an ``s32`` induction variable, a condition ``compare(iv, N)`` and
   ``backend_config={"known_trip_count":{"n":"N"}}``, the scanned inputs
   read with ``dynamic-slice`` and the stacked outputs written with
-  ``dynamic-update-slice``, as XLA lowers ``lax.scan``;
+  ``dynamic-update-slice``, as XLA lowers ``lax.scan``; a reversed scan
+  (torch's ``flip`` of its inputs and outputs) reads and writes at
+  ``n-1-iv`` with no copy, and any other ``flip`` → ``reverse``;
 * the collectives of :mod:`tpusim_torch.spmd` → ``all-reduce``
   (with an add or max region; a tuple for ``all_reduce_coalesced``),
   ``all-gather``, ``reduce-scatter``, ``all-to-all`` (the TPU's one-array
@@ -40,7 +60,9 @@ step — into an :class:`~tpusim_torch.tracer.hlo_ir.HloModule`:
   a scalar base to a tensor power.
 
 Types are ``f32``, ``bf16``, ``s32`` and ``pred`` (and the ``u32`` of
-``partition-id``).  Any node outside the table raises
+``partition-id``); an int64 value inside the graph (torch's index type
+for ``gather`` and ``scatter_add``) narrows to the ``s32`` JAX writes,
+and an int64 input is refused.  Any node outside the table raises
 ``NotImplementedError`` naming it: nothing is skipped but the export's
 metadata asserts, which compute nothing.
 
@@ -64,7 +86,10 @@ from tpusim_torch.tracer.hlo_ir import Array, Computation, HloModule, Instr
 __all__ = ["lower_graph", "hlo_dtype", "LoweringError"]
 
 _HLO_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
-               torch.int32: "s32", torch.bool: "pred"}
+               torch.int32: "s32", torch.bool: "pred",
+               # int64 indices (torch's default for gather and
+               # scatter_add) narrow to the s32 JAX writes
+               torch.int64: "s32"}
 
 #: ops that only check metadata and compute nothing
 _ASSERT_OPS = frozenset({
@@ -124,6 +149,11 @@ class _Builder:
         self.dots: dict[str, tuple] = {}
         #: permutation of each transpose emitted here
         self.perms: dict[str, list[int]] = {}
+        #: each ``pad`` emitted here: (operand, lo per dim, hi per dim,
+        #: padding value)
+        self.pads: dict[str, tuple[str, list[int], list[int], Any]] = {}
+        #: a reversed scan's stacked outputs, which torch flips back
+        self.unflipped: set[str] = set()
         self._consts: dict[tuple[str, str], str] = {}
 
     def emit(self, base: str, shape, opcode: str,
@@ -223,6 +253,54 @@ class _Builder:
             comp.root = b.emit(kind, s, kind, [a, c])
             cache[key] = comp.name
         return cache[key]
+
+    def compare_region(self, direction: str, dtype: str) -> str:
+        """A ``select`` region of a ``select-and-scatter``: ``compare(lhs,
+        rhs)`` in ``direction``."""
+        key = f"compare_{direction}.{dtype}"
+        cache = self.module.regions
+        if key not in cache:
+            comp = self.module.new_computation(
+                f"region_{direction.lower()}_{dtype}")
+            b = _Builder(self.module, comp)
+            s = Array(dtype, ())
+            a = b.emit("lhs", s, "parameter", arg="0")
+            c = b.emit("rhs", s, "parameter", arg="1")
+            comp.root = b.emit("compare", Array("pred", ()), "compare",
+                               [a, c], [f"direction={direction}"])
+            cache[key] = comp.name
+        return cache[key]
+
+    def pad(self, name: str, lo: Sequence[int], hi: Sequence[int],
+            value: Any) -> str:
+        """``name`` padded by ``lo`` / ``hi`` per dim with ``value``."""
+        src = self.shape(name)
+        lo, hi = [int(v) for v in lo], [int(v) for v in hi]
+        if not any(lo) and not any(hi):
+            return name
+        dims = tuple(d + a + z for d, a, z in zip(src.dims, lo, hi))
+        out = self.emit("pad", Array(src.dtype, dims), "pad",
+                        [name, self.const(src.dtype, value)],
+                        ["padding=" + "x".join(f"{a}_{z}"
+                                               for a, z in zip(lo, hi))])
+        self.pads[out] = (name, lo, hi, value)
+        return out
+
+    def unpad(self, name: str, value: Any) -> tuple[str, list[int],
+                                                     list[int]]:
+        """``(operand, lo, hi)`` of a non-negative ``pad`` by ``value``
+        that produced ``name``, else ``(name, 0s, 0s)``: what a window
+        folds (XLA folds a pad into the window of the convolution or
+        reduce-window that reads it)."""
+        rank = self.shape(name).rank
+        info = self.pads.get(name)
+        if info is not None:
+            src, lo, hi, v = info
+            if (min(lo + hi) >= 0 and
+                    _literal(self.shape(name).dtype, v)
+                    == _literal(self.shape(name).dtype, value)):
+                return src, list(lo), list(hi)
+        return name, [0] * rank, [0] * rank
 
     def reduce(self, name: str, dims: Sequence[int], kind: str,
                init: Any, dtype: str | None = None) -> str:
@@ -511,6 +589,19 @@ def _h_softmax(L, node, args, kwargs):
                   [e, b.emit("broadcast", out, "broadcast", [s], bdims)])
 
 
+def _h_clamp(L, node, args, kwargs):
+    """``clamp`` by scalar bounds: a ``maximum`` then a ``minimum``."""
+    out = L.out_array(node)
+    lo = args[1] if len(args) > 1 else kwargs.get("min")
+    hi = args[2] if len(args) > 2 else kwargs.get("max")
+    x = L.b.convert(args[0], out.dtype)
+    if lo is not None:
+        x = L.binary_value("maximum", x, lo, out)
+    if hi is not None:
+        x = L.binary_value("minimum", x, hi, out)
+    return x
+
+
 def _h_to_copy(L, node, args, kwargs):
     return L.b.convert(args[0], L.out_array(node).dtype)
 
@@ -718,6 +809,38 @@ def _h_addmm(L, node, args, kwargs):
     return L.b.emit(node.name, out, "add", [d, bias])
 
 
+def _window(size, stride=None, lo=None, hi=None, lhs_dilate=None,
+            rhs_dilate=None) -> str:
+    """XLA's ``window={...}`` text; fields at their defaults are left
+    out, as XLA prints them."""
+    n = len(size)
+    stride = stride or [1] * n
+    lo, hi = lo or [0] * n, hi or [0] * n
+    parts = [f"size={'x'.join(str(int(k)) for k in size)}"]
+    if any(v != 1 for v in stride):
+        parts.append(f"stride={'x'.join(str(int(v)) for v in stride)}")
+    if any(lo) or any(hi):
+        parts.append("pad=" + "x".join(f"{int(a)}_{int(z)}"
+                                       for a, z in zip(lo, hi)))
+    if lhs_dilate and any(v != 1 for v in lhs_dilate):
+        parts.append(f"lhs_dilate={'x'.join(str(int(v)) for v in lhs_dilate)}")
+    if rhs_dilate and any(v != 1 for v in rhs_dilate):
+        parts.append(f"rhs_dilate={'x'.join(str(int(v)) for v in rhs_dilate)}")
+    return "window={" + " ".join(parts) + "}"
+
+
+def _conv_input(L, x: str, padding) -> tuple[str, list[int], list[int]]:
+    """A convolution's input with a zero ``pad`` that produced it folded
+    away: ``(operand, lo, hi)`` over the spatial dims, the conv's own
+    symmetric ``padding`` added."""
+    inner, lo, hi = L.b.unpad(x, 0)
+    if lo[:2] != [0, 0] or hi[:2] != [0, 0]:
+        inner, lo, hi = x, [0] * len(lo), [0] * len(hi)
+    lo = [a + int(p) for a, p in zip(lo[2:], padding)]
+    hi = [a + int(p) for a, p in zip(hi[2:], padding)]
+    return inner, lo, hi
+
+
 def _h_convolution(L, node, args, kwargs):
     x, w, bias, stride, padding, dilation, transposed, _, groups = args[:9]
     if transposed:
@@ -725,14 +848,9 @@ def _h_convolution(L, node, args, kwargs):
     out = L.out_array(node)
     nsp = len(stride)
     sp = "".join(str(i) for i in range(nsp))
-    window = [f"size={'x'.join(str(d) for d in L.b.shape(w).dims[2:])}"]
-    if any(s != 1 for s in stride):
-        window.append(f"stride={'x'.join(str(s) for s in stride)}")
-    if any(p != 0 for p in padding):
-        window.append("pad=" + "x".join(f"{p}_{p}" for p in padding))
-    if any(d != 1 for d in dilation):
-        window.append(f"rhs_dilate={'x'.join(str(d) for d in dilation)}")
-    attrs = ["window={" + " ".join(window) + "}",
+    x, lo, hi = _conv_input(L, x, padding)
+    attrs = [_window(L.b.shape(w).dims[2:], stride, lo, hi,
+                     rhs_dilate=dilation),
              f"dim_labels=bf{sp}_oi{sp}->bf{sp}"]
     if groups != 1:
         attrs.append(f"feature_group_count={groups}")
@@ -743,6 +861,267 @@ def _h_convolution(L, node, args, kwargs):
     return L.b.emit(node.name, out, "add",
                     [c, L.b.emit("broadcast", out, "broadcast", [bias],
                                  ["dimensions={1}"])])
+
+
+def _h_convolution_backward(L, node, args, kwargs):
+    """The input and weight gradients XLA writes for the transpose of
+    ``conv_general_dilated``: the input gradient a convolution of the
+    output gradient, dilated by the stride (``lhs_dilate``), with the
+    reversed kernel and its feature dims swapped; the weight gradient a
+    convolution of the input with the output gradient as its window,
+    dilated by the stride (``rhs_dilate``), batch and feature swapped on
+    both sides.  A zero pad in front of the forward convolution is
+    folded into both windows, and the input gradient of the padded
+    operand is re-padded, so the pad's own backward (a crop) cancels."""
+    (grad, x, w, bias_sizes, stride, padding, dilation, transposed,
+     _, groups, mask) = args[:11]
+    if transposed or groups != 1:
+        raise LoweringError(f"{node.name}: transposed or grouped "
+                            f"convolution backward")
+    b = L.b
+    nsp = len(stride)
+    sp = "".join(str(i) for i in range(nsp))
+    x_in, lo, hi = _conv_input(L, x, padding)
+    xs, ws, gs = b.shape(x_in), b.shape(w), b.shape(grad)
+    k, n_in, n_out = ws.dims[2:], xs.dims[2:], gs.dims[2:]
+    outs: list[Any] = [None, None, None]
+    if mask[0]:
+        eff = [d * (kk - 1) + 1 for d, kk in zip(dilation, k)]
+        lo_i = [e - 1 - a for e, a in zip(eff, lo)]
+        hi_i = [n + e - 2 - (m - 1) * s - a for n, e, m, s, a in
+                zip(n_in, eff, n_out, stride, lo_i)]
+        rev = b.emit("reverse", ws, "reverse", [w],
+                     [f"dimensions={_ints(range(2, 2 + nsp))}"])
+        gi = b.emit(f"{node.name}.input", xs, "convolution", [grad, rev], [
+            _window(k, None, lo_i, hi_i, lhs_dilate=stride,
+                    rhs_dilate=dilation),
+            f"dim_labels=bf{sp}_io{sp}->bf{sp}"])
+        if x_in != x:
+            _, plo, phi = b.unpad(x, 0)
+            gi = b.pad(gi, plo, phi, 0)
+        outs[0] = gi
+    if mask[1]:
+        hi_w = [(kk - 1) * d + (m - 1) * s + 1 - n - a for kk, d, m, s, n, a
+                in zip(k, dilation, n_out, stride, n_in, lo)]
+        outs[1] = b.emit(f"{node.name}.weight", ws, "convolution",
+                         [x_in, grad], [
+            _window(n_out, dilation, lo, hi_w, rhs_dilate=stride),
+            f"dim_labels=fb{sp}_io{sp}->fb{sp}"])
+    if mask[2]:
+        outs[2] = b.reduce(grad, [0, *range(2, 2 + nsp)], "add", 0.0)
+    return outs
+
+
+def _max_pool_window(L, x: str, kernel, stride, padding, dilation,
+                     ceil_mode) -> tuple[str, str]:
+    """``(operand, window)`` of a 2-d max pool over an NCHW operand, a
+    ``-inf`` pad in front of it folded into the window."""
+    if ceil_mode or any(d != 1 for d in dilation or [1]):
+        raise LoweringError("max pool with ceil_mode or dilation")
+    k = list(kernel) * (2 // len(kernel))
+    s = list(stride or k) * (2 // len(stride or k))
+    p = list(padding or [0]) * (2 // len(padding or [0]))
+    inner, lo, hi = L.b.unpad(x, float("-inf"))
+    return inner, _window([1, 1, *k], [1, 1, *s],
+                          [lo[0], lo[1], lo[2] + p[0], lo[3] + p[1]],
+                          [hi[0], hi[1], hi[2] + p[0], hi[3] + p[1]])
+
+
+def _h_max_pool2d_with_indices(L, node, args, kwargs):
+    """``reduce-window`` with a ``maximum`` region; the indices output is
+    dropped (its one reader, the backward, takes the operand instead)."""
+    x, kernel = args[0], args[1]
+    rest = list(args[2:]) + [None] * (5 - len(args[2:]))
+    operand, window = _max_pool_window(L, x, kernel, *rest[:4])
+    out = _array(node.meta["val"][0])
+    b = L.b
+    rw = b.emit(node.name, out, "reduce-window",
+                [operand, b.const(out.dtype, float("-inf"))],
+                [window, f"to_apply=%{b.region('maximum', out.dtype)}"])
+    return [rw, None]
+
+
+def _h_max_pool2d_with_indices_backward(L, node, args, kwargs):
+    """``select-and-scatter``: each window's maximum (a ``GE`` select)
+    receives the output gradient, summed (an ``add`` scatter)."""
+    grad, x, kernel, stride, padding, dilation, ceil_mode = args[:7]
+    operand, window = _max_pool_window(L, x, kernel, stride, padding,
+                                       dilation, ceil_mode)
+    b = L.b
+    out = b.shape(operand)
+    sas = b.emit(node.name, out, "select-and-scatter",
+                 [operand, b.convert(grad, out.dtype),
+                  b.const(out.dtype, 0.0)],
+                 [window,
+                  f"select=%{b.compare_region('GE', out.dtype)}",
+                  f"scatter=%{b.region('add', out.dtype)}"])
+    if operand != x:
+        _, lo, hi = b.unpad(x, float("-inf"))
+        sas = b.pad(sas, lo, hi, 0)
+    return sas
+
+
+def _h_constant_pad_nd(L, node, args, kwargs):
+    """A pad (a crop where negative): ``pad`` pairs from the last dim
+    backwards.  A crop that undoes a ``pad`` returns the pad's operand."""
+    x = args[0]
+    pads = list(args[1])
+    value = args[2] if len(args) > 2 else kwargs.get("value", 0.0)
+    b = L.b
+    rank = b.shape(x).rank
+    lo, hi = [0] * rank, [0] * rank
+    for i in range(len(pads) // 2):
+        d = rank - 1 - i
+        lo[d], hi[d] = int(pads[2 * i]), int(pads[2 * i + 1])
+    if max(lo + hi) <= 0:
+        info = b.pads.get(x)
+        if info is not None and info[1] == [-v for v in lo] and \
+                info[2] == [-v for v in hi]:
+            return info[0]
+        dims = b.shape(x).dims
+        for d in range(rank):
+            if lo[d] or hi[d]:
+                x = _slice(L, x, d, -lo[d], dims[d] + hi[d])
+        return x
+    if min(lo + hi) < 0:
+        raise LoweringError(f"{node.name}: a pad that crops and pads")
+    return b.pad(x, lo, hi, value)
+
+
+def _h_slice_scatter(L, node, args, kwargs):
+    """``input`` with ``src`` written over a slice of one dim: ``src``
+    itself when it covers the dim, else a ``dynamic-update-slice`` at a
+    constant start (steps of 1)."""
+    x, src = args[0], args[1]
+    dim = args[2] if len(args) > 2 else kwargs.get("dim", 0)
+    start = args[3] if len(args) > 3 else kwargs.get("start")
+    step = args[5] if len(args) > 5 else kwargs.get("step", 1)
+    out = L.out_array(node)
+    dim %= out.rank
+    start = 0 if start is None else int(start)
+    start = start + out.dims[dim] if start < 0 else start
+    if step != 1:
+        raise LoweringError(f"{node.name}: slice_scatter with step {step}")
+    if L.b.shape(src).dims == out.dims:
+        return L.b.convert(src, out.dtype)
+    zero = L.b.const("s32", 0)
+    starts = [L.b.const("s32", start) if i == dim else zero
+              for i in range(out.rank)]
+    return L.b.emit(node.name, out, "dynamic-update-slice",
+                    [x, L.b.convert(src, out.dtype), *starts])
+
+
+def _h_var(L, node, args, kwargs):
+    """``var.correction``: the mean of the squared deviations from the
+    mean (``jnp.var``'s ops), over ``n - correction``."""
+    out = L.out_array(node)
+    b = L.b
+    x = b.convert(args[0], out.dtype)
+    src = b.shape(x)
+    dims = _dims_arg(args[1] if len(args) > 1 else kwargs.get("dim"),
+                     src.rank)
+    correction = kwargs.get("correction", 1)
+    correction = 1 if correction is None else correction
+    n = math.prod(src.dims[d] for d in dims)
+    kept = [i for i in range(src.rank) if i not in dims]
+    bdims = [f"dimensions={_ints(kept)}"]
+    m = b.reduce(x, dims, "add", 0.0)
+    m = b.emit("divide", b.shape(m), "divide",
+               [m, b.splat(out.dtype, n, b.shape(m).dims)])
+    c = b.emit("subtract", src, "subtract",
+               [x, b.emit("broadcast", src, "broadcast", [m], bdims)])
+    sq = b.reduce(b.emit("multiply", src, "multiply", [c, c]), dims, "add",
+                  0.0)
+    v = b.emit(node.name, b.shape(sq), "divide",
+               [sq, b.splat(out.dtype, n - correction, b.shape(sq).dims)])
+    return b.bitcast(v, out.dims)
+
+
+def _h_log_softmax(L, node, args, kwargs):
+    """``x - max - log(sum(exp(x - max)))`` along one dim, as
+    ``jax.nn.log_softmax`` writes it."""
+    out = L.out_array(node)
+    b = L.b
+    x = b.convert(args[0], out.dtype)
+    dim = int(args[1]) % out.rank
+    bdims = [f"dimensions={_ints(i for i in range(out.rank) if i != dim)}"]
+    m = b.reduce(x, [dim], "maximum", float("-inf"))
+    shifted = b.emit("sub", out, "subtract",
+                     [x, b.emit("broadcast", out, "broadcast", [m], bdims)])
+    s = b.reduce(b.emit("exp", out, "exponential", [shifted]), [dim], "add",
+                 0.0)
+    lse = b.emit("log", b.shape(s), "log", [s])
+    return b.emit(node.name, out, "subtract",
+                  [shifted, b.emit("broadcast", out, "broadcast", [lse],
+                                   bdims)])
+
+
+def _h_log_softmax_backward(L, node, args, kwargs):
+    """``g - exp(out) * sum(g)`` along the dim."""
+    g, y, dim = args[0], args[1], int(args[2])
+    out = L.out_array(node)
+    b = L.b
+    g, y = b.convert(g, out.dtype), b.convert(y, out.dtype)
+    dim %= out.rank
+    bdims = [f"dimensions={_ints(i for i in range(out.rank) if i != dim)}"]
+    s = b.reduce(g, [dim], "add", 0.0)
+    e = b.emit("exp", out, "exponential", [y])
+    return b.emit(node.name, out, "subtract", [g, b.emit(
+        "mul", out, "multiply",
+        [e, b.emit("broadcast", out, "broadcast", [s], bdims)])])
+
+
+def _full_indices(L, ids: str, dim: int) -> str:
+    """``[..., rank]`` start indices of every element of ``ids`` (one per
+    operand dim): an ``iota`` over each dim but ``dim``, which takes
+    ``ids`` — the gather/scatter indices ``take_along_axis`` writes."""
+    b = L.b
+    shape = b.shape(ids)
+    rank = shape.rank
+    col = Array("s32", (*shape.dims, 1))
+    parts = []
+    for d in range(rank):
+        if d == dim:
+            parts.append(b.bitcast(b.convert(ids, "s32"), col.dims))
+        else:
+            parts.append(b.emit("iota", col, "iota", [],
+                                [f"iota_dimension={d}"]))
+    return b.emit("concatenate", Array("s32", (*shape.dims, rank)),
+                  "concatenate", parts, [f"dimensions={{{rank}}}"])
+
+
+def _h_gather(L, node, args, kwargs):
+    """``aten.gather`` (``take_along_axis``): one element per index."""
+    x, dim, ids = args[0], int(args[1]), args[2]
+    out = L.out_array(node)
+    rank = out.rank
+    dim %= rank
+    starts = _full_indices(L, ids, dim)
+    every = _ints(range(rank))
+    return L.b.emit(node.name, out, "gather", [x, starts], [
+        "offset_dims={}", f"collapsed_slice_dims={every}",
+        f"start_index_map={every}", f"index_vector_dim={rank}",
+        f"slice_sizes={_ints([1] * rank)}"])
+
+
+def _h_scatter_add(L, node, args, kwargs):
+    """``aten.scatter_add`` (the gradient of ``take_along_axis``): one
+    ``scatter`` with an add region."""
+    x, dim, ids, src = args[0], int(args[1]), args[2], args[3]
+    out = L.out_array(node)
+    rank = out.rank
+    dim %= rank
+    starts = _full_indices(L, ids, dim)
+    every = _ints(range(rank))
+    b = L.b
+    return b.emit(node.name, out, "scatter",
+                  [b.convert(x, out.dtype), starts,
+                   b.convert(src, out.dtype)], [
+                      "update_window_dims={}",
+                      f"inserted_window_dims={every}",
+                      f"scatter_dims_to_operand_dims={every}",
+                      f"index_vector_dim={rank}",
+                      f"to_apply=%{b.region('add', out.dtype)}"])
 
 
 def _h_flash_attention(L, node, args, kwargs):
@@ -759,6 +1138,29 @@ def _h_dynamic_update_slice(L, node, args, kwargs):
               for i in range(out.rank)]
     return L.b.emit(node.name, out, "dynamic-update-slice",
                     [operand, L.b.convert(update, out.dtype), *starts])
+
+
+def _h_dynamic_index(L, node, args, kwargs):
+    """``tpusim_torch::dynamic_index``: a ``dynamic-slice`` of one row of
+    dim 0 at a tensor index, bitcast to the row."""
+    x, index = args
+    b = L.b
+    src = b.shape(x)
+    sizes = (1, *src.dims[1:])
+    zero = b.const("s32", 0)
+    ds = b.emit(node.name, Array(src.dtype, sizes), "dynamic-slice",
+                [x, b.convert(index, "s32")] + [zero] * (src.rank - 1),
+                [f"dynamic_slice_sizes={_ints(sizes)}"])
+    return b.bitcast(ds, src.dims[1:])
+
+
+def _h_flip(L, node, args, kwargs):
+    """``flip`` → ``reverse``; a no-op on a reversed scan's outputs."""
+    x, dims = args[0], [int(d) % L.b.shape(args[0]).rank for d in args[1]]
+    if dims == [0] and x in L.b.unflipped:
+        return x
+    return L.b.emit(node.name, L.out_array(node), "reverse", [x],
+                    [f"dimensions={_ints(sorted(dims))}"])
 
 
 def _h_scatter_add_rows(L, node, args, kwargs):
@@ -928,7 +1330,7 @@ _HANDLERS = {
     "tpusim_torch::axis_index": _h_axis_index,
     "tpusim_torch::scatter_add_rows": _h_scatter_add_rows,
     "where": _h_where, "pow": _h_pow, "relu": _h_relu, "gelu": _h_gelu,
-    "_softmax": _h_softmax, "_to_copy": _h_to_copy,
+    "_softmax": _h_softmax, "_to_copy": _h_to_copy, "clamp": _h_clamp,
     "sum": _reduction("add", 0.0), "amax": _reduction("maximum",
                                                       float("-inf")),
     "mean": _h_mean,
@@ -940,8 +1342,16 @@ _HANDLERS = {
     "split_with_sizes": _h_split_with_sizes, "split": _h_split,
     "cat": _h_cat, "mm": _h_mm, "bmm": _h_bmm, "addmm": _h_addmm,
     "convolution": _h_convolution,
+    "convolution_backward": _h_convolution_backward,
+    "max_pool2d_with_indices": _h_max_pool2d_with_indices,
+    "max_pool2d_with_indices_backward": _h_max_pool2d_with_indices_backward,
+    "constant_pad_nd": _h_constant_pad_nd, "slice_scatter": _h_slice_scatter,
+    "var": _h_var, "_log_softmax": _h_log_softmax,
+    "_log_softmax_backward_data": _h_log_softmax_backward,
+    "gather": _h_gather, "scatter_add": _h_scatter_add,
     "tpusim_torch::flash_attention": _h_flash_attention,
     "tpusim_torch::dynamic_update_slice": _h_dynamic_update_slice,
+    "tpusim_torch::dynamic_index": _h_dynamic_index, "flip": _h_flip,
 }
 
 
@@ -950,14 +1360,32 @@ _HANDLERS = {
 # ---------------------------------------------------------------------------
 
 
+def _flipped(a) -> Any:
+    """The operand of an ``aten.flip(x, [0])`` node, else None."""
+    if (isinstance(a, torch.fx.Node) and a.op == "call_function"
+            and str(a.target) == "aten.flip.default"
+            and list(a.args[1]) in ([0], [-a.args[0].meta["val"].dim()])):
+        return a.args[0]
+    return None
+
+
 def _lower_scan(L: _GraphLowering, node) -> list[str]:
     combine, init, xs, additional = node.args[:4]
     if len(node.args) > 4 or node.kwargs:
         raise LoweringError(f"{node.name}: scan with extra arguments")
     gm = L.val(combine)
     init_v = [L.val(a) for a in init]
+    # a reversed scan (torch flips its inputs along dim 0, scans, and
+    # flips its outputs back): one while reading and writing at n-1-iv,
+    # as XLA's transpose of lax.scan does, with no copy of either
+    reverse = bool(xs) and all(_flipped(a) is not None for a in xs)
+    if reverse:
+        xs = [_flipped(a) for a in xs]
     xs_v = [L.val(a) for a in xs]
-    add_v = [L.val(a) for a in additional]
+    add_all = [L.val(a) for a in additional]
+    # scalars a scan body closes over (python numbers) stay constants of
+    # the body; tensors ride in the carry
+    add_v = [a for a in add_all if isinstance(a, str)]
     b, module = L.b, L.b.module
     nc = len(init_v)
     if not xs_v:
@@ -977,6 +1405,8 @@ def _lower_scan(L: _GraphLowering, node) -> list[str]:
     gtes = [bb.emit("get-tuple-element", s, "get-tuple-element", [arg],
                     [f"index={i}"]) for i, s in enumerate(carry)]
     iv = gtes[0]
+    at = (bb.emit("subtract", s32, "subtract", [bb.const("s32", n - 1), iv])
+          if reverse else iv)
     carries = gtes[1:1 + nc]
     bufs = gtes[1 + nc:1 + nc + len(ys_shapes)]
     xs_b = gtes[1 + nc + len(ys_shapes):1 + nc + len(ys_shapes) + len(xs_v)]
@@ -987,17 +1417,19 @@ def _lower_scan(L: _GraphLowering, node) -> list[str]:
         s = bb.shape(x)
         sizes = (1, *s.dims[1:])
         ds = bb.emit("dynamic-slice", Array(s.dtype, sizes), "dynamic-slice",
-                     [x, iv] + [zero] * (s.rank - 1),
+                     [x, at] + [zero] * (s.rank - 1),
                      [f"dynamic_slice_sizes={_ints(sizes)}"])
         slices.append(bb.bitcast(ds, s.dims[1:]))
-    outs = _GraphLowering(bb, gm).run([*carries, *slices, *add_b])
+    it = iter(add_b)
+    add_in = [next(it) if isinstance(a, str) else a for a in add_all]
+    outs = _GraphLowering(bb, gm).run([*carries, *slices, *add_in])
     new_bufs = []
     for buf, y in zip(bufs, outs[nc:]):
         s = bb.shape(buf)
         y1 = bb.bitcast(bb.convert(y, s.dtype), (1, *s.dims[1:]))
         new_bufs.append(bb.emit("dynamic-update-slice", s,
                                 "dynamic-update-slice",
-                                [buf, y1, iv] + [zero] * (s.rank - 1)))
+                                [buf, y1, at] + [zero] * (s.rank - 1)))
     nxt = bb.emit("add", s32, "add", [iv, bb.const("s32", 1)])
     body.root = bb.emit("tuple", carry, "tuple",
                         [nxt, *outs[:nc], *new_bufs, *xs_b, *add_b])
@@ -1018,9 +1450,13 @@ def _lower_scan(L: _GraphLowering, node) -> list[str]:
         f"condition=%{cond.name}", f"body=%{body.name}",
         'backend_config={"known_trip_count":{"n":"%d"}}' % n,
     ])
-    return [b.emit("get-tuple-element", carry[1 + i], "get-tuple-element",
+    outs = [b.emit("get-tuple-element", carry[1 + i], "get-tuple-element",
                    [w], [f"index={1 + i}"])
             for i in range(nc + len(ys_shapes))]
+    if reverse:
+        # already in order: the flips torch puts after the scan are no-ops
+        b.unflipped.update(outs[nc:])
+    return outs
 
 
 _GraphLowering.lower_scan = _lower_scan
@@ -1042,6 +1478,9 @@ def _fold_transposes(b: _Builder) -> None:
     """Fold transposes into the dots and convolutions that read them, and
     a convolution's lone transposing user into its output labels."""
     comp = b.comp
+    # a convolution's users are read before its own turn: the folds done
+    # so far touched only instructions ahead of it, none of them its user
+    users = comp.users()
     for instr in list(comp.instrs):
         if instr.opcode == "dot":
             lb, lc, rb, rc = b.dots[instr.name]
@@ -1082,9 +1521,9 @@ def _fold_transposes(b: _Builder) -> None:
                     new[p] = labels[side][i]
                 labels[side] = "".join(new)
                 instr.operands[side] = t.operands[0]
-            users = comp.users()[instr.name]
-            if len(users) == 1 and comp.root != instr.name:
-                u = b.defining(users[0])
+            mine = users[instr.name]
+            if len(mine) == 1 and comp.root != instr.name:
+                u = b.defining(mine[0])
                 if u.opcode == "transpose":
                     perm = b.perms[u.name]
                     out_l = "".join(out_l[p] for p in perm)
@@ -1117,6 +1556,11 @@ def lower_graph(gm: torch.fx.GraphModule, name: str,
         val = n.meta.get("val")
         if not isinstance(val, torch.Tensor):
             raise LoweringError(f"input {n.name} is not a tensor ({val!r})")
+        if val.dtype == torch.int64:
+            # an input's memcpy bytes are its own: int64 would not be the
+            # s32 the reference's inputs hold
+            raise LoweringError(f"input {n.name} is int64; pass int32 "
+                                f"indices, as JAX does")
         params.append(b.emit(n.name, _array(val), "parameter", arg=str(i)))
     outs = _GraphLowering(b, gm).run(params)
     out_node = next(n for n in gm.graph.nodes if n.op == "output")
