@@ -107,10 +107,12 @@ non-zero and prints no result):
    floats within a relative 1e-12, the count of differing floats and the
    largest gap printed) and the smoke's contract checks; (b) ``python -m
    tpusim_torch campaign`` (the campaign smoke at 256 scenarios a slice)
-   and ``fleet`` ((d)'s fleet) in fresh processes: uninterrupted, cancelled by
-   ``--max-wall-s`` (exit 3) with work journaled, then ``--resume``,
-   whose report equals the uninterrupted one by bytes with the journaled
-   work resumed, not priced; (c) the campaign smoke's fault model on a
+   and ``fleet`` ((d)'s fleet) uninterrupted in fresh processes, then
+   cancelled mid-run in this process once half their records are
+   journaled (the run's ``CancelToken`` tripped on the journaled count)
+   and by the CLI's ``--max-wall-s`` (exit 3), each then ``--resume``-d
+   through the CLI in a fresh process: the report equals the
+   uninterrupted one by bytes, the journaled work resumed, not priced; (c) the campaign smoke's fault model on a
    v5p 4x4x4 pod, 1024 scenarios, under the three legs: reports equal by
    bytes, ``scan_rows`` launches and lanes per launch, ``BatchStats``;
    (d) the fleet smoke's traffic and policies on 8 pods over 300 s with
@@ -188,11 +190,32 @@ non-zero and prints no result):
    ``torch.cuda.max_memory_allocated``, beside the card's name and power
    limit.
 
+14. the nine ``ubench`` workloads the port took last (``matmul``,
+   ``small_matmul_chain``, ``op_overhead_chain``, ``dynamic_loop``,
+   ``softmax_narrow``, ``relayout_copy``, ``matmul_int8``,
+   ``reduce_lane_wide``, ``reduce_major_acc``) at registered width, the
+   kernels' counters set to 0 just before and read just after (they must
+   stay 0): (a) ``capture W DIR --launches 2`` through the CLI, timed;
+   (b) the card's HLO equals by bytes the CPU's; (c) the card's output
+   against a CPU run on the same inputs — float32 within rtol = atol =
+   1e-4, bfloat16 2e-2, ``matmul_int8`` exactly, ``dynamic_loop``'s root
+   within 1e-4; the two 4096^3 products on their first 256 rows;
+   ``small_matmul_chain``'s registered output NaN on both sides (64
+   squarings overflow), its numbers held at depth 4; (d) ``lint``
+   through the CLI with zero errors; (e) simulated at v5e, only
+   ``dynamic_loop`` with unknown-trip loops (one a launch); the median
+   step and the peak of ``torch.cuda.max_memory_allocated``; (f)
+   ``matmul`` at 512^3 captured as ``matmul_512``: the fixture's command
+   list by bytes and MXU flops at v5e and v5p, ``simulate
+   --validate=strict`` prices it; (g) ``lint --perf`` and ``perf-report``
+   (text and JSON) of ``llama_tiny_tp2dp2`` at v5p print what the CPU
+   prints, by bytes.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, the one before that the kernels' JSON
-record, the one before that phase 13's (``models: {...}``), before it
-phase 12's (``multidevice: {...}``), phase 11's (``lowered: {...}``) and
-phase 10's (``advisor: {...}``).  Needs
+record, the one before that phase 14's (``ubench: {...}``), before it
+phase 13's (``models: {...}``), phase 12's (``multidevice: {...}``),
+phase 11's (``lowered: {...}``) and phase 10's (``advisor: {...}``).  Needs
 no network and one card; exits non-zero without a CUDA device or without
 the rest of the repository beside it.
 """
@@ -1855,10 +1878,10 @@ def cli_process(argv: list[str], timeout: float = 600) -> tuple[int, str]:
     return proc.returncode, proc.stdout
 
 
-#: phase 9 (b): the most ``--max-wall-s`` runs the search for a deadline
-#: that cancels mid-run may take, and the campaign's scenarios a slice
-CANCEL_TRIES = 10
+#: phase 9 (b): the campaign's scenarios a slice, and the ``--max-wall-s``
+#: deadline (s) of the CLI leg, which cancels before the first check
 CLI_CAMPAIGN_SCENARIOS = 256
+CLI_MAX_WALL_S = 0.001
 
 
 def journaled(journal: Path, kind: str) -> int:
@@ -1869,68 +1892,123 @@ def journaled(journal: Path, kind: str) -> int:
                for line in journal.read_text().splitlines() if line)
 
 
+@contextlib.contextmanager
+def cancel_after_journaled(kind: str, count: int, token):
+    """Trip ``token`` once ``count`` records of ``kind`` are journaled:
+    ``Journal.append`` is wrapped for the ``with`` block (here, not in the
+    package), so the run is cancelled on a count it can observe, at the
+    next check of its token."""
+    from tpusim_torch.campaign.journal import Journal
+
+    append = Journal.append
+    seen = [0]
+
+    def counting(self, rec: dict) -> None:
+        append(self, rec)
+        if rec.get("kind") == kind:
+            seen[0] += 1
+            if seen[0] >= count:
+                token.cancel(f"{seen[0]} {kind} record(s) journaled")
+
+    Journal.append = counting
+    try:
+        yield
+    finally:
+        Journal.append = append
+
+
+def resume_cli(cmd: str, spec_path: Path, trace: str, part: Path,
+               full: Path, kind: str, resumed_re: str) -> int:
+    """``--resume`` of a cancelled run in a fresh process: every journaled
+    record is resumed, nothing journaled is priced again and the report
+    equals the uninterrupted one by bytes.  Returns the records
+    resumed."""
+    done = journaled(part / "journal.jsonl", kind)
+    rc, text = cli_process([cmd, str(spec_path), "--trace", trace,
+                            "--out", str(part), "--resume"])
+    resumed = int(re.search(resumed_re, text).group(1))
+    if rc != 0 or resumed != done:
+        raise AssertionError(f"{cmd} --resume: rc {rc}, {resumed} "
+                             f"resumed of {done} journaled")
+    if (part / "report.json").read_bytes() != \
+            (full / "report.json").read_bytes():
+        raise AssertionError(f"{cmd}: resumed report differs")
+    return resumed
+
+
 def cli_resume(card_name: str, work: Path) -> dict:
-    """Phase 9 (b): ``campaign`` and ``fleet`` through the CLI in fresh
-    processes: uninterrupted, cancelled by ``--max-wall-s`` (exit 3) once
-    some work is journaled, then ``--resume``: the resumed report equals
-    the uninterrupted one by bytes and journaled work is not priced
-    again.  The deadline is found by bisection between 0 and twice the
-    uninterrupted run's own seconds: a run that ends is too late, one
-    cancelled with nothing journaled too early.  The campaign is the
-    smoke's spec at :data:`CLI_CAMPAIGN_SCENARIOS` scenarios a slice and
-    the fleet (d)'s: the smokes journal all their work within 0.2 s (the
-    fleet's within 20 ms on the card's host) at the end of a run whose
-    start (torch's import, the parse, the compile) varies more than that
-    from one fresh process to the next."""
+    """Phase 9 (b): ``campaign`` and ``fleet`` uninterrupted through the
+    CLI in a fresh process, then cancelled two ways and resumed with
+    ``--resume`` through the CLI in a fresh process, where the resumed
+    report must equal the uninterrupted one by bytes, every journaled
+    record be resumed and none be priced again:
+
+    * mid-run: in this process, with the run's ``CancelToken`` tripped
+      once half the uninterrupted run's records (at least one) are
+      journaled (:func:`cancel_after_journaled`) — a count, not a clock:
+      the smokes journal all their work within milliseconds at the end
+      of a run whose start varies by more than that;
+    * by the CLI's ``--max-wall-s`` (:data:`CLI_MAX_WALL_S`): exit 3,
+      with the journal as far as it got (its header, or nothing).
+
+    The campaign is the smoke's spec at :data:`CLI_CAMPAIGN_SCENARIOS`
+    scenarios a slice, the fleet (d)'s."""
+    from tpusim_torch.campaign import run_campaign
+    from tpusim_torch.fleet import run_fleet
+    from tpusim_torch.guard.cancel import CancelToken, OperationCancelled
+
     trace = str(FIXTURES / "llama_tiny_tp2dp2")
     out = {}
-    for cmd, spec, kind, wall_re, resumed_re in (
+    for cmd, spec, run, kind, resumed_re in (
             ("campaign", dict(CAMPAIGN_SMOKE_SPEC,
-                              scenarios=CLI_CAMPAIGN_SCENARIOS), "scenario",
-             r"failed \((\d+\.\d+)s\)", r"(\d+) resumed from journal"),
-            ("fleet", big_fleet_spec(), "state", r"; (\d+\.\d+)s\)",
+                              scenarios=CLI_CAMPAIGN_SCENARIOS),
+             run_campaign, "scenario", r"(\d+) resumed from journal"),
+            ("fleet", big_fleet_spec(), run_fleet, "state",
              r"fleet_states_resumed = (\d+)")):
         spec_path = work / f"{cmd}_spec.json"
         spec_path.write_text(json.dumps(spec))
         full = work / f"{cmd}_full"
         t0 = time.perf_counter()
-        _, text = cli_process([cmd, str(spec_path), "--trace", trace,
-                               "--out", str(full)])
+        cli_process([cmd, str(spec_path), "--trace", trace,
+                     "--out", str(full)])
         full_s = time.perf_counter() - t0
-        lo, hi = 0.0, 2.0 * float(re.search(wall_re, text).group(1))
+        total = journaled(full / "journal.jsonl", kind)
+        count = max(1, total // 2)
         part = work / f"{cmd}_part"
-        tries = []
-        for _ in range(CANCEL_TRIES):
-            deadline = (lo + hi) / 2
-            shutil.rmtree(part, ignore_errors=True)
-            rc, _ = cli_process([cmd, str(spec_path), "--trace", trace,
-                                 "--out", str(part), "--max-wall-s",
-                                 repr(deadline)])
-            done = journaled(part / "journal.jsonl", kind)
-            tries.append((round(deadline, 4), rc, done))
-            if rc == 0:
-                hi = deadline
-            elif done == 0:
-                lo = deadline
-            else:
-                break
+        token = CancelToken()
+        try:
+            with cancel_after_journaled(kind, count, token):
+                run(str(spec_path), trace_path=trace, out_dir=part,
+                    cancel=token)
+        except OperationCancelled:
+            pass
         else:
-            raise AssertionError(f"{cmd}: no --max-wall-s deadline "
-                                 f"cancelled mid-run: {tries}")
-        rc, text = cli_process([cmd, str(spec_path), "--trace", trace,
-                                "--out", str(part), "--resume"])
-        resumed = int(re.search(resumed_re, text).group(1))
-        if rc != 0 or resumed != done:
-            raise AssertionError(f"{cmd} --resume: rc {rc}, {resumed} "
-                                 f"resumed of {done} journaled")
-        if (part / "report.json").read_bytes() != \
-                (full / "report.json").read_bytes():
-            raise AssertionError(f"{cmd}: resumed report differs")
-        print(f"  (b) {cmd} CLI: uninterrupted {full_s:.2f} s; "
-              f"--max-wall-s tries (deadline s, exit, journaled) {tries}; "
-              f"--resume: {resumed} resumed, report equal by bytes "
+            raise AssertionError(f"{cmd}: not cancelled after {count} "
+                                 f"{kind} record(s)")
+        done = journaled(part / "journal.jsonl", kind)
+        if not count <= done < total:
+            raise AssertionError(f"{cmd}: cancelled with {done} of {total} "
+                                 f"{kind} records journaled (asked "
+                                 f"{count})")
+        resumed = resume_cli(cmd, spec_path, trace, part, full, kind,
+                             resumed_re)
+        wall = work / f"{cmd}_wall"
+        rc, _ = cli_process([cmd, str(spec_path), "--trace", trace,
+                             "--out", str(wall), "--max-wall-s",
+                             repr(CLI_MAX_WALL_S)])
+        if rc != 3:
+            raise AssertionError(f"{cmd} --max-wall-s {CLI_MAX_WALL_S}: "
+                                 f"exit {rc}, not 3")
+        wall_done = journaled(wall / "journal.jsonl", kind)
+        resume_cli(cmd, spec_path, trace, wall, full, kind, resumed_re)
+        print(f"  (b) {cmd} CLI: uninterrupted {full_s:.2f} s, {total} "
+              f"{kind} records; cancelled after {done} journaled, "
+              f"--resume: {resumed} resumed, report equal by bytes; "
+              f"--max-wall-s {CLI_MAX_WALL_S}: exit 3 with {wall_done} "
+              f"journaled, --resume: report equal by bytes "
               f"(card: {card_name})")
-        out[cmd] = {"resumed": resumed, "max_wall_s": tries[-1][0]}
+        out[cmd] = {"total": total, "resumed": resumed,
+                    "max_wall_s_journaled": wall_done}
     return out
 
 
@@ -3040,6 +3118,241 @@ def model_suite(card_name: str, work: Path) -> dict:
             "card": card_name}
 
 
+#: phase 14: the nine workloads of suite ``ubench`` the port took last, in
+#: the reference's order, each at its registered width (``matmul`` and
+#: ``matmul_int8`` at 4096^3, ``reduce_lane_wide`` at 65536 x 1024 bf16)
+UBENCH = ("matmul", "small_matmul_chain", "op_overhead_chain",
+          "dynamic_loop", "softmax_narrow", "relayout_copy", "matmul_int8",
+          "reduce_lane_wide", "reduce_major_acc")
+#: phase 14 (c): rtol = atol by output dtype (tests/test_torch_ubench.py);
+#: an int32 product is held exactly, dynamic_loop's root at atol 1e-4
+TOL_UBENCH = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.int32: 0.0}
+TOL_DYNAMIC_LOOP = 1e-4
+#: phase 14 (c): the rows of the two 4096^3 products the CPU recomputes
+#: (each row of a product depends on its own row of ``a`` alone)
+CPU_ROWS = 256
+#: phase 14 (c): small_matmul_chain squares its input 64 times at its
+#: registered parameters; the values pass bf16's range after ~10
+#: squarings, so its registered output is NaN on the card and on the CPU
+#: alike, and its numbers are held at this depth
+CHAIN_CHECK_DEPTH = 4
+#: phase 14 (g): sha256 of what the port's CLI prints for
+#: llama_tiny_tp2dp2 at v5p, untuned, on the CPU (tests/test_torch_lint.py
+#: holds these to the CPU run, and that run to the JAX package's CLI): ``lint
+#: --perf``, ``lint --perf --format json`` (the same document as
+#: ``perf-report --format json``) and ``perf-report``
+LINT_DIGESTS = {
+    ("lint", "--perf"):
+        "e6ea52359615f00773c1c46cd32c4a3dfc18e659a5c3eda14a8e49ab1c575a7e",
+    ("lint", "--perf", "--format", "json"):
+        "3b985c348ac4f5c54928d7408111b4e34a6813d7af211c9cce6992c9f9474874",
+    ("perf-report",):
+        "97272dbef7b713be1c9f059804610d3eb9ad09abf064e257320237786bbfbb4b",
+    ("perf-report", "--format", "json"):
+        "3b985c348ac4f5c54928d7408111b4e34a6813d7af211c9cce6992c9f9474874",
+}
+
+
+def ubench_numerics(name: str, module, args) -> dict:
+    """Phase 14 (c): the workload's output on the card against a CPU run
+    of the same module on the same inputs (the first :data:`CPU_ROWS`
+    rows of the two large products)."""
+    from tpusim_torch.models.microbench import SmallMatmulChain
+
+    notes = {}
+    with torch.no_grad():
+        got = module(*args)
+        if name in ("matmul", "matmul_int8"):
+            got = got[:CPU_ROWS]
+            want = module(args[0][:CPU_ROWS].cpu(), args[1].cpu())
+            notes["rows"] = CPU_ROWS
+        else:
+            want = module(*(a.cpu() for a in args))
+        if name == "small_matmul_chain":
+            if not (torch.isnan(got).all() and torch.isnan(want).all()):
+                raise AssertionError(f"{name}: the registered chain did not "
+                                     f"overflow on both sides")
+            notes["registered_output"] = "NaN on card and CPU"
+            notes["checked_depth"] = CHAIN_CHECK_DEPTH
+            chain = SmallMatmulChain(CHAIN_CHECK_DEPTH)
+            got, want = chain(args[0]), chain(args[0].cpu())
+    got = got.cpu()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: card {got.dtype}{list(got.shape)} vs "
+                             f"CPU {want.dtype}{list(want.shape)}")
+    if name == "dynamic_loop":
+        tol = TOL_DYNAMIC_LOOP
+    else:
+        tol = TOL_UBENCH[got.dtype]
+    g, w = got.double(), want.double()
+    if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    gap = (g - w).abs()
+    err = float(gap.max())
+    if tol == 0.0:
+        worst = 0.0 if torch.equal(got, want) else math.inf
+    elif name == "dynamic_loop":
+        worst = err / tol
+    else:
+        worst = float((gap / (tol + tol * w.abs())).max())
+    if worst > 1.0:
+        raise AssertionError(f"{name}: card and CPU differ beyond {tol} "
+                             f"(worst {worst:.3g} of the tolerance)")
+    return {"max_abs_err": err, "tol": tol, "worst_of_tol": worst, **notes}
+
+
+def ubench_matmul_512(card_name: str, work: Path) -> dict:
+    """Phase 14 (f): ``matmul`` at 512^3, two launches, captured on the
+    card as module ``matmul_512``: its command list is the fixture's by
+    bytes, its MXU flops the fixture's at v5e and v5p, and ``simulate
+    --validate`` prices it."""
+    module, args = get_workload("matmul").build(device="cuda", m=512, n=512,
+                                                k=512)
+    trace = work / "matmul_512"
+    capture_to_dir(trace, module, *args, name="matmul_512", launches=2)
+    fixture = FIXTURES / "matmul_512"
+    if (trace / "commandlist.jsonl").read_bytes() != \
+            (fixture / "commandlist.jsonl").read_bytes():
+        raise AssertionError("matmul_512: command list differs from the "
+                             "fixture's")
+    flops = {}
+    for arch in ("v5e", "v5p"):
+        got = stats_of(simulate_trace(trace, arch=arch, tuned=False))
+        want = stats_of(simulate_trace(fixture, arch=arch, tuned=False))
+        if got["tot_mxu_flops"] != want["tot_mxu_flops"]:
+            raise AssertionError(f"matmul_512 @ {arch}: MXU flops "
+                                 f"{got['tot_mxu_flops']} vs the fixture's "
+                                 f"{want['tot_mxu_flops']}")
+        flops[arch] = got["tot_mxu_flops"]
+    text = run_cli(["simulate", str(trace), "--arch", "v5e",
+                    "--validate=strict"])
+    if EXIT_SENTINEL not in text:
+        raise AssertionError("matmul_512: simulate --validate did not price")
+    print(f"  (f) matmul_512 captured on the card: command list == fixture, "
+          f"MXU flops == fixture's (v5e {flops['v5e']:.10g}, v5p "
+          f"{flops['v5p']:.10g}); simulate --validate=strict priced it "
+          f"(card: {card_name})")
+    return {"tot_mxu_flops": flops, "validated": True}
+
+
+@contextlib.contextmanager
+def untuned():
+    """Price without the committed tuner overlays (``configs/*.tuned.flags``,
+    which a live bench run refreshes), as the golden cells and the tests
+    do: ``$TPUSIM_TUNED_DIR`` points at an empty directory for the block."""
+    old = os.environ.get("TPUSIM_TUNED_DIR")
+    with tempfile.TemporaryDirectory() as empty:
+        os.environ["TPUSIM_TUNED_DIR"] = empty
+        try:
+            yield
+        finally:
+            if old is None:
+                del os.environ["TPUSIM_TUNED_DIR"]
+            else:
+                os.environ["TPUSIM_TUNED_DIR"] = old
+
+
+def ubench_lint_llama(card_name: str) -> dict:
+    """Phase 14 (g): ``lint --perf`` and ``perf-report`` of
+    llama_tiny_tp2dp2 at v5p print what the CPU prints
+    (:data:`LINT_DIGESTS`)."""
+    import hashlib
+
+    trace = str(FIXTURES / "llama_tiny_tp2dp2")
+    out = {}
+    for flags, digest in LINT_DIGESTS.items():
+        argv = [flags[0], trace, "--arch", "v5p", *flags[1:]]
+        t0 = time.perf_counter()
+        with untuned():
+            text = run_cli(argv)
+        seconds = time.perf_counter() - t0
+        got = hashlib.sha256(text.encode()).hexdigest()
+        if got != digest:
+            raise AssertionError(f"{' '.join(argv)}: output differs from "
+                                 f"the CPU's (sha256 {got})")
+        out[" ".join(flags)] = seconds
+    print(f"  (g) llama_tiny_tp2dp2 @ v5p: lint --perf and perf-report "
+          f"(text, JSON) equal the CPU's by bytes; host s "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items())
+          + f" (card: {card_name})")
+    return {"host_s": out}
+
+
+def ubench_workloads(card_name: str, work: Path) -> dict:
+    """Phase 14: each ``ubench`` workload the port took last at its
+    registered width — (a) ``capture W DIR --launches 2`` through the
+    CLI, timed; (b) the card's HLO equals by bytes the text lowered from
+    CPU tensors of the same shapes; (c) the card's output against the
+    CPU's (:func:`ubench_numerics`); (d) ``lint`` through the CLI with
+    zero errors; (e) simulated at v5e, ``dynamic_loop``'s while counted
+    as an unknown trip count once a launch and every other loop known;
+    the median step on the card and the peak of
+    ``torch.cuda.max_memory_allocated``; then (f) the matmul_512 fixture
+    (:func:`ubench_matmul_512`) and (g) the analyzer on the card's host
+    (:func:`ubench_lint_llama`); no custom kernel launched."""
+    for *_, reset in KERNELS:
+        reset()
+    t_phase = time.perf_counter()
+    rows = {}
+    for name in UBENCH:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trace = work / name
+        t0 = time.perf_counter()
+        run_cli(["capture", name, str(trace), "--launches", "2"])
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        module, args = get_workload(name).build(device="cuda")
+        text = module_text(trace, name)
+        cpu_args = tuple(torch.empty(a.shape, dtype=a.dtype) for a in args)
+        if export_to_hlo(module, cpu_args, name)[0] != text:
+            raise AssertionError(f"{name}: the card's HLO differs from the "
+                                 f"CPU's")
+        del cpu_args
+        check = ubench_numerics(name, module, args)
+        lint = run_cli(["lint", str(trace)])
+        errors = int(re.search(r"tpusim lint: (\d+) error", lint).group(1))
+        if errors:
+            raise AssertionError(f"{name}: lint found {errors} error(s):\n"
+                                 f"{lint}")
+        st = stats_of(simulate_trace(trace, arch="v5e", tuned=False))
+        unknown = st["tot_unknown_trip_loops"]
+        want = st["kernel_launches"] if name == "dynamic_loop" else 0
+        if unknown != want:
+            raise AssertionError(f"{name}: {unknown} unknown-trip loops, "
+                                 f"want {want}")
+        wall = measure_wall_time(module, *args, iters=5, warmup=2)
+        rows[name] = {
+            "params": get_workload(name).params, "capture_s": capture_s,
+            "hlo_bytes": len(text), "check": check,
+            "lint_errors": errors, "unknown_trip_loops": unknown,
+            "v5e": {k: st[k] for k in ("tot_mxu_flops", "tot_hbm_bytes",
+                                       "tot_sim_cycles")},
+            "median_ms": wall["median_s"] * 1e3,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        }
+        row = rows[name]
+        print(f"  {name}: capture {capture_s:.2f} s, HLO card == CPU "
+              f"({len(text)} B); card vs CPU max |err| "
+              f"{check['max_abs_err']:.3g} ({check['worst_of_tol']:.3g} of "
+              f"tol {check['tol']}); lint 0 errors; v5e unknown-trip loops "
+              f"{unknown}; median step {row['median_ms']:.4f} ms; peak "
+              f"{row['peak_mem_bytes'] / 2**30:.3f} GiB on {card_name}",
+              flush=True)
+        del module, args
+        shutil.rmtree(trace, ignore_errors=True)
+    matmul_512 = ubench_matmul_512(card_name, work)
+    lint = ubench_lint_llama(card_name)
+    launches = {name: count() for name, _, _, count, _ in KERNELS}
+    if any(launches.values()):
+        raise AssertionError(f"phase 14 launched a custom kernel: {launches}")
+    seconds = time.perf_counter() - t_phase
+    print(f"  kernel launches across phase 14: {launches}; {seconds:.1f} s")
+    return {"workloads": rows, "matmul_512": matmul_512, "lint": lint,
+            "launches": launches, "seconds": seconds, "card": card_name}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3147,9 +3460,14 @@ def main() -> int:
     phase(13, "the model suite at registered width")
     with tempfile.TemporaryDirectory() as tmp:
         models = model_suite(card_name, Path(tmp))
+
+    phase(14, "the ubench workloads at registered width, and the analyzer")
+    with tempfile.TemporaryDirectory() as tmp:
+        ubench = ubench_workloads(card_name, Path(tmp))
     phase(None)
     models["phase_seconds"] = PHASE_SECONDS
     print("models: " + json.dumps(models))
+    print("ubench: " + json.dumps(ubench))
 
     record = {"kernels": [{
         "name": "flash_attention",

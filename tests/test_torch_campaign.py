@@ -500,12 +500,13 @@ def test_chip_smoke_campaign_fleet_on_cpu(tmp_path, capsys, monkeypatch):
     """Phase 9, rehearsed on the CPU host at a reduced size and with the
     host legs only (the ``cuda`` leg's launches need the card): the
     smokes under both host legs against their goldens and contracts, the
-    CLI cancelled mid-run and resumed in fresh processes, and (c) and
-    (d) at a few scenarios and pods."""
+    runs cancelled mid-run on a journaled count and by the CLI's
+    ``--max-wall-s``, each resumed through the CLI in a fresh process to
+    the uninterrupted report by bytes, and (c) and (d) at a few
+    scenarios and pods."""
     smoke = _chip_smoke()
     monkeypatch.setattr(smoke, "BATCH_LEGS", (False, "vectorized"))
     monkeypatch.setattr(smoke, "CLI_CAMPAIGN_SCENARIOS", 64)
-    monkeypatch.setattr(smoke, "CANCEL_TRIES", 14)
     monkeypatch.setattr(smoke, "BIG_CAMPAIGN_SCENARIOS", 24)
     monkeypatch.setattr(smoke, "BIG_FLEET_PODS", 2)
     monkeypatch.setattr(smoke, "BIG_FLEET_HORIZON_S", 60.0)
@@ -513,8 +514,10 @@ def test_chip_smoke_campaign_fleet_on_cpu(tmp_path, capsys, monkeypatch):
                         {"target_rps": [12.0, 48.0], "max_pods": 3})
     out = smoke.campaign_fleet("cpu", tmp_path)
     assert set(out["a"]) == {"campaign", "dcn", "fleet"}
-    assert out["b"]["campaign"]["resumed"] > 0
-    assert out["b"]["fleet"]["resumed"] > 0
+    for cmd in ("campaign", "fleet"):
+        b = out["b"][cmd]
+        assert 0 < b["resumed"] < b["total"], b
+        assert b["resumed"] == max(1, b["total"] // 2), b
     assert out["c"]["vectorized"]["launches"] == 0
     text = capsys.readouterr().out
     for part in ("(a) campaign smoke", "(a) dcn smoke", "(a) fleet smoke",

@@ -75,10 +75,9 @@ WORLD = {"llama_tiny_train": 1, "llama7b": 1, "moe_ep8_train": 8,
 LLAMA = {"llama_tiny_train", "llama7b", "llama7b_tp8dp8"}
 TRAIN = {"llama_tiny_train", "moe_ep8_train", "llama7b_tp8dp8"}
 CASES = [(n, d) for n in NAMES for d in ("float32", "bfloat16")]
-#: the registered workloads: the reference's 36 less the 9 ``ubench``
-#: workloads still to port (ROADMAP A5 b), and the reference's workloads
-#: of suite ``models`` the port lacks
-ALL_WORKLOADS = 27
+#: the registered workloads: all 36 of the reference's, and the
+#: reference's workloads of suite ``models`` the port lacks
+ALL_WORKLOADS = 36
 MODELS_LEFT: set = set()
 
 

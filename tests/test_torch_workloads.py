@@ -168,9 +168,10 @@ def test_workloads_lines_equal_the_reference(capsys):
     assert ref_cli(["workloads"]) == 0
     ref = capsys.readouterr().out.splitlines()
     # the ten of this file, flash_attention_pallas, the seven of
-    # tests/test_torch_multidevice.py and the nine of
-    # tests/test_torch_models.py and tests/test_torch_resnet.py
-    assert len(port) == 27
+    # tests/test_torch_multidevice.py, the nine of
+    # tests/test_torch_models.py and tests/test_torch_resnet.py and the
+    # nine of tests/test_torch_ubench.py
+    assert len(port) == 36
 
     def pick(lines):
         return [ln for ln in lines if ln.split()[1] in SMALL]

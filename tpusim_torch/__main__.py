@@ -11,6 +11,15 @@
                                     [--faults SCHEDULE.json] [--workers N]
                                     [--result-cache[=DIR]] [--cache-quota SIZE]
                                     [--compile-cache[=DIR]]
+                                    [--validate[=on|strict]]
+    python -m tpusim_torch lint     [<trace-dir>] [--arch A] [--config F]
+                                    [--faults F] [--campaign F] [--advise F]
+                                    [--stats-keys] [--self-audit] [--perf]
+                                    [--list-codes] [--format text|json]
+                                    [--strict]
+    python -m tpusim_torch perf-report <trace-dir> [--arch A] [--config F]
+                                    [--module M] [--top N]
+                                    [--format text|json]
     python -m tpusim_torch faults   [--arch v5p] [--chips 64] [--trace DIR]
                                     [--kind K] [--payload-mb MB] [--top N]
                                     [--max-scenarios N] [--json F]
@@ -39,9 +48,10 @@
 
 The output format is the reference's (errors and refusals on stderr
 under the ``tpusim_torch`` prefix; a cancelled campaign or fleet run
-exits 3, a refused spec 1).  ``campaign`` has no ``--nodes`` yet, and
-there is no ``lint`` (so no ``lint --advise``) yet.  The
-other subcommands wait for their slices of the port (see ROADMAP.md).
+exits 3, a refused spec 1; ``lint`` exits 1 on errors, and on warnings
+under ``--strict``).  ``lint --self-audit`` and ``--stats-keys`` audit
+the port's own sources.  ``campaign`` has no ``--nodes`` yet.  The other
+subcommands wait for their slices of the port (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -91,7 +101,8 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
             compile_cache = as_compile_store(compile_cache, quota_bytes=quota)
     report = simulate_trace(
         args.trace, arch=args.arch, overlays=overlays, faults=faults,
-        lenient=args.lenient_parse, result_cache=result_cache,
+        lenient=args.lenient_parse, validate=args.validate,
+        result_cache=result_cache,
         workers=args.workers, pricing_backend=args.pricing_backend,
         compile_cache=compile_cache,
     )
@@ -524,6 +535,163 @@ def _cmd_capture(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_lint(args: argparse.Namespace) -> int:
+    """Static trace/config/schedule analyzer — the ``lint`` front end
+    over :mod:`tpusim_torch.analysis` (stable TLxxx codes, file:line
+    anchors, text or JSON output, nonzero exit on errors)."""
+    from tpusim_torch.analysis import (
+        Severity, analyze_stats_keys, analyze_trace_dir, list_code_lines,
+    )
+    from tpusim_torch.analysis.diagnostics import Diagnostics
+
+    if args.list_codes:
+        for line in list_code_lines():
+            print(line)
+        return 0
+    if args.trace is None and not args.stats_keys \
+            and not args.self_audit and not args.campaign \
+            and not args.advise:
+        print("tpusim_torch lint: nothing to analyze — pass a trace dir, "
+              "--campaign, --advise, --stats-keys, --self-audit, or "
+              "--list-codes",
+              file=sys.stderr)
+        return 2
+    if args.trace is None and (args.faults or args.config or args.arch
+                               or args.perf):
+        print("tpusim_torch lint: --faults/--config/--arch/--perf need a trace "
+              "dir (the declared topology and capture meta come from it)",
+              file=sys.stderr)
+        return 2
+
+    diags = Diagnostics()
+    perf_docs: list | None = [] if args.perf else None
+    if args.trace is not None:
+        analyze_trace_dir(
+            args.trace, arch=args.arch, overlays=list(args.config or []),
+            faults=args.faults, diags=diags, perf=args.perf,
+            perf_report=perf_docs,
+        )
+    if args.campaign or args.advise:
+        default_chips = 1
+        if args.trace is not None:
+            # size the primary slice the way the runners would
+            from tpusim_torch.analysis.trace_passes import load_parsed_trace
+
+            default_chips = max(
+                load_parsed_trace(args.trace).replay_devices, 1
+            )
+        if args.campaign:
+            from tpusim_torch.analysis import analyze_campaign_spec
+
+            analyze_campaign_spec(
+                args.campaign, diags=diags, default_chips=default_chips,
+            )
+        if args.advise:
+            from tpusim_torch.analysis import analyze_advise_spec
+
+            analyze_advise_spec(
+                args.advise, diags=diags, default_chips=default_chips,
+            )
+    if args.stats_keys:
+        analyze_stats_keys(diags=diags)
+    if args.self_audit:
+        from tpusim_torch.analysis import analyze_self_audit
+
+        analyze_self_audit(diags=diags)
+
+    if args.format == "json":
+        if perf_docs is not None:
+            # perf opt-in: the same document plus the per-module
+            # critical-path docs (byte-identical without --perf)
+            print(json.dumps(
+                {**diags.to_doc(), "perf": perf_docs}, indent=2,
+            ))
+        else:
+            print(diags.to_json())
+    else:
+        for line in diags.text_lines():
+            print(line)
+        print(f"tpusim lint: {diags.summary()}")
+    gate = diags.has_errors or (
+        args.strict and diags.count(Severity.WARNING) > 0
+    )
+    return 1 if gate else 0
+
+
+def _cmd_perf_report(args: argparse.Namespace) -> int:
+    """``perf-report TRACE`` — the critical-path analyzer's ranked
+    exposed-collective and slack tables, one section per module, plus
+    any TL5xx findings (text or the raw perf document as JSON)."""
+    from tpusim_torch.analysis import analyze_trace_dir
+    from tpusim_torch.analysis.diagnostics import Diagnostics
+
+    diags = Diagnostics()
+    perf_docs: list = []
+    analyze_trace_dir(
+        args.trace, arch=args.arch, overlays=list(args.config or []),
+        diags=diags, perf=True, perf_report=perf_docs,
+    )
+    if args.module is not None:
+        perf_docs = [d for d in perf_docs if d["module"] == args.module]
+        if not perf_docs:
+            print(f"tpusim_torch perf-report: no module {args.module!r} in "
+                  f"{args.trace}", file=sys.stderr)
+            return 2
+
+    if args.format == "json":
+        print(json.dumps(
+            {**diags.to_doc(), "perf": perf_docs}, indent=2,
+        ))
+        return 1 if diags.has_errors else 0
+
+    top = max(args.top, 1)
+    for doc in perf_docs:
+        print(f"== module {doc['module']} (entry {doc['entry']}) ==")
+        print(f"  critical path : {doc['critical_path_cycles']:>14.1f} cycles")
+        print(f"  serial bound  : {doc['serial_cycles']:>14.1f} cycles")
+        print(f"  exposed coll  : {doc['exposed_collective_cycles']:>14.1f}"
+              f" of {doc['collective_cycles']:.1f} priced cycles")
+        exposures = [
+            {**e, "comp": cname}
+            for cname, cdoc in doc["computations"].items()
+            for e in cdoc["exposures"]
+        ]
+        exposures.sort(key=lambda e: -e["exposed_cycles"])
+        if exposures:
+            print(f"  {'collective':28s} {'computation':20s} "
+                  f"{'exposed':>10s} {'priced':>10s} {'movable':>10s} mode")
+            for e in exposures[:top]:
+                mode = "sync" if e["sync"] else "async"
+                print(f"  {e['op'][:28]:28s} {e['comp'][:20]:20s} "
+                      f"{e['exposed_cycles']:>10.1f} "
+                      f"{e['priced_cycles']:>10.1f} "
+                      f"{e['movable_cycles']:>10.1f} {mode}")
+        rows = [
+            {**o, "comp": cname}
+            for cname, cdoc in doc["computations"].items()
+            for o in cdoc["ops"]
+        ]
+        rows.sort(key=lambda o: -o["cycles"])
+        if rows:
+            print(f"  {'op':28s} {'computation':20s} {'cycles':>10s} "
+                  f"{'slack':>10s} {'bound':>5s} crit")
+            for o in rows[:top]:
+                crit = "*" if o["critical"] else ""
+                print(f"  {o['op'][:28]:28s} {o['comp'][:20]:20s} "
+                      f"{o['cycles']:>10.1f} {o['slack']:>10.1f} "
+                      f"{o['bound']:>5s} {crit}")
+        print()
+    perf_lines = [
+        line for d, line in zip(diags.sorted_items(), diags.text_lines())
+        if d.code.startswith("TL5")
+    ]
+    if perf_lines:
+        print("findings:")
+        for line in perf_lines:
+            print(f"  {line}")
+    return 1 if diags.has_errors else 0
+
+
 def _cmd_info(args: argparse.Namespace) -> int:
     from tpusim_torch.trace.format import load_trace
 
@@ -620,6 +788,15 @@ def main(argv: list[str] | None = None) -> int:
                          "processes, so a warm store prices from mapped "
                          "columns with zero IR built; stamps fastpath_* "
                          "stats")
+    ps.add_argument("--validate", nargs="?", const="on", default=None,
+                    choices=["on", "strict"], metavar="on|strict",
+                    help="pre-flight the trace/config/schedule through "
+                         "the static analyzer (lint) and refuse "
+                         "to replay on error-level diagnostics; "
+                         "--validate=strict also refuses on warnings. "
+                         "NOTE: bare --validate greedily binds a "
+                         "following positional, so place it AFTER the "
+                         "trace path or use the = form")
     ps.set_defaults(fn=_cmd_simulate)
 
     pfa = sub.add_parser(
@@ -836,6 +1013,85 @@ def main(argv: list[str] | None = None) -> int:
                          "which then refuses --snapshot; cpu runs the "
                          "plain versions)")
     pc.set_defaults(fn=_cmd_capture)
+
+    pli = sub.add_parser(
+        "lint",
+        help="static trace/config/schedule analyzer: TLxxx diagnostics "
+             "with file:line anchors, before anything is priced",
+    )
+    pli.add_argument("trace", nargs="?", default=None,
+                     help="trace directory to analyze")
+    pli.add_argument("--arch", default=None,
+                     help="config preset to cross-check (default: the "
+                          "arch the trace was captured on)")
+    pli.add_argument("--config", action="append",
+                     help="overlay flag file(s), applied like simulate's")
+    pli.add_argument("--faults", default=None, metavar="SCHEDULE.json",
+                     help="fault schedule to validate against the "
+                          "trace's declared topology")
+    pli.add_argument("--campaign", default=None, metavar="SPEC.json",
+                     help="campaign spec to validate (TL21x codes: "
+                          "format, candidate slices, SLO percentile, "
+                          "correlated-group links); works with or "
+                          "without a trace dir")
+    pli.add_argument("--advise", default=None, metavar="SPEC.json",
+                     help="advise spec to validate (TL22x codes: "
+                          "format, unknown strategy, mesh "
+                          "factorization, arch presets, SLO without "
+                          "candidates); works with or without a "
+                          "trace dir")
+    pli.add_argument("--format", choices=["text", "json"],
+                     default="text",
+                     help="diagnostic output format (json is the "
+                          "machine-readable document)")
+    pli.add_argument("--strict", action="store_true",
+                     help="exit nonzero on warnings too, not just "
+                          "errors")
+    pli.add_argument("--stats-keys", action="store_true",
+                     help="also audit the repo's obs_/faults_/ici_ "
+                          "stats-key namespaces (ownership, collisions, "
+                          "schema agreement); exit 0 when the audit is "
+                          "clean, 1 on any error-level finding (the "
+                          "same gate as trace diagnostics)")
+    pli.add_argument("--self-audit", action="store_true",
+                     help="run the TL35x determinism/durability "
+                          "self-audit over the repo's own sources "
+                          "(unseeded RNG / wall-clock in seeded "
+                          "subsystems, os.replace without "
+                          "fsync-before-replace staging); exit 1 on "
+                          "findings")
+    pli.add_argument("--perf", action="store_true",
+                     help="also run the TL50x performance passes "
+                          "(critical path, slack, exposed-communication "
+                          "accounting) priced with the composed config; "
+                          "--format json carries the per-module "
+                          "critical-path document under a 'perf' key")
+    pli.add_argument("--list-codes", action="store_true",
+                     help="print the diagnostic registry grouped by "
+                          "family with the owning pass module, and "
+                          "exit")
+    pli.set_defaults(fn=_cmd_lint)
+
+    ppr = sub.add_parser(
+        "perf-report",
+        help="static perf verdict for a trace: ranked exposed-collective "
+             "and slack tables from the critical-path analyzer, plus the "
+             "TL5xx diagnostics",
+    )
+    ppr.add_argument("trace", help="trace directory to analyze")
+    ppr.add_argument("--arch", default=None,
+                     help="config preset to price with (default: the "
+                          "arch the trace was captured on)")
+    ppr.add_argument("--config", action="append",
+                     help="overlay flag file(s), applied like simulate's")
+    ppr.add_argument("--module", default=None,
+                     help="report only this module (default: all)")
+    ppr.add_argument("--top", type=int, default=10,
+                     help="rows per ranked table (default 10)")
+    ppr.add_argument("--format", choices=["text", "json"],
+                     default="text",
+                     help="text tables or the raw perf document")
+    ppr.set_defaults(fn=_cmd_perf_report)
 
     pi = sub.add_parser("info", help="describe a stored trace")
     pi.add_argument("trace")

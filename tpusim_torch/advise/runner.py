@@ -1,9 +1,9 @@
 """The advise sweep executor: enumerate cells, price, rank.
 
-Port of ``tpusim/advise/runner.py``.  The CI gate, lint and serve
-surfaces named below are the reference's: the port reaches the
-advisor through ``python -m tpusim_torch advise`` and ``run_advise``
-(``lint`` is ROADMAP A9, the served job A11).
+Port of ``tpusim/advise/runner.py``.  The CI gate and serve surfaces
+named below are the reference's: the port reaches the advisor through
+``python -m tpusim_torch advise``, ``run_advise`` and ``lint --advise``
+(the served job is ROADMAP A11).
 
 One cell = (slice, strategy, mesh degrees).  Cells price serially in
 spec order through ONE shared :class:`tpusim_torch.perf.ResultCache`; the

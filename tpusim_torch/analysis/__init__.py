@@ -1,27 +1,24 @@
-"""tpusim_torch.analysis — static analysis of specs before they price.
+"""tpusim_torch.analysis — static trace/config/schedule analyzer.
 
-Port of the parts of ``tpusim/analysis/`` the campaign and fleet layers
-run: the shared diagnostics core (:mod:`~tpusim_torch.analysis.
-diagnostics`, the code registry whole), :class:`ValidationError`, and
-the spec passes — campaign (TL21x), advise (TL22x), DCN (TL23x) and
-fleet (TL24x) — and the two analyzers the advisor reads: the
-whole-trace dataflow engine (:mod:`~tpusim_torch.analysis.dataflow`,
-per-space liveness and peaks) and the critical-path analyzer
-(:mod:`~tpusim_torch.analysis.critpath`).  The trace, config,
-schedule, memory, collective, perf, stats-key and self-audit passes,
-``lint``, ``perf-report`` and ``simulate --validate`` are ROADMAP A9.
+Port of ``tpusim/analysis/``, whole.  Multi-pass static analysis with a
+shared diagnostics core: stable codes (``TL001``...), error/warning/info
+severities, ``file:line`` anchors into ``commandlist.jsonl`` / ``.hlo``
+modules / schedule files, and a machine-readable JSON form.  Pass
+families: trace (syntax + dataflow over the whole-trace liveness engine
+in :mod:`~tpusim_torch.analysis.dataflow`), config, schedule,
+campaign/advise/DCN/fleet specs, TL40x memory-capacity checks, TL41x
+cross-device collective-deadlock matching, TL50x performance passes
+(critical path, per-op slack, exposed-communication accounting over
+:mod:`~tpusim_torch.analysis.critpath`), the repo-level stats-key
+contract audit and the TL35x determinism/durability self-audit, both of
+a package's own sources (``tpusim_torch`` unless asked otherwise).
+Reached through the ``lint`` and ``perf-report`` CLIs and the opt-in
+``simulate --validate`` pre-flight; the served ``--strict-lint`` refusal
+waits for the serving tier (ROADMAP A11).
 """
 
 from __future__ import annotations
 
-from tpusim_torch.analysis.advise_passes import analyze_advise_spec
-from tpusim_torch.analysis.campaign_passes import analyze_campaign_spec
-from tpusim_torch.analysis.critpath import (
-    CritBuilder,
-    ModulePerf,
-    analyze_module_perf,
-    module_perf_doc,
-)
 from tpusim_torch.analysis.diagnostics import (
     CODE_FAMILIES,
     CODES,
@@ -32,7 +29,24 @@ from tpusim_torch.analysis.diagnostics import (
     family_of,
     list_code_lines,
 )
+from tpusim_torch.analysis.advise_passes import analyze_advise_spec
+from tpusim_torch.analysis.campaign_passes import analyze_campaign_spec
+from tpusim_torch.analysis.critpath import (
+    CritBuilder,
+    ModulePerf,
+    analyze_module_perf,
+    module_perf_doc,
+)
 from tpusim_torch.analysis.fleet_passes import analyze_fleet_spec
+from tpusim_torch.analysis.runner import (
+    ValidationError,
+    analyze_config,
+    analyze_schedule,
+    analyze_self_audit,
+    analyze_stats_keys,
+    analyze_trace_dir,
+)
+from tpusim_torch.analysis.statskeys import STATS_NAMESPACES
 
 __all__ = [
     "CODES",
@@ -43,31 +57,18 @@ __all__ = [
     "Diagnostics",
     "ModulePerf",
     "Severity",
+    "STATS_NAMESPACES",
     "ValidationError",
     "analyze_advise_spec",
     "analyze_campaign_spec",
+    "analyze_config",
     "analyze_fleet_spec",
     "analyze_module_perf",
+    "analyze_schedule",
+    "analyze_self_audit",
+    "analyze_stats_keys",
+    "analyze_trace_dir",
     "family_of",
     "list_code_lines",
     "module_perf_doc",
 ]
-
-
-class ValidationError(ValueError):
-    """A pre-flight refused to price the run.
-
-    Carries the full :class:`Diagnostics` so callers can render or
-    serialize every finding, not just the first."""
-
-    def __init__(self, diags: Diagnostics, strict: bool = False):
-        self.diags = diags
-        gate = "error-or-warning" if strict else "error"
-        lines = "\n".join(
-            f"  {line}" for line in diags.text_lines()
-        )
-        super().__init__(
-            f"static analysis found {diags.summary()} "
-            f"({gate}-level diagnostics refuse the replay; see "
-            f"'tpusim lint'):\n{lines}"
-        )

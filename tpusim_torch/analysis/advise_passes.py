@@ -1,7 +1,7 @@
 """Advise-spec passes: validate a strategy sweep before it prices.
 
-Port of ``tpusim/analysis/advise_passes.py``.  The port has no
-``lint`` yet (ROADMAP A9): ``run_advise`` runs these passes.
+Port of ``tpusim/analysis/advise_passes.py``.  ``run_advise`` and
+``lint --advise`` run these passes.
 
 An advise sweep can price hundreds of cells from one JSON document; a
 typo'd strategy name or a pinned mesh that factors nothing must fail in

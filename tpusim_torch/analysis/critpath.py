@@ -1,8 +1,8 @@
 """Critical-path & exposed-communication analyzer (the perf pass core).
 
-Port of ``tpusim/analysis/critpath.py``, whole.  The lint and
-perf-report surfaces named below are the reference's (ROADMAP A9); in
-the port the advisor's ``exposed_comm_frac`` column reads it.
+Port of ``tpusim/analysis/critpath.py``, whole.  In the port ``lint
+--perf``, ``perf-report`` and the advisor's ``exposed_comm_frac``
+column read it.
 
 Static performance verdicts over one traced module, derived WITHOUT
 running the event engine but byte-pinned against it: from the schedule

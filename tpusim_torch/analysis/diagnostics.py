@@ -5,9 +5,7 @@ Every check reports through this module: a stable diagnostic **code**
 (``TL001`` — never renumbered), a **severity** (error / warning / info),
 an optional ``file:line`` **anchor** into the artifact that triggered
 it, and a machine-readable JSON form.  The registry below is the single
-source of truth; the port's passes so far are the campaign (TL21x), DCN
-(TL23x) and fleet (TL24x) spec passes, and the other families' owners
-are ROADMAP A9.
+source of truth; every family's owning pass module is ported.
 """
 
 from __future__ import annotations

@@ -85,6 +85,15 @@ _DTYPES = {"<f8": torch.float64, "<i8": torch.int64}
 _DTYPE_STR = {v: k for k, v in _DTYPES.items()}
 
 
+def _fsync(path: Path) -> None:
+    """Flush a staged file's blocks (or a directory's entries) to disk."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
 def _stage_bytes(tmp: Path, payload: bytes) -> None:
     """Stage one record's bytes to its temp file (the seam a test of the
     full-disk path replaces)."""
@@ -261,8 +270,14 @@ class CompileStore:
         disk_dir: str | Path,
         quota_bytes: int | None = None,
         quota_entries: int | None = None,
+        durable: bool = False,
     ):
         self.disk_dir = Path(disk_dir)
+        # durable=True fsyncs each record (and its directory entry)
+        # before the atomic publish: temp + os.replace already rules out
+        # torn files; durability closes the host-crash window where the
+        # rename survives but the data blocks do not
+        self.durable = bool(durable)
         self.quota_bytes = int(quota_bytes) if quota_bytes else None
         self.quota_entries = int(quota_entries) if quota_entries else None
         self._lock = threading.Lock()
@@ -433,7 +448,11 @@ class CompileStore:
                 except OSError:
                     old_size = 0
             _stage_bytes(tmp, payload)
+            if self.durable:
+                _fsync(tmp)
             os.replace(tmp, path)
+            if self.durable:
+                _fsync(self.disk_dir)
         except OSError as e:
             with self._lock:
                 self.errors += 1

@@ -104,6 +104,13 @@ class Fault:
     def active_at(self, cycle: float) -> bool:
         return self.start_cycle <= cycle < self.end_cycle
 
+    def overlaps(self, other: "Fault") -> bool:
+        """Do the two half-open activation windows intersect?"""
+        return (
+            self.start_cycle < other.end_cycle
+            and other.start_cycle < self.end_cycle
+        )
+
     @property
     def windowed(self) -> bool:
         return self.start_cycle > 0.0 or math.isfinite(self.end_cycle)
@@ -339,6 +346,12 @@ class FaultState:
     @property
     def windowed(self) -> bool:
         return self.schedule.windowed
+
+    def bound_faults(self) -> list[tuple["Fault", object]]:
+        """Every fault with its resolved target: ``(fault, (src, dst))``
+        for link kinds, ``(fault, chip)`` for chip kinds — the contract
+        the static analyzer's overlap pass works from."""
+        return list(self._bound)
 
     def intervals(self) -> list[tuple[float, float]]:
         """Per-fault ``[start_cycle, end_cycle)`` activation windows."""

@@ -93,6 +93,13 @@ def build_library(name: str) -> Path:
             f"nvcc failed to build {name} (rc={proc.returncode}):\n"
             f"{proc.stderr[-4000:]}"
         )
+    # the library's blocks reach disk before it is published under the
+    # name every later process loads
+    fd = os.open(tmp, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
     os.replace(tmp, so)
     return so
 

@@ -1,12 +1,12 @@
-"""Microbenchmark workloads — port of the single-chip entries of
-``tpusim/models/microbench.py`` that have committed silicon traces
-(``reports/silicon/manifest.json``).
+"""Microbenchmark workloads — port of ``tpusim/models/microbench.py``,
+all eighteen of its entries.
 
 Each workload is registered under the reference's name with the
-reference's parameters, suite and description, so both CLIs take the
-same ``--set`` overrides.  Each is an ``nn.Module`` whose ``forward`` is
-the reference function, written so that its exported graph lowers to the
-HLO the reference's capture holds (:mod:`tpusim_torch.tracer.lower`):
+reference's parameters, suite and description, in the reference's
+order, so both CLIs take the same ``--set`` overrides.  Each is an
+``nn.Module`` whose ``forward`` is the reference function, written so
+that its exported graph lowers to the HLO the reference's capture holds
+(:mod:`tpusim_torch.tracer.lower`):
 
 * ``matmul_chain`` uses ``gelu(approximate="tanh")`` — ``jax.nn.gelu``'s
   default;
@@ -19,6 +19,15 @@ HLO the reference's capture holds (:mod:`tpusim_torch.tracer.lower`):
   (:attr:`MlpTrainStep.train_step`);
 * ``lstm_layer`` runs its cell through the ``scan`` higher-order op,
   which lowers to one ``while``, as ``lax.scan`` does;
+* ``dynamic_loop`` runs its Babylonian square root through the
+  ``while_loop`` higher-order op: one ``while`` with no known trip
+  count, as ``lax.while_loop`` gives;
+* ``matmul_int8`` is ``torch._int_mm`` (``s8 × s8 → s32``, the
+  reference's ``preferred_element_type=int32`` dot);
+* ``softmax_narrow``, ``reduce_lane_wide`` and ``reduce_major_acc`` widen
+  their bf16 input to f32 and narrow the result, as the reference's
+  ``astype`` and ``jnp.sum`` do; ``relayout_copy`` writes ``x.T + 1``
+  out transposed;
 * ``ici_allreduce`` is one psum over every device of a 1-D mesh
   (:mod:`tpusim_torch.spmd`); the reference takes "all visible
   devices", the port a ``world`` build override (not a registered
@@ -49,7 +58,9 @@ from tpusim_torch.spmd import Mesh, P, SpmdModule, psum
 
 __all__ = ["ElementwiseStream", "Transcendental", "Reduction", "MatmulChain",
            "Conv2d", "EmbeddingLookup", "MlpTrainStep", "LstmLayer",
-           "IciAllreduce"]
+           "IciAllreduce", "Matmul", "SmallMatmulChain", "OpOverheadChain",
+           "DynamicLoop", "SoftmaxNarrow", "RelayoutCopy", "MatmulInt8",
+           "ReduceSum"]
 
 
 def _arrays(arrays: Sequence[Any], device) -> tuple[torch.Tensor, ...]:
@@ -206,9 +217,147 @@ class IciAllreduce(SpmdModule):
         return psum(x, self.mesh, "d") * (1.0 / self.world)
 
 
+class Matmul(nn.Module):
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return a @ b
+
+    @staticmethod
+    def from_numpy(a, b, *, device=None) -> tuple[torch.Tensor, ...]:
+        return _arrays([a, b], device)
+
+
+class SmallMatmulChain(nn.Module):
+    """``x ← x @ x``, ``depth`` times."""
+
+    def __init__(self, depth: int):
+        super().__init__()
+        self.depth = depth
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for _ in range(self.depth):
+            x = x @ x
+        return x
+
+    @staticmethod
+    def from_numpy(x, *, device=None) -> tuple[torch.Tensor, ...]:
+        return _arrays([x], device)
+
+
+class OpOverheadChain(nn.Module):
+    """``depth`` dependent tiny ops, ``* 1.0001`` and ``+ 1e-7`` in turn
+    (one kLoop fusion after lowering, as XLA's)."""
+
+    def __init__(self, depth: int):
+        super().__init__()
+        self.depth = depth
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.depth):
+            x = x * 1.0001 if i % 2 == 0 else x + 1e-7
+        return x
+
+    @staticmethod
+    def from_numpy(x, *, device=None) -> tuple[torch.Tensor, ...]:
+        return _arrays([x], device)
+
+
+class DynamicLoop(nn.Module):
+    """Babylonian square root of ``a`` until ``max|x² − a| ≤ tol``, through
+    the ``while_loop`` higher-order op: one ``while`` with no known trip
+    count, ``a`` riding in its carry, as ``lax.while_loop`` writes it."""
+
+    def __init__(self, tol: float):
+        super().__init__()
+        self.tol = tol
+
+    def forward(self, a: torch.Tensor) -> torch.Tensor:
+        from torch._higher_order_ops.while_loop import while_loop
+
+        tol = self.tol
+
+        def cond(x, err):
+            return err > tol
+
+        def body(x, err):
+            x = 0.5 * (x + a / x)
+            return x, (x * x - a).abs().amax()
+
+        x0 = torch.ones_like(a)
+        err0 = torch.full((), float("inf"), dtype=a.dtype, device=a.device)
+        x, _ = while_loop(cond, body, (x0, err0))
+        return x
+
+    @staticmethod
+    def from_numpy(a, *, device=None) -> tuple[torch.Tensor, ...]:
+        return _arrays([a], device)
+
+
+class SoftmaxNarrow(nn.Module):
+    """Softmax over dim 1 of ``[batch, seq, heads]``, computed in f32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(x.float(), dim=1).to(x.dtype)
+
+    @staticmethod
+    def from_numpy(x, *, device=None) -> tuple[torch.Tensor, ...]:
+        return _arrays([x], device)
+
+
+class RelayoutCopy(nn.Module):
+    """``x.T + 1``, written out transposed (a physical transpose)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (x.t() + 1.0).contiguous()
+
+    @staticmethod
+    def from_numpy(x, *, device=None) -> tuple[torch.Tensor, ...]:
+        return _arrays([x], device)
+
+
+class MatmulInt8(nn.Module):
+    """``s8 × s8 → s32`` (``torch._int_mm``)."""
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return torch._int_mm(a, b)
+
+    @staticmethod
+    def from_numpy(a, b, *, device=None) -> tuple[torch.Tensor, ...]:
+        return _arrays([a, b], device)
+
+
+class ReduceSum(nn.Module):
+    """Sum over ``dim`` of a bf16 array, accumulated in f32 as
+    ``jnp.sum`` does."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.float().sum(dim=self.dim).to(x.dtype)
+
+    @staticmethod
+    def from_numpy(x, *, device=None) -> tuple[torch.Tensor, ...]:
+        return _arrays([x], device)
+
+
 # ---------------------------------------------------------------------------
 # Registration (names, parameters and descriptions are the reference's)
 # ---------------------------------------------------------------------------
+
+
+@register(
+    "matmul",
+    description="single large bf16 matmul (MXU peak)",
+    suite="ubench",
+    m=4096, n=4096, k=4096, dtype="bfloat16",
+)
+def build_matmul(m: int, n: int, k: int, dtype: str, device=None):
+    dev, dt = resolve_device(device), torch_dtype(dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = _randn(gen, (m, k), dt, dev)
+    b = _randn(gen, (k, n), dt, dev)
+    return Matmul(), (a, b)
 
 
 @register(
@@ -299,6 +448,49 @@ def build_mlp_train(batch: int, width: int, depth: int, dtype: str,
 
 
 @register(
+    "small_matmul_chain",
+    description="chain of MXU-tile-sized matmuls (fill/drain overhead fit)",
+    suite="ubench",
+    size=128, depth=64, dtype="bfloat16",
+)
+def build_small_matmul_chain(size: int, depth: int, dtype: str, device=None):
+    dev, dt = resolve_device(device), torch_dtype(dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = _randn(gen, (size, size), dt, dev) * (size ** -0.5)
+    return SmallMatmulChain(depth), (x,)
+
+
+@register(
+    "op_overhead_chain",
+    description="long chain of dependent tiny ops (per-op dispatch "
+    "overhead fit)",
+    suite="ubench",
+    depth=256,
+)
+def build_op_overhead_chain(depth: int, device=None):
+    dev = resolve_device(device)
+    return OpOverheadChain(depth), (
+        torch.ones(8, 128, dtype=torch.float32, device=dev),)
+
+
+@register(
+    "ici_allreduce",
+    description="psum over all local devices (ICI bandwidth/latency fit "
+    "on multi-chip hosts)",
+    suite="ubench",
+    num_devices=0,  # uses all available
+    elems=8 * 1024 * 1024, dtype="float32",
+)
+def build_ici_allreduce(elems: int, dtype: str, device=None,
+                        world: int | None = None):
+    dev, dt = resolve_device(device), torch_dtype(dtype)
+    if world is None:
+        world = max(torch.cuda.device_count(), 1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return IciAllreduce(world), (_randn(gen, (world * elems,), dt, dev),)
+
+
+@register(
     "embedding_lookup",
     description="large embedding-table gather + reduce (HBM random access)",
     suite="ubench",
@@ -312,6 +504,22 @@ def build_embedding_lookup(vocab: int, dim: int, lookups: int, dtype: str,
     ids = torch.randint(0, vocab, (lookups,), generator=gen, device=dev,
                         dtype=torch.int32)
     return EmbeddingLookup(), (table, ids)
+
+
+@register(
+    "dynamic_loop",
+    description="data-dependent while loop (Newton sqrt to convergence) — "
+    "trip count NOT statically known; exercises the engine's "
+    "default_loop_trip_count fallback and its unknown_trip_loops flag",
+    suite="ubench",
+    elems=256 * 1024, tol=1e-4,
+)
+def build_dynamic_loop(elems: int, tol: float, device=None):
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.rand((elems,), generator=gen, device=dev,
+                   dtype=torch.float32) * 3.5 + 0.5
+    return DynamicLoop(tol), (a,)
 
 
 @register(
@@ -333,17 +541,77 @@ def build_lstm_layer(batch: int, hidden: int, seq: int, dtype: str,
 
 
 @register(
-    "ici_allreduce",
-    description="psum over all local devices (ICI bandwidth/latency fit "
-    "on multi-chip hosts)",
+    "softmax_narrow",
+    description="softmax over a NARROW minor dim (8 in the 128-lane "
+    "position) — validates the VPU lane-occupancy model the decode "
+    "fixture exposed (round-4 calibration #12)",
     suite="ubench",
-    num_devices=0,  # uses all available
-    elems=8 * 1024 * 1024, dtype="float32",
+    batch=8, seq=1024, heads=8,
 )
-def build_ici_allreduce(elems: int, dtype: str, device=None,
-                        world: int | None = None):
-    dev, dt = resolve_device(device), torch_dtype(dtype)
-    if world is None:
-        world = max(torch.cuda.device_count(), 1)
+def build_softmax_narrow(batch: int, seq: int, heads: int, device=None):
+    dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(0)
-    return IciAllreduce(world), (_randn(gen, (world * elems,), dt, dev),)
+    return SoftmaxNarrow(), (
+        _randn(gen, (batch, seq, heads), torch.bfloat16, dev),)
+
+
+@register(
+    "relayout_copy",
+    description="layout-changing device copy (transposed output layout) — "
+    "validates the relayout-vs-stream copy pricing (round-4 "
+    "calibration #6)",
+    suite="ubench",
+    rows=4096, cols=4096,
+)
+def build_relayout_copy(rows: int, cols: int, device=None):
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return RelayoutCopy(), (_randn(gen, (rows, cols), torch.bfloat16, dev),)
+
+
+@register(
+    "matmul_int8",
+    description="int8 matmul with s32 accumulation — validates the "
+    "quantized-serving dtype_mult table entry (s8 nominally 2x bf16 "
+    "MACs/cycle, never silicon-measured before)",
+    suite="ubench",
+    m=4096, n=4096, k=4096,
+)
+def build_matmul_int8(m: int, n: int, k: int, device=None):
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randint(-127, 127, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 127, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    return MatmulInt8(), (a, b)
+
+
+@register(
+    "reduce_lane_wide",
+    description="bf16 reduce over a WIDE minor (lane) dim — extent 1024 "
+    "crosses 8 lane tiles; pins the tree-combine factor of the "
+    "lane-cross reduce model (currently an extrapolation: the decode "
+    "fixture only exercises extent 128)",
+    suite="ubench",
+    rows=65536, cols=1024,
+)
+def build_reduce_lane_wide(rows: int, cols: int, device=None):
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return ReduceSum(-1), (_randn(gen, (rows, cols), torch.bfloat16, dev),)
+
+
+@register(
+    "reduce_major_acc",
+    description="bf16 accumulate over the MAJOR dim (decode fusion.52 "
+    "regime: serial tile accumulation, no lane crossing) — the decode "
+    "fixture's context-reduce reads -56% and no committed ubench "
+    "isolates the serial-accumulate rate",
+    suite="ubench",
+    rows=1024, cols=8192,
+)
+def build_reduce_major_acc(rows: int, cols: int, device=None):
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return ReduceSum(0), (_randn(gen, (rows, cols), torch.bfloat16, dev),)

@@ -152,6 +152,15 @@ def fatal_write_disable(exc: OSError, message: str) -> bool:
     return True
 
 
+def _fsync(path: Path) -> None:
+    """Flush a staged file's blocks (or a directory's entries) to disk."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
 def _stage_write(tmp: Path, text: str) -> None:
     """Stage one record's bytes to its temp file (the seam a test of the
     full-disk path replaces)."""
@@ -330,9 +339,15 @@ class ResultCache:
         max_entries: int = 1024,
         quota_bytes: int | None = None,
         quota_entries: int | None = None,
+        durable: bool = False,
     ):
         self.disk_dir = Path(disk_dir) if disk_dir else None
         self.max_entries = max(int(max_entries), 1)
+        # durable=True fsyncs each record (and its directory entry)
+        # before the atomic publish: temp + os.replace already rules out
+        # torn files; durability closes the host-crash window where the
+        # rename survives but the data blocks do not
+        self.durable = bool(durable)
         # byte/count quota on the disk tier.  None = unbounded (zero
         # added work, zero added stats keys).  With a quota, a put that
         # pushes the store's estimated size past it runs the crash-safe
@@ -510,6 +525,8 @@ class ResultCache:
                 f".{os.getpid()}.{threading.get_ident()}.tmp"
             )
             _stage_write(tmp, json.dumps(doc))
+            if self.durable:
+                _fsync(tmp)
             governed = self._governed()
             old_size = 0
             if governed:
@@ -520,6 +537,8 @@ class ResultCache:
                 except OSError:
                     old_size = 0
             os.replace(tmp, path)  # atomic: readers never see a torn file
+            if self.durable:
+                _fsync(self.disk_dir)
             if governed:
                 self._quota_gc(path, old_size)
         except OSError as e:

@@ -23,9 +23,12 @@ under a quota adds ``guard_*`` stats.  A cancel token (``cancel=``,
 :mod:`tpusim_torch.guard.cancel`) is checked before every command and
 before the pool forks, and rides into every engine.
 
-Not ported yet: validation (ROADMAP A9), the observability layer and its
-"faults" lane (A10), the wall-clock and memory limits of ``simulate``
-(A11).
+``validate=`` (the ``--validate[=strict]`` flag) runs the static
+pre-flight of :mod:`tpusim_torch.analysis` over the trace, the composed
+config and the fault schedule first.
+
+Not ported yet: the observability layer and its "faults" lane (ROADMAP
+A10), the wall-clock and memory limits of ``simulate`` (A11).
 """
 
 from __future__ import annotations
@@ -600,6 +603,7 @@ def simulate_trace(
     faults=None,
     topology: Topology | None = None,
     lenient: bool = False,
+    validate: str | bool | None = None,
     result_cache=None,
     workers: int | None = None,
     pricing_backend: str | None = None,
@@ -621,13 +625,35 @@ def simulate_trace(
     pricing backend; all backends give the same stats.  ``compile_cache``
     (the ``--compile-cache[=DIR]`` flag) activates the durable compiled-
     module tier before the trace loads, so the parse defers and a warm
-    store prices with zero IR built."""
+    store prices with zero IR built.  ``validate`` opts into the static
+    pre-flight (the ``--validate[=strict]`` flag): the trace, the config
+    as composed here (the passed ``config`` and ``topology`` are what
+    replays, so they are what is analyzed) and the fault schedule run
+    through :mod:`tpusim_torch.analysis` first, and error-level
+    diagnostics (warnings too under ``"strict"``) raise
+    :class:`tpusim_torch.analysis.ValidationError` instead of pricing."""
     # activated BEFORE the load: load_trace defers the parse exactly when
     # the compiled tier may serve it (the coerced instance rides into the
     # driver, so its counters are not split across two instances)
     from tpusim_torch.fastpath.store import as_compile_store
 
     compile_cache = as_compile_store(compile_cache)
+    if validate:
+        from tpusim_torch.analysis import (
+            Severity, ValidationError, analyze_trace_dir,
+        )
+
+        strict = validate == "strict"
+        # `lenient` decides whether salvage damage is fatal (strict
+        # parse) or a warning
+        diags = analyze_trace_dir(
+            trace_path, arch=arch, overlays=overlays, faults=faults,
+            tuned=tuned, config=config, topology=topology, lenient=lenient,
+        )
+        if diags.has_errors or (
+            strict and diags.count(Severity.WARNING) > 0
+        ):
+            raise ValidationError(diags, strict=strict)
     pod = load_trace(trace_path, lenient=lenient)
     if arch is None and config is None:
         kind = str(pod.meta.get("device_kind", ""))

@@ -25,6 +25,7 @@ from typing import Any
 
 __all__ = [
     "ArchConfig",
+    "CONFIG_FIELD_RULES",
     "IciConfig",
     "SimConfig",
     "load_config",
@@ -284,6 +285,79 @@ class SimConfig:
     # re-priced at HBM bandwidth (spill) — the shmem/L1 capacity analogue
     # (gpu-cache.h adaptive_cache_config)
     model_vmem_capacity: bool = True
+
+
+# ---------------------------------------------------------------------------
+# Field validation metadata (consumed by tpusim_torch.analysis.config_passes)
+# ---------------------------------------------------------------------------
+
+#: per-config-path validation classes, declared next to the dataclasses
+#: they describe so a new knob gets its rule in the same diff.  Keys are
+#: dotted paths relative to a SimConfig; classes:
+#:   positive  — must be > 0 and finite (clocks, bandwidths, dimensions)
+#:   nonneg    — must be >= 0 and finite (latencies, cycle counts)
+#:   fraction  — must be in (0, 1] (efficiencies, achieved-rate scales)
+#:   enum:<..> — must be one of the listed values
+CONFIG_FIELD_RULES: dict[str, str] = {
+    # --- ArchConfig -------------------------------------------------------
+    "arch.clock_ghz": "positive",
+    "arch.mxu_count": "positive",
+    "arch.mxu_rows": "positive",
+    "arch.mxu_cols": "positive",
+    "arch.mxu_fill_cycles": "nonneg",
+    "arch.mxu_weight_stall_cycles": "nonneg",
+    "arch.mxu_efficiency": "fraction",
+    "arch.mxu_conv_tap_efficiency": "fraction",
+    "arch.vpu_sublanes": "positive",
+    "arch.vpu_lanes": "positive",
+    "arch.vpu_alus": "positive",
+    "arch.vpu_transcendental_per_cycle": "positive",
+    "arch.vpu_reduce_slowdown": "positive",
+    "arch.vpu_lane_cross_cycles": "nonneg",
+    "arch.scalar_op_cycles": "nonneg",
+    "arch.op_overhead_cycles": "nonneg",
+    "arch.gather_row_overhead_cycles": "nonneg",
+    "arch.dma_issue_latency": "nonneg",
+    "arch.relayout_efficiency": "fraction",
+    "arch.relayout_lane_efficiency": "fraction",
+    "arch.small_kernel_floor_cycles": "nonneg",
+    "arch.vmem_copy_efficiency": "fraction",
+    "arch.vmem_slice_efficiency": "fraction",
+    "arch.hbm_bandwidth": "positive",
+    "arch.hbm_efficiency": "fraction",
+    "arch.hbm_latency": "nonneg",
+    "arch.hbm_gib": "positive",
+    "arch.vmem_bytes": "positive",
+    "arch.vmem_bandwidth_mult": "positive",
+    "arch.host_bandwidth": "positive",
+    "arch.host_latency": "nonneg",
+    # --- IciConfig --------------------------------------------------------
+    "arch.ici.topology": "enum:torus3d,torus2d,mesh2d,ring",
+    "arch.ici.link_bandwidth": "positive",
+    "arch.ici.hop_latency": "nonneg",
+    "arch.ici.launch_latency": "nonneg",
+    "arch.ici.links_per_axis": "positive",
+    "arch.ici.efficiency": "fraction",
+    "arch.ici.dcn_bandwidth": "positive",
+    "arch.ici.dcn_latency": "nonneg",
+    "arch.ici.chips_per_slice": "nonneg",
+    "arch.ici.dcn_nics_per_slice": "nonneg",
+    "arch.ici.dcn_hop_bandwidth": "nonneg",
+    "arch.ici.dcn_hop_latency": "nonneg",
+    "arch.ici.dcn_oversubscription": "positive",
+    "arch.ici.network_mode": "enum:analytic,detailed",
+    "arch.ici.packet_bytes": "positive",
+    # --- SimConfig --------------------------------------------------------
+    "kernel_window": "positive",
+    "stat_sample_cycles": "positive",
+    "deadlock_cycles": "positive",
+    "default_loop_trip_count": "positive",
+    "dvfs_scale": "positive",
+    "resume_kernel": "nonneg",
+    "checkpoint_kernel": "nonneg",
+    "resume_op": "nonneg",
+    "checkpoint_op": "nonneg",
+}
 
 
 # ---------------------------------------------------------------------------

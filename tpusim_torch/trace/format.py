@@ -36,6 +36,7 @@ __all__ = [
     "TraceDir",
     "save_trace",
     "load_trace",
+    "iter_commandlist",
     "parse_commandlist",
 ]
 
@@ -112,10 +113,15 @@ def command_from_json(d: dict) -> TraceCommand:
     )
 
 
-def parse_commandlist(path: str | Path) -> list[TraceCommand]:
-    """Parse a ``commandlist.jsonl`` into commands (blank and ``#`` lines
-    skipped); raises ``ValueError`` naming the line on a bad record."""
-    cmds = []
+def iter_commandlist(path: str | Path):
+    """Yield ``(lineno, record_dict | None, error | None)`` per non-blank
+    ``commandlist.jsonl`` line (1-based line numbers).
+
+    The shared walk of :func:`parse_commandlist` and the static analyzer
+    (:mod:`tpusim_torch.analysis.trace_passes`): the loader wants the
+    records, the linter wants the *line anchors* and the per-line parse
+    errors — one walk serves both so they can never disagree about which
+    line a record came from."""
     with open(path) as f:
         for lineno, line in enumerate(f, 1):
             line = line.strip()
@@ -124,12 +130,22 @@ def parse_commandlist(path: str | Path) -> list[TraceCommand]:
             try:
                 rec = json.loads(line)
             except json.JSONDecodeError as e:
-                raise ValueError(f"{path}:{lineno}: invalid JSON: {e}") from e
+                yield lineno, None, f"invalid JSON: {e}"
+                continue
             if not isinstance(rec, dict):
-                raise ValueError(
-                    f"{path}:{lineno}: record is not an object: {rec!r}"
-                )
-            cmds.append(command_from_json(rec))
+                yield lineno, None, f"record is not an object: {rec!r}"
+                continue
+            yield lineno, rec, None
+
+
+def parse_commandlist(path: str | Path) -> list[TraceCommand]:
+    """Parse a ``commandlist.jsonl`` into commands (blank and ``#`` lines
+    skipped); raises ``ValueError`` naming the line on a bad record."""
+    cmds = []
+    for lineno, rec, err in iter_commandlist(path):
+        if err is not None:
+            raise ValueError(f"{path}:{lineno}: {err}")
+        cmds.append(command_from_json(rec))
     return cmds
 
 

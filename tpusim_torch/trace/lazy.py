@@ -28,11 +28,17 @@ from tpusim_torch.trace.hlo_text import parse_hlo_module, parse_module_attrs
 __all__ = [
     "LAZY_THRESHOLD_BYTES",
     "LazyModuleTrace",
+    "STREAM_THRESHOLD_BYTES",
     "parse_hlo_module_lazy",
 ]
 
 #: load_trace switches to lazy parsing at or above this module-text size
 LAZY_THRESHOLD_BYTES = 8 * 1024 * 1024
+
+#: the reference's file-backed streaming threshold (override with
+#: $TPUSIM_STREAM_THRESHOLD): ``lint`` walks a module file at or past
+#: it one computation at a time instead of materializing it
+STREAM_THRESHOLD_BYTES = 64 * 1024 * 1024
 
 # a computation starts at a column-0 header: `%name (args) -> ... {` or
 # `ENTRY %name ...` and ends at the next column-0 `}`.  The parameter

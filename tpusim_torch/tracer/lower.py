@@ -47,6 +47,11 @@ step — into an :class:`~tpusim_torch.tracer.hlo_ir.HloModule`:
   ``dynamic-update-slice``, as XLA lowers ``lax.scan``; a reversed scan
   (torch's ``flip`` of its inputs and outputs) reads and writes at
   ``n-1-iv`` with no copy, and any other ``flip`` → ``reverse``;
+* the ``higher_order.while_loop`` node → ``while`` over the tuple of its
+  carried values and the tensors its functions close over, with the
+  condition and body computations and no ``known_trip_count``, as XLA
+  lowers ``lax.while_loop``;
+* ``_int_mm`` → an ``s32`` ``dot`` of two ``s8`` operands;
 * the collectives of :mod:`tpusim_torch.spmd` → ``all-reduce``
   (with an add or max region; a tuple for ``all_reduce_coalesced``),
   ``all-gather``, ``reduce-scatter``, ``all-to-all`` (the TPU's one-array
@@ -59,7 +64,7 @@ step — into an :class:`~tpusim_torch.tracer.hlo_ir.HloModule`:
   ``scatter`` with an add region; ``cos`` / ``sin``, the logical ops and
   a scalar base to a tensor power.
 
-Types are ``f32``, ``bf16``, ``s32`` and ``pred`` (and the ``u32`` of
+Types are ``f32``, ``bf16``, ``s32``, ``s8`` and ``pred`` (and the ``u32`` of
 ``partition-id``); an int64 value inside the graph (torch's index type
 for ``gather`` and ``scatter_add``) narrows to the ``s32`` JAX writes,
 and an int64 input is refused.  Any node outside the table raises
@@ -86,7 +91,7 @@ from tpusim_torch.tracer.hlo_ir import Array, Computation, HloModule, Instr
 __all__ = ["lower_graph", "hlo_dtype", "LoweringError"]
 
 _HLO_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
-               torch.int32: "s32", torch.bool: "pred",
+               torch.int32: "s32", torch.int8: "s8", torch.bool: "pred",
                # int64 indices (torch's default for gather and
                # scatter_add) narrow to the s32 JAX writes
                torch.int64: "s32"}
@@ -123,7 +128,7 @@ def _ints(xs: Sequence[int]) -> str:
 def _literal(dtype: str, value: Any) -> str:
     if dtype == "pred":
         return "true" if value else "false"
-    if dtype == "s32":
+    if dtype in ("s32", "s8"):
         return str(int(value))
     v = float(value)
     if math.isnan(v):
@@ -406,9 +411,11 @@ class _GraphLowering:
         if node.target is operator.getitem:
             seq, i = node.args
             return self.val(seq)[i]
-        if (isinstance(node.target, torch._ops.HigherOrderOperator)
-                and node.target.name() == "scan"):
-            return self.lower_scan(node)
+        if isinstance(node.target, torch._ops.HigherOrderOperator):
+            if node.target.name() == "scan":
+                return self.lower_scan(node)
+            if node.target.name() == "while_loop":
+                return self.lower_while(node)
         p = _packet(node)
         args = [self.val(a) for a in node.args]
         kwargs = {k: self.val(v) for k, v in node.kwargs.items()}
@@ -1340,7 +1347,8 @@ _HANDLERS = {
     "index_select": _h_index_select, "embedding": _h_embedding,
     "slice": _h_slice, "select": _h_select,
     "split_with_sizes": _h_split_with_sizes, "split": _h_split,
-    "cat": _h_cat, "mm": _h_mm, "bmm": _h_bmm, "addmm": _h_addmm,
+    "cat": _h_cat, "mm": _h_mm, "_int_mm": _h_mm, "bmm": _h_bmm,
+    "addmm": _h_addmm,
     "convolution": _h_convolution,
     "convolution_backward": _h_convolution_backward,
     "max_pool2d_with_indices": _h_max_pool2d_with_indices,
@@ -1460,6 +1468,55 @@ def _lower_scan(L: _GraphLowering, node) -> list[str]:
 
 
 _GraphLowering.lower_scan = _lower_scan
+
+
+def _lower_while(L: _GraphLowering, node) -> list[str]:
+    """``while_loop(cond_fn, body_fn, carried, additional)`` → one
+    ``while`` over the tuple ``(*carried, *additional)`` with no
+    ``known_trip_count``, as XLA lowers ``lax.while_loop``: the tensors
+    the functions close over ride in the carry, unchanged by the body."""
+    cond_fn, body_fn, carried, additional = node.args[:4]
+    if len(node.args) > 4 or node.kwargs:
+        raise LoweringError(f"{node.name}: while_loop with extra arguments")
+    cond_gm, body_gm = L.val(cond_fn), L.val(body_fn)
+    init_v = [L.val(a) for a in carried]
+    add_all = [L.val(a) for a in additional]
+    add_v = [a for a in add_all if isinstance(a, str)]
+    b, module = L.b, L.b.module
+    nc = len(init_v)
+    carry = tuple(b.shape(v) for v in (*init_v, *add_v))
+
+    def unpack(bld: _Builder) -> tuple[list[str], list[Any]]:
+        arg = bld.emit("arg_tuple", carry, "parameter", arg="0")
+        gtes = [bld.emit("get-tuple-element", s, "get-tuple-element", [arg],
+                         [f"index={i}"]) for i, s in enumerate(carry)]
+        it = iter(gtes[nc:])
+        add_in = [next(it) if isinstance(a, str) else a for a in add_all]
+        return gtes, [*gtes[:nc], *add_in]
+
+    body = module.new_computation(f"{node.name}_body")
+    body.fusible = True
+    bb = _Builder(module, body, b.registry)
+    gtes, ins = unpack(bb)
+    outs = _GraphLowering(bb, body_gm).run(ins)
+    outs = [bb.convert(o, s.dtype) for o, s in zip(outs, carry)]
+    body.root = bb.emit("tuple", carry, "tuple", [*outs, *gtes[nc:]])
+
+    cond = module.new_computation(f"{node.name}_cond")
+    cond.fusible = True
+    cb = _Builder(module, cond, b.registry)
+    _, ins = unpack(cb)
+    (pred,) = _GraphLowering(cb, cond_gm).run(ins)
+    cond.root = cb.bitcast(pred, ())
+
+    init_t = b.emit("tuple", carry, "tuple", [*init_v, *add_v])
+    w = b.emit("while", carry, "while", [init_t], [
+        f"condition=%{cond.name}", f"body=%{body.name}"])
+    return [b.emit("get-tuple-element", carry[i], "get-tuple-element",
+                   [w], [f"index={i}"]) for i in range(nc)]
+
+
+_GraphLowering.lower_while = _lower_while
 
 
 # ---------------------------------------------------------------------------
