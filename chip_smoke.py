@@ -10,7 +10,8 @@ multi-device workloads (all their ranks on the one card) and of the
 model suite (the two 64-device steps over meta tensors),
 simulate's lane-batched pricing with its row scans on the card, the
 campaign and fleet layers whose scenario-batched warm runs those scans,
-and the sharding advisor on the card's host, and holds each CUDA kernel
+the sharding advisor, and the observability layer and trace tools on the
+card's host, and holds each CUDA kernel
 against its plain PyTorch version.  Phases, in order (any failure exits
 non-zero and prints no result):
 
@@ -173,7 +174,8 @@ non-zero and prints no result):
    ``llama7b_tp8dp8``, ``llama7b_aot_v5p64``) at registered width, the
    kernels' counters set to 0 just before and read just after (they must
    stay 0): (a) ``capture W DIR`` through the CLI, timed (the 64-device
-   steps over meta tensors, their ``--snapshot`` refused); (b) the
+   steps over meta tensors, their ``--snapshot`` refused; ``llama7b`` and
+   ``llama7b_tp8dp8`` at 8 of their 32 layers, :data:`CAPTURE_DEPTH`); (b) the
    concrete ones' HLO on the card equals by bytes the CPU's; (c) each
    one's check — the card against the CPU (``llama7b`` at 2 layers, seq
    256, norm-wise; the ResNets at batch 2, the forward in float32 and the
@@ -210,11 +212,30 @@ non-zero and prints no result):
    --validate=strict`` prices it; (g) ``lint --perf`` and ``perf-report``
    (text and JSON) of ``llama_tiny_tp2dp2`` at v5p print what the CPU
    prints, by bytes.
+15. observability and the trace tools on the card's host, the kernels'
+   counters set to 0 just before each part and read just after (they
+   must stay 0): (a) the five golden cells through ``simulate_trace``
+   with an instrumentation hub, each beside the plain run: the golden
+   passes without the ``obs_*`` and ``fastpath_*`` keys, the other stats
+   equal the plain run's, the spans ``parse``, ``simulate`` and
+   ``simulate/engine`` recorded, the export valid under
+   ``ci/obs_schema.json`` and its ``samples.jsonl`` and ``trace.json``
+   equal by sha256 to the CPU run's (:data:`OBS_DIGESTS`); then
+   ``simulate llama_tiny_tp2dp2 --arch v5p --obs-out DIR`` in a fresh
+   process, held the same way; (b) the ``link_down`` and ``hbm_throttle``
+   example schedules on the llama cell at v5p on the detailed network:
+   the ``faults_active`` track, the worst link occupancy and the
+   ``ici.detailed.*`` counters (:data:`OBS_FAULT_COUNTERS`); (c)
+   ``profile`` of the llama cell: depth-0 phases cover at least 90% of
+   the measured total, the top-op table the CPU's; (d) ``timeline
+   --counters``, ``aerial --power --gz``, ``bbv --out``, ``occupancy`` and
+   a scripted ``debug`` on ``matmul_512`` at v5e and the llama module at
+   v5p, each output the CPU's (:data:`TOOL_DIGESTS`).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, the one before that the kernels' JSON
-record, the one before that phase 14's (``ubench: {...}``), before it
-phase 13's (``models: {...}``), phase 12's (``multidevice: {...}``),
+record, the one before that phase 15's (``obs: {...}``), before it
+phase 14's (``ubench: {...}``), phase 13's (``models: {...}``), phase 12's (``multidevice: {...}``),
 phase 11's (``lowered: {...}``) and phase 10's (``advisor: {...}``).  Needs
 no network and one card; exits non-zero without a CUDA device or without
 the rest of the repository beside it.
@@ -266,6 +287,11 @@ from tpusim_torch.faults import (  # noqa: E402
     load_fault_schedule,
 )
 from tpusim_torch.ici.topology import torus_for  # noqa: E402
+from tpusim_torch.obs import (  # noqa: E402
+    Instrumentation,
+    validate_obs_dir,
+    write_obs_dir,
+)
 from tpusim_torch.guard.store import store_bytes  # noqa: E402
 from tpusim_torch.perf.cache import (  # noqa: E402
     CachedEngine,
@@ -349,16 +375,31 @@ KERNELS = (
 #: host seconds of each phase, from its start to the next one's
 PHASE_SECONDS: dict[int, float] = {}
 _PHASE_START: list = []
+#: wall seconds of each fresh process the current phase ran
+_PROCESS_S: list[float] = []
+
+
+def run_process(argv: list[str], **kw) -> subprocess.CompletedProcess:
+    """``subprocess.run`` of a fresh process, its wall seconds kept for the
+    phase's summary line."""
+    t0 = time.perf_counter()
+    try:
+        return subprocess.run(argv, **kw)
+    finally:
+        _PROCESS_S.append(time.perf_counter() - t0)
 
 
 def phase(n: int | None, title: str = "") -> None:
     """Start phase ``n`` (``None``: end the last one), printing how long
-    the one before it took."""
+    the one before it took, and the fresh processes it ran."""
     now = time.perf_counter()
     if _PHASE_START:
         last, t0 = _PHASE_START.pop()
         PHASE_SECONDS[last] = now - t0
-        print(f"  phase {last} took {now - t0:.1f} s", flush=True)
+        procs = (f" ({len(_PROCESS_S)} fresh processes, "
+                 f"{sum(_PROCESS_S):.1f} s)" if _PROCESS_S else "")
+        print(f"  phase {last} took {now - t0:.1f} s{procs}", flush=True)
+        _PROCESS_S.clear()
     if n is not None:
         _PHASE_START.append((n, now))
         print(f"== phase {n}: {title}", flush=True)
@@ -1301,7 +1342,7 @@ def fresh_run(work: Path, argv: list[str], tag: str) -> tuple[dict, str]:
     tuned.mkdir(exist_ok=True)
     env = dict(os.environ, TPUSIM_TUNED_DIR=str(tuned))
     env.pop("TPUSIM_COMPILE_CACHE", None)
-    proc = subprocess.run(
+    proc = run_process(
         [sys.executable, "-c", FRESH_CHILD, str(REPO), str(out), *argv],
         capture_output=True, text=True, env=env, timeout=600)
     if proc.returncode != 0:
@@ -1869,7 +1910,7 @@ def smokes(card_name: str) -> dict:
 
 def cli_process(argv: list[str], timeout: float = 600) -> tuple[int, str]:
     """``python -m tpusim_torch ARGV`` in a fresh process."""
-    proc = subprocess.run([sys.executable, "-m", "tpusim_torch", *argv],
+    proc = run_process([sys.executable, "-m", "tpusim_torch", *argv],
                           capture_output=True, text=True, cwd=REPO,
                           timeout=timeout)
     if proc.returncode not in (0, 3):
@@ -2729,6 +2770,12 @@ def multi_device(card_name: str, work: Path) -> dict:
 MODELS = ("llama_tiny_train", "llama7b", "moe_ep8_train", "pipeline_pp4",
           "resnet50", "resnet50_train", "resnet50_dp8", "llama7b_tp8dp8",
           "llama7b_aot_v5p64")
+#: phase 13 (a, b, d, e): the depth the unrolled 7B captures run at — 8 of
+#: their 32 layers at full width (every layer lowers to the same ops, and
+#: the capture and its CPU re-capture take time in proportion to depth:
+#: 32 layers of ``llama7b`` took 41 s each way, the script's largest
+#: single cost; the checks of (c) keep their own configurations)
+CAPTURE_DEPTH = {"llama7b": dict(layers=8), "llama7b_tp8dp8": dict(layers=8)}
 #: phase 13 (c): the small configuration the 64-way step's ranks run at
 #: on the card (7B's structure cut to size, as tests/test_torch_models.py)
 LLAMA_SMALL = dict(vocab=512, dim=256, layers=2, heads=8, kv_heads=8,
@@ -3054,13 +3101,15 @@ def model_suite(card_name: str, work: Path) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         trace = work / name
+        depth = CAPTURE_DEPTH.get(name, {})
         t0 = time.perf_counter()
-        run_cli(["capture", name, str(trace)])
+        run_cli(["capture", name, str(trace)]
+                + [f"--set={k}={v}" for k, v in depth.items()])
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
         text = module_text(trace, name)
         row = {"world": wl.num_devices, "capture_s": capture_s,
-               "hlo_bytes": len(text), "abstract": wl.abstract}
+               "hlo_bytes": len(text), "abstract": wl.abstract, **depth}
         if wl.abstract:
             buf = io.StringIO()
             with contextlib.redirect_stderr(buf):
@@ -3072,7 +3121,7 @@ def model_suite(card_name: str, work: Path) -> dict:
             shutil.rmtree(work / f"{name}_snap", ignore_errors=True)
             row["median_ms"] = None
         else:
-            module, args = wl.build(device="cuda")
+            module, args = wl.build(device="cuda", **depth)
             cpu_args = tuple(a.cpu() if a.dim() == 0 else
                              torch.empty(a.shape, dtype=a.dtype)
                              for a in args)
@@ -3095,7 +3144,9 @@ def model_suite(card_name: str, work: Path) -> dict:
         med = (f"{row['median_ms']:.4f} ms" if row["median_ms"] is not None
                else "none (abstract)")
         chk = row["check"]
-        print(f"  {name} ({row['world']} devices): capture {capture_s:.2f} s"
+        print(f"  {name} ({row['world']} devices"
+              + "".join(f", {k} {v}" for k, v in depth.items())
+              + f"): capture {capture_s:.2f} s"
               f"{' (abstract)' if wl.abstract else ', HLO card == CPU'}; "
               f"check max |err| {chk['max_abs_err']:.3g} "
               f"({chk['worst_of_tol']:.3g} of tol {chk['tol']}"
@@ -3353,6 +3404,385 @@ def ubench_workloads(card_name: str, work: Path) -> dict:
             "launches": launches, "seconds": seconds, "card": card_name}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: observability and the trace tools on the card's host
+# ---------------------------------------------------------------------------
+
+#: phase 15: the obs contract of ``ci/check_golden.py``, read as data
+OBS_SCHEMA = REPO / "ci" / "obs_schema.json"
+#: phase 15 (a, b): the files of an obs run whose bytes are pinned
+OBS_FILES = ("samples.jsonl", "trace.json")
+#: phase 15 (a): the spans every obs run of ``simulate_trace`` records
+OBS_SPANS = ("obs_span_parse_s", "obs_span_simulate_s",
+             "obs_span_simulate.engine_s")
+#: phase 15 (b): the example schedules of ``ci/faults_schema.json`` run on
+#: ``llama_tiny_tp2dp2`` at v5p on the detailed network: a fault for the
+#: whole run and a windowed one
+OBS_FAULT_KINDS = ("link_down", "hbm_throttle")
+#: phase 15 (a, b): sha256 of each obs run's files (:data:`OBS_FILES`), by
+#: golden cell or fault schedule — the CPU run's, which
+#: ``tests/test_torch_obs.py`` holds equal to the JAX package's
+OBS_DIGESTS = {
+    "matmul_512__v5e": {
+        "samples.jsonl":
+            "092e33be753325e4f9d5ddc5ef95a013128eae474755f99956b5718a2c0e9b51",
+        "trace.json":
+            "7291c35fd01cb2f73bcd7776da78dcba4334d8fca0ce92a7d7689d9b7063ca83",
+    },
+    "matmul_512__v5p": {
+        "samples.jsonl":
+            "0437983492d378483f83f1a663f901c361ff37171793005dd16857c63f953bca",
+        "trace.json":
+            "fee4b2b0d121d618d9c5ac5bc8e80781bddcbac6f0019e6a23cba64086c79464",
+    },
+    "llama_tiny_tp2dp2__v5p": {
+        "samples.jsonl":
+            "467e88ab28cd8a83d0e0e552d088ad0b9df2c962b6dead8566681f10341a7892",
+        "trace.json":
+            "64d632dee4fae0d29d698d1540fbe339cbd4ec229ff0fd01add1fcbfd596b358",
+    },
+    "llama_tiny_tp2dp2__v5p__arch.ici.network_mode=detailed": {
+        "samples.jsonl":
+            "9f5ca3ff53dd6f9680b43b8610ba9f7757056fba31bdc54cb02983f1d8d3cbaf",
+        "trace.json":
+            "dbd48c7cee763c4462cde1b06c8d400426be3505c1f9f920167c5a36f43fef53",
+    },
+    "llama_tiny_tp2dp2__v6e__power_enabled=True": {
+        "samples.jsonl":
+            "18e2114f0411c82f4bb230ba0bb03b3b9d2dc71f94813a049210751003a6cc2f",
+        "trace.json":
+            "59856d882bbfdb9de3019bd230ed1c2e4af580877f5f94338918385a8f2ed162",
+    },
+    "link_down": {
+        "samples.jsonl":
+            "e26ab8ad55dc81f8f0a473d21a6a708f4c310bfef6d4791e26ecd9f7829141bd",
+        "trace.json":
+            "7f17346033823906fb3187a704c3f1937bc72f83db106b671ff7c64c9549d699",
+    },
+    "hbm_throttle": {
+        "samples.jsonl":
+            "c3bb39ad27f8e78abdf65f0c12212568f4f612c45df4f96877a24eed272fd943",
+        "trace.json":
+            "0d1d1df7f368b02d1407eb848c24a96dac8240f25657f24d308cdf663eebf1de",
+    },
+}
+#: phase 15 (b): ``faults_worst_link_occupancy`` and the ``ici.detailed.*``
+#: counters of each degraded run (the CPU run's; equal to the JAX
+#: package's, ``tests/test_torch_obs.py``)
+OBS_FAULT_COUNTERS = {
+    "link_down": {
+        "faults_worst_link_occupancy": 0.9113487505388621,
+        "obs_ici.detailed.degraded_link_busy_cycles": 0.0,
+        "obs_ici.detailed.link_busy_cycles": 934771.6601307188,
+        "obs_ici.detailed.link_cycle_capacity": 1728963.346405228,
+        "obs_ici.detailed.priced_all-reduce_count": 14.0,
+        "obs_ici.detailed.priced_collectives": 14.0,
+        "obs_ici.detailed.worst_link_occupancy": 0.9113487505388621,
+    },
+    "hbm_throttle": {
+        "faults_worst_link_occupancy": 0.9113487505388608,
+        "obs_ici.detailed.degraded_link_busy_cycles": 0.0,
+        "obs_ici.detailed.link_busy_cycles": 495294.95424836595,
+        "obs_ici.detailed.link_cycle_capacity": 607294.9542483661,
+        "obs_ici.detailed.priced_all-reduce_count": 14.0,
+        "obs_ici.detailed.priced_collectives": 14.0,
+        "obs_ici.detailed.worst_link_occupancy": 0.9113487505388608,
+    },
+}
+#: phase 15 (d): the tools' cells, the ``debug`` session's script and the
+#: sha256 of each tool's output by (fixture, tool) — the CPU run's, which
+#: ``tests/test_torch_trace_tools.py`` holds equal to the JAX CLI's
+TOOL_CELLS = (("matmul_512", "v5e"), ("llama_tiny_tp2dp2", "v5p"))
+DEBUG_SCRIPT = "b dot\nl 3\ns 2\np\nc\nstats\nc\nq\n"
+TOOL_DIGESTS = {
+    ("matmul_512", "timeline"):
+        "690ea4ad3962cfbf31490eb242413f4dc61872fb54cc56a61cf9da4efbc23cc5",
+    ("matmul_512", "aerial"):
+        "303511798821d5a1f378d5ca86c49d4ca8e653ef9afe993e428f2e50c9e39bd7",
+    ("matmul_512", "bbv"):
+        "0ead29f5461a972d99d1abfc6f63060377a5cdd77d4122a37b75e1e0e1117232",
+    ("matmul_512", "occupancy"):
+        "f7646f0fc1176cc9a010072070ee18b9f662e456d9dbb57e11dea7a073872744",
+    ("matmul_512", "debug"):
+        "7132ea9b062a4ba41f81f2e2195180db305876b0d45e613161cf83ca55bf4fc1",
+    ("llama_tiny_tp2dp2", "timeline"):
+        "9ffbf5908c987697599b6bf5fede5eb1703f29ef6bd9042f3fbd6653ffbfce0f",
+    ("llama_tiny_tp2dp2", "aerial"):
+        "ede4d30227a85f116aff17a7ee5b5f00bca3390836f9ab8b5de6800008bef3d2",
+    ("llama_tiny_tp2dp2", "bbv"):
+        "a13c96ca728f6e1de4c2241a8d607ed8651d5421f603b32f74184c6bb89a71ac",
+    ("llama_tiny_tp2dp2", "occupancy"):
+        "e14254de299d3c554ca1c7ff3ce23174dcf3ac7d99a4e0a7e2c1dfe3c4e2addb",
+    ("llama_tiny_tp2dp2", "debug"):
+        "7c2c4e0a93a57ff552fffefa7fc8249566ee9e9f550b7a49bbb692c49e826a8d",
+}
+#: phase 15 (c): sha256 of ``profile``'s top-op table (the lines after
+#: "costliest ops") of the llama cell — the CPU run's, equal to the JAX
+#: CLI's (``tests/test_torch_trace_tools.py``)
+PROFILE_TOP = 5
+PROFILE_TOP_DIGEST = (
+    "75c4e9ef778b1679e1c8b89108693c1b18844ae01ea4b28a28a9d7ae49df2888")
+
+
+def sha256(data: bytes) -> str:
+    import hashlib
+
+    return hashlib.sha256(data).hexdigest()
+
+
+def obs_digests(out_dir: Path) -> dict:
+    """The sha256 of each pinned file of an obs export directory."""
+    return {name: sha256((out_dir / name).read_bytes()) for name in OBS_FILES}
+
+
+def obs_run(fixture: str, arch: str, overlays: list, out_dir: Path,
+            faults=None) -> tuple:
+    """One obs run of ``simulate_trace`` (untuned, as the goldens) and its
+    export directory, checked against ``ci/obs_schema.json``.  Returns the
+    report, its stats and the export's summary."""
+    obs = Instrumentation()
+    report = simulate_trace(FIXTURES / fixture, arch=arch,
+                            overlays=list(overlays), tuned=False, obs=obs,
+                            faults=faults)
+    write_obs_dir(out_dir, report, obs=obs)
+    summary = validate_obs_dir(out_dir, json.loads(OBS_SCHEMA.read_text()))
+    return report, stats_of(report), summary
+
+
+def obs_pinned(tag: str, out_dir: Path) -> None:
+    """Raise unless an export's files equal :data:`OBS_DIGESTS` ``[tag]``."""
+    got = obs_digests(out_dir)
+    if got != OBS_DIGESTS[tag]:
+        raise AssertionError(f"obs {tag}: files differ from the CPU run's "
+                             f"({got})")
+
+
+def without_obs(stats: dict) -> dict:
+    return {k: v for k, v in stats.items()
+            if not k.startswith(("obs_", "fastpath_"))}
+
+
+def obs_cells(card_name: str, work: Path) -> dict:
+    """Phase 15 (a): the five golden cells through ``simulate_trace`` with
+    an instrumentation hub, each beside the same run without one: the
+    report passes its golden without the ``obs_*`` and ``fastpath_*``
+    keys and equals the plain run's key for key there; the spans
+    :data:`OBS_SPANS` are recorded; the export validates against the
+    schema and its files equal :data:`OBS_DIGESTS`.  Then ``simulate
+    llama_tiny_tp2dp2 --arch v5p --obs-out DIR`` through the CLI in a fresh
+    process, held the same way.  Returns the host seconds of each cell
+    with and without obs."""
+    seconds = {}
+    for fixture, arch, overlays, golden in GOLDEN_CELLS:
+        t0 = time.perf_counter()
+        plain = stats_of(simulate_trace(FIXTURES / fixture, arch=arch,
+                                        overlays=list(overlays), tuned=False))
+        plain_s = time.perf_counter() - t0
+        out_dir = work / f"obs_{golden}"
+        t0 = time.perf_counter()
+        report, stats, summary = obs_run(fixture, arch, overlays, out_dir)
+        obs_s = time.perf_counter() - t0
+        errors = compare_golden(golden, without_obs(stats))
+        if errors:
+            raise AssertionError("\n".join(errors))
+        if without_obs(stats) != without_obs(plain):
+            raise AssertionError(f"{golden}: the obs run's stats differ from "
+                                 f"the plain run's")
+        missing = [k for k in OBS_SPANS if k not in stats]
+        if missing or report.samples is None:
+            raise AssertionError(f"{golden}: no spans {missing} or samples")
+        obs_pinned(golden, out_dir)
+        seconds[golden] = {"plain": plain_s, "obs": obs_s}
+        print(f"  (a) golden {golden} with obs: golden passes, stats == the "
+              f"plain run's; {summary['windows']} windows x "
+              f"{report.samples.window_cycles:.0f} cycles, "
+              f"{summary['gauges']} gauges; samples.jsonl and trace.json "
+              f"equal the CPU's; host s plain {plain_s:.4f} / obs "
+              f"{obs_s:.4f} (card: {card_name})")
+    golden = GOLDEN_CELLS[2][3]
+    out_dir = work / "obs_cli"
+    tuned = work / "no_tuned_overlays"
+    tuned.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    proc = run_process(
+        [sys.executable, "-m", "tpusim_torch", "simulate",
+         str(FIXTURES / "llama_tiny_tp2dp2"), "--arch", "v5p",
+         "--obs-out", str(out_dir), "--json", str(work / "obs_cli.json")],
+        capture_output=True, text=True, cwd=REPO, timeout=600,
+        env=dict(os.environ, TPUSIM_TUNED_DIR=str(tuned)))
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0 or EXIT_SENTINEL not in proc.stdout:
+        raise RuntimeError(f"simulate --obs-out exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    stats = json.loads((work / "obs_cli.json").read_text())
+    errors = compare_golden(golden, without_obs(stats))
+    if errors:
+        raise AssertionError("\n".join(errors))
+    if [k for k in OBS_SPANS if k not in stats]:
+        raise AssertionError("simulate --obs-out: spans missing")
+    summary = validate_obs_dir(out_dir, json.loads(OBS_SCHEMA.read_text()))
+    obs_pinned(golden, out_dir)
+    obs_line = next(ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("obs: "))
+    print(f"  (a) simulate llama_tiny_tp2dp2 --arch v5p --obs-out, fresh "
+          f"process: golden passes; {summary['windows']} windows; files "
+          f"equal the CPU's; {cli_s:.2f} s (card: {card_name})")
+    print(f"      {obs_line.split(' -> ')[0]}")
+    seconds["cli"] = cli_s
+    return seconds
+
+
+def obs_degraded(card_name: str, work: Path) -> dict:
+    """Phase 15 (b): the :data:`OBS_FAULT_KINDS` example schedules on
+    ``llama_tiny_tp2dp2`` at v5p on the detailed network, with obs: the
+    ``faults_active`` track in the trace, the worst link occupancy and
+    the ``ici.detailed.*`` counters equal :data:`OBS_FAULT_COUNTERS`, the
+    files :data:`OBS_DIGESTS`."""
+    examples = json.loads(FAULTS_SCHEMA.read_text())["example_schedules"]
+    seconds = {}
+    for kind in OBS_FAULT_KINDS:
+        out_dir = work / f"obs_{kind}"
+        t0 = time.perf_counter()
+        report, stats, _ = obs_run(
+            "llama_tiny_tp2dp2", "v5p",
+            [{"arch": {"ici": {"network_mode": "detailed"}}}], out_dir,
+            faults=examples[kind])
+        seconds[kind] = time.perf_counter() - t0
+        trace = json.loads((out_dir / "trace.json").read_text())
+        if not any(ev.get("name") == "faults_active" and ev.get("ph") == "C"
+                   for ev in trace["traceEvents"]):
+            raise AssertionError(f"{kind}: no faults_active track")
+        got = {k: v for k, v in stats.items()
+               if k == "faults_worst_link_occupancy"
+               or k.startswith("obs_ici.detailed.")}
+        if got != OBS_FAULT_COUNTERS[kind]:
+            raise AssertionError(f"{kind}: counters {got}, want "
+                                 f"{OBS_FAULT_COUNTERS[kind]}")
+        obs_pinned(kind, out_dir)
+        print(f"  (b) {kind} on llama_tiny_tp2dp2 @ v5p, detailed network: "
+              f"faults_active track present; faults_worst_link_occupancy "
+              f"{got['faults_worst_link_occupancy']!r} and "
+              f"{len(got) - 1} ici.detailed counters equal the CPU's; files "
+              f"equal the CPU's; host {seconds[kind]:.4f} s "
+              f"(card: {card_name})")
+    return seconds
+
+
+def profile_table(text: str) -> list[str]:
+    """``profile``'s top-op table: the lines from "costliest ops" on."""
+    lines = text.splitlines()
+    start = next(i for i, ln in enumerate(lines) if "costliest ops" in ln)
+    return lines[start:]
+
+
+def obs_profile(card_name: str) -> dict:
+    """Phase 15 (c): ``profile`` of the llama cell at v5p (untuned): its
+    depth-0 phases cover at least 90% of the measured total, as the
+    reference's test holds, and its top-op table equals the CPU's."""
+    t0 = time.perf_counter()
+    with untuned():
+        text = run_cli(["profile", str(FIXTURES / "llama_tiny_tp2dp2"),
+                        "--arch", "v5p", "--top", str(PROFILE_TOP)])
+    seconds = time.perf_counter() - t0
+    cover = next(ln for ln in text.splitlines() if "(phases cover)" in ln)
+    pct = float(cover.split("%")[0].split()[-1])
+    if pct < 90.0:
+        raise AssertionError(f"profile: phases cover {pct}% < 90%:\n{text}")
+    table = profile_table(text)
+    if sha256("\n".join(table).encode()) != PROFILE_TOP_DIGEST:
+        raise AssertionError("profile: top-op table differs from the CPU's")
+    print("\n".join(f"    {ln}" for ln in text.splitlines()))
+    print(f"  (c) profile llama_tiny_tp2dp2 @ v5p: phases cover {pct}%; "
+          f"top-op table equals the CPU's; host {seconds:.3f} s "
+          f"(card: {card_name})")
+    return {"cover_pct": pct, "host_s": seconds}
+
+
+def tool_outputs(main, trace: Path, arch: str, work: Path) -> dict:
+    """The bytes each trace tool of a CLI's ``main`` writes for one module
+    (the first of ``trace``), untuned: ``timeline --counters`` (the JSON),
+    ``aerial --power --gz`` (its text lanes and the decompressed log),
+    ``bbv --out``, ``occupancy`` and a scripted ``debug`` session
+    (:data:`DEBUG_SCRIPT`).  Paths are left out: only what the tool
+    computes."""
+    import gzip
+
+    def run(argv, stdin=""):
+        buf = io.StringIO()
+        old = sys.stdin
+        sys.stdin = io.StringIO(stdin)
+        try:
+            with contextlib.redirect_stdout(buf), untuned():
+                rc = main(argv)
+        finally:
+            sys.stdin = old
+        if rc != 0:
+            raise RuntimeError(f"{' '.join(argv)} exited {rc}")
+        return buf.getvalue()
+
+    work.mkdir(parents=True, exist_ok=True)
+    t = str(trace)
+    out = {}
+    run(["timeline", t, str(work / "timeline.json"), "--arch", arch,
+         "--counters"])
+    out["timeline"] = (work / "timeline.json").read_bytes()
+    text = run(["aerial", t, "--arch", arch, "--power", "--gz",
+                str(work / "aerial.jsonl.gz")])
+    lanes = "".join(ln for ln in text.splitlines(keepends=True)
+                    if "written to" not in ln)
+    out["aerial"] = lanes.encode() + gzip.decompress(
+        (work / "aerial.jsonl.gz").read_bytes())
+    text = run(["bbv", t, "--interval", "50", "--out", str(work / "bbv.bb")])
+    out["bbv"] = text.splitlines()[0].encode() + (work / "bbv.bb").read_bytes()
+    out["occupancy"] = run(["occupancy", t, "--arch", arch]).encode()
+    out["debug"] = run(["debug", t, "--arch", arch], DEBUG_SCRIPT).encode()
+    return out
+
+
+def obs_tools(card_name: str, work: Path) -> dict:
+    """Phase 15 (d): the trace tools on ``matmul_512`` at v5e and the
+    llama module at v5p (:func:`tool_outputs`), each output equal to
+    :data:`TOOL_DIGESTS`."""
+    seconds = {}
+    for fixture, arch in TOOL_CELLS:
+        t0 = time.perf_counter()
+        outs = tool_outputs(cli, FIXTURES / fixture, arch, work / fixture)
+        seconds[fixture] = time.perf_counter() - t0
+        for tool, data in outs.items():
+            if sha256(data) != TOOL_DIGESTS[(fixture, tool)]:
+                raise AssertionError(f"{tool} on {fixture}: output differs "
+                                     f"from the CPU's")
+        print(f"  (d) {fixture} @ {arch}: " + ", ".join(
+            f"{tool} {len(data)} B" for tool, data in outs.items())
+            + f", each equal to the CPU's; host {seconds[fixture]:.3f} s "
+            f"(card: {card_name})")
+    return seconds
+
+
+def observability(card_name: str, work: Path) -> dict:
+    """Phase 15: (a)-(d) on the card's host in ``work`` (an empty
+    directory), the kernels' counters set to 0 just before each part and
+    read just after (they must stay 0).  Returns each part's seconds and
+    readings."""
+    out = {"seconds": {}, "launches": {}}
+    t_phase = time.perf_counter()
+    for part, run in (("a", lambda: obs_cells(card_name, work)),
+                      ("b", lambda: obs_degraded(card_name, work)),
+                      ("c", lambda: obs_profile(card_name)),
+                      ("d", lambda: obs_tools(card_name, work))):
+        for *_, reset in KERNELS:
+            reset()
+        t0 = time.perf_counter()
+        out[part] = run()
+        out["seconds"][part] = time.perf_counter() - t0
+        out["launches"][part] = no_launches(f"phase 15 ({part})")
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    out["card"] = card_name
+    print(f"observability: kernel launches by part {out['launches']}; "
+          f"{out['seconds']['phase']:.1f} s (card: {card_name})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3464,10 +3894,15 @@ def main() -> int:
     phase(14, "the ubench workloads at registered width, and the analyzer")
     with tempfile.TemporaryDirectory() as tmp:
         ubench = ubench_workloads(card_name, Path(tmp))
+
+    phase(15, "observability and the trace tools on the card's host")
+    with tempfile.TemporaryDirectory() as tmp:
+        observed = observability(card_name, Path(tmp))
     phase(None)
     models["phase_seconds"] = PHASE_SECONDS
     print("models: " + json.dumps(models))
     print("ubench: " + json.dumps(ubench))
+    print("obs: " + json.dumps(observed))
 
     record = {"kernels": [{
         "name": "flash_attention",

@@ -12,6 +12,19 @@
                                     [--result-cache[=DIR]] [--cache-quota SIZE]
                                     [--compile-cache[=DIR]]
                                     [--validate[=on|strict]]
+                                    [--obs-out DIR [--obs-window-cycles N]]
+    python -m tpusim_torch profile  <trace-dir> [--arch A] [--top N]
+                                    [--result-cache[=DIR]]
+    python -m tpusim_torch timeline <trace-dir> <out.json> [--module M]
+                                    [--arch A] [--counters]
+                                    [--obs-window-cycles N]
+    python -m tpusim_torch aerial   <trace-dir> [--module M] [--arch A]
+                                    [--sample N] [--gz F] [--power]
+    python -m tpusim_torch debug    <trace-dir> [--module M] [--arch A]
+    python -m tpusim_torch bbv      <trace-dir> [--module M] [--interval N]
+                                    [--out F]
+    python -m tpusim_torch occupancy <trace-dir> [--module M] [--arch A]
+                                    [--limit N]
     python -m tpusim_torch lint     [<trace-dir>] [--arch A] [--config F]
                                     [--faults F] [--campaign F] [--advise F]
                                     [--stats-keys] [--self-audit] [--perf]
@@ -50,7 +63,9 @@ The output format is the reference's (errors and refusals on stderr
 under the ``tpusim_torch`` prefix; a cancelled campaign or fleet run
 exits 3, a refused spec 1; ``lint`` exits 1 on errors, and on warnings
 under ``--strict``).  ``lint --self-audit`` and ``--stats-keys`` audit
-the port's own sources.  ``campaign`` has no ``--nodes`` yet.  The other
+the port's own sources.  ``simulate --obs-out``, ``profile`` and the trace
+tools (``timeline``, ``aerial``, ``debug``, ``bbv``, ``occupancy``) are
+host commands: they take no ``--device`` and make no CUDA tensor.  ``campaign`` has no ``--nodes`` yet.  The other
 subcommands wait for their slices of the port (see ROADMAP.md).
 """
 
@@ -78,6 +93,15 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
         overlays.append({"checkpoint_op": args.checkpoint_op})
     if args.network_mode:
         overlays.append({"arch": {"ici": {"network_mode": args.network_mode}}})
+    obs = None
+    if args.obs_window_cycles and not args.obs_out:
+        print("tpusim_torch: error: --obs-window-cycles requires --obs-out "
+              "(nothing would be sampled or written)", file=sys.stderr)
+        return 2
+    if args.obs_out:
+        from tpusim_torch.obs import Instrumentation
+
+        obs = Instrumentation(window_cycles=args.obs_window_cycles)
     faults = None
     if args.faults:
         from tpusim_torch.faults import load_fault_schedule
@@ -100,18 +124,101 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
         if compile_cache:
             compile_cache = as_compile_store(compile_cache, quota_bytes=quota)
     report = simulate_trace(
-        args.trace, arch=args.arch, overlays=overlays, faults=faults,
-        lenient=args.lenient_parse, validate=args.validate,
+        args.trace, arch=args.arch, overlays=overlays, obs=obs,
+        faults=faults, lenient=args.lenient_parse, validate=args.validate,
         result_cache=result_cache,
         workers=args.workers, pricing_backend=args.pricing_backend,
         compile_cache=compile_cache,
     )
     if args.power and report.power is not None:
         print(report.power.report_text())
+    if obs is not None:
+        from tpusim_torch.obs import write_obs_dir
+
+        with obs.span("export"):
+            paths = write_obs_dir(args.obs_out, report, obs=obs)
+        n_win = report.samples.num_windows if report.samples else 0
+        w_cyc = report.samples.window_cycles if report.samples else 0
+        print(f"obs: {n_win} windows x {w_cyc:.0f} cycles -> "
+              + ", ".join(str(p) for p in paths.values()))
+        s = report.samples
+        if s is not None and s.pinned and s.coarsenings:
+            print(f"obs: warning: requested window "
+                  f"{args.obs_window_cycles:.0f} cycles exceeded the "
+                  f"{s.max_windows}-window memory cap; coarsened "
+                  f"{2 ** s.coarsenings}x to {s.window_cycles:.0f} cycles",
+                  file=sys.stderr)
+        # refresh the obs stats snapshot now that the simulate/export
+        # spans have closed (the driver snapshotted mid-span)
+        report.stats.update(obs.stats_dict(), prefix="obs_")
     report.print_report()
     if args.json:
         with open(args.json, "w") as f:
             f.write(report.stats.to_json() + "\n")
+    return 0
+
+
+def _cmd_profile(args: argparse.Namespace) -> int:
+    """Pipeline self-profiling — where does the SIMULATOR spend host
+    time: a per-phase wall-clock/peak-RSS table from the obs span tree,
+    plus the top-N costliest simulated ops."""
+    import time
+
+    from tpusim_torch.obs import Instrumentation
+
+    t_enter = time.perf_counter()
+    # sample=False: the point is the breakdown of a NORMAL simulation's
+    # host time — per-op sampler feeds would skew the very table printed
+    obs = Instrumentation(sample=False)
+    with obs.span("init"):
+        # the package imports the replay needs, torch included (the engine
+        # reaches it through the pricing module), count under `init`
+        from tpusim_torch.fastpath import price  # noqa: F401
+        from tpusim_torch.sim.driver import simulate_trace
+
+    report = simulate_trace(
+        args.trace, arch=args.arch, obs=obs,
+        result_cache=args.result_cache,
+    )
+
+    with obs.span("report"):
+        totals = report.totals
+        op_rows = sorted(
+            totals.per_op_cycles.items(), key=lambda kv: -kv[1]
+        )[:args.top]
+    total_wall = time.perf_counter() - t_enter
+
+    arch = report.arch_config
+    print(f"tpusim profile: {args.trace}")
+    print(f"  arch={report.config_name} devices={report.num_devices} "
+          f"kernels={len(report.kernels)} sim_cycles={report.cycles:.4g}")
+    print(f"  wall={total_wall:.3f}s sim_rate={report.sim_rate_kops:.1f} "
+          f"kops/s silicon_slowdown="
+          f"{report.silicon_slowdown(arch.clock_hz):.3g}")
+    print()
+    for line in obs.profile_lines(total_wall):
+        print(line)
+    if args.result_cache is not None:
+        # cache effectiveness: hits mean skipped engine walks
+        s = report.stats
+        print(f"  result cache: {s.get('cache_hits', 0):.0f} hits, "
+              f"{s.get('cache_misses', 0):.0f} misses "
+              f"({s.get('cache_disk_hits', 0):.0f} from disk, "
+              f"{s.get('cache_disk_errors', 0):.0f} corrupt)")
+    print()
+    print(f"top {len(op_rows)} costliest ops "
+          f"(of {totals.op_count} simulated):")
+    print(f"  {'op':40s} {'opcode':18s} {'cycles':>12s} "
+          f"{'count':>8s} {'% cycles':>9s}")
+    # per_op_cycles accumulates across every launch on every replayed
+    # device, so normalize by total device-time, not the pod makespan
+    device_time = sum(report.device_cycles.values()) or report.cycles
+    for name, cyc in op_rows:
+        opcode = totals.per_op_opcode.get(name, "?")
+        count = totals.per_op_count.get(name, 0.0)
+        pct = 100.0 * cyc / device_time if device_time else 0.0
+        print(f"  {name[:40]:40s} {opcode[:18]:18s} {cyc:12.4g} "
+              f"{count:8.0f} {pct:8.2f}%")
     return 0
 
 
@@ -692,6 +799,134 @@ def _cmd_perf_report(args: argparse.Namespace) -> int:
     return 1 if diags.has_errors else 0
 
 
+def _pick_module(pod, name):
+    if name:
+        return pod.modules[name]
+    if not pod.modules:
+        raise KeyError("trace has no modules")
+    return pod.modules[sorted(pod.modules)[0]]
+
+
+def _cmd_debug(args: argparse.Namespace) -> int:
+    from tpusim_torch.sim.debugger import Debugger
+    from tpusim_torch.timing.config import load_config
+    from tpusim_torch.trace.format import load_trace
+
+    pod = load_trace(args.trace)
+    mod = _pick_module(pod, args.module)
+    Debugger(mod, load_config(arch=args.arch)).repl()
+    return 0
+
+
+def _cmd_timeline(args: argparse.Namespace) -> int:
+    from tpusim_torch.sim.traceviz import write_chrome_trace
+    from tpusim_torch.timing.config import load_config
+    from tpusim_torch.timing.engine import Engine
+    from tpusim_torch.trace.format import load_trace
+
+    if args.obs_window_cycles and not args.counters:
+        print("tpusim_torch: error: --obs-window-cycles requires --counters",
+              file=sys.stderr)
+        return 2
+    pod = load_trace(args.trace)
+    mod = _pick_module(pod, args.module)
+    cfg = load_config(arch=args.arch)
+    obs = None
+    if args.counters:
+        from tpusim_torch.obs import Instrumentation
+
+        obs = Instrumentation(window_cycles=args.obs_window_cycles)
+    res = Engine(cfg, record_timeline=True, obs=obs).run(mod)
+    extra = None
+    if obs is not None and res.samples is not None:
+        from tpusim_torch.obs import counter_track_events, window_rows
+
+        rows = window_rows(res.samples, cfg.arch)
+        extra = counter_track_events(rows, cfg.arch.clock_hz)
+    write_chrome_trace(
+        res, cfg.arch, args.out, process_name=mod.name, extra_events=extra
+    )
+    n_extra = f" + {len(extra)} counter samples" if extra else ""
+    print(f"chrome trace ({len(res.timeline)} events{n_extra}) written to "
+          f"{args.out}; open in chrome://tracing or ui.perfetto.dev")
+    return 0
+
+
+def _cmd_aerial(args: argparse.Namespace) -> int:
+    from tpusim_torch.sim.interval import (
+        render_text_lanes, sample_intervals, write_interval_log,
+    )
+    from tpusim_torch.timing.config import load_config
+    from tpusim_torch.timing.engine import Engine
+    from tpusim_torch.trace.format import load_trace
+
+    pod = load_trace(args.trace)
+    mod = _pick_module(pod, args.module)
+    cfg = load_config(arch=args.arch)
+    cap = 2_000_000
+    res = Engine(cfg, record_timeline=True, max_timeline_events=cap).run(mod)
+    if len(res.timeline) >= cap:
+        print(f"warning: timeline capped at {cap} events; "
+              "the view covers only the first part of the run",
+              file=sys.stderr)
+    sample = args.sample or cfg.stat_sample_cycles
+    samples = sample_intervals(res, sample)
+    power = None
+    if args.power:
+        from tpusim_torch.power.model import power_timeline
+
+        power = power_timeline(
+            samples, cfg.arch, cfg.arch.name, dvfs_scale=cfg.dvfs_scale
+        )
+    if args.gz:
+        meta = {"module": mod.name, "arch": cfg.arch.name,
+                "sample_cycles": sample}
+        if power is not None:
+            meta["power_watts"] = [round(w["watts"], 2) for w in power]
+        write_interval_log(samples, args.gz, meta=meta)
+        print(f"interval log written to {args.gz}")
+    print(render_text_lanes(samples), end="")
+    if power:
+        from tpusim_torch.sim.interval import render_scalar_lane
+
+        watts = [w["watts"] for w in power]
+        avg = sum(watts) / len(watts)
+        print(render_scalar_lane(
+            watts, "power",
+            suffix=f" avg {avg:.0f} W peak {max(watts):.0f} W",
+        ), end="")
+    return 0
+
+
+def _cmd_bbv(args: argparse.Namespace) -> int:
+    from tpusim_torch.tools.bbv import compute_bbv, write_simpoint_bb
+    from tpusim_torch.trace.format import load_trace
+
+    pod = load_trace(args.trace)
+    mod = _pick_module(pod, args.module)
+    res = compute_bbv(mod, interval_ops=args.interval)
+    print(f"{res.num_intervals} intervals x {args.interval} ops, "
+          f"{len(res.dims)} opcode dims")
+    if args.out:
+        write_simpoint_bb(res, args.out)
+        print(f"SimPoint frequency vectors written to {args.out}")
+    return 0
+
+
+def _cmd_occupancy(args: argparse.Namespace) -> int:
+    from tpusim_torch.timing.config import load_config
+    from tpusim_torch.tools.occupancy import occupancy_report
+    from tpusim_torch.trace.format import load_trace
+
+    pod = load_trace(args.trace)
+    mod = _pick_module(pod, args.module)
+    cfg = load_config(arch=args.arch)
+    report = occupancy_report(mod, cfg.arch)
+    for line in report.summary_lines(limit=args.limit):
+        print(line)
+    return 0
+
+
 def _cmd_info(args: argparse.Namespace) -> int:
     from tpusim_torch.trace.format import load_trace
 
@@ -797,7 +1032,30 @@ def main(argv: list[str] | None = None) -> int:
                          "NOTE: bare --validate greedily binds a "
                          "following positional, so place it AFTER the "
                          "trace path or use the = form")
+    ps.add_argument("--obs-out", default=None, metavar="DIR",
+                    help="enable the observability layer and write "
+                         "samples.jsonl + trace.json (Perfetto counter "
+                         "tracks) + metrics.prom here")
+    ps.add_argument("--obs-window-cycles", type=float, default=0.0,
+                    help="cycle-window size for the sampler "
+                         "(0 = auto: self-coarsening to a bounded "
+                         "window count)")
     ps.set_defaults(fn=_cmd_simulate)
+
+    pp = sub.add_parser(
+        "profile",
+        help="self-profile one replay: per-phase wall-clock/peak-RSS "
+             "table (parse/cost/engine/ici/power) + top costliest ops",
+    )
+    pp.add_argument("trace")
+    pp.add_argument("--arch", default=None)
+    pp.add_argument("--top", type=int, default=10,
+                    help="how many costliest ops to print")
+    pp.add_argument("--result-cache", nargs="?", const=True, default=None,
+                    metavar="DIR",
+                    help="profile a cached replay and report cache "
+                         "effectiveness")
+    pp.set_defaults(fn=_cmd_profile)
 
     pfa = sub.add_parser(
         "faults",
@@ -1099,6 +1357,66 @@ def main(argv: list[str] | None = None) -> int:
 
     pw = sub.add_parser("workloads", help="list registered workloads")
     pw.set_defaults(fn=_cmd_workloads)
+
+    pd = sub.add_parser(
+        "debug", help="single-step a trace module (gdb-style)"
+    )
+    pd.add_argument("trace")
+    pd.add_argument("--module", default=None)
+    pd.add_argument("--arch", default=None)
+    pd.set_defaults(fn=_cmd_debug)
+
+    pv = sub.add_parser(
+        "timeline", help="export a module's op timeline as Chrome trace JSON"
+    )
+    pv.add_argument("trace")
+    pv.add_argument("out")
+    pv.add_argument("--module", default=None)
+    pv.add_argument("--arch", default=None)
+    pv.add_argument("--counters", action="store_true",
+                    help="merge sampled counter tracks (mxu_util, "
+                         "hbm_gbps, ...) into the trace")
+    pv.add_argument("--obs-window-cycles", type=float, default=0.0)
+    pv.set_defaults(fn=_cmd_timeline)
+
+    pa = sub.add_parser(
+        "aerial",
+        help="interval-sampled unit-utilization time series "
+             "(the AerialVision-style time-lapse view)",
+    )
+    pa.add_argument("trace")
+    pa.add_argument("--module", default=None)
+    pa.add_argument("--arch", default=None)
+    pa.add_argument("--sample", type=float, default=0,
+                    help="window size in cycles (default: stat_sample_cycles)")
+    pa.add_argument("--gz", default=None,
+                    help="also write the gzip'd JSONL interval log here")
+    pa.add_argument("--power", action="store_true",
+                    help="add a TPUWattch power-over-time lane")
+    pa.set_defaults(fn=_cmd_aerial)
+
+    pb = sub.add_parser(
+        "bbv",
+        help="per-interval opcode vectors for SimPoint phase sampling "
+             "(the bbv_tool equivalent)",
+    )
+    pb.add_argument("trace")
+    pb.add_argument("--module", default=None)
+    pb.add_argument("--interval", type=int, default=1000)
+    pb.add_argument("--out", default=None,
+                    help="write SimPoint .bb frequency vectors here")
+    pb.set_defaults(fn=_cmd_bbv)
+
+    po = sub.add_parser(
+        "occupancy",
+        help="MXU tile / vmem occupancy per matmul-shaped op "
+             "(the occupancy_calc_tool equivalent)",
+    )
+    po.add_argument("trace")
+    po.add_argument("--module", default=None)
+    po.add_argument("--arch", default=None)
+    po.add_argument("--limit", type=int, default=10)
+    po.set_defaults(fn=_cmd_occupancy)
 
     args = p.parse_args(argv)
     try:

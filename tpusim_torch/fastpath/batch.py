@@ -458,7 +458,9 @@ def price_module_batch(module, engines, backend: str | None = None,
         key = sig if sig is not None else id(topo)
         coll = coll_by_sig.get(key)
         if coll is None:
-            coll = coll_by_sig[key] = make_collective_model(topo, e.arch.ici)
+            coll = coll_by_sig[key] = make_collective_model(
+                topo, e.arch.ici, obs=e.obs
+            )
         lanes.append(_Lane(e, coll, key))
 
     results = [EngineResult() for _ in engines]

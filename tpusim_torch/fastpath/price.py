@@ -90,11 +90,15 @@ def resolve_engine_scales(engine) -> tuple[float, float]:
 
 
 def fastpath_eligible(engine) -> bool:
-    """When the compiled walk may substitute for the serial one: not under
-    timeline recording, which the columns don't model, nor under
-    op-granularity checkpoint/resume."""
+    """When the compiled walk may substitute for the serial one.
+
+    The serial walk stays in charge whenever the run carries run-scoped
+    observables the columns don't model: obs instrumentation (per-op
+    cost/ici wall profiling and cycle-window samplers), timeline
+    recording, and op-granularity checkpoint/resume."""
     return (
-        not engine.record_timeline
+        not engine.obs.enabled
+        and not engine.record_timeline
         and not engine.config.resume_op
         and not engine.config.checkpoint_op
     )
@@ -287,7 +291,7 @@ def price_module(engine, module, backend: str) -> EngineResult:
     if backend != "vectorized":
         raise ValueError(f"price_module prices 'vectorized', not {backend!r}")
     topo = engine._topology_for(module)
-    coll = make_collective_model(topo, engine.arch.ici)
+    coll = make_collective_model(topo, engine.arch.ici, obs=engine.obs)
     result = EngineResult()
     cm = compiled_for(module, engine)
     resident, spill_frac = module_spill(engine, module, cm)

@@ -312,8 +312,7 @@ class DetailedCollectiveModel:
     :class:`~tpusim_torch.ici.collectives.CollectiveModel`, but every schedule is
     replayed packet-by-packet on a :class:`TorusNetwork`.
 
-    ``obs`` (an instrumentation hub; the port has none until ROADMAP
-    A10, so none is passed yet) turns on link
+    ``obs`` (a :class:`tpusim_torch.obs.hub.Instrumentation`) turns on link
     accounting, recorded once per ``seconds()`` PRICING CALL — which is
     once per unique module for kernel-internal collectives (the driver
     caches engine results per module) and once per participating device

@@ -38,8 +38,7 @@ Keys hash the port's own sources (:func:`parser_version`, and
 ``model_version`` over its timing model), so the port and the JAX package
 never read each other's records, even in one cache directory.
 
-Not ported yet: the ``durable`` (fsync) write mode and the memory
-watchdog's LRU shrink (ROADMAP A11).
+Not ported yet: the memory watchdog's LRU shrink (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -54,6 +53,7 @@ import warnings
 from collections import OrderedDict, defaultdict
 from pathlib import Path
 
+from tpusim_torch.obs.hub import NULL_OBS
 from tpusim_torch.timing.config import SimConfig
 from tpusim_torch.timing.engine import Engine, EngineResult
 from tpusim_torch.timing.model_version import model_version
@@ -284,7 +284,7 @@ _FLOAT_MAP_FIELDS = (
 #: dict-valued fields restored as plain dicts
 _PLAIN_MAP_FIELDS = ("per_op_opcode", "per_op_async")
 #: run-scoped fields that are not part of a result's document
-_UNDOCUMENTED_FIELDS = ("timeline",)
+_UNDOCUMENTED_FIELDS = ("timeline", "samples")
 
 
 def result_to_doc(result: EngineResult) -> dict:
@@ -340,9 +340,13 @@ class ResultCache:
         quota_bytes: int | None = None,
         quota_entries: int | None = None,
         durable: bool = False,
+        obs=None,
     ):
         self.disk_dir = Path(disk_dir) if disk_dir else None
         self.max_entries = max(int(max_entries), 1)
+        # instrumentation hub (tpusim_torch.obs): ``cache.*`` counters and
+        # a ``cache`` span around each disk read and write
+        self.obs = obs if obs is not None else NULL_OBS
         # durable=True fsyncs each record (and its directory entry)
         # before the atomic publish: temp + os.replace already rules out
         # torn files; durability closes the host-crash window where the
@@ -438,6 +442,7 @@ class ResultCache:
                     os.utime(self._path_for(key))
                 except OSError:
                     pass  # evicted by a peer / read-only: plain aging
+            self.obs.counter_add("cache.hits")
             return result
         if self.disk_dir is not None:
             result = self._disk_get(key)
@@ -445,8 +450,11 @@ class ResultCache:
                 self._mem_put(key, result)
                 self.hits += 1
                 self.disk_hits += 1
+                self.obs.counter_add("cache.hits")
+                self.obs.counter_add("cache.disk_hits")
                 return result
         self.misses += 1
+        self.obs.counter_add("cache.misses")
         return None
 
     def put(self, key: str, result: EngineResult) -> None:
@@ -455,12 +463,16 @@ class ResultCache:
             self._disk_put(key, result)
 
     def _mem_put(self, key: str, result: EngineResult) -> None:
+        evicted = 0
         with self._lock:
             self._mem[key] = result
             self._mem.move_to_end(key)
             while len(self._mem) > self.max_entries:
                 self._mem.popitem(last=False)
                 self.evictions += 1
+                evicted += 1
+        for _ in range(evicted):
+            self.obs.counter_add("cache.evictions")
 
     # -- disk tier -----------------------------------------------------------
 
@@ -471,6 +483,10 @@ class ResultCache:
         path = self._path_for(key)
         if not path.is_file():
             return None
+        with self.obs.span("cache"):
+            return self._disk_read(key, path)
+
+    def _disk_read(self, key: str, path: Path) -> EngineResult | None:
         try:
             doc = json.loads(path.read_text())
             if doc.get("format_version") != CACHE_FORMAT_VERSION:
@@ -492,6 +508,7 @@ class ResultCache:
             return None
         except (ValueError, KeyError, TypeError, OSError) as e:
             self.disk_errors += 1
+            self.obs.counter_add("cache.disk_errors")
             # move the bad record off the lookup path on first detection,
             # so the recompute's put heals it and no later lookup warns
             from tpusim_torch.guard.store import quarantine_record
@@ -509,6 +526,10 @@ class ResultCache:
     def _disk_put(self, key: str, result: EngineResult) -> None:
         if self._disk_write_disabled:
             return
+        with self.obs.span("cache"):
+            self._disk_write(key, result)
+
+    def _disk_write(self, key: str, result: EngineResult) -> None:
         tmp = None
         try:
             self.disk_dir.mkdir(parents=True, exist_ok=True)
@@ -543,6 +564,7 @@ class ResultCache:
                 self._quota_gc(path, old_size)
         except OSError as e:
             self.disk_errors += 1
+            self.obs.counter_add("cache.disk_errors")
             if tmp is not None:
                 try:
                     tmp.unlink()
@@ -631,18 +653,20 @@ class ResultCache:
         }
 
 
-def as_result_cache(spec) -> ResultCache | None:
+def as_result_cache(spec, obs=None) -> ResultCache | None:
     """Coerce the ``--result-cache`` flag family to a cache instance:
     None/False → no cache; True → disk tier at :data:`DEFAULT_CACHE_DIR`;
     a path → disk tier there; an existing :class:`ResultCache` passes
-    through."""
+    through (its obs hub is upgraded if it still has the no-op one)."""
     if spec is None or spec is False:
         return None
     if isinstance(spec, ResultCache):
+        if obs is not None and spec.obs is NULL_OBS:
+            spec.obs = obs
         return spec
     if spec is True:
-        return ResultCache(disk_dir=DEFAULT_CACHE_DIR)
-    return ResultCache(disk_dir=spec)
+        return ResultCache(disk_dir=DEFAULT_CACHE_DIR, obs=obs)
+    return ResultCache(disk_dir=spec, obs=obs)
 
 
 # ---------------------------------------------------------------------------
@@ -789,8 +813,10 @@ def compiled_cache_stats() -> dict[str, float]:
 class CachedEngine(Engine):
     """An :class:`Engine` whose ``run`` consults a :class:`ResultCache`.
 
-    Runs that record a timeline carry run-scoped spans and always price
-    live.  A ``result_cache`` of None makes this an exact Engine."""
+    The cache engages only for runs whose result is pure counters: obs
+    cycle-window sampling and timeline recording both attach run-scoped
+    objects, so those runs always price live.  A ``result_cache`` of None
+    makes this an exact Engine."""
 
     def __init__(self, *args, result_cache: ResultCache | None = None, **kw):
         super().__init__(*args, **kw)
@@ -798,7 +824,11 @@ class CachedEngine(Engine):
 
     def run(self, module) -> EngineResult:
         cache = self.result_cache
-        if cache is None or self.record_timeline:
+        if (
+            cache is None
+            or self.record_timeline
+            or (self.obs.enabled and self.obs.sample)
+        ):
             return super().run(module)
         key = cache.key_for(
             module, self.config,

@@ -1,8 +1,9 @@
 """Per-unit energy/power model.
 
-Port of ``tpusim/power/model.py``.  ``power_timeline`` (per-window watts
-from the observability sampler's windows) waits for ROADMAP A10, and the
-live power probe of ``tpusim/power/telemetry.py`` for A12.  The fitted
+Port of ``tpusim/power/model.py``, with ``power_timeline`` (per-window
+watts from the interval samples of :mod:`tpusim_torch.sim.interval`, the
+``aerial --power`` lane).  The live power probe of
+``tpusim/power/telemetry.py`` waits for ROADMAP A12.  The fitted
 coefficients of ``tpusim/power/fitted/`` are kept as their own copy in
 ``tpusim_torch/power/fitted/``, read by :func:`load_fitted`.
 
@@ -32,8 +33,8 @@ from pathlib import Path
 from tpusim_torch.timing.engine import EngineResult
 
 __all__ = [
-    "PowerCoefficients", "PowerModel", "PowerReport", "dvfs_overlays",
-    "load_fitted", "POWER_PRESETS", "FITTED_DIR",
+    "PowerCoefficients", "PowerModel", "PowerReport", "power_timeline",
+    "dvfs_overlays", "load_fitted", "POWER_PRESETS", "FITTED_DIR",
 ]
 
 #: fitted coefficients committed by the reference's power-validation fit,
@@ -66,9 +67,9 @@ class PowerCoefficients:
         ici_bytes: float = 0.0,
     ) -> dict[str, float]:
         """Per-component dynamic energy (pJ) for one set of activity
-        counts — THE energy accounting of :meth:`PowerModel.report` (in
-        the reference also of the obs layer's per-window watts track, so
-        the two can't diverge).  VPU flops are the non-MXU,
+        counts — THE energy accounting, shared by the end-of-run
+        :meth:`PowerModel.report` and the obs layer's per-window watts
+        track so the two can't diverge.  VPU flops are the non-MXU,
         non-transcendental remainder."""
         return {
             "mxu": self.mxu_pj_per_flop * mxu_flops,
@@ -231,3 +232,52 @@ class PowerModel:
             static_watts=c.static_watts,
             idle_watts=c.idle_clock_watts,
         )
+
+
+def power_timeline(samples, arch, coeffs: PowerCoefficients | str = "v5p",
+                   dvfs_scale: float = 1.0):
+    """Per-window power from interval utilization samples — the
+    time-resolved view AccelWattch produces by calling ``mcpat_cycle``
+    every sample period (``gpu-sim.cc:1993-2001``).
+
+    Per-unit dynamic power is the unit's peak event rate × per-event
+    energy × its busy fraction in the window (a roofline-style activity
+    factor; the totals-based :meth:`PowerModel.report` remains the
+    energy-accurate accounting).  Returns one dict per window.
+    """
+    if isinstance(coeffs, str):
+        coeffs = POWER_PRESETS.get(coeffs, PowerCoefficients(name=coeffs))
+    if dvfs_scale != 1.0:
+        coeffs = coeffs.scaled(dvfs_scale)
+    c = coeffs
+    # peak dynamic watts per unit at 100% utilization; the DMA rate
+    # mirrors what the engine actually models (efficiency-derated HBM),
+    # and the ICI link count follows the configured topology
+    ici_axes = {"torus3d": 3, "torus2d": 2, "mesh2d": 2, "ring": 1}.get(
+        arch.ici.topology, 3
+    )
+    peak = {
+        "mxu": c.mxu_pj_per_flop * arch.peak_bf16_flops * 1e-12,
+        "vpu": c.vpu_pj_per_flop * arch.vpu_flops_per_cycle
+               * arch.clock_hz * 1e-12,
+        "dma": c.hbm_pj_per_byte * arch.hbm_bandwidth
+               * arch.hbm_efficiency * 1e-12,
+        "ici": c.ici_pj_per_byte * arch.ici.link_bandwidth
+               * max(arch.ici.links_per_axis, 1) * 2 * ici_axes * 1e-12,
+    }
+    out = []
+    for s in samples:
+        comps = {
+            unit: peak.get(unit, 0.0) * s.utilization(unit)
+            for unit in s.unit_busy
+            if peak.get(unit)
+        }
+        total = sum(comps.values()) + c.static_watts + c.idle_clock_watts
+        out.append({
+            "t0": s.t0,
+            "t1": s.t1,
+            "watts": total,
+            "components": comps,
+            "static_watts": c.static_watts + c.idle_clock_watts,
+        })
+    return out

@@ -27,8 +27,17 @@ before the pool forks, and rides into every engine.
 pre-flight of :mod:`tpusim_torch.analysis` over the trace, the composed
 config and the fault schedule first.
 
-Not ported yet: the observability layer and its "faults" lane (ROADMAP
-A10), the wall-clock and memory limits of ``simulate`` (A11).
+An instrumentation hub (``obs=``, :mod:`tpusim_torch.obs`) records the
+spans ``validate``, ``parse``, ``config``, ``simulate`` (with ``engine``,
+``ici``, ``sample`` and ``power`` inside it) and assembles the pod's
+cycle-window series (``SimReport.samples``): each kernel's module series
+at its launch offset, the memcpy and standalone-collective commands, and
+a ``faults`` lane under a fault schedule.  Under obs the ``--workers``
+pool disengages (samplers are run-scoped), and the report carries the
+``obs_*`` keys.
+
+Not ported yet: the wall-clock and memory limits of ``simulate``
+(ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ from tpusim_torch.dcn.topology import slice_topology_for
 from tpusim_torch.ici.detailed import make_collective_model
 from tpusim_torch.ici.topology import Topology, torus_for
 from tpusim_torch.ir import CommandKind, PodTrace, TraceCommand
+from tpusim_torch.obs.hub import NULL_OBS
+from tpusim_torch.obs.sampler import CycleWindowSampler
 from tpusim_torch.perf.cache import CachedEngine, as_result_cache
 from tpusim_torch.perf.pool import map_ordered, pool_context, resolve_workers
 from tpusim_torch.power.model import PowerModel, PowerReport
@@ -94,6 +105,11 @@ class SimReport:
     wall_seconds: float = 0.0       # host time spent simulating
     stats: StatsRegistry = field(default_factory=StatsRegistry)
     power: PowerReport | None = None  # when power_enabled
+    #: pod-level cycle-window series (tpusim_torch.obs) when instrumented
+    samples: CycleWindowSampler | None = None
+    #: the ArchConfig the run used (export paths need clock/power rates)
+    arch_config: object | None = None
+    dvfs_scale: float = 1.0
 
     @property
     def cycles(self) -> float:
@@ -142,6 +158,7 @@ class SimDriver:
         self,
         config: SimConfig,
         topology: Topology | None = None,
+        obs=None,
         faults=None,
         result_cache=None,
         workers: int | None = None,
@@ -151,6 +168,9 @@ class SimDriver:
     ):
         self.config = config
         self.arch = config.arch
+        # instrumentation hub (tpusim_torch.obs); the no-op default adds no
+        # stats keys and no per-command work
+        self.obs = obs if obs is not None else NULL_OBS
         # cooperative cancellation (tpusim_torch.guard.CancelToken | None):
         # checked at command grain here and inside every engine walk
         self.cancel = cancel
@@ -163,7 +183,7 @@ class SimDriver:
         # default disk dir) and the worker count of segment-parallel
         # pricing (None = $TPUSIM_WORKERS, else serial).  Both default
         # off: the healthy serial path is unchanged, key-identical.
-        self.result_cache = as_result_cache(result_cache)
+        self.result_cache = as_result_cache(result_cache, obs=self.obs)
         self.workers = workers
         # tpusim_torch.fastpath: pricing-backend request (None = auto; an
         # EXPLICIT request also stamps the fastpath_* stats block, so
@@ -183,6 +203,7 @@ class SimDriver:
         cfg = self.config
         arch = self.arch
         cancel = self.cancel
+        obs = self.obs
 
         n_devices = max(
             (int(pod.meta.get("num_devices", 0) or 0)),
@@ -212,7 +233,7 @@ class SimDriver:
             base_topo.with_faults(fault_view) if fault_view is not None
             else base_topo
         )
-        coll = make_collective_model(topo, arch.ici)
+        coll = make_collective_model(topo, arch.ici, obs=obs)
 
         # one engine per (clock_scale, hbm_scale) launch class: degraded
         # chips (straggler clock / HBM throttle) run their own; with no
@@ -223,7 +244,7 @@ class SimDriver:
             e = engines.get(scales)
             if e is None:
                 e = engines[scales] = CachedEngine(
-                    cfg, topology=topo, clock_scale=scales[0],
+                    cfg, topology=topo, obs=obs, clock_scale=scales[0],
                     hbm_scale=scales[1], result_cache=self.result_cache,
                     pricing_backend=self.pricing_backend, cancel=cancel,
                 )
@@ -242,11 +263,18 @@ class SimDriver:
             m = coll_models.get(v.signature)
             if m is None:
                 m = coll_models[v.signature] = make_collective_model(
-                    base_topo.with_faults(v), arch.ici
+                    base_topo.with_faults(v), arch.ici, obs=obs
                 )
             return m
 
-        report = SimReport(config_name=arch.name, num_devices=n_devices)
+        report = SimReport(
+            config_name=arch.name, num_devices=n_devices,
+            arch_config=arch, dvfs_scale=cfg.dvfs_scale,
+        )
+        # standalone command events for the pod-level sampler (collective
+        # and memcpy commands don't live in any module series)
+        obs_sampling = obs.enabled and obs.sample
+        cmd_events: list[tuple[str, float, float, float]] = []
 
         # kernel timing is per-module (SPMD: all devices run the same
         # program), so each (module, chip multipliers) launch class prices
@@ -264,9 +292,10 @@ class SimDriver:
                         f"command references unknown module {name!r}; "
                         f"trace has {sorted(pod.modules)}"
                     )
-                module_results[key] = engine_for(scales).run(
-                    pod.modules[name]
-                )
+                with obs.span("engine"):
+                    module_results[key] = engine_for(scales).run(
+                        pod.modules[name]
+                    )
             return module_results[key]
 
         # Cross-device collective rendezvous: the k-th standalone collective
@@ -299,13 +328,15 @@ class SimDriver:
         # the distinct classes price CONCURRENTLY up front; the stream
         # walk below stays serial and consumes the pre-priced results, so
         # every scalar accumulates in the exact serial order (bit-identical
-        # reports).  The parallel path disengages under windowed faults
-        # (multipliers depend on the issue cycle) and checkpoint/resume
-        # (classes past the barrier must not price).
+        # reports).  The parallel path disengages under obs (samplers are
+        # run-scoped), windowed faults (multipliers depend on the issue
+        # cycle) and checkpoint/resume (classes past the barrier must not
+        # price).
         workers = resolve_workers(self.workers)
         pool_segments = 0
         if (
             workers > 1
+            and not obs.enabled
             and not (fault_state is not None and fault_state.windowed)
             and not resume_k and not checkpoint_k
         ):
@@ -442,11 +473,16 @@ class SimDriver:
                     dma_free[dev_id] = end
                     stream_free[key] = end
                     report.memcpy_cycles += dur
+                    if obs_sampling and dur > 0:
+                        cmd_events.append(
+                            ("dma", start, end, float(cmd.nbytes))
+                        )
 
                 elif cmd.kind == CommandKind.COLLECTIVE and cmd.collective:
-                    secs = coll_for(max(ready, ici_free[dev_id])).seconds(
-                        cmd.collective, float(cmd.nbytes)
-                    )
+                    with obs.span("ici"):
+                        secs = coll_for(max(ready, ici_free[dev_id])).seconds(
+                            cmd.collective, float(cmd.nbytes)
+                        )
                     dur = arch.seconds_to_cycles(secs)
                     start = max(ready, ici_free[dev_id])
                     # rendezvous with the group's k-th collective: all
@@ -465,6 +501,10 @@ class SimDriver:
                     report.totals.collective_count += 1
                     report.totals.ici_bytes += cmd.nbytes
                     report.totals.collective_cycles += dur
+                    if obs_sampling and dur > 0:
+                        cmd_events.append(
+                            ("ici", start, end, float(cmd.nbytes))
+                        )
 
                 else:
                     # comm_init/destroy/group markers: logged no-ops
@@ -529,6 +569,42 @@ class SimDriver:
                 ),
             )
 
+        if obs_sampling:
+            # pod assembly: each kernel's module series at its launch
+            # offset (devices sum; exports normalize per device), plus
+            # the standalone command events no module series covers
+            with obs.span("sample"):
+                pod_samples = CycleWindowSampler(obs.window_cycles)
+                for k in report.kernels:
+                    s = k.result.samples
+                    if s is not None:
+                        pod_samples.add_series(
+                            s, offset=k.start_cycle,
+                            length=k.end_cycle - k.start_cycle,
+                        )
+                for unit, s0, s1, nbytes in cmd_events:
+                    if unit == "ici":
+                        pod_samples.add(unit, s0, s1, ici_bytes=nbytes)
+                    else:
+                        pod_samples.add(unit, s0, s1, hbm_bytes=nbytes)
+                if fault_state is not None and report.cycles > 0:
+                    # each active fault contributes its overlap cycles to
+                    # the "faults" lane; window_rows divides by the window
+                    # to recover the avg active-fault count per window
+                    # (the faults_active counter track)
+                    for f0, f1 in fault_state.intervals():
+                        s0 = max(f0, 0.0)
+                        s1 = min(f1, report.cycles)
+                        if s1 > s0:
+                            pod_samples.add(
+                                "faults", s0, s1, op_count=0.0
+                            )
+                report.samples = pod_samples
+                obs.counter_set("samples.windows", pod_samples.num_windows)
+                obs.counter_set(
+                    "samples.window_cycles", pod_samples.window_cycles
+                )
+
         report.wall_seconds = time.perf_counter() - t_start
         report.finalize(arch.clock_hz)
         # perf-layer accounting rides the report ONLY when the feature is
@@ -559,13 +635,14 @@ class SimDriver:
             # fastpath accounting rides the report ONLY when a backend was
             # explicitly requested or a durable compile store is active
             # (default runs stay key-identical).  The stamped name is what
-            # actually priced: under op-granularity checkpoint/resume the
-            # fastpath disengages and every run took the serial walk.
+            # actually priced: under obs instrumentation or op-granularity
+            # checkpoint/resume the fastpath disengages and every run took
+            # the serial walk.
             from tpusim_torch.fastpath.price import resolve_backend
             from tpusim_torch.perf.cache import compiled_cache_stats
 
             resolved = resolve_backend(self.pricing_backend)
-            if cfg.resume_op or cfg.checkpoint_op:
+            if obs.enabled or cfg.resume_op or cfg.checkpoint_op:
                 resolved = "serial"
             report.stats.set("fastpath_backend", resolved)
             report.stats.update(compiled_cache_stats(), prefix="fastpath_")
@@ -574,6 +651,11 @@ class SimDriver:
             # Counts describe the whole schedule (windowed faults
             # included), not just the cycle-0 snapshot.
             report.stats.update(fault_state.full_view().stats_dict())
+            worst_occ = getattr(obs, "counters", {}).get(
+                "ici.detailed.worst_link_occupancy"
+            )
+            if worst_occ is not None:
+                report.stats.set("faults_worst_link_occupancy", worst_occ)
         slice_topo = slice_topology_for(topo.num_chips, arch.ici)
         if slice_topo is not None and slice_topo.num_slices > 1:
             # dcn_* keys ride the report ONLY when a DCN fabric is
@@ -586,11 +668,16 @@ class SimDriver:
                 "dcn_slice_bandwidth": slice_topo.slice_bandwidth(),
             })
         if cfg.power_enabled:
-            preport = PowerModel(
-                arch.name, dvfs_scale=cfg.dvfs_scale
-            ).report(report.totals)
+            with obs.span("power"):
+                preport = PowerModel(
+                    arch.name, dvfs_scale=cfg.dvfs_scale
+                ).report(report.totals)
             report.stats.update(preport.stats_dict(), prefix="")
             report.power = preport
+        if obs.enabled:
+            # the obs keys ride the same greppable/JSON report; the
+            # disabled path adds none
+            report.stats.update(obs.stats_dict(), prefix="obs_")
         return report
 
 
@@ -600,6 +687,7 @@ def simulate_trace(
     arch: str | None = None,
     overlays: list[Any] | None = None,
     tuned: bool = True,
+    obs=None,
     faults=None,
     topology: Topology | None = None,
     lenient: bool = False,
@@ -612,7 +700,8 @@ def simulate_trace(
     """Load a trace dir, compose the config, replay.
 
     ``tuned=False`` skips the committed tuner overlay, as the golden cells
-    do.  With neither ``arch`` nor ``config`` the arch defaults to the
+    do.  ``obs`` is a :class:`tpusim_torch.obs.hub.Instrumentation` for
+    spans and cycle-window sampling (None = the no-op hub).  With neither ``arch`` nor ``config`` the arch defaults to the
     one the trace was captured on (v5e when the device kind is not a
     TPU).  ``faults`` is a fault schedule (FaultSchedule / path / JSON
     text / dict — the ``--faults`` flag) bound to ``topology`` (default:
@@ -637,6 +726,7 @@ def simulate_trace(
     # driver, so its counters are not split across two instances)
     from tpusim_torch.fastpath.store import as_compile_store
 
+    obs = obs if obs is not None else NULL_OBS
     compile_cache = as_compile_store(compile_cache)
     if validate:
         from tpusim_torch.analysis import (
@@ -646,22 +736,27 @@ def simulate_trace(
         strict = validate == "strict"
         # `lenient` decides whether salvage damage is fatal (strict
         # parse) or a warning
-        diags = analyze_trace_dir(
-            trace_path, arch=arch, overlays=overlays, faults=faults,
-            tuned=tuned, config=config, topology=topology, lenient=lenient,
-        )
+        with obs.span("validate"):
+            diags = analyze_trace_dir(
+                trace_path, arch=arch, overlays=overlays, faults=faults,
+                tuned=tuned, config=config, topology=topology,
+                lenient=lenient,
+            )
         if diags.has_errors or (
             strict and diags.count(Severity.WARNING) > 0
         ):
             raise ValidationError(diags, strict=strict)
-    pod = load_trace(trace_path, lenient=lenient)
+    with obs.span("parse"):
+        pod = load_trace(trace_path, lenient=lenient)
     if arch is None and config is None:
         kind = str(pod.meta.get("device_kind", ""))
         if kind:
             arch = detect_arch(kind).name
-    cfg = load_config(config, arch=arch, overlays=overlays, tuned=tuned)
-    return SimDriver(
-        cfg, topology=topology, faults=faults, result_cache=result_cache,
-        workers=workers, pricing_backend=pricing_backend,
-        compile_cache=compile_cache,
-    ).run(pod)
+    with obs.span("config"):
+        cfg = load_config(config, arch=arch, overlays=overlays, tuned=tuned)
+    with obs.span("simulate"):
+        return SimDriver(
+            cfg, topology=topology, obs=obs, faults=faults,
+            result_cache=result_cache, workers=workers,
+            pricing_backend=pricing_backend, compile_cache=compile_cache,
+        ).run(pod)

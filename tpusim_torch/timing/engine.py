@@ -22,8 +22,11 @@ clock, a throttled HBM) prices through the ``clock_scale``/``hbm_scale``
 multipliers, which the driver takes from the fault schedule's view at
 each kernel's issue cycle (:mod:`tpusim_torch.faults`).  A cancel token
 (:mod:`tpusim_torch.guard.cancel`) is checked every ``CHECK_EVERY_OPS``
-ops of the serial walk and between the fastpath's compiled blocks.  Not
-ported yet: the observability sampler (ROADMAP A10).
+ops of the serial walk and between the fastpath's compiled blocks.  An
+instrumentation hub (``obs=``, :mod:`tpusim_torch.obs`) takes the run to
+the serial walk, which feeds its cycle-window sampler per op (a loop
+body's series tiled once per trip) and reports the cost-model and ICI
+wall time once per walk.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ from dataclasses import dataclass, field
 from tpusim_torch.ici.collectives import CollectiveModel
 from tpusim_torch.ici.detailed import make_collective_model
 from tpusim_torch.ici.topology import Topology, torus_for
+from tpusim_torch.obs.hub import NULL_OBS
+from tpusim_torch.obs.sampler import CycleWindowSampler
 from tpusim_torch.ir import (
     Computation,
     FREE_OPCODES,
@@ -48,8 +53,18 @@ from tpusim_torch.trace.loop_analysis import infer_trip_count
 
 __all__ = ["Engine", "EngineResult", "TimelineEvent"]
 
-#: events a recorded timeline keeps per computation walk
+#: events a recorded timeline keeps per computation walk (the default of
+#: ``Engine(max_timeline_events=)``)
 MAX_TIMELINE_EVENTS = 100_000
+
+
+def _sub_sampler_like(parent: CycleWindowSampler) -> CycleWindowSampler:
+    """A fresh sampler for a control-flow body, inheriting the parent's
+    PINNED window (``--obs-window-cycles`` must shape intra-loop
+    structure too); auto parents get auto children."""
+    return CycleWindowSampler(
+        parent.window_cycles if parent.pinned else 0.0
+    )
 
 #: async ``-done`` bases whose wait counts as exposed collective time
 _COLLECTIVE_DONE_BASES = (
@@ -120,6 +135,10 @@ class EngineResult:
     )
     #: op spans of a run with ``record_timeline`` (serial walk only)
     timeline: list[TimelineEvent] = field(default_factory=list)
+    #: cycle-window activity series (tpusim_torch.obs.sampler) when the run
+    #: was instrumented; None otherwise.  Not merged/scaled — each module
+    #: run owns its own series, the driver composes them at launch offsets.
+    samples: object | None = None
 
     # -- derived -----------------------------------------------------------
 
@@ -352,6 +371,8 @@ class Engine:
         config: SimConfig,
         topology: Topology | None = None,
         record_timeline: bool = False,
+        max_timeline_events: int = MAX_TIMELINE_EVENTS,
+        obs=None,
         clock_scale: float = 1.0,
         hbm_scale: float = 1.0,
         pricing_backend: str | None = None,
@@ -370,6 +391,10 @@ class Engine:
         self._resolved_backend: str | None = None
         self.topology = topology
         self.record_timeline = record_timeline
+        self.max_timeline_events = max_timeline_events
+        # instrumentation hub (tpusim_torch.obs); the no-op default keeps
+        # the hot path to one cached boolean check per op
+        self.obs = obs if obs is not None else NULL_OBS
         # degraded-chip multipliers: a straggler runs its core/vmem at
         # clock_scale x nominal, a throttled HBM streams at hbm_scale x
         # nominal.  Cycles stay in NOMINAL units (the pod clock), so a
@@ -423,8 +448,11 @@ class Engine:
     def _run_serial(self, module: ModuleTrace) -> EngineResult:
         """The reference per-op schedule walk."""
         topo = self._topology_for(module)
-        coll = make_collective_model(topo, self.arch.ici)
+        coll = make_collective_model(topo, self.arch.ici, obs=self.obs)
         result = EngineResult()
+        sampler = None
+        if self.obs.enabled and self.obs.sample:
+            sampler = CycleWindowSampler(self.obs.window_cycles)
         spill_frac = 1.0
         if self.config.model_vmem_capacity:
             resident = _residency_of(module)
@@ -439,10 +467,11 @@ class Engine:
                 spill_frac = cap / resident
         end = self._run_computation(
             module, module.entry, t0=0.0, coll=coll, result=result, depth=0,
-            spill_frac=spill_frac,
+            spill_frac=spill_frac, sampler=sampler,
         )
         result.cycles = end
         result.seconds = self.arch.cycles_to_seconds(end)
+        result.samples = sampler
         return result
 
     # ------------------------------------------------------------------
@@ -456,6 +485,7 @@ class Engine:
         result: EngineResult,
         depth: int,
         spill_frac: float = 1.0,
+        sampler=None,
     ) -> float:
         """Walk one computation's schedule; returns the finish cycle."""
         if depth > 32:
@@ -483,6 +513,17 @@ class Engine:
         cancel = self.cancel
         if cancel is not None:
             from tpusim_torch.guard.cancel import CHECK_EVERY_OPS as _stride
+        # self-profiling accumulators (tpusim_torch.obs): wall seconds spent
+        # in the cost model and ICI pricing inside this walk, reported once
+        # at the end — per-op span objects would cost more than the ops
+        obs = self.obs
+        obs_on = obs.enabled
+        cost_wall = 0.0
+        cost_calls = 0
+        ici_wall = 0.0
+        ici_calls = 0
+        if obs_on:
+            from time import perf_counter as _pc
 
         for op_index, op in enumerate(comp.ops):
             if cancel is not None and op_index % _stride == 0:
@@ -506,12 +547,28 @@ class Engine:
                         trips = self.config.default_loop_trip_count
                         result.unknown_trip_loops += 1
                 sub = EngineResult()
+                sub_sampler = (
+                    _sub_sampler_like(sampler) if sampler is not None
+                    else None
+                )
                 body_end = self._run_computation(
                     module, module.computation(body_name), 0.0, coll, sub,
-                    depth + 1, spill_frac,
+                    depth + 1, spill_frac, sampler=sub_sampler,
                 )
                 result.merge_scaled(sub, float(trips))
                 dur = body_end * trips + a.op_overhead_cycles * (trips + 1)
+                if sub_sampler is not None and body_end > 0:
+                    # the timeline records one opaque while event; the
+                    # sampler sees through it — one body copy per trip,
+                    # clamped to the body's true duration and spaced by
+                    # the same per-trip overhead the duration carries
+                    sampler.add_series(
+                        sub_sampler,
+                        offset=t + a.op_overhead_cycles,
+                        repeats=int(trips),
+                        period=body_end + a.op_overhead_cycles,
+                        length=body_end,
+                    )
                 self._emit(result, op, t, t + dur, Unit.SCALAR)
                 t += dur
                 result.op_count += 1
@@ -519,19 +576,31 @@ class Engine:
             if base == "conditional" and op.called:
                 durs = []
                 subs = []
+                sub_samplers = []
                 for branch in op.called:
                     if branch not in module.computations:
                         continue
                     sub = EngineResult()
+                    ss = (
+                        _sub_sampler_like(sampler) if sampler is not None
+                        else None
+                    )
                     d = self._run_computation(
                         module, module.computation(branch), 0.0, coll, sub,
-                        depth + 1, spill_frac,
+                        depth + 1, spill_frac, sampler=ss,
                     )
                     durs.append(d)
                     subs.append(sub)
+                    sub_samplers.append(ss)
                 if durs:
                     worst = max(range(len(durs)), key=lambda i: durs[i])
                     result.merge_scaled(subs[worst], 1.0)
+                    if sub_samplers[worst] is not None:
+                        # the worst arm's series, as its duration is
+                        sampler.add_series(
+                            sub_samplers[worst], offset=t,
+                            length=durs[worst],
+                        )
                     dur = durs[worst] + a.op_overhead_cycles
                     if len(durs) > 1 and max(durs) > 1.5 * min(durs):
                         # the worst-case assumption is materially wrong for
@@ -543,11 +612,17 @@ class Engine:
                 continue
             if base == "call" and op.called:
                 sub = EngineResult()
+                sub_sampler = (
+                    _sub_sampler_like(sampler) if sampler is not None
+                    else None
+                )
                 d = self._run_computation(
                     module, module.computation(op.called[0]), 0.0, coll, sub,
-                    depth + 1, spill_frac,
+                    depth + 1, spill_frac, sampler=sub_sampler,
                 )
                 result.merge_scaled(sub, 1.0)
+                if sub_sampler is not None:
+                    sampler.add_series(sub_sampler, offset=t, length=d)
                 self._emit(result, op, t, t + d, Unit.SCALAR)
                 t += d
                 result.op_count += 1
@@ -572,7 +647,13 @@ class Engine:
                 result.op_count += 1
                 continue
 
-            cost = self.cost.op_cost(op, comp, module)
+            if obs_on:
+                _t = _pc()
+                cost = self.cost.op_cost(op, comp, module)
+                cost_wall += _pc() - _t
+                cost_calls += 1
+            else:
+                cost = self.cost.op_cost(op, comp, module)
 
             # ---- degraded chip: straggler clock / HBM throttle ---------
             # (free ops — parameter/tuple/bitcast — cost 0 and stay 0:
@@ -620,7 +701,13 @@ class Engine:
 
             # ---- collectives -------------------------------------------
             if op.is_collective:
-                seconds = coll.seconds(op.collective, cost.ici_bytes)
+                if obs_on:
+                    _t = _pc()
+                    seconds = coll.seconds(op.collective, cost.ici_bytes)
+                    ici_wall += _pc() - _t
+                    ici_calls += 1
+                else:
+                    seconds = coll.seconds(op.collective, cost.ici_bytes)
                 dur = a.seconds_to_cycles(seconds)
                 result.collective_count += 1
                 result.ici_bytes += cost.ici_bytes
@@ -633,10 +720,16 @@ class Engine:
                     pending[op.name] = start + dur
                     ici_free = start + dur
                     self._emit(result, op, start, start + dur, Unit.ICI)
+                    if sampler is not None:
+                        sampler.add("ici", start, start + dur,
+                                    ici_bytes=cost.ici_bytes)
                     t += a.op_overhead_cycles
                 else:
                     start = max(t, ici_free)
                     self._emit(result, op, start, start + dur, Unit.ICI)
+                    if sampler is not None:
+                        sampler.add("ici", start, start + dur,
+                                    ici_bytes=cost.ici_bytes)
                     t = start + dur
                     ici_free = t
                     result.exposed_collective_cycles += dur
@@ -667,6 +760,10 @@ class Engine:
                 result.opcode_cycles[base] += dur
                 result.hbm_bytes += cost.hbm_bytes
                 result.per_op_hbm_bytes[op.name] += cost.hbm_bytes
+                if sampler is not None:
+                    sampler.add("dma", start, start + dur,
+                                hbm_bytes=cost.hbm_bytes,
+                                vmem_bytes=cost.vmem_bytes)
                 # per-op aggregates see the exposure (queueing + latency +
                 # transfer); the timeline keeps the channel occupancy span
                 self._emit(
@@ -725,6 +822,15 @@ class Engine:
                 dur = new_dur
             if dur > 0:
                 self._emit(result, op, t, t + dur, cost.unit)
+                if sampler is not None:
+                    sampler.add(
+                        cost.unit.value, t, t + dur,
+                        hbm_bytes=cost.hbm_bytes,
+                        vmem_bytes=cost.vmem_bytes,
+                        flops=cost.flops,
+                        mxu_flops=cost.mxu_flops,
+                        transcendentals=cost.transcendentals,
+                    )
             t += dur
             result.op_count += 1
             result.flops += cost.flops
@@ -751,6 +857,11 @@ class Engine:
             result.unjoined_async += len(pending)
         for finish in pending.values():
             t = max(t, finish)
+        if obs_on:
+            if cost_calls:
+                obs.add_time("cost", cost_wall, cost_calls)
+            if ici_calls:
+                obs.add_time("ici", ici_wall, ici_calls)
         return t
 
     # ------------------------------------------------------------------
@@ -772,7 +883,7 @@ class Engine:
             result.per_op_async[op.name] = True
         if not self.record_timeline:
             return
-        if len(result.timeline) >= MAX_TIMELINE_EVENTS:
+        if len(result.timeline) >= self.max_timeline_events:
             return
         result.timeline.append(
             TimelineEvent(op.name, op.opcode, unit.value, start, end)
