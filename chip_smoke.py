@@ -79,8 +79,9 @@ non-zero and prints no result):
 8. the durable store on the card's host, the kernels' launch counters set
    to 0 just before each part and read just after, each part with its host
    seconds: (a) golden cells 1-5 through ``python -m tpusim_torch simulate
-   --compile-cache DIR``, cold then warm, each run a fresh process timed
-   inside the child from before ``load_trace`` to the end of simulate;
+   --compile-cache DIR``, all five cold in one fresh process, then all five
+   warm in another, each run timed inside the child from before
+   ``load_trace`` to the end of simulate;
    every report passes its golden without the ``fastpath_*`` keys, the
    warm run shows ``fastpath_store_hits`` >= 1, ``fastpath_compile_misses``
    0 and ``fastpath_ir_ops_built`` 0, and cold and warm stats are equal
@@ -96,7 +97,8 @@ non-zero and prints no result):
    ``vectorized``; (d) the ``cache`` CLI over (a)'s store: ``stats`` counts
    both tiers, ``verify`` finds no corrupt record, a record with one byte
    flipped is quarantined once, ``gc --quota`` leaves the store under the
-   quota; (e) phase 7 (e) again, each of its four legs in a fresh process;
+   quota; (e) phase 7 (e) again in (a)'s two fresh processes, the warm
+   cached leg in the second;
 9. compound-fault campaigns and the fleet twin on the card's host, each
    part with its host seconds and the kernels' launch counters set to 0
    just before each run and read just after: (a) ``run_campaign`` on the
@@ -108,11 +110,12 @@ non-zero and prints no result):
    floats within a relative 1e-12, the count of differing floats and the
    largest gap printed) and the smoke's contract checks; (b) ``python -m
    tpusim_torch campaign`` (the campaign smoke at 256 scenarios a slice)
-   and ``fleet`` ((d)'s fleet) uninterrupted in fresh processes, then
+   and ``fleet`` ((d)'s fleet) uninterrupted through the CLI, then
    cancelled mid-run in this process once half their records are
    journaled (the run's ``CancelToken`` tripped on the journaled count)
    and by the CLI's ``--max-wall-s`` (exit 3), each then ``--resume``-d
-   through the CLI in a fresh process: the report equals the
+   through the CLI in a fresh process (the four resumes in one): the
+   report equals the
    uninterrupted one by bytes, the journaled work resumed, not priced; (c) the campaign smoke's fault model on a
    v5p 4x4x4 pod, 1024 scenarios, under the three legs: reports equal by
    bytes, ``scan_rows`` launches and lanes per launch, ``BatchStats``;
@@ -129,9 +132,9 @@ non-zero and prints no result):
    columns, ``dp4xtp2`` with 14 collectives per chip, a recommendation); a
    warm pass through the same result cache walks no module and gives the
    same bytes; golden cells 1-5 still pass after the sweep; (b) ``python
-   -m tpusim_torch advise`` on the same spec in fresh processes, cold and
-   warm through one ``--result-cache`` directory: both ``--json`` reports
-   equal by bytes and to (a)'s; (c) a v5p-64 sweep (``dp``, ``tp``,
+   -m tpusim_torch advise`` on the same spec, cold through the CLI's entry
+   function and warm in a fresh process, through one ``--result-cache``
+   directory: both ``--json`` reports equal by bytes and to (a)'s; (c) a v5p-64 sweep (``dp``, ``tp``,
    ``dp_tp``, ``sp``, ``pp`` and the pinned ``dp4xtp4xpp4``, 10 cells)
    cold, warm and with 4 pricing workers, reports equal by bytes, the
    warm pass walking no module, with per-cell seconds and, in the cold
@@ -175,7 +178,7 @@ non-zero and prints no result):
    kernels' counters set to 0 just before and read just after (they must
    stay 0): (a) ``capture W DIR`` through the CLI, timed (the 64-device
    steps over meta tensors, their ``--snapshot`` refused; ``llama7b`` and
-   ``llama7b_tp8dp8`` at 8 of their 32 layers, :data:`CAPTURE_DEPTH`); (b) the
+   ``llama7b_tp8dp8`` at 4 of their 32 layers, :data:`CAPTURE_DEPTH`); (b) the
    concrete ones' HLO on the card equals by bytes the CPU's; (c) each
    one's check — the card against the CPU (``llama7b`` at 2 layers, seq
    256, norm-wise; the ResNets at batch 2, the forward in float32 and the
@@ -231,10 +234,34 @@ non-zero and prints no result):
    --counters``, ``aerial --power --gz``, ``bbv --out``, ``occupancy`` and
    a scripted ``debug`` on ``matmul_512`` at v5e and the llama module at
    v5p, each output the CPU's (:data:`TOOL_DIGESTS`).
+16. streaming pricing and the offline harness on the card's host, the
+   kernels' counters set to 0 just before each part run in this process
+   and read just after (they must stay 0), (a)'s fresh processes and (b)
+   and (c) in the background while (d) runs: (a) a synthetic module just
+   over 64 MiB (``tests/test_fastpath.py``'s generator,
+   :data:`STREAM_COMPS` computations, 91 MB) simulated in fresh
+   processes, streamed by the default threshold (``serial``;
+   ``vectorized`` with every default, whose peak RSS over its import
+   floor must stay below 0.35 x the file; ``vectorized`` with a cold
+   compile store: a lean ``.cmod``, at most 8 computations parsed, no
+   per-op aggregates) and in memory (``serial``, ``vectorized``), then
+   warm from the store in this process (0 IR ops built), all six stats
+   equal; (b) ``derive-arch`` ==
+   ``configs/v5p.derived.flags`` by bytes; (c) ``correl-regen`` ==
+   ``reports/correl_ops.json`` and ``async_observable.json``, the refined
+   overlay's sha256 the CPU's (:data:`REFINE_DIGEST`), the full ``loo``
+   == ``reports/loo.json`` within 1e-3 on its rounded fields (model and
+   package versions masked); (d) ``run -B ubench -C v5e --capture`` over
+   a trace root seeded with phases 11, 12 and 14's captures: its capture
+   job captures ``flash_attention_pallas`` on the card in a fresh process
+   (the module phase 4's by bytes), every simulate job prints the exit
+   sentinel; ``stats-diff`` of the tree against itself and against a copy
+   with one stat changed (exit 1 under ``--check``, naming the stat).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, the one before that the kernels' JSON
-record, the one before that phase 15's (``obs: {...}``), before it
+record, the one before that phase 16's (``harness: {...}``), phase 15's
+(``obs: {...}``), before it
 phase 14's (``ubench: {...}``), phase 13's (``models: {...}``), phase 12's (``multidevice: {...}``),
 phase 11's (``lowered: {...}``) and phase 10's (``advisor: {...}``).  Needs
 no network and one card; exits non-zero without a CUDA device or without
@@ -1285,14 +1312,16 @@ def degraded_pods(card_name: str, work: Path) -> dict:
 
 
 #: phase 8: the child each fresh-process run executes (``python -c``): it
-#: runs one CLI command and writes, to the JSON path it is given, its host
-#: seconds from the first ``load_trace`` (or from the CLI's start, when the
-#: command loads no trace through the driver) to the CLI's return, the
-#: engine walks it made, every garbage-collection pause and its kernels'
-#: launch counts.  Arguments: repo root, output path, CLI arguments.
+#: runs CLI commands one after another and writes, to the JSON path it is
+#: given, a record per command: its host seconds from its first
+#: ``load_trace`` (or from the CLI's start, when the command loads no
+#: trace through the driver) to the CLI's return, the engine walks it
+#: made, every garbage-collection pause, its kernels' launch counts and
+#: what it printed.  Arguments: repo root, output path, the commands as a
+#: JSON list of argument lists.
 FRESH_CHILD = r"""
-import gc, json, sys, time
-repo, out_path, *argv = sys.argv[1:]
+import contextlib, gc, io, json, sys, time
+repo, out_path, commands = sys.argv[1:]
 sys.path.insert(0, repo)
 import tpusim_torch.sim.driver as driver
 from tpusim_torch.__main__ import main
@@ -1317,42 +1346,64 @@ def on_gc(phase, info):
         pauses.append([info["generation"], time.perf_counter() - marks["gc"],
                        info["collected"]])
 gc.callbacks.append(on_gc)
-t0 = time.perf_counter()
-rc = main(argv)
-t1 = time.perf_counter()
+records = []
+for argv in json.loads(commands):
+    marks.pop("load", None)
+    pauses.clear()
+    walks[0] = 0
+    flash_attention.reset_launch_count()
+    scan_rows.reset_launch_count()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    t1 = time.perf_counter()
+    records.append({
+        "rc": rc, "host_s": t1 - marks.get("load", t0), "cli_s": t1 - t0,
+        "walks": walks[0], "gc": list(pauses), "stdout": out.getvalue(),
+        "launches": {"flash_attention": flash_attention.launch_count(),
+                     "scan_rows": scan_rows.launch_count()}})
+    if rc != 0:
+        break
 gc.callbacks.remove(on_gc)
 with open(out_path, "w") as f:
-    json.dump({"rc": rc, "host_s": t1 - marks.get("load", t0),
-               "cli_s": t1 - t0, "walks": walks[0], "gc": pauses,
-               "launches": {"flash_attention": flash_attention.launch_count(),
-                            "scan_rows": scan_rows.launch_count()}}, f)
+    json.dump(records, f)
 """
 #: phase 8 (c): chip-degradation states of warm_states and their seed
 WARM_STATES = 64
 WARM_SEED = 19
 
 
-def fresh_run(work: Path, argv: list[str], tag: str) -> tuple[dict, str]:
-    """One CLI command in a fresh process (:data:`FRESH_CHILD`), with the
-    committed tuner overlays off (``$TPUSIM_TUNED_DIR`` an empty dir, as
-    the golden cells are priced) and no inherited compile store.  Returns
-    the child's record and its standard output; raises when it fails."""
+def fresh_run(work: Path, commands: list[list[str]], tag: str,
+              untuned: bool = True) -> list[dict]:
+    """CLI commands one after another in one fresh process
+    (:data:`FRESH_CHILD`), with no inherited compile store and, when
+    ``untuned``, the committed tuner overlays off (``$TPUSIM_TUNED_DIR``
+    an empty dir, as the golden cells are priced).  Returns the child's
+    record of each command; raises when one fails."""
     out = work / f"fresh_{tag}.json"
-    tuned = work / "no_tuned_overlays"
-    tuned.mkdir(exist_ok=True)
-    env = dict(os.environ, TPUSIM_TUNED_DIR=str(tuned))
+    env = dict(os.environ)
+    if untuned:
+        tuned = work / "no_tuned_overlays"
+        tuned.mkdir(exist_ok=True)
+        env["TPUSIM_TUNED_DIR"] = str(tuned)
     env.pop("TPUSIM_COMPILE_CACHE", None)
     proc = run_process(
-        [sys.executable, "-c", FRESH_CHILD, str(REPO), str(out), *argv],
+        [sys.executable, "-c", FRESH_CHILD, str(REPO), str(out),
+         json.dumps(commands)],
         capture_output=True, text=True, env=env, timeout=600)
     if proc.returncode != 0:
-        raise RuntimeError(f"fresh tpusim_torch {' '.join(argv)} exited "
+        raise RuntimeError(f"fresh process {tag} exited "
                            f"{proc.returncode}: {proc.stderr[-2000:]}")
-    rec = json.loads(out.read_text())
-    if rec["rc"] != 0:
-        raise RuntimeError(f"fresh tpusim_torch {' '.join(argv)}: rc "
-                           f"{rec['rc']}: {proc.stderr[-2000:]}")
-    return rec, proc.stdout
+    recs = json.loads(out.read_text())
+    for argv, rec in zip(commands, recs):
+        if rec["rc"] != 0:
+            raise RuntimeError(f"fresh tpusim_torch {' '.join(argv)}: rc "
+                               f"{rec['rc']}: {proc.stderr[-2000:]}")
+    if len(recs) != len(commands):
+        raise RuntimeError(f"fresh process {tag} ran {len(recs)} of "
+                           f"{len(commands)} commands")
+    return recs
 
 
 def cell_flags(overlays: list) -> list[str]:
@@ -1368,21 +1419,62 @@ def cell_flags(overlays: list) -> list[str]:
     return flags
 
 
-def store_cells(card_name: str, work: Path, store: Path,
+#: phase 8 (e): phase 7 (e)'s trace sweep, and its legs' extra flags
+#: (the cached legs' directory is filled in per run)
+SWEEP_ARGV = ["faults", "--arch", "v5p", "--chips", "8", "--trace",
+              str(FIXTURES / "llama_tiny_tp2dp2")]
+SWEEP_LEGS = {"e_serial": [], "e_pooled": ["--workers", str(POOL_WORKERS)],
+              "e_cached_cold": ["--result-cache"],
+              "e_cached_warm": ["--result-cache"]}
+
+
+def fresh_processes(work: Path, store: Path, cells=GOLDEN_CELLS) -> dict:
+    """Phase 8 (a) and (e)'s two fresh processes: the golden cells
+    through ``simulate --compile-cache``, all cold (the store empty, so
+    each cell compiles and publishes its own record), then phase 7 (e)'s
+    sweep serial, pooled and cached cold (an empty result-cache
+    directory); and, in the second, the cells warm (every cell priced
+    from the records, with no compiled state in memory) and the sweep
+    cached warm (no result in memory, so every one comes from the disk
+    tier).  Returns the child's record of each command, by (golden, run)
+    and by sweep leg."""
+    def cell(run):
+        return [
+            ["simulate", str(FIXTURES / fixture), "--arch", arch,
+             *cell_flags(overlays), "--compile-cache", str(store),
+             "--json", str(work / f"{golden}_{run}.json")]
+            for fixture, arch, overlays, golden in cells]
+
+    def sweep(label):
+        extra = SWEEP_LEGS[label]
+        if extra == ["--result-cache"]:
+            extra = extra + [str(work / "fresh_result_cache")]
+        return [*SWEEP_ARGV, "--json",
+                str(work / f"fresh_{label}_report.json"), *extra]
+
+    recs = {}
+    for run, legs in (("cold", ("e_serial", "e_pooled", "e_cached_cold")),
+                      ("warm", ("e_cached_warm",))):
+        keys = [(golden, run) for *_, golden in cells] + list(legs)
+        got = fresh_run(work, cell(run) + [sweep(label) for label in legs],
+                        run)
+        recs.update(zip(keys, got))
+    return recs
+
+
+def store_cells(card_name: str, work: Path, recs: dict,
                 cells=GOLDEN_CELLS) -> dict:
-    """Phase 8 (a) and (b): each golden cell through ``simulate
-    --compile-cache`` cold then warm, each run a fresh process.  Returns
-    the host seconds by (golden, run) and the cold llama runs' GC pauses
-    of :data:`GC_PAUSE_S` or more."""
+    """Phase 8 (a) and (b): the golden cells' cold and warm runs of
+    :func:`fresh_processes` — each report passes its golden, warm shows a
+    store hit, no compile and no IR op built, and cold and warm stats are
+    equal.  Returns the host seconds by (golden, run) and the cold llama
+    runs' GC pauses of :data:`GC_PAUSE_S` or more."""
     seconds, pauses = {}, {}
     for fixture, arch, overlays, golden in cells:
         runs = {}
         for run in ("cold", "warm"):
             path = work / f"{golden}_{run}.json"
-            rec, _ = fresh_run(work, [
-                "simulate", str(FIXTURES / fixture), "--arch", arch,
-                *cell_flags(overlays), "--compile-cache", str(store),
-                "--json", str(path)], f"{golden}_{run}")
+            rec = recs[(golden, run)]
             stats = json.loads(path.read_text())
             errors = compare_golden(golden, without_fastpath(stats))
             if errors:
@@ -1409,7 +1501,7 @@ def store_cells(card_name: str, work: Path, store: Path,
               f"cold store_writes {runs['cold']['fastpath_store_writes']}, "
               f"ir_ops_built {runs['cold']['fastpath_ir_ops_built']}; warm "
               f"store_hits {warm['fastpath_store_hits']}, compile_misses 0, "
-              f"ir_ops_built 0; host s from load_trace, fresh process: cold "
+              f"ir_ops_built 0; host s from load_trace, fresh processes: cold "
               f"{seconds[(golden, 'cold')]:.4f}, warm "
               f"{seconds[(golden, 'warm')]:.4f} (card: {card_name})")
     for golden, found in pauses.items():
@@ -1583,27 +1675,22 @@ def cache_cli(card_name: str, store: Path) -> dict:
             "left": left}
 
 
-def fresh_sweeps(card_name: str, work: Path) -> dict:
-    """Phase 8 (e): phase 7 (e)'s four legs, each in a fresh process;
-    reports equal by bytes, the warm cached leg pricing nothing."""
-    argv = ["faults", "--arch", "v5p", "--chips", "8", "--trace",
-            str(FIXTURES / "llama_tiny_tp2dp2")]
-    cached = ["--result-cache", str(work / "fresh_result_cache")]
-    legs = {"e_serial": [], "e_pooled": ["--workers", str(POOL_WORKERS)],
-            "e_cached_cold": cached, "e_cached_warm": cached}
-    out, blobs = {}, {}
-    for label, extra in legs.items():
-        path = work / f"fresh_{label}_report.json"
-        rec, _ = fresh_run(work, [*argv, "--json", str(path), *extra], label)
-        blobs[label] = path.read_bytes()
-        out[label] = rec
+def fresh_sweeps(card_name: str, work: Path, recs: dict) -> dict:
+    """Phase 8 (e): phase 7 (e)'s four legs in the fresh processes of
+    :func:`fresh_processes` (the warm cached leg in the second, which has
+    no result in memory); reports equal by bytes, the warm cached leg
+    pricing nothing."""
+    out = {label: recs[label] for label in SWEEP_LEGS}
+    blobs = {label: (work / f"fresh_{label}_report.json").read_bytes()
+             for label in SWEEP_LEGS}
     if len(set(blobs.values())) != 1:
         raise AssertionError("fresh-process sweep reports differ")
     walks = {label: rec["walks"] for label, rec in out.items()}
     if walks["e_cached_cold"] < 1 or walks["e_cached_warm"] != 0:
         raise AssertionError(f"fresh-process engine walks {walks}")
-    print(f"  (e) faults --trace llama_tiny_tp2dp2, each leg a fresh "
-          f"process: reports equal by bytes; engine walks {walks}; host s "
+    print(f"  (e) faults --trace llama_tiny_tp2dp2 in fresh processes, the "
+          f"warm cached leg in the second: reports equal by bytes; engine "
+          f"walks {walks}; host s "
           f"inside the child " + " / ".join(
               f"{label[2:]} {rec['cli_s']:.4f}" for label, rec in out.items())
           + f" (card: {card_name})")
@@ -1615,13 +1702,18 @@ def durable_store(card_name: str, work: Path) -> dict:
     launch counters set to 0 just before each part and read just after.
     Raises on any failure."""
     store = work / "store"
-    out, launches = {}, {}
+    out, launches, recs = {}, {}, {}
+
+    def part_a():
+        recs.update(fresh_processes(work, store))
+        return store_cells(card_name, work, recs)
+
     for part, fn in (
-            ("a", lambda: store_cells(card_name, work, store)),
+            ("a", part_a),
             ("b", lambda: parent_gc_pauses(card_name)),
             ("c", lambda: warm_states_phase(card_name, work)),
             ("d", lambda: cache_cli(card_name, store)),
-            ("e", lambda: fresh_sweeps(card_name, work))):
+            ("e", lambda: fresh_sweeps(card_name, work, recs))):
         for *_, reset in KERNELS:
             reset()
         out[part] = fn()
@@ -1908,6 +2000,16 @@ def smokes(card_name: str) -> dict:
     return out
 
 
+def cli_here(argv: list[str]) -> int:
+    """``tpusim_torch ARGV`` through the CLI's entry function in this
+    process; returns its exit code (0 or 3, a cancelled run)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli(argv)
+    if rc not in (0, 3):
+        raise RuntimeError(f"tpusim_torch {' '.join(argv)} exited {rc}")
+    return rc
+
+
 def cli_process(argv: list[str], timeout: float = 600) -> tuple[int, str]:
     """``python -m tpusim_torch ARGV`` in a fresh process."""
     proc = run_process([sys.executable, "-m", "tpusim_torch", *argv],
@@ -1958,31 +2060,14 @@ def cancel_after_journaled(kind: str, count: int, token):
         Journal.append = append
 
 
-def resume_cli(cmd: str, spec_path: Path, trace: str, part: Path,
-               full: Path, kind: str, resumed_re: str) -> int:
-    """``--resume`` of a cancelled run in a fresh process: every journaled
-    record is resumed, nothing journaled is priced again and the report
-    equals the uninterrupted one by bytes.  Returns the records
-    resumed."""
-    done = journaled(part / "journal.jsonl", kind)
-    rc, text = cli_process([cmd, str(spec_path), "--trace", trace,
-                            "--out", str(part), "--resume"])
-    resumed = int(re.search(resumed_re, text).group(1))
-    if rc != 0 or resumed != done:
-        raise AssertionError(f"{cmd} --resume: rc {rc}, {resumed} "
-                             f"resumed of {done} journaled")
-    if (part / "report.json").read_bytes() != \
-            (full / "report.json").read_bytes():
-        raise AssertionError(f"{cmd}: resumed report differs")
-    return resumed
-
-
 def cli_resume(card_name: str, work: Path) -> dict:
     """Phase 9 (b): ``campaign`` and ``fleet`` uninterrupted through the
-    CLI in a fresh process, then cancelled two ways and resumed with
-    ``--resume`` through the CLI in a fresh process, where the resumed
-    report must equal the uninterrupted one by bytes, every journaled
-    record be resumed and none be priced again:
+    CLI's entry function, then cancelled two ways and resumed with
+    ``--resume`` through the CLI in a fresh process (a resume reads only
+    what the journal holds, no state of the process that wrote it; the
+    four resumes run one after another in one fresh process), where the
+    resumed report must equal the uninterrupted one by bytes, every
+    journaled record be resumed and none be priced again:
 
     * mid-run: in this process, with the run's ``CancelToken`` tripped
       once half the uninterrupted run's records (at least one) are
@@ -1999,7 +2084,7 @@ def cli_resume(card_name: str, work: Path) -> dict:
     from tpusim_torch.guard.cancel import CancelToken, OperationCancelled
 
     trace = str(FIXTURES / "llama_tiny_tp2dp2")
-    out = {}
+    out, resumes = {}, []
     for cmd, spec, run, kind, resumed_re in (
             ("campaign", dict(CAMPAIGN_SMOKE_SPEC,
                               scenarios=CLI_CAMPAIGN_SCENARIOS),
@@ -2010,8 +2095,7 @@ def cli_resume(card_name: str, work: Path) -> dict:
         spec_path.write_text(json.dumps(spec))
         full = work / f"{cmd}_full"
         t0 = time.perf_counter()
-        cli_process([cmd, str(spec_path), "--trace", trace,
-                     "--out", str(full)])
+        cli_here([cmd, str(spec_path), "--trace", trace, "--out", str(full)])
         full_s = time.perf_counter() - t0
         total = journaled(full / "journal.jsonl", kind)
         count = max(1, total // 2)
@@ -2031,25 +2115,40 @@ def cli_resume(card_name: str, work: Path) -> dict:
             raise AssertionError(f"{cmd}: cancelled with {done} of {total} "
                                  f"{kind} records journaled (asked "
                                  f"{count})")
-        resumed = resume_cli(cmd, spec_path, trace, part, full, kind,
-                             resumed_re)
         wall = work / f"{cmd}_wall"
-        rc, _ = cli_process([cmd, str(spec_path), "--trace", trace,
-                             "--out", str(wall), "--max-wall-s",
-                             repr(CLI_MAX_WALL_S)])
+        rc = cli_here([cmd, str(spec_path), "--trace", trace,
+                       "--out", str(wall), "--max-wall-s",
+                       repr(CLI_MAX_WALL_S)])
         if rc != 3:
             raise AssertionError(f"{cmd} --max-wall-s {CLI_MAX_WALL_S}: "
                                  f"exit {rc}, not 3")
         wall_done = journaled(wall / "journal.jsonl", kind)
-        resume_cli(cmd, spec_path, trace, wall, full, kind, resumed_re)
-        print(f"  (b) {cmd} CLI: uninterrupted {full_s:.2f} s, {total} "
-              f"{kind} records; cancelled after {done} journaled, "
-              f"--resume: {resumed} resumed, report equal by bytes; "
-              f"--max-wall-s {CLI_MAX_WALL_S}: exit 3 with {wall_done} "
-              f"journaled, --resume: report equal by bytes "
-              f"(card: {card_name})")
-        out[cmd] = {"total": total, "resumed": resumed,
-                    "max_wall_s_journaled": wall_done}
+        for cut, journaled_n in ((part, done), (wall, wall_done)):
+            resumes.append((cmd, cut, full, journaled_n, resumed_re))
+        out[cmd] = {"total": total, "resumed": done,
+                    "max_wall_s_journaled": wall_done, "full_s": full_s}
+    recs = fresh_run(work, [
+        [cmd, str(work / f"{cmd}_spec.json"), "--trace", trace, "--out",
+         str(cut), "--resume"] for cmd, cut, *_ in resumes], "resumes",
+        untuned=False)
+    for (cmd, cut, full, journaled_n, resumed_re), rec in zip(resumes, recs):
+        resumed = int(re.search(resumed_re, rec["stdout"]).group(1))
+        if resumed != journaled_n:
+            raise AssertionError(f"{cmd} --resume of {cut.name}: {resumed} "
+                                 f"resumed of {journaled_n} journaled")
+        if (cut / "report.json").read_bytes() != \
+                (full / "report.json").read_bytes():
+            raise AssertionError(f"{cmd}: the report resumed from "
+                                 f"{cut.name} differs")
+    for cmd, o in out.items():
+        kind = "scenario" if cmd == "campaign" else "state"
+        print(f"  (b) {cmd} CLI: uninterrupted {o.pop('full_s'):.2f} s, "
+              f"{o['total']} {kind} records; cancelled after "
+              f"{o['resumed']} journaled, --resume: {o['resumed']} "
+              f"resumed, report equal by bytes; --max-wall-s "
+              f"{CLI_MAX_WALL_S}: exit 3 with {o['max_wall_s_journaled']} "
+              f"journaled, --resume: report equal by bytes (card: "
+              f"{card_name})")
     return out
 
 
@@ -2231,9 +2330,11 @@ def advise_smoke(card_name: str) -> dict:
 
 
 def advise_cli(card_name: str, work: Path, doc: dict) -> dict:
-    """Phase 10 (b): ``python -m tpusim_torch advise`` in fresh processes,
-    cold and then warm through one disk result cache: both JSON reports
-    equal by bytes, and equal to (a)'s document."""
+    """Phase 10 (b): ``advise`` through the CLI, cold (its entry function
+    in this process, into an empty disk result cache) and then warm in a
+    fresh process, whose results can come from nothing but that disk
+    tier: both JSON reports equal by bytes, and equal to (a)'s
+    document."""
     spec = work / "advise_spec.json"
     spec.write_text(json.dumps(ADVISE_SMOKE_SPEC))
     cache = work / "advise_rc"
@@ -2242,11 +2343,11 @@ def advise_cli(card_name: str, work: Path, doc: dict) -> dict:
         path = work / f"advise_{leg}.json"
         for *_, reset in KERNELS:
             reset()
+        argv = ["advise", str(spec), "--trace",
+                str(FIXTURES / "llama_tiny_tp2dp2"),
+                "--result-cache", str(cache), "--json", str(path)]
         t0 = time.perf_counter()
-        _, text = cli_process(["advise", str(spec), "--trace",
-                               str(FIXTURES / "llama_tiny_tp2dp2"),
-                               "--result-cache", str(cache),
-                               "--json", str(path)])
+        text = run_cli(argv) if leg == "cold" else cli_process(argv)[1]
         out[leg] = {"s": time.perf_counter() - t0,
                     "bytes": path.read_bytes(),
                     "stats": [ln.strip() for ln in text.splitlines()
@@ -2256,7 +2357,8 @@ def advise_cli(card_name: str, work: Path, doc: dict) -> dict:
     want = (json.dumps(doc, indent=2, sort_keys=True) + "\n").encode()
     if not out["cold"]["bytes"] == out["warm"]["bytes"] == want:
         raise AssertionError("advise CLI: cold, warm and (a)'s reports differ")
-    print(f"  (b) advise CLI in fresh processes: cold "
+    print(f"  (b) advise CLI, cold in this process, warm in a fresh one: "
+          f"cold "
           f"{out['cold']['s']:.2f} s / warm {out['warm']['s']:.2f} s; "
           f"reports equal by bytes and to (a)'s; "
           f"{'; '.join(out['warm']['stats'])} (card: {card_name})")
@@ -2770,12 +2872,12 @@ def multi_device(card_name: str, work: Path) -> dict:
 MODELS = ("llama_tiny_train", "llama7b", "moe_ep8_train", "pipeline_pp4",
           "resnet50", "resnet50_train", "resnet50_dp8", "llama7b_tp8dp8",
           "llama7b_aot_v5p64")
-#: phase 13 (a, b, d, e): the depth the unrolled 7B captures run at — 8 of
+#: phase 13 (a, b, d, e): the depth the unrolled 7B captures run at — 4 of
 #: their 32 layers at full width (every layer lowers to the same ops, and
 #: the capture and its CPU re-capture take time in proportion to depth:
-#: 32 layers of ``llama7b`` took 41 s each way, the script's largest
-#: single cost; the checks of (c) keep their own configurations)
-CAPTURE_DEPTH = {"llama7b": dict(layers=8), "llama7b_tp8dp8": dict(layers=8)}
+#: 32 layers of ``llama7b`` took 41 s each way, 8 layers 9.6-23.4 s on the
+#: card's hosts; the checks of (c) keep their own configurations)
+CAPTURE_DEPTH = {"llama7b": dict(layers=4), "llama7b_tp8dp8": dict(layers=4)}
 #: phase 13 (c): the small configuration the 64-way step's ranks run at
 #: on the card (7B's structure cut to size, as tests/test_torch_models.py)
 LLAMA_SMALL = dict(vocab=512, dim=256, layers=2, heads=8, kv_heads=8,
@@ -3329,7 +3431,8 @@ def ubench_lint_llama(card_name: str) -> dict:
     return {"host_s": out}
 
 
-def ubench_workloads(card_name: str, work: Path) -> dict:
+def ubench_workloads(card_name: str, work: Path,
+                     keep: Path | None = None) -> dict:
     """Phase 14: each ``ubench`` workload the port took last at its
     registered width — (a) ``capture W DIR --launches 2`` through the
     CLI, timed; (b) the card's HLO equals by bytes the text lowered from
@@ -3340,7 +3443,8 @@ def ubench_workloads(card_name: str, work: Path) -> dict:
     the median step on the card and the peak of
     ``torch.cuda.max_memory_allocated``; then (f) the matmul_512 fixture
     (:func:`ubench_matmul_512`) and (g) the analyzer on the card's host
-    (:func:`ubench_lint_llama`); no custom kernel launched."""
+    (:func:`ubench_lint_llama`); no custom kernel launched.  Each trace
+    is copied to ``keep``, when given, before it is removed."""
     for *_, reset in KERNELS:
         reset()
     t_phase = time.perf_counter()
@@ -3392,6 +3496,8 @@ def ubench_workloads(card_name: str, work: Path) -> dict:
               f"{row['peak_mem_bytes'] / 2**30:.3f} GiB on {card_name}",
               flush=True)
         del module, args
+        if keep is not None:
+            keep_traces(work, (name,), keep)
         shutil.rmtree(trace, ignore_errors=True)
     matmul_512 = ubench_matmul_512(card_name, work)
     lint = ubench_lint_llama(card_name)
@@ -3783,6 +3889,551 @@ def observability(card_name: str, work: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: streaming pricing and the offline harness on the card's host
+# ---------------------------------------------------------------------------
+
+#: phase 16 (a): the synthetic module of ``tests/test_fastpath.py``'s RSS
+#: test (one called computation is about 0.71 MB of text): 96 computations
+#: of 1000 ops make a file just over the 64 MiB streaming threshold (68.3
+#: MB), 128 one of 91.1 MB.  What streaming keeps is ~150 B an op (the
+#: float64 columns and index tables) over a fixed few MiB (the parse of
+#: one computation, allocator slack), so the bound's margin grows with the
+#: file: at 96 it read within the fixed part's noise of the bound; at 128
+#: it added 19.18-22.65 MiB against 30.4 MiB on the card's host (NVIDIA
+#: H100 80GB HBM3, 700.00 W; PERF.md)
+STREAM_COMPS = 128
+STREAM_OPS = 1000
+#: phase 16 (a): the size the module must reach to stream by the default
+#: threshold (``STREAM_THRESHOLD_BYTES``), and the environment the
+#: streamed legs add (none: the default threshold decides)
+MIN_STREAM_BYTES = 64 * 1024 * 1024
+STREAM_ENV: dict = {}
+#: phase 16 (a): the reference's bound on what streaming adds to the RSS
+#: of a fresh process, as a fraction of the module file's size
+STREAM_RSS_FRACTION = 0.35
+#: phase 16 (a): StreamingModuleTrace's parse cap, which ``load_trace``
+#: leaves at its default
+STREAM_PARSED_CAP = 8
+#: phase 16 (a): a fresh process that simulates the streamed module with
+#: every default but, when a directory is given, a durable compile store
+#: (the cold store leg), and records its RSS: its floor is the high-water
+#: mark (``ru_maxrss``) after the imports that pricing needs, its peak the
+#: mark after ``simulate_trace``.  Arguments: repo root, trace dir, output
+#: path, store dir or "".
+STREAM_CHILD = r"""
+import json, resource, sys, time
+repo, trace, out_path, store = sys.argv[1:]
+sys.path.insert(0, repo)
+import torch
+import tpusim_torch.fastpath.compile
+import tpusim_torch.fastpath.price
+import tpusim_torch.perf.cache
+import tpusim_torch.sim.driver as driver
+import tpusim_torch.trace.lazy
+
+def hwm_kb():
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+
+pods = []
+load = driver.load_trace
+def keep(*a, **k):
+    pods.append(load(*a, **k))
+    return pods[-1]
+driver.load_trace = keep
+floor_kb = hwm_kb()
+t0 = time.perf_counter()
+report = driver.simulate_trace(trace, arch="v5e", tuned=False,
+                               compile_cache=store or None)
+seconds = time.perf_counter() - t0
+[module] = pods[0].modules.values()
+with open(out_path, "w") as f:
+    json.dump({"floor_kb": floor_kb, "seconds": seconds,
+               "peak_kb": hwm_kb(), "stats": report.stats.values,
+               "per_op": len(report.totals.per_op_cycles),
+               "module": type(module).__name__,
+               "parsed": module.parsed_count}, f)
+"""
+#: phase 16 (a): how :data:`STREAM_CHILD` is started.  A process's
+#: ``ru_maxrss`` survives ``exec`` and starts from the address space it
+#: was forked from, so a child forked from this script (several GB by
+#: phase 16) would read this script's mark; forked from a small
+#: interpreter started for the purpose, it reads its own
+HOP = "import subprocess, sys; sys.exit(subprocess.call(sys.argv[1:]))"
+#: phase 16 (c): the rounding of ``reports/loo.json``'s fields (3
+#: decimals), which a float ``sum`` on another Python moves by one unit
+LOO_ATOL = 1e-3
+#: phase 16 (c): sha256 of ``refine --out``'s overlay with the CLI's
+#: defaults (6 sweeps, anchor 1.0, the committed per-op rows), which both
+#: packages write on the CPU (tests/test_torch_refine.py)
+REFINE_DIGEST = \
+    "075f9ac0c66abdc25844d9dd31a89d4ac12e6745f28b57fb365ada078c321c7f"
+#: phase 16 (d): the suite and config the run takes, the workers it runs
+#: its jobs on, and the workload left out of the seeded trace root (the
+#: run's own capture job captures it)
+RUN_SUITE = "ubench"
+RUN_CONFIG = "v5e"
+RUN_PARALLEL = 8
+RUN_CAPTURED = "flash_attention_pallas"
+#: phase 16 (d): the stat changed in the copy ``stats-diff`` compares with
+DIFF_STAT = "sim_cycle"
+
+
+def keep_traces(work: Path, names, kept: Path) -> None:
+    """Copy captured trace dirs (without snapshot buffers) to ``kept``,
+    which outlives the phase's temporary directory."""
+    for name in names:
+        shutil.copytree(work / name, kept / name, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("checkpoint_files"))
+
+
+def write_stream_trace(tdir: Path) -> Path:
+    """The synthetic trace of ``tests/test_fastpath.py``'s RSS test:
+    :data:`STREAM_COMPS` called computations of :data:`STREAM_OPS` adds
+    with long metadata."""
+    n_comps, n_ops = STREAM_COMPS, STREAM_OPS
+    pad = "x" * 580
+    (tdir / "modules").mkdir(parents=True)
+    (tdir / "meta.json").write_text(json.dumps({
+        "format_version": 1, "platform": "tpu",
+        "device_kind": "TPU v5 lite",
+    }))
+    hlo = tdir / "modules" / "giant.hlo"
+    with open(hlo, "w") as f:
+        f.write("HloModule giant_stream, is_scheduled=true\n\n")
+        for c in range(n_comps):
+            f.write(f"%body_{c} (p0: f32[512,512]) -> f32[512,512] {{\n")
+            f.write("  %p0 = f32[512,512]{1,0:T(8,128)} parameter(0)\n")
+            prev = "%p0"
+            for i in range(n_ops):
+                f.write(
+                    f"  %add_{i} = f32[512,512]{{1,0:T(8,128)}} "
+                    f"add({prev}, %p0), metadata={{op_name="
+                    f"\"layer{c}/add{i}/{pad}\" source_file=\"g.py\" "
+                    f"source_line={i}}}\n"
+                )
+                prev = f"%add_{i}"
+            f.write(f"  ROOT %root = f32[512,512]{{1,0:T(8,128)}} "
+                    f"copy({prev})\n}}\n\n")
+        f.write("ENTRY %main (p0: f32[512,512]) -> f32[512,512] {\n")
+        f.write("  %p0 = f32[512,512]{1,0:T(8,128)} parameter(0)\n")
+        prev = "%p0"
+        for c in range(n_comps):
+            f.write(f"  %call_{c} = f32[512,512]{{1,0:T(8,128)}} "
+                    f"call({prev}), to_apply=%body_{c}\n")
+            prev = f"%call_{c}"
+        f.write(f"  ROOT %out = f32[512,512]{{1,0:T(8,128)}} "
+                f"copy({prev})\n}}\n")
+    return hlo
+
+
+def child_env(**kw) -> dict:
+    """The environment of a fresh process of phase 16: none of this
+    process's ``TPUSIM_`` settings (the streaming threshold, the tuned
+    overlays, a compile store), then ``kw``."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TPUSIM_")}
+    env.update(kw)
+    return env
+
+
+def start(argv: list[str], log: Path, env: dict) -> tuple:
+    """A fresh process started in the background, its output to ``log``;
+    :func:`finish` waits for it."""
+    f = open(log, "w")
+    proc = subprocess.Popen(argv, stdout=f, stderr=subprocess.STDOUT,
+                            cwd=REPO, env=env)
+    return proc, f, time.perf_counter(), argv
+
+
+def finish(started: tuple, timeout: float = 600) -> tuple[int, str, float]:
+    """Wait for a :func:`start`-ed process (killing it past ``timeout``);
+    returns its exit code, output and wall seconds until joined (these
+    processes run side by side, so the phase line does not sum them)."""
+    proc, f, t0, argv = started
+    try:
+        rc = proc.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        f.close()
+    seconds = time.perf_counter() - t0
+    return rc, Path(f.name).read_text(), seconds
+
+
+def compared(stats: dict) -> dict:
+    """Stats without the host clock's keys and the ``fastpath_`` counters
+    (process-wide: they count what the process compiled before)."""
+    return {k: v for k, v in without_fastpath(stats).items()
+            if k not in VOLATILE}
+
+
+def start_streaming(work: Path, untuned_dir: Path) -> dict:
+    """Phase 16 (a), started: the synthetic module just over 64 MiB
+    written, then in fresh processes ``simulate --pricing-backend serial``
+    streamed by the default threshold, ``serial`` and ``vectorized`` in
+    memory (``$TPUSIM_STREAM_THRESHOLD`` raised), and
+    :data:`STREAM_CHILD` twice, streamed with every default (the RSS leg)
+    and with a compile store (the cold store leg)."""
+    t0 = time.perf_counter()
+    trace = work / "stream_trace"
+    hlo = write_stream_trace(trace)
+    size = hlo.stat().st_size
+    if size < MIN_STREAM_BYTES:
+        raise AssertionError(f"streaming trace of {size} B is under "
+                             f"{MIN_STREAM_BYTES} B")
+    env = {"stream": dict(STREAM_ENV),
+           "memory": {"TPUSIM_STREAM_THRESHOLD": str(1 << 40)}}
+    legs = {}
+    for mode, backend in (("stream", "serial"), ("memory", "serial"),
+                          ("memory", "vectorized")):
+        out = work / f"stream_{mode}_{backend}.json"
+        legs[f"{mode}_{backend}"] = (out, start(
+            [sys.executable, "-m", "tpusim_torch", "simulate", str(trace),
+             "--arch", "v5e", "--pricing-backend", backend,
+             "--json", str(out)],
+            work / f"stream_{mode}_{backend}.log",
+            child_env(TPUSIM_TUNED_DIR=str(untuned_dir), **env[mode])))
+    for leg, store in (("rss", ""), ("store_cold", work / "stream_store")):
+        out = work / f"stream_{leg}.json"
+        legs[leg] = (out, start(
+            [sys.executable, "-c", HOP, sys.executable, "-c", STREAM_CHILD,
+             str(REPO), str(trace), str(out), str(store)],
+            work / f"stream_{leg}.log",
+            child_env(TPUSIM_TUNED_DIR=str(untuned_dir), **env["stream"])))
+    return {"trace": trace, "size": size, "legs": legs,
+            "write_s": time.perf_counter() - t0,
+            "store": work / "stream_store"}
+
+
+def finish_streaming(card_name: str, started: dict) -> dict:
+    """Phase 16 (a), checked: every leg's stats equal the in-memory serial
+    run's (the host clock's and the ``fastpath_`` keys aside); the RSS
+    leg's peak over its own import floor below
+    :data:`STREAM_RSS_FRACTION` of the file; the cold store leg priced a
+    streaming module with at most :data:`STREAM_PARSED_CAP` computations
+    parsed and no per-op aggregates, and wrote one lean ``.cmod``; then,
+    in this process, the warm store leg prices from that record with 0
+    IR ops built."""
+    from tpusim_torch.ir import ir_build_counter
+    from tpusim_torch.fastpath.store import (
+        read_record_header,
+        set_compile_store,
+    )
+
+    size, store = started["size"], started["store"]
+    seconds, docs = {}, {}
+    for leg, (out, proc) in started["legs"].items():
+        rc, log, seconds[leg] = finish(proc)
+        if rc != 0:
+            raise AssertionError(f"streaming leg {leg}: exit {rc}: "
+                                 f"{log[-2000:]}")
+        docs[leg] = json.loads(out.read_text())
+    want = compared(docs["memory_serial"])
+    stats = {leg: compared(doc) for leg, doc in docs.items()
+             if leg not in ("rss", "store_cold")}
+    stats.update({leg: compared(docs[leg]["stats"])
+                  for leg in ("rss", "store_cold")})
+    for leg in ("rss", "store_cold"):
+        doc = docs[leg]
+        if doc["module"] != "StreamingModuleTrace" or doc["per_op"] \
+                or doc["parsed"] > STREAM_PARSED_CAP:
+            raise AssertionError(f"streaming leg {leg}: {doc['module']}, "
+                                 f"{doc['per_op']} per-op rows, "
+                                 f"{doc['parsed']} parsed")
+    [record] = store.glob("*.cmod")
+    header = read_record_header(record)
+    if header["lean"] is not True or not header["key"].endswith("|lean"):
+        raise AssertionError(f"the store's record is not lean: "
+                             f"{header['key']}")
+    if docs["store_cold"]["stats"].get("fastpath_store_writes", 0) < 1:
+        raise AssertionError("the cold store leg wrote no record")
+
+    # the warm leg in this process: no compiled state in memory, so every
+    # column comes from the record; the fastpath_ counters are process-
+    # wide, so the IR ops it built are the counter's rise across it
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.startswith("TPUSIM_STREAM")}
+    os.environ.update(STREAM_ENV)
+    clear_compiled_cache()
+    built = ir_build_counter["ops"]
+    t0 = time.perf_counter()
+    try:
+        warm = simulate_trace(started["trace"], arch="v5e", tuned=False,
+                              compile_cache=store)
+    finally:
+        set_compile_store(None)
+        clear_compiled_cache()
+        for k in STREAM_ENV:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+    seconds["store_warm"] = time.perf_counter() - t0
+    built = ir_build_counter["ops"] - built
+    if warm.stats.get("fastpath_store_hits", 0) < 1 or built:
+        raise AssertionError(f"warm store leg: {built} IR ops built, store "
+                             f"hits {warm.stats.get('fastpath_store_hits')}")
+    if warm.totals.per_op_cycles:
+        raise AssertionError("the warm store leg carried per-op aggregates")
+    stats["store_warm"] = compared(warm.stats.values)
+    for leg, st in stats.items():
+        if st != want:
+            raise AssertionError(f"streaming leg {leg}: stats differ from "
+                                 f"the in-memory serial run's")
+    rss = docs["rss"]
+    added = (rss["peak_kb"] - rss["floor_kb"]) * 1024
+    if added <= 0:
+        raise AssertionError(f"the RSS leg read no rise: {rss}")
+    if added >= STREAM_RSS_FRACTION * size:
+        raise AssertionError(
+            f"streaming added {added} B of RSS over the import floor, not "
+            f"below {STREAM_RSS_FRACTION} x the {size} B file")
+    out = {
+        "file_bytes": size, "comps": STREAM_COMPS, "ops": STREAM_OPS,
+        "write_s": started["write_s"], "rss_floor_kb": rss["floor_kb"],
+        "rss_peak_kb": rss["peak_kb"], "rss_added_bytes": added,
+        "rss_added_of_file": added / size,
+        "pricing_s": {leg: docs[leg]["seconds"]
+                      for leg in ("rss", "store_cold")},
+        "joined_s": seconds, "parsed": {
+            leg: docs[leg]["parsed"] for leg in ("rss", "store_cold")},
+        "sim_cycle": want["sim_cycle"],
+    }
+    print(f"  (a) {STREAM_COMPS} x {STREAM_OPS}-op module, {size} B: "
+          f"simulate streamed (serial, vectorized, vectorized with a cold "
+          f"and a warm compile store) and in memory (serial, vectorized), "
+          f"equal stats (sim_cycle {want['sim_cycle']!r}); RSS leg floor "
+          f"{rss['floor_kb']} KiB, peak {rss['peak_kb']} KiB, added "
+          f"{added / 2**20:.2f} MiB = {added / size:.4f} of the file "
+          f"(bound {STREAM_RSS_FRACTION}); pricing s: RSS leg "
+          f"{rss['seconds']:.2f}, cold store {docs['store_cold']['seconds']:.2f} "
+          f"({docs['store_cold']['parsed']} parsed, lean record), warm "
+          f"store {seconds['store_warm']:.2f} (0 IR ops); fresh processes "
+          f"joined after s " + ", ".join(
+              f"{k} {v:.1f}" for k, v in seconds.items() if k != "store_warm")
+          + f" (card: {card_name})")
+    return out
+
+
+def start_offline(work: Path) -> dict:
+    """Phase 16 (b) and (c), started in the background: ``derive-arch``,
+    ``correl-regen``, ``refine`` and the full ``loo`` through the CLI in
+    fresh processes with the committed overlays (``configs/``), each
+    writing into ``work``."""
+    env = child_env()
+    cmds = {
+        "derive-arch": ["derive-arch", "--out",
+                        str(work / "v5p.derived.flags")],
+        "correl-regen": ["correl-regen", "--out",
+                         str(work / "correl" / "correl_ops.json")],
+        "refine": ["refine", "--out", str(work / "refined.flags")],
+        "loo": ["loo", "--out", str(work / "loo.json")],
+    }
+    return {name: start([sys.executable, "-m", "tpusim_torch", *argv],
+                        work / f"{name}.log", env)
+            for name, argv in cmds.items()}
+
+
+def loo_gaps(got, want, path: str = "") -> list[tuple[str, float]]:
+    """Fields where ``got`` misses ``want`` (``model_version`` aside):
+    raises on a structural or non-float difference, returns each float
+    gap with its path."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"loo.json{path}: keys differ")
+        return [g for k in want if k != "model_version"
+                for g in loo_gaps(got[k], want[k], f"{path}.{k}")]
+    if isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"loo.json{path}: lengths differ")
+        return [g for i, (a, b) in enumerate(zip(got, want))
+                for g in loo_gaps(a, b, f"{path}[{i}]")]
+    if isinstance(want, float) and isinstance(got, (int, float)):
+        return [(path, abs(got - want))] if got != want else []
+    if got != want:
+        raise AssertionError(f"loo.json{path}: {got!r} != {want!r}")
+    return []
+
+
+def finish_offline(card_name: str, work: Path, started: dict) -> dict:
+    """Phase 16 (b) and (c): each output against the committed artifact —
+    ``configs/v5p.derived.flags`` by bytes, ``correl_ops.json`` ``==``
+    ``reports/``'s and ``async_observable.json`` ``==`` too (both but for
+    ``model_version`` and ``tpusim_version``), the refined overlay's sha256
+    :data:`REFINE_DIGEST`, ``loo.json`` within :data:`LOO_ATOL` on its
+    rounded floats and equal elsewhere."""
+    seconds = {}
+    for name, proc in started.items():
+        rc, log, seconds[name] = finish(proc)
+        if rc != 0:
+            raise AssertionError(f"{name}: exit {rc}: {log[-2000:]}")
+    if (work / "v5p.derived.flags").read_bytes() != \
+            (REPO / "configs" / "v5p.derived.flags").read_bytes():
+        raise AssertionError("derive-arch: output differs from "
+                             "configs/v5p.derived.flags")
+    masked = ("model_version", "tpusim_version")
+    for name in ("correl_ops.json", "async_observable.json"):
+        got = json.loads((work / "correl" / name).read_text())
+        want = json.loads((REPO / "reports" / name).read_text())
+        if {k: v for k, v in got.items() if k not in masked} != \
+                {k: v for k, v in want.items() if k not in masked}:
+            raise AssertionError(f"correl-regen: {name} differs from "
+                                 f"reports/{name}")
+    digest = sha256((work / "refined.flags").read_bytes())
+    if digest != REFINE_DIGEST:
+        raise AssertionError(f"refine: overlay sha256 {digest}")
+    gaps = loo_gaps(json.loads((work / "loo.json").read_text()),
+                    json.loads((REPO / "reports" / "loo.json").read_text()))
+    if any(gap > LOO_ATOL for _, gap in gaps):
+        raise AssertionError(f"loo: fields off by more than {LOO_ATOL}: "
+                             f"{gaps}")
+    print(f"  (b) derive-arch == configs/v5p.derived.flags by bytes "
+          f"({seconds['derive-arch']:.1f} s)")
+    print(f"  (c) correl-regen == reports/correl_ops.json and "
+          f"async_observable.json ({seconds['correl-regen']:.1f} s); refine "
+          f"overlay sha256 == the CPU's ({seconds['refine']:.1f} s); loo "
+          f"== reports/loo.json but {len(gaps)} rounded field(s) within "
+          f"{LOO_ATOL}: " + ", ".join(f"{p} {g:.3g}" for p, g in gaps)
+          + f" ({seconds['loo']:.1f} s; card: {card_name})")
+    return {"seconds": seconds, "loo_gaps": gaps}
+
+
+def run_and_diff(card_name: str, work: Path, kept: Path,
+                 main_hlo: str) -> dict:
+    """Phase 16 (d): ``run -B ubench -C v5e --capture`` over a trace root
+    seeded with the card's captures of phases 11, 12 and 14 (every entry
+    but :data:`RUN_CAPTURED`, which the run's own capture job captures on
+    the card in a fresh process: its module's text must be phase 4's, its
+    device the card); every ``simulate`` job printed the exit sentinel;
+    then ``stats-diff`` of the run tree against itself ("no differences",
+    exit 0) and against a copy with one stat changed (exit 1 under
+    ``--check``, naming the stat)."""
+    from tpusim_torch.harness.suites import load_suite
+
+    entries = load_suite(RUN_SUITE)
+    root = work / "traces"
+    root.mkdir()
+    for e in entries:
+        if e.run_name != RUN_CAPTURED:
+            shutil.copytree(kept / e.workload, root / e.run_name)
+    out = work / "runs"
+    # the run's jobs are `python -m tpusim_torch` processes: they find the
+    # package through PYTHONPATH wherever this script was started from
+    path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + ([path] if path else []))
+    t0 = time.perf_counter()
+    try:
+        text = run_cli(["run", "-B", RUN_SUITE, "-C", RUN_CONFIG, "-o",
+                        str(out), "--traces", str(root), "--capture",
+                        "--parallel", str(RUN_PARALLEL),
+                        "--monitor-interval", "0"])
+    finally:
+        if path is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = path
+    run_s = time.perf_counter() - t0
+    captures = json.loads((root / "capture_jobs.json").read_text())
+    if [Path(j["log"]).name for j in captures] != \
+            [f"{RUN_CAPTURED}.capture.log"] or \
+            captures[0]["status"] != "done":
+        raise AssertionError(f"capture jobs: {captures}")
+    captured = root / RUN_CAPTURED
+    if module_text(captured, RUN_CAPTURED) != main_hlo:
+        raise AssertionError(f"{RUN_CAPTURED}: the run's capture differs "
+                             f"from phase 4's module")
+    kind = json.loads((captured / "meta.json").read_text())["device_kind"]
+    if kind != torch.cuda.get_device_name(0):
+        raise AssertionError(f"{RUN_CAPTURED} captured on {kind!r}")
+    jobs = json.loads((out / "jobs.json").read_text())
+    failures = json.loads((out / "failures.json").read_text())
+    runs = sorted(p.parent.name for p in out.glob("*/run.log"))
+    if failures or len(jobs) != len(entries) or len(runs) != len(entries) \
+            or any(EXIT_SENTINEL not in (out / r / "run.log").read_text()
+                   for r in runs):
+        raise AssertionError(f"run: {len(runs)} runs of {len(entries)}, "
+                             f"failures {failures}")
+    if f"{len(entries)} runs scraped" not in text:
+        raise AssertionError(f"run printed {text!r}")
+    rows = {r: json.loads((out / r / "run.stats.json").read_text())
+            for r in runs}
+
+    same = io.StringIO()
+    with contextlib.redirect_stdout(same):
+        rc_same = cli(["stats-diff", str(out), str(out), "--check"])
+    changed = work / "runs_changed"
+    shutil.copytree(out, changed)
+    victim = runs[0]
+    sidecar = changed / victim / "run.stats.json"
+    doc = json.loads(sidecar.read_text())
+    doc[DIFF_STAT] = doc[DIFF_STAT] * 2 + 1
+    sidecar.write_text(json.dumps(doc))
+    diff = io.StringIO()
+    with contextlib.redirect_stdout(diff):
+        rc_diff = cli(["stats-diff", str(out), str(changed), "--check"])
+    want = (f"{victim}/run.log: {DIFF_STAT} {rows[victim][DIFF_STAT]} -> "
+            f"{doc[DIFF_STAT]}")
+    if (rc_same, same.getvalue()) != (0, "no differences\n") or \
+            rc_diff != 1 or diff.getvalue().splitlines() != [want]:
+        raise AssertionError(f"stats-diff: {rc_same} {same.getvalue()!r}; "
+                             f"{rc_diff} {diff.getvalue()!r}")
+    print(f"  (d) run -B {RUN_SUITE} -C {RUN_CONFIG} --capture: "
+          f"{len(runs)} runs, every simulate job with the exit sentinel, 1 "
+          f"capture job ({RUN_CAPTURED} on {kind}, its module == phase 4's); "
+          f"{run_s:.1f} s with --parallel {RUN_PARALLEL}; stats-diff: "
+          f"itself 'no differences', one stat changed exit 1 '{want}' "
+          f"(card: {card_name})")
+    return {"runs": len(runs), "capture_jobs": len(captures),
+            "run_s": run_s,
+            "sim_cycle": {r: rows[r].get("sim_cycle") for r in runs}}
+
+
+def streaming_harness(card_name: str, work: Path, kept: Path,
+                      main_hlo: str) -> dict:
+    """Phase 16: (a)'s five fresh processes and (b) and (c) start in the
+    background, (d) runs meanwhile, then (a)'s warm leg and the checks of
+    (a)-(c); the kernels' counters are set to 0 just before each part run
+    in this process and read just after (they must stay 0: phase 16
+    prices on the host, and the capture job of (d) runs in its own
+    process).  Returns each part's seconds and readings."""
+    out = {"seconds": {}, "launches": {}}
+    t_phase = time.perf_counter()
+    untuned_dir = work / "no_tuned_overlays"
+    untuned_dir.mkdir()
+    offline = work / "offline"
+    offline.mkdir()
+    procs = []
+    try:
+        offline_started = start_offline(offline)
+        procs += offline_started.values()
+        streaming = start_streaming(work, untuned_dir)
+        procs += [p for _, p in streaming["legs"].values()]
+        for part, fn in (
+                ("d", lambda: run_and_diff(card_name, work, kept,
+                                           main_hlo)),
+                ("a", lambda: finish_streaming(card_name, streaming)),
+                ("bc", lambda: finish_offline(card_name, offline,
+                                              offline_started))):
+            for *_, reset in KERNELS:
+                reset()
+            t0 = time.perf_counter()
+            out[part] = fn()
+            out["seconds"][part] = time.perf_counter() - t0
+            out["launches"][part] = no_launches(f"phase 16 ({part})")
+    finally:
+        for proc, f, *_ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    out["card"] = card_name
+    print(f"harness: kernel launches by part {out['launches']}; "
+          f"{out['seconds']['phase']:.1f} s (card: {card_name})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3833,6 +4484,8 @@ def main() -> int:
             raise AssertionError(f"bad snapshot {p.name}: {a.shape}")
     if len(snaps) != 2:
         raise AssertionError(f"expected 2 snapshots, got {len(snaps)}")
+    # phase 16 (d) holds the suite runner's capture of this workload to it
+    main_hlo = module_text(trace, "flash_attention_pallas")
     for arch in ("v5e", "v5p"):
         text = run_cli(["simulate", str(trace), "--arch", arch])
         if EXIT_SENTINEL not in text:
@@ -3877,14 +4530,20 @@ def main() -> int:
         advise = advisor(card_name, Path(tmp))
     print("advisor: " + json.dumps(advise))
 
+    # the card's captures at registered width that seed phase 16 (d)
+    kept_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_kept_")
+    kept = Path(kept_dir.name)
+
     phase(11, "the general lowering: ten workloads at registered width")
     with tempfile.TemporaryDirectory() as tmp:
         lowered = lowered_workloads(card_name, Path(tmp))
+        keep_traces(Path(tmp), LOWERED, kept)
     print("lowered: " + json.dumps(lowered))
 
     phase(12, "multi-device capture: seven workloads, all ranks on the card")
     with tempfile.TemporaryDirectory() as tmp:
         multi = multi_device(card_name, Path(tmp))
+        keep_traces(Path(tmp), ("ici_allreduce",), kept)
     print("multidevice: " + json.dumps(multi))
 
     phase(13, "the model suite at registered width")
@@ -3893,16 +4552,22 @@ def main() -> int:
 
     phase(14, "the ubench workloads at registered width, and the analyzer")
     with tempfile.TemporaryDirectory() as tmp:
-        ubench = ubench_workloads(card_name, Path(tmp))
+        ubench = ubench_workloads(card_name, Path(tmp), keep=kept)
 
     phase(15, "observability and the trace tools on the card's host")
     with tempfile.TemporaryDirectory() as tmp:
         observed = observability(card_name, Path(tmp))
+
+    phase(16, "streaming pricing and the offline harness on the card's host")
+    with tempfile.TemporaryDirectory() as tmp:
+        harness = streaming_harness(card_name, Path(tmp), kept, main_hlo)
+    kept_dir.cleanup()
     phase(None)
     models["phase_seconds"] = PHASE_SECONDS
     print("models: " + json.dumps(models))
     print("ubench: " + json.dumps(ubench))
     print("obs: " + json.dumps(observed))
+    print("harness: " + json.dumps(harness))
 
     record = {"kernels": [{
         "name": "flash_attention",

@@ -361,12 +361,13 @@ def test_compiled_key_names_the_ports_sources(corpus):
         assert not rel.startswith("tpusim/"), rel
     assert "tpusim_torch/fastpath/price.py" in port_cache._PARSER_FILES
     _, _, port_mod = corpus[0]
-    key = port_cache._compiled_key(port_mod, port_config(arch="v5e"))
-    mfp, platform, cfg_fp, version = key
+    key = port_cache._compiled_key(port_mod, port_config(arch="v5e"), False)
+    mfp, platform, cfg_fp, version, lean = key
     assert version == (f"{port_mv.model_version()}+"
                        f"{port_cache.parser_version()}")
     assert port_cache.compiled_key_str(key) == \
-        f"{mfp}|p={platform}|{cfg_fp}|{version}"
+        f"{mfp}|p={platform}|{cfg_fp}|{version}|full"
+    assert port_cache.compiled_key_str(key[:4] + (True,)).endswith("|lean")
     assert port_mv.model_version() != \
         __import__("tpusim.timing.model_version",
                    fromlist=["model_version"]).model_version()

@@ -233,7 +233,7 @@ def test_chip_smoke_durable_store_on_cpu(tmp_path, capsys):
     """Phase 8's parts, rehearsed on the CPU host at a reduced size: one
     golden cell cold then warm in fresh processes, ``warm_states`` on the
     host backend, the ``cache`` CLI over the store, and phase 7 (e)'s legs
-    each in a fresh process."""
+    in the same two fresh processes, the warm cached leg in the second."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -241,7 +241,9 @@ def test_chip_smoke_durable_store_on_cpu(tmp_path, capsys):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     store = tmp_path / "store"
-    cells = smoke.store_cells("cpu", tmp_path, store,
+    recs = smoke.fresh_processes(tmp_path, store,
+                                 cells=smoke.GOLDEN_CELLS[2:3])
+    cells = smoke.store_cells("cpu", tmp_path, recs,
                               cells=smoke.GOLDEN_CELLS[2:3])
     assert set(cells["seconds"]) == {("llama_tiny_tp2dp2__v5p", "cold"),
                                      ("llama_tiny_tp2dp2__v5p", "warm")}
@@ -251,7 +253,7 @@ def test_chip_smoke_durable_store_on_cpu(tmp_path, capsys):
     cli = smoke.cache_cli("cpu", store)
     assert cli["compiled"] == 1 and cli["results"] == 1
     assert cli["left"] <= cli["quota"]
-    legs = smoke.fresh_sweeps("cpu", tmp_path)
+    legs = smoke.fresh_sweeps("cpu", tmp_path, recs)
     assert set(legs) == {"e_serial", "e_pooled", "e_cached_cold",
                          "e_cached_warm"}
     text = capsys.readouterr().out

@@ -280,7 +280,8 @@ class _BatchCtx:
     """One batched pricing call's shared state."""
 
     __slots__ = (
-        "cm", "lanes", "S", "views", "arch", "config", "spill_frac",
+        "cm", "lanes", "S", "per_op", "views", "arch", "config",
+        "spill_frac",
         "hbm_bpc", "vmem_bpc", "overhead", "dma_lat", "contend",
         "overlap", "cs_col", "hs_col", "ovh_col", "deg_col",
         "any_degraded", "coll_memo", "card", "step_cache",
@@ -288,8 +289,11 @@ class _BatchCtx:
         "cancel",
     )
 
-    def __init__(self, engine, cm, lanes, spill_frac, backend, cancel):
+    def __init__(self, engine, cm, lanes, spill_frac, backend, per_op,
+                 cancel):
         self.cm = cm
+        # a lean (streaming) compile has no names: no per-op aggregates
+        self.per_op = per_op
         self.cancel = cancel
         self.lanes = lanes
         self.S = len(lanes)
@@ -352,7 +356,7 @@ class _BatchCtx:
 
     def _build_view(self, cc) -> _BatchView:
         S = self.S
-        n = len(cc.names)
+        n = cc.n_ops
         spill = self.spill_frac < 1.0 and cc.any_vmem
         cycles = cc.cycles
         compute = cc.compute
@@ -467,7 +471,10 @@ def price_module_batch(module, engines, backend: str | None = None,
     if resident is not None:
         for r in results:
             r.vmem_resident_bytes = resident
-    ctx = _BatchCtx(engine, cm, lanes, spill_frac, backend, cancel)
+    ctx = _BatchCtx(
+        engine, cm, lanes, spill_frac, backend, per_op=not cm.lean,
+        cancel=cancel,
+    )
     ends = _price_comp_batch(
         ctx, entry_of(module, cm), [0.0] * len(lanes), results, 0
     )
@@ -696,6 +703,7 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
     cc = ctx.cm.comp(comp_name)
     v = ctx.view(cc)
     S = ctx.S
+    per_op = ctx.per_op
     overhead = ctx.overhead
     hbm_bpc = ctx.hbm_bpc
     vmem_bpc = ctx.vmem_bpc
@@ -706,7 +714,7 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
     names = cc.names
     bases = cc.bases
     # lane-invariant per-op dicts: fill lane 0 only, copy at frame end
-    uni = S > 1 and _comp_uniform(ctx, comp_name)
+    uni = per_op and S > 1 and _comp_uniform(ctx, comp_name)
     aux_lanes = (0,) if uni else range(S)
 
     t = list(t0s)
@@ -731,7 +739,7 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
              ugroups, ogroups) = step
             n = hi - lo
             spill_on = v.spilled is not None
-            want_tb = len(emit) > 0
+            want_tb = per_op and len(emit) > 0
             t, tb2 = _run_scans(ctx, cc, v, si, lo, hi, want_tb, t, ugroups,
                                 ogroups, results)
             _acc_shared(ctx, results, "flops", cc.flops[lo:hi], acc_cache)
@@ -748,6 +756,8 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
                             v.spilled[lo:hi], acc_cache)
             for r in results:
                 r.op_count += n
+            if not per_op:
+                continue  # lean: no per-op aggregates
             prep = ctx.step_cache.get((comp_name, si))
             if prep is None:
                 emit_l = emit.tolist()
@@ -898,20 +908,22 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
                     start = max(t[s], ici_free[s])
                     pending[s][name] = start + dur
                     ici_free[s] = start + dur
-                    r.per_op_cycles[name] += (start + dur) - start
-                    if not uni or s == 0:
-                        r.per_op_count[name] += 1.0
-                        r.per_op_opcode.setdefault(name, base)
-                        r.per_op_async[name] = True
+                    if per_op:
+                        r.per_op_cycles[name] += (start + dur) - start
+                        if not uni or s == 0:
+                            r.per_op_count[name] += 1.0
+                            r.per_op_opcode.setdefault(name, base)
+                            r.per_op_async[name] = True
                     t[s] += overhead
                 else:
                     start = max(t[s], ici_free[s])
-                    r.per_op_cycles[name] += (start + dur) - start
-                    if not uni or s == 0:
-                        r.per_op_count[name] += 1.0
-                        r.per_op_opcode.setdefault(name, base)
-                        if is_start:
-                            r.per_op_async[name] = True
+                    if per_op:
+                        r.per_op_cycles[name] += (start + dur) - start
+                        if not uni or s == 0:
+                            r.per_op_count[name] += 1.0
+                            r.per_op_opcode.setdefault(name, base)
+                            if is_start:
+                                r.per_op_async[name] = True
                     t[s] = start + dur
                     ici_free[s] = t[s]
                     r.exposed_collective_cycles += dur
@@ -949,12 +961,13 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
                 r.unit_busy_cycles["dma"] += dur
                 r.opcode_cycles[base] += dur
                 r.hbm_bytes += hbm_b
-                r.per_op_cycles[name] += (start + dma_lat + dur) - t[s]
-                if not uni or s == 0:
-                    r.per_op_hbm_bytes[name] += hbm_b
-                    r.per_op_count[name] += 1.0
-                    r.per_op_opcode.setdefault(name, base)
-                    r.per_op_async[name] = True
+                if per_op:
+                    r.per_op_cycles[name] += (start + dma_lat + dur) - t[s]
+                    if not uni or s == 0:
+                        r.per_op_hbm_bytes[name] += hbm_b
+                        r.per_op_count[name] += 1.0
+                        r.per_op_opcode.setdefault(name, base)
+                        r.per_op_async[name] = True
                 t[s] += overhead
                 r.op_count += 1
             continue
@@ -970,11 +983,12 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
             vl = v.shared_list("vmem")
             sl = (v.shared_list("spilled")
                   if v.spilled is not None else None)
-            rng = names[lo:hi]
-            ctx.seen_cyc.update(rng)
-            ctx.seen_hbm.update(rng)
-            ctx.seen_flops.update(rng)
-            ctx.seen_mxu.update(rng)
+            if per_op:
+                rng = names[lo:hi]
+                ctx.seen_cyc.update(rng)
+                ctx.seen_hbm.update(rng)
+                ctx.seen_flops.update(rng)
+                ctx.seen_mxu.update(rng)
             for s in range(S):
                 r = results[s]
                 dl = v.lane_list("dur2", s)
@@ -1028,7 +1042,7 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
                                 if sg[1] > t_s:
                                     sg[2] = remaining / (sg[1] - t_s)
                         dur = new_dur
-                    if dur > 0:
+                    if dur > 0 and per_op:
                         nm = names[i]
                         r.per_op_cycles[nm] += (t_s + dur) - t_s
                         r.per_op_count[nm] += 1.0
@@ -1040,12 +1054,13 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
                     r.transcendentals += tl[i]
                     r.hbm_bytes += hbm_b
                     r.vmem_bytes += vl[i]
-                    if hbm_b > 0:
-                        r.per_op_hbm_bytes[names[i]] += hbm_b
-                    if fl[i] > 0:
-                        r.per_op_flops[names[i]] += fl[i]
-                    if ml[i] > 0:
-                        r.per_op_mxu_flops[names[i]] += ml[i]
+                    if per_op:
+                        if hbm_b > 0:
+                            r.per_op_hbm_bytes[names[i]] += hbm_b
+                        if fl[i] > 0:
+                            r.per_op_flops[names[i]] += fl[i]
+                        if ml[i] > 0:
+                            r.per_op_mxu_flops[names[i]] += ml[i]
                     if dur > 0:
                         ub[cc.units[i]] += dur
                         oc[bases[i]] += dur
@@ -1069,10 +1084,11 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
                 else:
                     r.merge_scaled(subs[s], ft)
                 dur = ends[s] * trips + overhead * (trips + 1)
-                r.per_op_cycles[name] += (t[s] + dur) - t[s]
-                if not uni or s == 0:
-                    r.per_op_count[name] += 1.0
-                    r.per_op_opcode.setdefault(name, base)
+                if per_op:
+                    r.per_op_cycles[name] += (t[s] + dur) - t[s]
+                    if not uni or s == 0:
+                        r.per_op_count[name] += 1.0
+                        r.per_op_opcode.setdefault(name, base)
                 t[s] += dur
                 r.op_count += 1
             continue
@@ -1099,9 +1115,10 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
                     dur = durs[worst] + overhead
                     if nb > 1 and max(durs) > 1.5 * min(durs):
                         r.worst_case_branches += 1
-                    r.per_op_cycles[name] += (t[s] + dur) - t[s]
-                    r.per_op_count[name] += 1.0
-                    r.per_op_opcode.setdefault(name, base)
+                    if per_op:
+                        r.per_op_cycles[name] += (t[s] + dur) - t[s]
+                        r.per_op_count[name] += 1.0
+                        r.per_op_opcode.setdefault(name, base)
                     t[s] += dur
                 r.op_count += 1
             continue
@@ -1118,10 +1135,11 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
                 else:
                     r.merge_scaled(subs[s], 1.0)
                 d = ends[s]
-                r.per_op_cycles[name] += (t[s] + d) - t[s]
-                if not uni or s == 0:
-                    r.per_op_count[name] += 1.0
-                    r.per_op_opcode.setdefault(name, base)
+                if per_op:
+                    r.per_op_cycles[name] += (t[s] + d) - t[s]
+                    if not uni or s == 0:
+                        r.per_op_count[name] += 1.0
+                        r.per_op_opcode.setdefault(name, base)
                 t[s] += d
                 r.op_count += 1
             continue

@@ -61,7 +61,8 @@ class CompiledComputation:
 
     name: str
     n_ops: int
-    names: list[str]
+    #: per-op identity (None when compiled lean for streaming pricing)
+    names: list[str] | None
     bases: list[str]
     #: per-op unit value string (None for rows that never emit)
     units: list = field(default_factory=list)
@@ -96,7 +97,13 @@ class CompiledComputation:
 
 class CompiledModule:
     """Lazily-compiled computations of one module (compiled as the pricing
-    walk first reaches them).
+    walk first reaches them — a streaming module never compiles
+    computations its schedule never runs).
+
+    ``lean`` compiles drop the per-op name table (the streaming module's
+    O(trace) memory term; the priced result then carries no per-op
+    aggregates), and ``release_ir`` hands each computation back to the
+    module's ``release_computation`` once its columns exist.
 
     Only a WEAK reference to the source :class:`ModuleTrace` is held: the
     process-wide tier in :mod:`tpusim_torch.perf.cache` keeps instances
@@ -105,10 +112,13 @@ class CompiledModule:
     :func:`tpusim_torch.perf.cache.compiled_for`."""
 
     def __init__(self, module: ModuleTrace, cost: CostModel,
-                 config: SimConfig):
+                 config: SimConfig, lean: bool = False,
+                 release_ir: bool = False):
         self._module_ref = weakref.ref(module)
         self.cost = cost
         self.config = config
+        self.lean = lean               # skip per-op identity (streaming)
+        self.release_ir = release_ir   # drop parsed IR after compile
         self.comps: dict[str, CompiledComputation] = {}
         # content-derived module scalars cached beside the columns, so a
         # disk-loaded instance never re-scans the trace text: the entry
@@ -147,10 +157,15 @@ class CompiledModule:
         if cc is None:
             module = self.module
             cc = compile_computation(
-                module, module.computation(name), self.cost, self.config
+                module, module.computation(name), self.cost, self.config,
+                lean=self.lean,
             )
             self.comps[name] = cc
             self._store_dirty = True
+            if self.release_ir:
+                release = getattr(module, "release_computation", None)
+                if release is not None:
+                    release(name)
         return cc
 
 
@@ -159,14 +174,18 @@ def compile_computation(
     comp: Computation,
     cost_model: CostModel,
     config: SimConfig,
+    lean: bool = False,
 ) -> CompiledComputation:
     """One cost-model pass over ``comp`` -> columns + step program."""
     ops = comp.ops
     n = len(ops)
-    # bases are interned: every parse mints its own "add"/"fusion" string
-    # objects
+    # lean (streaming) compiles drop the per-op identity column — the one
+    # O(distinct names) memory term — but keep bases: opcode_cycles
+    # accumulates in every mode.  Bases are interned: every parse mints
+    # its own "add"/"fusion" string objects, and a streaming compile
+    # keeping one per op would hold O(ops) duplicates of a dozen opcodes
     intern = sys.intern
-    names = [op.name for op in ops]
+    names: list[str] | None = None if lean else [op.name for op in ops]
     bases = [intern(op.base) for op in ops]
 
     # the columns are filled as Python lists (exact float64 values) and
@@ -306,8 +325,13 @@ def compile_module(
     module: ModuleTrace,
     cost_model: CostModel,
     config: SimConfig,
+    lean: bool = False,
+    release_ir: bool = False,
 ) -> CompiledModule:
     """A lazily-populated :class:`CompiledModule`.  Callers wanting
     cross-engine reuse go through :func:`tpusim_torch.perf.cache.
     compiled_for` instead."""
-    return CompiledModule(module=module, cost=cost_model, config=config)
+    return CompiledModule(
+        module=module, cost=cost_model, config=config, lean=lean,
+        release_ir=release_ir,
+    )

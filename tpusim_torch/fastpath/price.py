@@ -155,13 +155,15 @@ class _Ctx:
     """One pricing call's shared state (launch class + backend)."""
 
     __slots__ = (
-        "cm", "coll", "views", "arch", "config", "degraded", "cs", "hs",
-        "spill_frac", "hbm_bpc", "vmem_bpc", "overhead", "dma_lat",
-        "contend", "overlap", "cancel",
+        "cm", "coll", "per_op", "views", "arch", "config", "degraded",
+        "cs", "hs", "spill_frac", "hbm_bpc", "vmem_bpc", "overhead",
+        "dma_lat", "contend", "overlap", "cancel",
     )
 
-    def __init__(self, engine, cm, coll, spill_frac):
+    def __init__(self, engine, cm, coll, spill_frac, per_op):
         self.cm = cm
+        # a lean (streaming) compile has no names: no per-op aggregates
+        self.per_op = per_op
         # cooperative cancellation: checked between compiled blocks
         self.cancel = engine.cancel
         self.coll = coll
@@ -297,7 +299,7 @@ def price_module(engine, module, backend: str) -> EngineResult:
     resident, spill_frac = module_spill(engine, module, cm)
     if resident is not None:
         result.vmem_resident_bytes = resident
-    ctx = _Ctx(engine, cm, coll, spill_frac)
+    ctx = _Ctx(engine, cm, coll, spill_frac, per_op=not cm.lean)
     end = _price_computation(ctx, entry_of(module, cm), 0.0, result, 0)
     result.cycles = end
     result.seconds = engine.arch.cycles_to_seconds(end)
@@ -330,6 +332,7 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
     cc = ctx.cm.comp(comp_name)
     v = ctx.view(cc)
     a = ctx.arch
+    per_op = ctx.per_op
     overhead = ctx.overhead
     hbm_bpc = ctx.hbm_bpc
     vmem_bpc = ctx.vmem_bpc
@@ -369,8 +372,7 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
                 tarr[0] = t
                 tarr[1:] = dur[lo:hi]
                 tarr.cumsum_(0)
-                tb_l = tarr.tolist()
-                t = tb_l[-1]
+                t = tarr[-1].item()
                 result.flops = _chain(result.flops, cc.flops[lo:hi])
                 result.mxu_flops = _chain(result.mxu_flops, cc.mxu[lo:hi])
                 result.transcendentals = _chain(
@@ -387,16 +389,18 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
                 for b, idx in ogroups:
                     oc[b] = _chain(oc[b], dur[idx])
                 result.op_count += n
-                dl = v.col_list("dur")
-                pc = result.per_op_cycles
-                pn = result.per_op_count
-                po = result.per_op_opcode
-                for i in emit.tolist():
-                    nm = names[i]
-                    tbk = tb_l[i - lo]
-                    pc[nm] += (tbk + dl[i]) - tbk
-                    pn[nm] += 1.0
-                    po.setdefault(nm, bases[i])
+                if per_op and len(emit):
+                    tb_l = tarr.tolist()
+                    dl = v.col_list("dur")
+                    pc = result.per_op_cycles
+                    pn = result.per_op_count
+                    po = result.per_op_opcode
+                    for i in emit.tolist():
+                        nm = names[i]
+                        tbk = tb_l[i - lo]
+                        pc[nm] += (tbk + dl[i]) - tbk
+                        pn[nm] += 1.0
+                        po.setdefault(nm, bases[i])
             else:
                 dl = v.col_list("dur")
                 fl = cc.col_list("flops")
@@ -410,7 +414,7 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
                 po = result.per_op_opcode
                 for i in range(lo, hi):
                     d = dl[i]
-                    if d > 0:
+                    if d > 0 and per_op:
                         nm = names[i]
                         pc[nm] += (t + d) - t
                         pn[nm] += 1.0
@@ -432,20 +436,21 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
                     for i in idx.tolist():
                         oc[b] += dl[i]
                 result.op_count += n
-            hl = v.col_list("hbm")
-            ph = result.per_op_hbm_bytes
-            hidx = (hbm_idx if not spill_on else
-                    torch.nonzero(v.hbm[lo:hi] > 0.0).flatten() + lo)
-            for i in hidx.tolist():
-                ph[names[i]] += hl[i]
-            fl = cc.col_list("flops")
-            pf = result.per_op_flops
-            for i in flops_idx.tolist():
-                pf[names[i]] += fl[i]
-            ml = cc.col_list("mxu")
-            pm = result.per_op_mxu_flops
-            for i in mxu_idx.tolist():
-                pm[names[i]] += ml[i]
+            if per_op:
+                hl = v.col_list("hbm")
+                ph = result.per_op_hbm_bytes
+                hidx = (hbm_idx if not spill_on else
+                        torch.nonzero(v.hbm[lo:hi] > 0.0).flatten() + lo)
+                for i in hidx.tolist():
+                    ph[names[i]] += hl[i]
+                fl = cc.col_list("flops")
+                pf = result.per_op_flops
+                for i in flops_idx.tolist():
+                    pf[names[i]] += fl[i]
+                ml = cc.col_list("mxu")
+                pm = result.per_op_mxu_flops
+                for i in mxu_idx.tolist():
+                    pm[names[i]] += ml[i]
             continue
 
         # ---- async joins ----------------------------------------------
@@ -478,18 +483,20 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
                 start = max(t, ici_free)
                 pending[name] = start + dur
                 ici_free = start + dur
-                result.per_op_cycles[name] += (start + dur) - start
-                result.per_op_count[name] += 1.0
-                result.per_op_opcode.setdefault(name, base)
-                result.per_op_async[name] = True
+                if per_op:
+                    result.per_op_cycles[name] += (start + dur) - start
+                    result.per_op_count[name] += 1.0
+                    result.per_op_opcode.setdefault(name, base)
+                    result.per_op_async[name] = True
                 t += overhead
             else:
                 start = max(t, ici_free)
-                result.per_op_cycles[name] += (start + dur) - start
-                result.per_op_count[name] += 1.0
-                result.per_op_opcode.setdefault(name, base)
-                if is_start:
-                    result.per_op_async[name] = True
+                if per_op:
+                    result.per_op_cycles[name] += (start + dur) - start
+                    result.per_op_count[name] += 1.0
+                    result.per_op_opcode.setdefault(name, base)
+                    if is_start:
+                        result.per_op_async[name] = True
                 t = start + dur
                 ici_free = t
                 result.exposed_collective_cycles += dur
@@ -519,11 +526,12 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
             result.unit_busy_cycles["dma"] += dur
             result.opcode_cycles[base] += dur
             result.hbm_bytes += hbm_b
-            result.per_op_hbm_bytes[name] += hbm_b
-            result.per_op_cycles[name] += (start + dma_lat + dur) - t
-            result.per_op_count[name] += 1.0
-            result.per_op_opcode.setdefault(name, base)
-            result.per_op_async[name] = True
+            if per_op:
+                result.per_op_hbm_bytes[name] += hbm_b
+                result.per_op_cycles[name] += (start + dma_lat + dur) - t
+                result.per_op_count[name] += 1.0
+                result.per_op_opcode.setdefault(name, base)
+                result.per_op_async[name] = True
             t += overhead
             result.op_count += 1
             continue
@@ -586,7 +594,7 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
                             if s[1] > t:
                                 s[2] = remaining / (s[1] - t)
                     dur = new_dur
-                if dur > 0:
+                if dur > 0 and per_op:
                     nm = names[i]
                     result.per_op_cycles[nm] += (t + dur) - t
                     result.per_op_count[nm] += 1.0
@@ -598,12 +606,13 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
                 result.transcendentals += tl[i]
                 result.hbm_bytes += hbm_b
                 result.vmem_bytes += vl[i]
-                if hbm_b > 0:
-                    result.per_op_hbm_bytes[names[i]] += hbm_b
-                if fl[i] > 0:
-                    result.per_op_flops[names[i]] += fl[i]
-                if ml[i] > 0:
-                    result.per_op_mxu_flops[names[i]] += ml[i]
+                if per_op:
+                    if hbm_b > 0:
+                        result.per_op_hbm_bytes[names[i]] += hbm_b
+                    if fl[i] > 0:
+                        result.per_op_flops[names[i]] += fl[i]
+                    if ml[i] > 0:
+                        result.per_op_mxu_flops[names[i]] += ml[i]
                 if dur > 0:
                     ub[cc.units[i]] += dur
                     oc[bases[i]] += dur
@@ -618,9 +627,10 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
             body_end = _price_computation(ctx, body, 0.0, sub, depth + 1)
             result.merge_scaled(sub, float(trips))
             dur = body_end * trips + overhead * (trips + 1)
-            result.per_op_cycles[name] += (t + dur) - t
-            result.per_op_count[name] += 1.0
-            result.per_op_opcode.setdefault(name, base)
+            if per_op:
+                result.per_op_cycles[name] += (t + dur) - t
+                result.per_op_count[name] += 1.0
+                result.per_op_opcode.setdefault(name, base)
             t += dur
             result.op_count += 1
             continue
@@ -639,9 +649,10 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
                 dur = durs[worst] + overhead
                 if len(durs) > 1 and max(durs) > 1.5 * min(durs):
                     result.worst_case_branches += 1
-                result.per_op_cycles[name] += (t + dur) - t
-                result.per_op_count[name] += 1.0
-                result.per_op_opcode.setdefault(name, base)
+                if per_op:
+                    result.per_op_cycles[name] += (t + dur) - t
+                    result.per_op_count[name] += 1.0
+                    result.per_op_opcode.setdefault(name, base)
                 t += dur
             result.op_count += 1
             continue
@@ -650,9 +661,10 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
             sub = EngineResult()
             d = _price_computation(ctx, callee, 0.0, sub, depth + 1)
             result.merge_scaled(sub, 1.0)
-            result.per_op_cycles[name] += (t + d) - t
-            result.per_op_count[name] += 1.0
-            result.per_op_opcode.setdefault(name, base)
+            if per_op:
+                result.per_op_cycles[name] += (t + d) - t
+                result.per_op_count[name] += 1.0
+                result.per_op_opcode.setdefault(name, base)
             t += d
             result.op_count += 1
             continue

@@ -9,7 +9,7 @@ the result cache's records in the same directory (``.cmod`` beside
 in-memory compiled tier already uses::
 
     (module content fingerprint, capture platform,
-     composed-config fingerprint, model + parser version)
+     composed-config fingerprint, model + parser version, lean flag)
 
 The version is the port's own (``model_version()+parser_version()`` over
 the port's sources), so the port and the JAX package never load each
@@ -44,8 +44,8 @@ any compile, and :func:`maybe_persist_compiled` publishes after a
 pricing walk compiled new columns.  Off by default — runs without it do
 no added work and stamp no added stats keys.
 
-Not ported yet: the ``durable`` (fsync) write mode and lean (streaming)
-records (ROADMAP A10, A11).
+A lean record (a streaming module's compile, no per-op names) loads back
+lean and releasing IR, exactly as it was compiled.
 """
 
 from __future__ import annotations
@@ -397,7 +397,14 @@ class CompileStore:
             for dt, off, count in header["arrays"]
         ]
 
-        cm = CompiledModule(module, engine.cost, engine.config)
+        # a lean (streaming) record loads back lean: its per-op name
+        # table was never written, and any computation compiled after
+        # the load releases its IR like the original compile did
+        lean = bool(header["lean"])
+        cm = CompiledModule(
+            module, engine.cost, engine.config, lean=lean,
+            release_ir=lean,
+        )
         intern = sys.intern
         for cdoc in header["comps"]:
             cols = {
@@ -510,9 +517,7 @@ class CompileStore:
             "format_version": COMPILE_STORE_FORMAT_VERSION,
             "key": key,
             "model_version": self.model_version(),
-            # the reference's lean (streaming) flag; the port compiles
-            # full columns only
-            "lean": False,
+            "lean": bool(cm.lean),
             "module": {
                 "entry_name": cm.entry_name,
                 "residency": cm.residency,

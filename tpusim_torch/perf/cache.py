@@ -415,7 +415,7 @@ class ResultCache:
         # HLO text captured on two platforms prices differently
         platform = str(module.meta.get("platform", "")) if module.meta \
             else ""
-        return "|".join((
+        key = "|".join((
             mfp,
             f"p={platform}",
             config_fingerprint(config),
@@ -424,6 +424,11 @@ class ResultCache:
             f"{scales[0]!r},{scales[1]!r}",
             topo_part,
         ))
+        if getattr(module, "stream_lean", False):
+            # streaming-lean results carry no per-op aggregates; they
+            # must never cross-serve a full-fidelity consumer
+            key += "|lean"
+        return key
 
     # -- lookup / insert -----------------------------------------------------
 
@@ -683,40 +688,47 @@ _compiled_misses = 0
 _compiled_lock = threading.Lock()
 
 
-def _compiled_key(module, config: SimConfig) -> tuple | None:
+def _compiled_key(module, config: SimConfig, lean: bool) -> tuple | None:
     mfp = module_fingerprint(module)
     if mfp is None:
         return None
     platform = str(module.meta.get("platform", "")) if module.meta else ""
     return (
         mfp, platform, config_fingerprint(config),
-        f"{model_version()}+{parser_version()}",
+        f"{model_version()}+{parser_version()}", lean,
     )
 
 
 def compiled_key_str(key: tuple) -> str:
-    """The string form of a compiled-module key (its components in
-    order, the platform tagged)."""
-    mfp, platform, cfg_fp, mv = key
-    return "|".join((mfp, f"p={platform}", cfg_fp, mv))
+    """The string form of a compiled-module key (its five components in
+    order, the platform tagged, the lean flag spelled out)."""
+    mfp, platform, cfg_fp, mv, lean = key
+    return "|".join((
+        mfp, f"p={platform}", cfg_fp, mv, "lean" if lean else "full",
+    ))
 
 
 def compiled_for(module, engine):
     """The fastpath's one compile per (module content, config): return a
     cached :class:`~tpusim_torch.fastpath.compile.CompiledModule` or mint
-    one."""
+    one.  A streaming module (``stream_lean``) compiles lean, releasing
+    each computation's IR once its columns exist."""
     global _compiled_hits, _compiled_misses
     from tpusim_torch.fastpath.compile import compile_module
 
-    key = _compiled_key(module, engine.config)
+    lean = bool(getattr(module, "stream_lean", False))
+    key = _compiled_key(module, engine.config, lean)
     if key is None:
         # no stable fingerprint: pin to the module object so repeated
         # runs of it still compile once
         attr = getattr(module, "_fastpath_cm", None)
-        ckey = config_fingerprint(engine.config)
+        ckey = (config_fingerprint(engine.config), lean)
         if isinstance(attr, dict) and ckey in attr:
             return attr[ckey]
-        cm = compile_module(module, engine.cost, engine.config)
+        cm = compile_module(
+            module, engine.cost, engine.config, lean=lean,
+            release_ir=lean,
+        )
         if not isinstance(attr, dict):
             attr = module._fastpath_cm = {}
         attr[ckey] = cm
@@ -752,7 +764,9 @@ def compiled_for(module, engine):
                 while len(_COMPILED) > COMPILED_CACHE_MAX:
                     _COMPILED.popitem(last=False)
             return cm
-    cm = compile_module(module, engine.cost, engine.config)
+    cm = compile_module(
+        module, engine.cost, engine.config, lean=lean, release_ir=lean,
+    )
     if store is not None:
         cm._store_key = compiled_key_str(key)
     with _compiled_lock:

@@ -9,10 +9,12 @@ other::
       modules/<name>.hlo         HLO text (one per module; .hlo.gz if large)
       commandlist.jsonl          per-device program streams
 
-The loader parses modules eagerly with the port's Python parser, or
-lazily (:mod:`tpusim_torch.trace.lazy`) when they are large or a durable
-compile store is active.  The JAX package's streaming and native parsers
-are host-side accelerators that are not ported yet (ROADMAP A10).
+The loader parses modules eagerly with the port's Python parser, lazily
+(:mod:`tpusim_torch.trace.lazy`) when they are large or a durable compile
+store is active, and file-backed (streamed from disk, never read whole)
+when a plain ``.hlo`` reaches the streaming threshold.  The JAX package's
+native parser is a host-side accelerator that is not ported yet
+(ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ __all__ = [
     "TraceDir",
     "save_trace",
     "load_trace",
+    "select_module",
     "iter_commandlist",
     "parse_commandlist",
 ]
@@ -52,6 +55,24 @@ class TraceDir:
 
     path: Path
     meta: dict = field(default_factory=dict)
+
+    @property
+    def modules_dir(self) -> Path:
+        return self.path / "modules"
+
+    @property
+    def commandlist_path(self) -> Path:
+        return self.path / "commandlist.jsonl"
+
+    def module_names(self) -> list[str]:
+        if not self.modules_dir.is_dir():
+            return []
+        names = {p.stem for p in self.modules_dir.glob("*.hlo")}
+        names.update(
+            p.name[: -len(".hlo.gz")]
+            for p in self.modules_dir.glob("*.hlo.gz")
+        )
+        return sorted(names)
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +214,22 @@ def save_trace(
     return TraceDir(path=path, meta=meta)
 
 
+def select_module(pod: PodTrace, want: str | None):
+    """The one policy for resolving a manifest entry to a module: the
+    named module when ``want`` is given, the sole module otherwise, and
+    a hard error on ambiguity.  Shared by the refiner and correlation so
+    they can never disagree about which program a fixture measures."""
+    if want is not None:
+        return pod.modules[want]
+    if len(pod.modules) == 1:
+        return next(iter(pod.modules.values()))
+    raise ValueError(
+        f"trace has {len(pod.modules)} modules "
+        f"({sorted(pod.modules)}); manifest entry must name one via "
+        f"'module'"
+    )
+
+
 def load_trace(
     path: str | Path, lenient: bool = False,
     defer_parse: bool | None = None,
@@ -207,6 +244,13 @@ def load_trace(
 
     ``lenient=True`` skips malformed HLO lines with a counted warning
     instead of raising on the first one; lenient parsing is always eager.
+    A plain ``.hlo`` of ``$TPUSIM_STREAM_THRESHOLD`` bytes or more
+    (default :data:`~tpusim_torch.trace.lazy.STREAM_THRESHOLD_BYTES`) is
+    not read into memory: it loads as a file-backed
+    :class:`~tpusim_torch.trace.lazy.StreamingModuleTrace`, priced one
+    computation at a time at bounded RSS, whose index pass hashes the
+    file for ``content_hash``.  Lenient salvage and gzipped modules stay
+    in memory.
     ``defer_parse=True`` builds every module lazily (computations parse
     on first IR access, :mod:`tpusim_torch.trace.lazy`).  The default
     (``None``) defers exactly when a durable compile store is active
@@ -237,49 +281,66 @@ def load_trace(
 
     from tpusim_torch.trace.lazy import (
         LAZY_THRESHOLD_BYTES,
+        STREAM_THRESHOLD_BYTES,
         parse_hlo_module_lazy,
+        parse_hlo_module_streaming,
     )
 
+    stream_threshold = int(os.environ.get(
+        "TPUSIM_STREAM_THRESHOLD", STREAM_THRESHOLD_BYTES
+    ))
     if defer_parse is None and not lenient:
         from tpusim_torch.fastpath.store import compile_store_active
 
         defer_parse = compile_store_active()
 
     pod = PodTrace(meta=meta)
-    plain: list[tuple[str, str]] = []
+    # one scandir pass: DirEntry.stat() rides the directory read
+    plain: list[tuple[str, str, int]] = []
     gzipped: list[tuple[str, str]] = []
     try:
         with os.scandir(path / "modules") as it:
             for de in it:
                 n = de.name
                 if n.endswith(".hlo"):
-                    plain.append((n[:-4], de.path))
+                    plain.append((n[:-4], de.path, de.stat().st_size))
                 elif n.endswith(".hlo.gz"):
                     gzipped.append((n[: -len(".hlo.gz")], de.path))
     except (FileNotFoundError, NotADirectoryError):
         pass
-    entries: list[tuple[str, str]] = []
-    for key, fp in sorted(plain):
-        with open(fp) as f:
-            entries.append((key, f.read()))
+    # str entries are in-memory module text; Path entries are file-backed
+    # modules at or above the streaming threshold (the text is never read
+    # whole)
+    entries: list[tuple[str, str | Path]] = []
+    for key, fp, size in sorted(plain):
+        if not lenient and size >= stream_threshold:
+            entries.append((key, Path(fp)))
+        else:
+            with open(fp) as f:
+                entries.append((key, f.read()))
     for key, fp in sorted(gzipped):
         with gzip.open(fp, "rt") as f:
             entries.append((key, f.read()))
-    for key, text in entries:
-        if lenient:
-            mod = parse_hlo_module(text, name_hint=key, strict=False)
-        elif defer_parse or len(text) >= LAZY_THRESHOLD_BYTES:
-            mod = parse_hlo_module_lazy(text, name_hint=key)
+    for key, src in entries:
+        if isinstance(src, Path):
+            # the streaming index pass hashes the file itself (chunked)
+            mod = parse_hlo_module_streaming(src, name_hint=key)
+        elif lenient:
+            mod = parse_hlo_module(src, name_hint=key, strict=False)
+        elif defer_parse or len(src) >= LAZY_THRESHOLD_BYTES:
+            mod = parse_hlo_module_lazy(src, name_hint=key)
         else:
-            mod = parse_hlo_module(text, name_hint=key)
+            mod = parse_hlo_module(src, name_hint=key)
         # file name is the trace key; HloModule header name may differ
         pod.modules[key] = mod
         mod.meta.setdefault("trace_key", key)
         # content digest of the module text — the address half of every
         # cache key (computed here, where the text is in hand)
-        mod.meta.setdefault(
-            "content_hash", hashlib.sha256(text.encode()).hexdigest()[:24]
-        )
+        if not isinstance(src, Path):
+            mod.meta.setdefault(
+                "content_hash",
+                hashlib.sha256(src.encode()).hexdigest()[:24],
+            )
         # capture-time facts ride on every module: the cost model gates
         # capture-backend dtype normalization on the platform
         for k in ("platform", "device_kind"):

@@ -1,8 +1,10 @@
 """Parser for XLA optimized-HLO text → :mod:`tpusim_torch.ir`.
 
 Port of ``tpusim/trace/hlo_text.py``: the Python parser with its
-lenient mode.  The native scanner and the lazy/streaming parsers of the
-JAX package are host-side accelerators and are not ported yet.
+lenient mode.  The lazy and streaming modules
+(:mod:`tpusim_torch.trace.lazy`) parse their computations through it; the
+JAX package's native scanner is a host-side accelerator that is not
+ported yet.
 
 This is the rebuild of the reference's trace parser
 (``gpu-simulator/trace-parser/trace_parser.cc``): where that parses per-warp
