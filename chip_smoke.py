@@ -10,8 +10,8 @@ multi-device workloads (all their ranks on the one card) and of the
 model suite (the two 64-device steps over meta tensors),
 simulate's lane-batched pricing with its row scans on the card, the
 campaign and fleet layers whose scenario-batched warm runs those scans,
-the sharding advisor, and the observability layer and trace tools on the
-card's host, and holds each CUDA kernel
+the sharding advisor, the observability layer and trace tools, and the
+serving daemon on the card's host, and holds each CUDA kernel
 against its plain PyTorch version.  Phases, in order (any failure exits
 non-zero and prints no result):
 
@@ -179,7 +179,9 @@ non-zero and prints no result):
    stay 0): (a) ``capture W DIR`` through the CLI, timed (the 64-device
    steps over meta tensors, their ``--snapshot`` refused; ``llama7b`` and
    ``llama7b_tp8dp8`` at 4 of their 32 layers, :data:`CAPTURE_DEPTH`); (b) the
-   concrete ones' HLO on the card equals by bytes the CPU's; (c) each
+   concrete ones' HLO on the card equals by bytes the CPU's (the CPU's
+   captured in a fresh process that runs beside the phase and never
+   touches the card); (c) each
    one's check — the card against the CPU (``llama7b`` at 2 layers, seq
    256, norm-wise; the ResNets at batch 2, the forward in float32 and the
    train step in float64, and in bfloat16 the forward's logits, the train
@@ -257,10 +259,40 @@ non-zero and prints no result):
    (the module phase 4's by bytes), every simulate job prints the exit
    sentinel; ``stats-diff`` of the tree against itself and against a copy
    with one stat changed (exit 1 under ``--check``, naming the stat).
+17. the serving plane on the card's host (``tpusim_torch.serve``), the
+   kernels' counters set to 0 at the phase's start and read at its end
+   (they must stay 0), (d)'s fresh processes started first and run beside
+   (a)-(c): (a) ``ci/check_golden.py``'s serve smoke on a daemon in this
+   process: the golden matrix served cold equals ``ci/golden/*.json`` by
+   the served-bytes canon (``_serve_served_bytes``, copied as data; the
+   v6e power cell, which both packages miss by one ulp on Python 3.12,
+   under phase 9's float rule), a warm pass all ``cache_hit`` with 0
+   engine walks, ``/metrics`` parsing with the serve counters,
+   ``/healthz`` ok, the drain complete; the warm served p50 of
+   ``matmul_512`` @ v5e; (b) the same with two supervised workers forked
+   from this process (0 walks here over both passes), then the chaos
+   smoke (a worker SIGKILLed mid-matrix: 0 failed requests, every response
+   the golden's, a restart) and the guard smoke's cooperative cancel (a
+   request past its deadline answers 504 in-process, the worker keeps its
+   pid and answers the next request warm, the counter on ``/metrics``);
+   (c) the card's captures at registered width (phase 4's
+   ``flash_attention_pallas``, phase 11's ten, phase 12's
+   ``ici_allreduce``) served at v5e and v5p with the hot cache on, each
+   equal by the canon to ``simulate_trace`` on the same dir, a repeat a
+   hot hit with the same bytes; (d) ``python -m tpusim_torch serve
+   --port 0 --serve-workers 2 --result-cache D --compile-cache D``
+   answers a golden cell with the golden's bytes and under SIGTERM prints
+   "drained, exiting" and exits 0; ``simulate --max-wall-s 1e-6`` exits
+   3; ``simulate --max-rss`` below the RSS on ``decode_step`` (a serial
+   walk of seconds) sheds and exits 3, and far above it prints the stats
+   of the run without the flag; then the cold ``simulate`` process of
+   ``matmul_512`` @ v5e alone, timed; ``TPUSIM_STREAM_THRESHOLD`` as it
+   was.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, the one before that the kernels' JSON
-record, the one before that phase 16's (``harness: {...}``), phase 15's
+record, the one before that phase 17's (``serve: {...}``), phase 16's
+(``harness: {...}``), phase 15's
 (``obs: {...}``), before it
 phase 14's (``ubench: {...}``), phase 13's (``models: {...}``), phase 12's (``multidevice: {...}``),
 phase 11's (``lowered: {...}``) and phase 10's (``advisor: {...}``).  Needs
@@ -3181,21 +3213,63 @@ def bf16_note(held: dict | None) -> str:
     return ", bf16 " + "; ".join(parts)
 
 
+#: phase 13 (b): the CPU re-captures, in a fresh process that runs beside
+#: the phase (it never touches the card): each concrete workload built on
+#: the CPU at the card's width and depth, captured from CPU tensors of its
+#: arguments' shapes (0-d arguments keep their values), the module text
+#: written to ``OUT/<name>.hlo`` and each capture's seconds to
+#: ``OUT/seconds.json``
+RECAPTURE_CHILD = r"""
+import json, sys, time
+from pathlib import Path
+repo, out_dir, jobs = sys.argv[1:]
+sys.path.insert(0, repo)
+import torch
+torch.set_num_threads(2)
+from tpusim_torch.models import get_workload
+from tpusim_torch.tracer.capture import capture
+seconds = {}
+for name, depth in json.loads(jobs):
+    t0 = time.perf_counter()
+    module, args = get_workload(name).build(device="cpu", **depth)
+    cpu_args = tuple(a if a.dim() == 0 else
+                     torch.empty(a.shape, dtype=a.dtype) for a in args)
+    text = capture(module, *cpu_args, name=name).hlo_text
+    (Path(out_dir) / f"{name}.hlo").write_text(text)
+    del module, args, cpu_args
+    seconds[name] = time.perf_counter() - t0
+(Path(out_dir) / "seconds.json").write_text(json.dumps(seconds))
+"""
+
+
+def start_recaptures(work: Path) -> tuple:
+    """Phase 13 (b)'s CPU side, started in the background
+    (:data:`RECAPTURE_CHILD`); :func:`finish` joins it."""
+    out = work / "recaptured"
+    out.mkdir()
+    jobs = [(name, CAPTURE_DEPTH.get(name, {})) for name in MODELS
+            if not get_workload(name).abstract]
+    return start([sys.executable, "-c", RECAPTURE_CHILD, str(REPO),
+                  str(out), json.dumps(jobs)], work / "recapture.log",
+                 child_env(CUDA_VISIBLE_DEVICES=""))
+
+
 def model_suite(card_name: str, work: Path) -> dict:
     """Phase 13: the model suite at registered width — (a) ``capture W
     DIR`` through the CLI, timed (the 64-way ``llama7b_tp8dp8`` over meta
     tensors: nothing materialised, and ``--snapshot`` refused); (b) the
     concrete ones' HLO captured on the card equals by bytes the text
-    lowered from CPU tensors of the same shapes; (c) each workload's
-    numerics check (:func:`model_numerics`); (d) simulated at v5p: MXU
-    flops, collectives and ICI bytes; (e) the median step on the card and
-    the peak of ``torch.cuda.max_memory_allocated`` over the workload's
-    part; (f) no custom kernel launched."""
-    from tpusim_torch.tracer.capture import capture
-
+    lowered from CPU tensors of the same shapes (captured in a fresh
+    process beside the phase, :func:`start_recaptures`); (c) each
+    workload's numerics check (:func:`model_numerics`); (d) simulated at
+    v5p: MXU flops, collectives and ICI bytes; (e) the median step on the
+    card and the peak of ``torch.cuda.max_memory_allocated`` over the
+    workload's part; (f) no custom kernel launched."""
     for *_, reset in KERNELS:
         reset()
     t_phase = time.perf_counter()
+    recapture = start_recaptures(work)
+    card_texts = {}
     rows = {}
     for name in MODELS:
         wl = get_workload(name)
@@ -3223,23 +3297,21 @@ def model_suite(card_name: str, work: Path) -> dict:
             shutil.rmtree(work / f"{name}_snap", ignore_errors=True)
             row["median_ms"] = None
         else:
+            card_texts[name] = text
+            t0 = time.perf_counter()
             module, args = wl.build(device="cuda", **depth)
-            cpu_args = tuple(a.cpu() if a.dim() == 0 else
-                             torch.empty(a.shape, dtype=a.dtype)
-                             for a in args)
-            if capture(module, *cpu_args, name=name).hlo_text != text:
-                raise AssertionError(f"{name}: the card's HLO differs from "
-                                     f"the CPU's")
-            del cpu_args
             wall = measure_wall_time(module, *args, iters=3, warmup=1)
             row["median_ms"] = wall["median_s"] * 1e3
+            row["step_s"] = time.perf_counter() - t0
             del module, args
             gc.collect()
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
         row["check"] = model_numerics(name)
         row["check_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         st = stats_of(simulate_trace(trace, arch="v5p", tuned=False))
+        row["simulate_s"] = time.perf_counter() - t0
         row["v5p"] = {k: st[k] for k in SIM_MODEL_KEYS}
         row["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         rows[name] = row
@@ -3249,7 +3321,7 @@ def model_suite(card_name: str, work: Path) -> dict:
         print(f"  {name} ({row['world']} devices"
               + "".join(f", {k} {v}" for k, v in depth.items())
               + f"): capture {capture_s:.2f} s"
-              f"{' (abstract)' if wl.abstract else ', HLO card == CPU'}; "
+              f"{' (abstract)' if wl.abstract else ''}; "
               f"check max |err| {chk['max_abs_err']:.3g} "
               f"({chk['worst_of_tol']:.3g} of tol {chk['tol']}"
               f"{', norm-wise' if chk['normwise'] else ''})"
@@ -3262,6 +3334,23 @@ def model_suite(card_name: str, work: Path) -> dict:
         print("    v5p: " + ", ".join(f"{k} {row['v5p'][k]:.10g}"
                                       for k in SIM_MODEL_KEYS))
         shutil.rmtree(trace, ignore_errors=True)
+    t0 = time.perf_counter()
+    rc, log, _ = finish(recapture)
+    waited_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"phase 13 (b): the CPU re-captures failed: "
+                             f"{log[-2000:]}")
+    recapture_s = json.loads(
+        (work / "recaptured" / "seconds.json").read_text())
+    for name, text in card_texts.items():
+        cpu = (work / "recaptured" / f"{name}.hlo").read_text()
+        if cpu != text:
+            raise AssertionError(f"{name}: the card's HLO differs from the "
+                                 f"CPU's")
+        rows[name]["recapture_s"] = recapture_s[name]
+    print(f"  HLO card == CPU for {sorted(card_texts)} (CPU re-captures "
+          f"beside the phase: {sum(recapture_s.values()):.1f} s, "
+          f"{waited_s:.1f} s waited for at the end)")
     launches = {name: count() for name, _, _, count, _ in KERNELS}
     if any(launches.values()):
         raise AssertionError(f"phase 13 launched a custom kernel: {launches}")
@@ -4434,6 +4523,424 @@ def streaming_harness(card_name: str, work: Path, kept: Path,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the serving plane on the card's host
+# ---------------------------------------------------------------------------
+
+#: ``ci/check_golden.py``'s served-bytes canon (``_serve_served_bytes``),
+#: copied as data: a served stats doc without :data:`VOLATILE` and the perf
+#: layer's accounting prefixes, rendered as the golden writer renders the
+#: CLI's
+SERVED_DROP_PREFIXES = ("cache_", "pool_", "guard_", "fastpath_")
+#: phase 17 (a): warm requests of :data:`SERVE_TIMED_CELL` timed for the
+#: served p50
+SERVE_P50_REQUESTS = 200
+#: phase 17 (a), (d): the golden cell timed warm through the daemon and
+#: cold through a fresh ``simulate`` process
+SERVE_TIMED_CELL = GOLDEN_CELLS[0]
+#: phase 17 (c): the traces the card captured at registered width
+#: (phase 4, the ten of phase 11, phase 12's all-reduce)
+SERVED_CAPTURES = ("flash_attention_pallas",) + LOWERED + ("ici_allreduce",)
+#: phase 17 (d): a module whose serial walk prices for seconds, far past
+#: the watchdog's 0.25 s sample interval, and the thresholds below and
+#: far above any process's RSS
+RSS_TRACE = REPO / "reports" / "silicon" / "decode_step"
+RSS_BELOW = "1M"
+RSS_ABOVE = "512G"
+#: phase 17 (d): runs the command in its arguments and prints the seconds
+#: it took as its last line (a process's own wall time, though several run
+#: side by side)
+TIMED = ("import subprocess, sys, time; t0 = time.perf_counter(); "
+         "rc = subprocess.call(sys.argv[1:]); "
+         "print(f'process_s {time.perf_counter() - t0!r}'); sys.exit(rc)")
+
+
+def served_bytes(stats: dict) -> str:
+    doc = {k: v for k, v in stats.items()
+           if k not in VOLATILE and not k.startswith(SERVED_DROP_PREFIXES)}
+    return json.dumps(doc, indent=1, sort_keys=True) + "\n"
+
+
+def held_to_golden(stem: str, stats: dict) -> int:
+    """A served stats doc against its golden by the served-bytes canon:
+    equal bytes, or (the v6e power cell on Python 3.12, whose float
+    ``sum`` moves one field by an ulp in both packages, ROADMAP A8) every
+    key and non-float equal and the floats within :data:`SMOKE_RTOL`.
+    Returns the number of floats that differ."""
+    got = served_bytes(stats)
+    want = (REPO / "ci" / "golden" / f"{stem}.json").read_text()
+    if got == want:
+        return 0
+    return len(golden_gaps(json.loads(got), json.loads(want), stem))
+
+
+def golden_pass(client) -> list:
+    """Every golden cell through ``client``: (stem, SimResult)."""
+    return [(stem, client.simulate(trace=fixture, arch=arch,
+                                   overlays=list(overlays), tuned=False))
+            for fixture, arch, overlays, stem in GOLDEN_CELLS]
+
+
+def metrics_gauges(prom: str, required: list[str]) -> int:
+    """``/metrics`` parses as Prometheus text and carries ``required``;
+    returns the number of samples."""
+    n = 0
+    for line in prom.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.split()
+            float(value)
+            n += 1
+    missing = [k for k in required if f"tpusim_{k} " not in prom]
+    if missing:
+        raise AssertionError(f"/metrics misses {missing}")
+    return n
+
+
+def serve_smoke_leg(serve_workers: int) -> dict:
+    """Phase 17 (a) / (b): ``ci/check_golden.py``'s ``serve_smoke`` on
+    the port — the golden matrix served cold equals the goldens by the
+    canon; a warm pass is all ``cache_hit`` with 0 engine walks in this
+    process (over both passes when a forked pool prices); ``/metrics``
+    carries the serve counters; ``/healthz`` ok; the drain completes.
+    At 0 workers the warm p50 of :data:`SERVE_TIMED_CELL` is timed."""
+    from tpusim_torch.serve.client import ServeClient
+    from tpusim_torch.serve.daemon import ServeDaemon
+
+    out = {}
+    daemon = ServeDaemon(trace_root=FIXTURES, max_inflight=4,
+                         serve_workers=serve_workers)
+    with counting_engine_runs() as walks:
+        daemon.start()
+        try:
+            client = ServeClient(daemon.url)
+            health = client.healthz()
+            if health["status"] != "ok" or (
+                    serve_workers
+                    and health["workers_alive"] != serve_workers):
+                raise AssertionError(f"healthz: {health}")
+            cold = golden_pass(client)
+            out["float_gaps"] = {stem: held_to_golden(stem, r.stats)
+                                 for stem, r in cold}
+            walks_before = walks["n"] if not serve_workers else 0
+            warm = golden_pass(client)
+            out["walks"] = walks["n"] - walks_before
+            if out["walks"]:
+                raise AssertionError(f"{out['walks']} engine walks in this "
+                                     f"process (expected 0)")
+            missed = [stem for stem, r in warm if not r.cache_hit]
+            if missed:
+                raise AssertionError(f"warm pass not cache_hit: {missed}")
+            for (stem, a), (_, b) in zip(cold, warm):
+                if served_bytes(a.stats) != served_bytes(b.stats):
+                    raise AssertionError(f"{stem}: warm bytes differ")
+            required = ["serve_requests_total", "serve_cache_hits"]
+            if serve_workers:
+                required += ["serve_workers_alive",
+                             "serve_worker_restarts_total",
+                             "serve_worker_kills_total",
+                             "serve_quarantine_size", "serve_shed_503_total"]
+            out["gauges"] = metrics_gauges(client.metrics_text(), required)
+            if not serve_workers:
+                fixture, arch, overlays, _ = SERVE_TIMED_CELL
+                times = []
+                for _ in range(SERVE_P50_REQUESTS):
+                    t0 = time.perf_counter()
+                    client.simulate(trace=fixture, arch=arch,
+                                    overlays=list(overlays), tuned=False)
+                    times.append(time.perf_counter() - t0)
+                out["warm_p50_ms"] = statistics.median(times) * 1e3
+        finally:
+            if not daemon.drain_and_stop():
+                raise AssertionError("the daemon did not drain")
+    return out
+
+
+def serve_chaos_leg() -> dict:
+    """Phase 17 (b): ``serve_chaos_smoke`` — a worker SIGKILLed the moment
+    it holds a request, mid-matrix: 0 failed requests, every response the
+    golden's by the canon, at least one restart."""
+    import threading
+
+    from tpusim_torch.serve.client import ServeClient
+    from tpusim_torch.serve.daemon import ServeDaemon
+
+    daemon = ServeDaemon(trace_root=FIXTURES, max_inflight=4,
+                         serve_workers=2).start()
+    sup = daemon.supervisor
+    stop = threading.Event()
+    killed = {"pid": None}
+
+    def chaos():
+        while not stop.is_set():
+            for slot in sup.slots:
+                if slot.busy and slot.pid is not None:
+                    killed["pid"] = slot.pid
+                    sup.kill_worker(slot.index)
+                    return
+            stop.wait(0.002)
+
+    chaos_thread = threading.Thread(target=chaos, daemon=True)
+    try:
+        client = ServeClient(daemon.url)
+        chaos_thread.start()
+        served = 0
+        for _ in range(2):
+            for stem, r in golden_pass(client):
+                held_to_golden(stem, r.stats)
+                served += 1
+        stop.set()
+        chaos_thread.join(timeout=5.0)
+        restarts = sum(s.restarts for s in sup.slots)
+        if killed["pid"] is None or restarts < 1:
+            raise AssertionError(f"chaos: killed {killed['pid']}, "
+                                 f"restarts {restarts}")
+    finally:
+        stop.set()
+        if not daemon.drain_and_stop():
+            raise AssertionError("the daemon did not drain after chaos")
+    return {"served": served, "killed_pid": killed["pid"],
+            "restarts": restarts, "retried": sup.retried}
+
+
+def coop_cancel_leg() -> dict:
+    """Phase 17 (b): ``guard_smoke``'s leg 2 — a request past its
+    deadline answers 504 through the worker's in-process cancel; the
+    worker keeps its pid (no restart, no kill), answers the next request
+    warm with the same bytes, and the cooperative-cancel counter is on
+    ``/metrics``."""
+    from tpusim_torch.serve.client import ServeClient
+    from tpusim_torch.serve.daemon import ServeDaemon
+
+    daemon = ServeDaemon(trace_root=FIXTURES, serve_workers=2,
+                         chaos_hooks=True).start()
+    try:
+        client = ServeClient(daemon.url)
+        warmup = client.simulate(trace="matmul_512", arch="v5e", tuned=False)
+        pids = [w["pid"] for w in client.healthz()["workers"]]
+        resp, payload = client._raw("POST", "/v1/simulate", {
+            "trace": "matmul_512", "arch": "v5e", "tuned": False,
+            "_chaos_spin_s": 10, "deadline_ms": 400,
+        })
+        doc = json.loads(payload)
+        if resp.status != 504 or "cooperative" not in doc.get("detail", ""):
+            raise AssertionError(f"expected an in-process 504, got "
+                                 f"{resp.status} {doc.get('detail')!r}")
+        health = client.healthz()
+        after = [w["pid"] for w in health["workers"]]
+        restarts = sum(w["restarts"] for w in health["workers"])
+        kills = sum(w["kills"] for w in health["workers"])
+        if after != pids or restarts or kills or \
+                health["workers_alive"] != 2:
+            raise AssertionError(f"the cancel cost a worker: pids {pids} -> "
+                                 f"{after}, restarts {restarts}, kills "
+                                 f"{kills}")
+        if "tpusim_serve_worker_coop_cancels_total 1" not in \
+                client.metrics_text():
+            raise AssertionError("/metrics misses the coop-cancel counter")
+        repeat = client.simulate(trace="matmul_512", arch="v5e", tuned=False)
+        if not repeat.cache_hit or \
+                served_bytes(repeat.stats) != served_bytes(warmup.stats):
+            raise AssertionError("the post-cancel repeat was not warm")
+    finally:
+        if not daemon.drain_and_stop():
+            raise AssertionError("the daemon did not drain after the cancel")
+    return {"pids": pids, "restarts": restarts, "kills": kills}
+
+
+def full_width_leg(work: Path, kept: Path) -> dict:
+    """Phase 17 (c): the card's captures at registered width served at
+    v5e and v5p with the hot cache on: each cold response equals
+    ``simulate_trace`` on the same dir by the canon, and a repeat is a
+    hot hit with the same bytes."""
+    from tpusim_torch.serve.client import ServeClient
+    from tpusim_torch.serve.daemon import ServeDaemon
+
+    root = work / "served_traces"
+    root.mkdir()
+    for name in SERVED_CAPTURES:
+        shutil.copytree(kept / name, root / name)
+    out = {"cells": 0, "hot_hits": 0}
+    daemon = ServeDaemon(trace_root=root, hot_cache=work / "hot").start()
+    try:
+        client = ServeClient(daemon.url)
+        for name in SERVED_CAPTURES:
+            for arch in ("v5e", "v5p"):
+                # unvalidated, as simulate_trace prices by default
+                cold = client.simulate(trace=name, arch=arch, tuned=False,
+                                       validate=False)
+                want = served_bytes(stats_of(simulate_trace(
+                    root / name, arch=arch, tuned=False)))
+                if served_bytes(cold.stats) != want:
+                    raise AssertionError(f"{name} @ {arch}: served stats "
+                                         f"differ from simulate_trace's")
+                hot = client.simulate(trace=name, arch=arch, tuned=False,
+                                      validate=False)
+                if not hot.cache_hit or served_bytes(hot.stats) != want:
+                    raise AssertionError(f"{name} @ {arch}: the repeat "
+                                         f"was not the same bytes, warm")
+                out["cells"] += 1
+        prom = client.metrics_text()
+        out["hot_hits"] = next(
+            float(ln.split()[1]) for ln in prom.splitlines()
+            if ln.startswith("tpusim_serve_hot_hits_total "))
+        if out["hot_hits"] != out["cells"]:
+            raise AssertionError(f"{out['hot_hits']} hot hits for "
+                                 f"{out['cells']} repeats")
+    finally:
+        if not daemon.drain_and_stop():
+            raise AssertionError("the daemon did not drain")
+    return out
+
+
+def start_entry_points(work: Path) -> dict:
+    """Phase 17 (d): the fresh processes, all started together: ``serve``
+    with two forked workers and both durable tiers; ``simulate
+    --max-wall-s 1e-6``; ``simulate --max-rss`` below and far above the
+    RSS on :data:`RSS_TRACE` (serial) and the same without the flag."""
+    env = child_env()
+    store = work / "store"
+    rss = [str(RSS_TRACE), "--arch", "v5e", "--pricing-backend", "serial"]
+    runs = {
+        "wall": ["simulate", str(FIXTURES / "llama_tiny_tp2dp2"),
+                 "--arch", "v5p", "--max-wall-s", "1e-6"],
+        "rss_below": ["simulate", *rss, "--max-rss", RSS_BELOW],
+        "rss_above": ["simulate", *rss, "--max-rss", RSS_ABOVE,
+                      "--json", str(work / "rss_above.json")],
+        "rss_plain": ["simulate", *rss, "--json", str(work / "plain.json")],
+    }
+    started = {k: start([sys.executable, "-c", TIMED, sys.executable, "-m",
+                         "tpusim_torch", *argv], work / f"{k}.log", env)
+               for k, argv in runs.items()}
+    log = open(work / "serve.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpusim_torch", "serve", "--port", "0",
+         "--trace-root", str(FIXTURES), "--serve-workers", "2",
+         "--result-cache", str(store), "--compile-cache", str(store)],
+        stdout=subprocess.PIPE, stderr=log, text=True, cwd=REPO, env=env)
+    return {"runs": started, "serve": (proc, log, time.perf_counter())}
+
+
+def stop_serve(proc) -> None:
+    """Stop a ``serve`` process that is still up: SIGTERM first (its drain
+    reaps the workers it forked, which a SIGKILL would orphan), then
+    SIGKILL past a minute."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def finish_entry_points(work: Path, started: dict) -> dict:
+    """Phase 17 (d)'s checks: the served golden cell's bytes, SIGTERM's
+    drain and exit 0; exit 3 for both cancels, the RSS leg naming the
+    shed; the far-above run's stats equal the plain run's.  Then the cold
+    ``simulate`` process of :data:`SERVE_TIMED_CELL`, alone, timed."""
+    import signal
+
+    from tpusim_torch.serve.client import ServeClient
+
+    out = {}
+    proc, log, t0 = started["serve"]
+    try:
+        line = proc.stdout.readline()
+        if "listening on http://" not in line:
+            raise AssertionError(f"serve did not start: {line!r}")
+        url = line.split("listening on ", 1)[1].split()[0]
+        fixture, arch, overlays, stem = SERVE_TIMED_CELL
+        r = ServeClient(url, timeout_s=120.0).simulate(
+            trace=fixture, arch=arch, overlays=list(overlays), tuned=False)
+        if served_bytes(r.stats) != \
+                (REPO / "ci" / "golden" / f"{stem}.json").read_text():
+            raise AssertionError("the fresh daemon's golden cell differs")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        rest = proc.stdout.read()
+        if rc != 0 or "drained, exiting" not in rest:
+            raise AssertionError(f"serve under SIGTERM: exit {rc}, {rest!r}")
+        out["serve_s"] = time.perf_counter() - t0
+    finally:
+        stop_serve(proc)
+        log.close()
+    done = {k: finish(s) for k, s in started["runs"].items()}
+    for k in ("wall", "rss_below"):
+        rc, text, _ = done[k]
+        if rc != 3 or "tpusim_torch simulate: cancelled: " not in text:
+            raise AssertionError(f"simulate {k}: exit {rc}: {text[-400:]}")
+    if "every droppable store already shed" not in done["rss_below"][1]:
+        raise AssertionError("the RSS leg did not shed")
+    for k in ("rss_above", "rss_plain"):
+        if done[k][0] != 0 or EXIT_SENTINEL not in done[k][1]:
+            raise AssertionError(f"simulate {k}: exit {done[k][0]}")
+    above, plain = (
+        {key: v for key, v in json.loads((work / f).read_text()).items()
+         if key not in VOLATILE} for f in ("rss_above.json", "plain.json"))
+    if above != plain:
+        raise AssertionError("--max-rss far above the RSS changed stats")
+    out["process_s"] = {
+        k: float(v[1].strip().splitlines()[-1].split()[1])
+        for k, v in done.items()}
+    fixture, arch, *_ = SERVE_TIMED_CELL
+    t0 = time.perf_counter()
+    proc = run_process([sys.executable, "-m", "tpusim_torch", "simulate",
+                        str(FIXTURES / fixture), "--arch", arch],
+                       capture_output=True, text=True, cwd=REPO,
+                       env=child_env(), timeout=600)
+    out["cold_cell_process_s"] = time.perf_counter() - t0
+    if proc.returncode != 0 or EXIT_SENTINEL not in proc.stdout:
+        raise AssertionError(f"cold simulate: exit {proc.returncode}")
+    return out
+
+
+def serving_plane(card_name: str, work: Path, kept: Path) -> dict:
+    """Phase 17: (d)'s fresh processes start first, (a)-(c) run in this
+    process meanwhile, then (d)'s checks; the kernels' counters are set
+    to 0 at the phase's start and read at its end (they must stay 0:
+    serving prices on the host, and the forked workers never touch the
+    card).  ``TPUSIM_STREAM_THRESHOLD`` is as it was afterwards."""
+    threshold = os.environ.get("TPUSIM_STREAM_THRESHOLD")
+    for *_, reset in KERNELS:
+        reset()
+    out = {"seconds": {}}
+    t_phase = time.perf_counter()
+    started = start_entry_points(work)
+    try:
+        for part, fn in (("a", lambda: serve_smoke_leg(0)),
+                         ("b", lambda: {"pool": serve_smoke_leg(2),
+                                        "chaos": serve_chaos_leg(),
+                                        "coop_cancel": coop_cancel_leg()}),
+                         ("c", lambda: full_width_leg(work, kept)),
+                         ("d", lambda: finish_entry_points(work, started))):
+            t0 = time.perf_counter()
+            out[part] = fn()
+            out["seconds"][part] = time.perf_counter() - t0
+            print(f"  ({part}) {out['seconds'][part]:.2f} s: "
+                  + json.dumps(out[part]), flush=True)
+    finally:
+        proc, log, _ = started["serve"]
+        stop_serve(proc)
+        log.close()
+        for proc, f, *_ in started["runs"].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+    if os.environ.get("TPUSIM_STREAM_THRESHOLD") != threshold:
+        raise AssertionError("phase 17 left TPUSIM_STREAM_THRESHOLD changed")
+    out["launches"] = no_launches("phase 17")
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    out["card"] = card_name
+    fixture, arch, _, _ = SERVE_TIMED_CELL
+    print(f"  serving plane: {fixture} @ {arch} warm served p50 "
+          f"{out['a']['warm_p50_ms']:.3f} ms, cold simulate process "
+          f"{out['d']['cold_cell_process_s']:.2f} s; kernel launches "
+          f"{out['launches']}; {out['seconds']['phase']:.1f} s "
+          f"(card: {card_name})", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4460,6 +4967,11 @@ def main() -> int:
     else:
         raise AssertionError("a sequence that block_q does not divide ran")
     torch.cuda.synchronize()
+
+    # the card's captures at registered width that seed phases 16 (d) and
+    # 17 (c)
+    kept_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_kept_")
+    kept = Path(kept_dir.name)
 
     phase(4, "main path: capture -> simulate")
     work = REPO / "build" / "chip_smoke"
@@ -4495,6 +5007,7 @@ def main() -> int:
             ("sim_cycle", "kernel_launches", "tot_hbm_bytes", "tot_flops")
         )]
         print(f"  simulate --arch {arch}: " + "; ".join(picked))
+    keep_traces(work, ("flash_attention_pallas",), kept)
     shutil.rmtree(work, ignore_errors=True)
     simulate_cells(card_name)
 
@@ -4530,10 +5043,6 @@ def main() -> int:
         advise = advisor(card_name, Path(tmp))
     print("advisor: " + json.dumps(advise))
 
-    # the card's captures at registered width that seed phase 16 (d)
-    kept_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_kept_")
-    kept = Path(kept_dir.name)
-
     phase(11, "the general lowering: ten workloads at registered width")
     with tempfile.TemporaryDirectory() as tmp:
         lowered = lowered_workloads(card_name, Path(tmp))
@@ -4561,6 +5070,10 @@ def main() -> int:
     phase(16, "streaming pricing and the offline harness on the card's host")
     with tempfile.TemporaryDirectory() as tmp:
         harness = streaming_harness(card_name, Path(tmp), kept, main_hlo)
+
+    phase(17, "the serving plane on the card's host")
+    with tempfile.TemporaryDirectory() as tmp:
+        served = serving_plane(card_name, Path(tmp), kept)
     kept_dir.cleanup()
     phase(None)
     models["phase_seconds"] = PHASE_SECONDS
@@ -4568,6 +5081,7 @@ def main() -> int:
     print("ubench: " + json.dumps(ubench))
     print("obs: " + json.dumps(observed))
     print("harness: " + json.dumps(harness))
+    print("serve: " + json.dumps(served))
 
     record = {"kernels": [{
         "name": "flash_attention",

@@ -11,6 +11,7 @@
                                     [--faults SCHEDULE.json] [--workers N]
                                     [--result-cache[=DIR]] [--cache-quota SIZE]
                                     [--compile-cache[=DIR]]
+                                    [--max-wall-s S] [--max-rss SIZE]
                                     [--validate[=on|strict]]
                                     [--obs-out DIR [--obs-window-cycles N]]
     python -m tpusim_torch profile  <trace-dir> [--arch A] [--top N]
@@ -56,6 +57,15 @@
                                     [--workers N] [--result-cache[=DIR]]
                                     [--compile-cache[=DIR]] [--json F]
                                     [--verbose]
+    python -m tpusim_torch serve    [--host H] [--port P] [--trace-root DIR]
+                                    [--max-inflight N] [--queue-depth N]
+                                    [--deadline-s S] [--serve-workers N]
+                                    [--result-cache[=DIR]] [--state-dir DIR]
+                                    [--compile-cache[=DIR]] [--hot-cache[=DIR]]
+                                    [--cache-quota SIZE] [--max-rss SIZE]
+                                    [--max-worker-rss SIZE] [--join HOST:PORT]
+                                    [--strict-lint] [--trace-requests]
+                                    [--access-log[=PATH]] [...]
     python -m tpusim_torch run      -B SUITE -C ARCH[+NAMED],... [-o DIR]
                                     [--traces DIR] [--yaml F] [--capture]
                                     [--parallel N] [--power] [--obs]
@@ -77,13 +87,15 @@
     python -m tpusim_torch workloads
 
 The output format is the reference's (errors and refusals on stderr
-under the ``tpusim_torch`` prefix; a cancelled campaign or fleet run
-exits 3, a refused spec 1; ``lint`` exits 1 on errors, and on warnings
-under ``--strict``).  ``lint --self-audit`` and ``--stats-keys`` audit
-the port's own sources.  ``simulate --obs-out``, ``profile`` and the trace
-tools (``timeline``, ``aerial``, ``debug``, ``bbv``, ``occupancy``) are
-host commands: they take no ``--device`` and make no CUDA tensor.
-``campaign`` has no ``--nodes`` yet.  ``run`` captures missing traces
+under the ``tpusim_torch`` prefix; a cancelled simulate, campaign or
+fleet run exits 3 — ``simulate --max-wall-s`` and ``--max-rss`` cancel
+cooperatively — a bad size 2, a refused spec 1; ``lint`` exits 1 on
+errors, and on warnings under ``--strict``).  ``lint --self-audit`` and
+``--stats-keys`` audit the port's own sources.  ``simulate``, ``serve``,
+``profile`` and the trace tools (``timeline``, ``aerial``, ``debug``,
+``bbv``, ``occupancy``) are host commands: they take no ``--device`` and
+make no CUDA tensor.  ``campaign`` has no ``--nodes`` and ``serve`` no
+``--acceptors`` yet (N > 0 exits 2; ROADMAP A11 item 2).  ``run`` captures missing traces
 (``--capture``) through ``python -m tpusim_torch capture``, on the card.
 One deviation from the reference's defaults: ``correl-regen`` and ``loo``
 write under :data:`PORT_REPORTS` (``build/tpusim_torch_reports/``), not
@@ -135,28 +147,77 @@ def _cmd_simulate(args: argparse.Namespace) -> int:
 
         faults = load_fault_schedule(args.faults)
     # --cache-quota bounds the disk store: it implies --result-cache and
-    # governs the compile tier's publishes too (one quota, one directory)
+    # governs the compile tier's publishes too (one quota, one directory);
+    # --max-wall-s arms a cooperative deadline token; --max-rss mounts the
+    # memory watchdog whose terminal shed step cancels the run cleanly
     result_cache = args.result_cache
     compile_cache = args.compile_cache
-    if args.cache_quota:
-        from tpusim_torch.fastpath.store import as_compile_store
-        from tpusim_torch.guard.store import parse_size
-        from tpusim_torch.perf.cache import as_result_cache
+    cancel = None
+    watchdog = None
+    try:
+        if args.cache_quota:
+            from tpusim_torch.fastpath.store import as_compile_store
+            from tpusim_torch.guard.store import parse_size
+            from tpusim_torch.perf.cache import as_result_cache
 
-        quota = parse_size(args.cache_quota)
-        result_cache = as_result_cache(
-            True if result_cache is None else result_cache
+            quota = parse_size(args.cache_quota)
+            result_cache = as_result_cache(
+                True if result_cache is None else result_cache
+            )
+            result_cache.quota_bytes = quota
+            if compile_cache:
+                compile_cache = as_compile_store(compile_cache,
+                                                 quota_bytes=quota)
+        if args.max_wall_s:
+            from tpusim_torch.guard.cancel import CancelToken
+
+            cancel = CancelToken.after(args.max_wall_s)
+        if args.max_rss:
+            from tpusim_torch.guard.cancel import CancelToken
+            from tpusim_torch.guard.store import parse_size
+            from tpusim_torch.guard.watchdog import (
+                MemoryWatchdog,
+                default_ladder,
+            )
+            from tpusim_torch.perf.cache import as_result_cache
+
+            if cancel is None:
+                cancel = CancelToken()
+            # the ladder's shrink step needs the live ResultCache, not the
+            # raw flag value (True / a dir path): coerce here and hand the
+            # same instance to simulate_trace below
+            result_cache = as_result_cache(result_cache)
+            watchdog = default_ladder(
+                MemoryWatchdog(
+                    soft_bytes=None,
+                    hard_bytes=parse_size(args.max_rss),
+                    on_shed=lambda: cancel.cancel(
+                        "RSS passed --max-rss with every droppable "
+                        "store already shed"
+                    ),
+                ),
+                result_cache=result_cache,
+            ).start()
+    except ValueError as e:
+        print(f"tpusim_torch: error: {e}", file=sys.stderr)
+        return 2
+    from tpusim_torch.guard.cancel import OperationCancelled
+
+    try:
+        report = simulate_trace(
+            args.trace, arch=args.arch, overlays=overlays, obs=obs,
+            faults=faults, lenient=args.lenient_parse,
+            validate=args.validate, result_cache=result_cache,
+            workers=args.workers, pricing_backend=args.pricing_backend,
+            cancel=cancel, compile_cache=compile_cache,
         )
-        result_cache.quota_bytes = quota
-        if compile_cache:
-            compile_cache = as_compile_store(compile_cache, quota_bytes=quota)
-    report = simulate_trace(
-        args.trace, arch=args.arch, overlays=overlays, obs=obs,
-        faults=faults, lenient=args.lenient_parse, validate=args.validate,
-        result_cache=result_cache,
-        workers=args.workers, pricing_backend=args.pricing_backend,
-        compile_cache=compile_cache,
-    )
+    except OperationCancelled as e:
+        # the clean refusal: nothing half-written, caches warm on disk
+        print(f"tpusim_torch simulate: cancelled: {e}", file=sys.stderr)
+        return 3
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
     if args.power and report.power is not None:
         print(report.power.report_text())
     if obs is not None:
@@ -645,6 +706,75 @@ def _parse_sets(items: list[str] | None) -> dict:
         except (json.JSONDecodeError, ValueError):
             out[k] = v
     return out
+
+
+def _cmd_serve(args: argparse.Namespace) -> int:
+    """Long-running simulation service (:mod:`tpusim_torch.serve`): JSON
+    API over HTTP with hot traces, admission control, a process-wide
+    shared engine-result cache, and SIGTERM drain.  A host command: it
+    makes no CUDA tensor."""
+    from tpusim_torch.serve.daemon import ServeDaemon
+
+    if args.acceptors and args.acceptors > 0:
+        print("tpusim_torch serve: error: --acceptors (the multi-acceptor "
+              "front tier, serve/front.py) is not ported yet: ROADMAP "
+              "A11 item 2; run without it (one daemon process)",
+              file=sys.stderr)
+        return 2
+    try:
+        daemon = ServeDaemon(
+            trace_root=args.trace_root,
+            host=args.host,
+            port=args.port,
+            max_inflight=args.max_inflight,
+            queue_depth=args.queue_depth,
+            deadline_s=args.deadline_s,
+            max_request_bytes=args.max_request_bytes,
+            result_cache=args.result_cache,
+            workers=args.workers or 1,
+            serve_workers=args.serve_workers,
+            min_workers=args.serve_min_workers,
+            # clamp at 1: job_workers=0 is the in-process test hook
+            # (accept + persist jobs without draining them); a served
+            # daemon must always drain its queue
+            job_workers=max(args.job_workers, 1),
+            drain_grace_s=args.drain_grace_s,
+            state_dir=args.state_dir,
+            verbose=args.verbose,
+            cache_quota=args.cache_quota,
+            max_rss=args.max_rss,
+            max_worker_rss=args.max_worker_rss,
+            compile_cache=args.compile_cache,
+            hot_cache=args.hot_cache,
+            strict_lint=args.strict_lint,
+            trace_requests=args.trace_requests,
+            access_log=args.access_log,
+            cluster_join=args.join,
+            cluster_min_nodes=args.cluster_min_nodes,
+        )
+    except ValueError as e:
+        # a quota/size typo must refuse loudly, not bound nothing
+        print(f"tpusim_torch serve: error: {e}", file=sys.stderr)
+        return 2
+    daemon.install_signal_handlers()
+    daemon.start()
+    # the bound port line is the startup contract: --port 0 asks the
+    # kernel for a free port, and wrappers (tests, chip_smoke.py, shell
+    # scripts) parse this line to find it
+    workers_note = (
+        f", serve-workers {args.serve_workers}" if args.serve_workers
+        else ""
+    )
+    join_note = f", join {args.join}" if args.join else ""
+    print(f"tpusim_torch serve: listening on "
+          f"http://{daemon.host}:{daemon.port} "
+          f"(traces: {args.trace_root or 'inline only'}; "
+          f"max-inflight {args.max_inflight}, queue {args.queue_depth}"
+          f"{workers_note}{join_note})",
+          flush=True)
+    daemon.wait_stopped()
+    print("tpusim_torch serve: drained, exiting", flush=True)
+    return 0
 
 
 def _cmd_capture(args: argparse.Namespace) -> int:
@@ -1267,6 +1397,15 @@ def main(argv: list[str] | None = None) -> int:
                          "processes, so a warm store prices from mapped "
                          "columns with zero IR built; stamps fastpath_* "
                          "stats")
+    ps.add_argument("--max-wall-s", type=float, default=None, metavar="S",
+                    help="cooperative wall-clock budget: the replay "
+                         "cancels cleanly at the next command/op "
+                         "boundary once S seconds elapse (exit 3)")
+    ps.add_argument("--max-rss", default=None, metavar="SIZE",
+                    help="memory watchdog hard threshold (e.g. 4G): "
+                         "past it the degradation ladder sheds caches "
+                         "and finally cancels the run cleanly instead "
+                         "of meeting the OOM-killer (exit 3)")
     ps.add_argument("--validate", nargs="?", const="on", default=None,
                     choices=["on", "strict"], metavar="on|strict",
                     help="pre-flight the trace/config/schedule through "
@@ -1496,6 +1635,125 @@ def main(argv: list[str] | None = None) -> int:
     pad.add_argument("--verbose", action="store_true",
                      help="per-cell progress on stderr")
     pad.set_defaults(fn=_cmd_advise)
+
+    psv = sub.add_parser(
+        "serve",
+        help="simulation-as-a-service daemon: JSON API (simulate/lint/"
+             "sweep/campaign/advise/fleet/jobs/healthz/metrics) with "
+             "hot traces, admission control, shared result cache, "
+             "SIGTERM drain",
+    )
+    psv.add_argument("--host", default="127.0.0.1")
+    psv.add_argument("--port", type=int, default=8642,
+                     help="listen port (0 = ask the kernel; the bound "
+                          "port is printed on startup)")
+    psv.add_argument("--trace-root", default=None, metavar="DIR",
+                     help="directory whose subdirectories are servable "
+                          "traces (requests name them; no other "
+                          "filesystem paths are reachable)")
+    psv.add_argument("--max-inflight", type=int, default=4,
+                     help="concurrent requests actually executing")
+    psv.add_argument("--queue-depth", type=int, default=16,
+                     help="requests allowed to wait for a slot before "
+                          "new arrivals get 429 + Retry-After")
+    psv.add_argument("--deadline-s", type=float, default=30.0,
+                     help="default per-request deadline (a queued "
+                          "request past it gets 504; requests may "
+                          "lower/raise it via deadline_ms, capped)")
+    psv.add_argument("--max-request-bytes", type=int,
+                     default=8 * 1024 * 1024,
+                     help="request-body cap; larger bodies get 413 "
+                          "before being read")
+    psv.add_argument("--result-cache", nargs="?", const=True, default=None,
+                     metavar="DIR",
+                     help="add the disk tier to the shared engine-result "
+                          "cache (default dir .tpusim_cache/); the "
+                          "in-memory tier is always on")
+    psv.add_argument("--workers", type=int, default=None, metavar="N",
+                     help="per-request pricing workers (default 1)")
+    psv.add_argument("--serve-workers", type=int, default=0, metavar="N",
+                     help="pre-forked supervised worker processes for "
+                          "sync pricing: crash isolation (one bad "
+                          "request costs one worker), deadline kills, "
+                          "poison-request quarantine, content-hash-"
+                          "affinity dispatch (default 0: the single-"
+                          "process path)")
+    psv.add_argument("--serve-min-workers", type=int, default=1,
+                     metavar="N",
+                     help="live-worker floor: below it the daemon sheds "
+                          "load (503 + Retry-After) instead of queueing "
+                          "into a dead pool")
+    psv.add_argument("--job-workers", type=int, default=1,
+                     help="threads draining the async job queue")
+    psv.add_argument("--drain-grace-s", type=float, default=60.0,
+                     help="SIGTERM drain budget before giving up on "
+                          "in-flight work")
+    psv.add_argument("--state-dir", default=None, metavar="DIR",
+                     help="persist accepted async job specs (and "
+                          "campaign/fleet journals) here: a restarted "
+                          "daemon re-enqueues queued/running jobs and "
+                          "resumes them from their journals")
+    psv.add_argument("--cache-quota", default=None, metavar="SIZE",
+                     help="bound the shared disk result cache (e.g. 2G); "
+                          "the daemon and every serve-worker garbage-"
+                          "collect least-recently-used records past it")
+    psv.add_argument("--compile-cache", nargs="?", const=True,
+                     default=None, metavar="DIR",
+                     help="durable compiled-module tier shared by the "
+                          "daemon and every serve-worker: a cold first "
+                          "request against a warm store prices from "
+                          "mapped columns with zero IR built")
+    psv.add_argument("--max-rss", default=None, metavar="SIZE",
+                     help="daemon memory watchdog hard threshold: past "
+                          "it the degradation ladder shrinks caches, "
+                          "drops the compiled tier, forces lean "
+                          "streaming, then sheds load (503 + "
+                          "Retry-After)")
+    psv.add_argument("--max-worker-rss", default=None, metavar="SIZE",
+                     help="per-worker RSS cap (serve-workers mode): an "
+                          "over-budget idle worker is restarted "
+                          "deliberately between requests")
+    psv.add_argument("--acceptors", type=int, default=0, metavar="N",
+                     help="N acceptor processes sharing the listen port "
+                          "(the front tier): not ported yet, N > 0 "
+                          "exits 2 (ROADMAP A11 item 2)")
+    psv.add_argument("--join", default=None, metavar="HOST:PORT",
+                     help="join the multi-node cluster whose primary "
+                          "listens at HOST:PORT: this node registers, "
+                          "heartbeats, serves its consistent-hash share "
+                          "of trace affinity, and forwards misses one "
+                          "hop to the owner; omit on the primary")
+    psv.add_argument("--cluster-min-nodes", type=int, default=1,
+                     metavar="N",
+                     help="shed compute requests (503 + Retry-After) "
+                          "while fewer than N cluster members are alive "
+                          "(default 1: never shed)")
+    psv.add_argument("--hot-cache", nargs="?", const=True, default=None,
+                     metavar="DIR",
+                     help="shared mmap hot-response cache (default dir "
+                          ".tpusim_hot/): warm repeat simulate requests "
+                          "are answered straight from the map; "
+                          "invalidated by model/format/tuned-overlay "
+                          "changes")
+    psv.add_argument("--strict-lint", action="store_true",
+                     help="refuse (422 + the diagnostics doc) any "
+                          "simulate request whose trace-family lint "
+                          "passes report errors OR warnings (TL5xx "
+                          "advisory); the verdict is cached by content "
+                          "hash")
+    psv.add_argument("--trace-requests", action="store_true",
+                     help="request-scoped tracing: X-Tpusim-Trace on "
+                          "every response, phase spans in a bounded "
+                          "flight recorder (GET /v1/debug/traces), "
+                          "per-route/per-phase latency histograms on "
+                          "/metrics")
+    psv.add_argument("--access-log", nargs="?", const=True, default=None,
+                     metavar="PATH",
+                     help="structured JSONL access log (default path "
+                          "<state-dir>/access.jsonl, size-rotated)")
+    psv.add_argument("--verbose", action="store_true",
+                     help="per-request access log on stderr")
+    psv.set_defaults(fn=_cmd_serve)
 
 
     pc = sub.add_parser("capture", help="capture a registered workload")

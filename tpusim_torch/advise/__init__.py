@@ -6,8 +6,8 @@ x parallelism strategies (dp / tp / dp x tp / sp ring attention / pp
 pipeline / ep expert, plus user-pinned mesh combos), price every cell
 through the shared engine-result cache on a modeled torus, and emit a
 ranked step-time / ICI-bytes / HBM-residency / watts table with the
-recommended sharding.  Reached via ``python -m tpusim_torch advise``;
-the served advise job waits for the serving layer (ROADMAP A11).
+recommended sharding.  Reached via ``python -m tpusim_torch advise``
+and the served advise job (``POST /v1/advise``).
 """
 
 from tpusim_torch.advise.runner import (

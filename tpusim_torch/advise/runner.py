@@ -1,9 +1,9 @@
 """The advise sweep executor: enumerate cells, price, rank.
 
-Port of ``tpusim/advise/runner.py``.  The CI gate and serve surfaces
-named below are the reference's: the port reaches the advisor through
-``python -m tpusim_torch advise``, ``run_advise`` and ``lint --advise``
-(the served job is ROADMAP A11).
+Port of ``tpusim/advise/runner.py``.  The CI gate named below is the
+reference's: the port reaches the advisor through ``python -m
+tpusim_torch advise``, ``run_advise``, ``lint --advise`` and the served
+job (``POST /v1/advise``).
 
 One cell = (slice, strategy, mesh degrees).  Cells price serially in
 spec order through ONE shared :class:`tpusim_torch.perf.ResultCache`; the

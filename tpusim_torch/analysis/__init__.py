@@ -13,8 +13,8 @@ cross-device collective-deadlock matching, TL50x performance passes
 contract audit and the TL35x determinism/durability self-audit, both of
 a package's own sources (``tpusim_torch`` unless asked otherwise).
 Reached through the ``lint`` and ``perf-report`` CLIs and the opt-in
-``simulate --validate`` pre-flight; the served ``--strict-lint`` refusal
-waits for the serving tier (ROADMAP A11).
+``simulate --validate`` pre-flight, and by the served ``serve
+--strict-lint`` refusal.
 """
 
 from __future__ import annotations

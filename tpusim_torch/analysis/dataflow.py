@@ -1,10 +1,9 @@
 """Whole-trace dataflow engine: def-use chains, schedule checks, and
 per-space buffer-liveness intervals.
 
-Port of ``tpusim/analysis/dataflow.py``, whole.  The serve surface
-named below is the reference's (ROADMAP A11); in the port ``lint``'s
-trace and memory passes and the advisor's ``hbm_resident_gib`` column
-read it.
+Port of ``tpusim/analysis/dataflow.py``, whole.  ``lint``'s trace and
+memory passes, the served requests' memory pre-flight and the advisor's
+``hbm_resident_gib`` column read it.
 
 One pass over each computation of an :class:`~tpusim_torch.ir.ModuleTrace`
 produces everything the semantic passes consume:

@@ -17,7 +17,7 @@ reports joining the power model (:mod:`~tpusim_torch.campaign.report`).
 Reached via ``python -m tpusim_torch campaign``.
 
 Not ported yet: the sharded campaign (``campaign/shard.py``,
-``--nodes``), which needs the serving plane's hash ring (ROADMAP A11).
+``--nodes``, over the serving cluster's hash ring; ROADMAP A11 item 2).
 """
 
 from tpusim_torch.campaign.journal import Journal, JournalError

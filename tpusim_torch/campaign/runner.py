@@ -425,7 +425,7 @@ def run_campaign(
     per-scenario replays price or hit the cache.
 
     Not ported yet: the sharded run (``only=``, ``--nodes``; ROADMAP
-    A11)."""
+    A11 item 2)."""
     from tpusim_torch.ici.topology import torus_for
     from tpusim_torch.perf.cache import ResultCache, as_result_cache
     from tpusim_torch.timing.config import load_config

@@ -636,13 +636,14 @@ def compile_store_active() -> bool:
 
 
 def as_compile_store(
-    spec, quota_bytes: int | None = None,
+    spec, quota_bytes: int | None = None, durable: bool = False,
 ) -> CompileStore | None:
     """Coerce the ``--compile-cache`` flag family to a store and install
     it process-wide: None/False → leave activation untouched; True → the
     default cache dir; a path → a store there; an existing
     :class:`CompileStore` passes through.  ``quota_bytes`` (the
-    ``--cache-quota`` flag) bounds the store directory."""
+    ``--cache-quota`` flag) bounds the store directory; ``durable`` (the
+    serve workers) fsyncs each record before it is published."""
     if spec is None or spec is False:
         return None
     if isinstance(spec, CompileStore):
@@ -652,7 +653,7 @@ def as_compile_store(
             from tpusim_torch.perf.cache import DEFAULT_CACHE_DIR
 
             spec = DEFAULT_CACHE_DIR
-        store = CompileStore(spec)
+        store = CompileStore(spec, durable=durable)
     if quota_bytes is not None:
         store.quota_bytes = int(quota_bytes)
     set_compile_store(store)

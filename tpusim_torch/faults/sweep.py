@@ -100,7 +100,12 @@ class SweepResult:
 
 def _analytic_link_worker(link: tuple[int, int]) -> float:
     """Price the sweep collective with one link dead (pool worker)."""
-    topo, ici_cfg, info, payload_bytes = pool_context()
+    topo, ici_cfg, info, payload_bytes, cancel = pool_context()
+    if cancel is not None:
+        # link-grain cancellation: effective on the serial short-circuit
+        # path; under fork the token is a process-local dud and the
+        # parent checked before forking
+        cancel.check()
     a, b = link
     view = link_down_schedule(topo, a, b).bind(topo).view_at(0.0)
     model = CollectiveModel(topo.with_faults(view), ici_cfg)
@@ -113,14 +118,20 @@ def single_link_sweep(
     payload_bytes: float = 64 * 1024 * 1024,
     kind: str = "all-reduce",
     workers: int | None = None,
+    cancel=None,
 ) -> SweepResult:
     """Price ``kind`` over the full pod once per dead link.  The healthy
     baseline uses the same analytic model on the same topology, so any
     inflation is purely the fault fallback (mesh bandwidth terms).
     ``workers`` fans the per-link scenarios over a process pool; rows
-    merge in link order either way."""
+    merge in link order either way.  ``cancel`` (a
+    :class:`tpusim_torch.guard.CancelToken`) makes the sweep cooperatively
+    cancellable at link grain — ``DELETE /v1/jobs/<id>`` on a running
+    sweep job lands it terminal ``cancelled``."""
     from tpusim_torch.ir import CollectiveInfo
 
+    if cancel is not None:
+        cancel.check()
     n = topo.num_chips
     info = CollectiveInfo(kind, replica_groups=(tuple(range(n)),))
     healthy = CollectiveModel(topo, ici_cfg).seconds(info, payload_bytes)
@@ -128,7 +139,7 @@ def single_link_sweep(
     links = topo.undirected_links()
     seconds = map_ordered(
         _analytic_link_worker, links, workers=workers,
-        context=(topo, ici_cfg, info, payload_bytes),
+        context=(topo, ici_cfg, info, payload_bytes, cancel),
     )
     for (a, b), secs in zip(links, seconds):
         result.rows.append(SweepRow(
@@ -145,11 +156,11 @@ def _trace_link_worker(link: tuple[int, int]) -> float:
     replay, so only link-sensitive modules re-price."""
     from tpusim_torch.sim.driver import SimDriver
 
-    pod, cfg, topo, cache = pool_context()
+    pod, cfg, topo, cache, cancel = pool_context()
     a, b = link
     rep = SimDriver(
         cfg, topology=topo, faults=link_down_schedule(topo, a, b),
-        result_cache=cache,
+        result_cache=cache, cancel=cancel,
     ).run(pod)
     return rep.cycles
 
@@ -164,6 +175,7 @@ def trace_step_sweep(
     result_cache=None,
     pod=None,
     config=None,
+    cancel=None,
 ) -> SweepResult:
     """Replay ``trace_path`` once healthy, then once per dead-link
     scenario, reporting pod step-time (cycles) inflation.  Scenarios
@@ -182,7 +194,8 @@ def trace_step_sweep(
     ``pod`` short-circuits the trace load with an already-parsed
     :class:`~tpusim_torch.ir.PodTrace`; ``config`` supplies an
     already-composed :class:`SimConfig` instead of the ``arch``/``tuned``
-    composition."""
+    composition.  ``cancel`` is checked at the driver's command grain and
+    before the per-link fan-out."""
     from tpusim_torch.perf.cache import ResultCache, as_result_cache
     from tpusim_torch.sim.driver import SimDriver
     from tpusim_torch.timing.config import load_config
@@ -203,15 +216,22 @@ def trace_step_sweep(
                 arch = detect_arch(kind).name
         cfg = load_config(arch=arch, tuned=tuned)
     cache = as_result_cache(result_cache) or ResultCache()
-    base = SimDriver(cfg, topology=topo, result_cache=cache).run(pod)
+    # baseline + per-link replays check the token at the driver's
+    # command grain on the serial path; under fork the parent's check
+    # here is the last one before the children run to completion
+    base = SimDriver(
+        cfg, topology=topo, result_cache=cache, cancel=cancel,
+    ).run(pod)
     healthy = base.cycles
     result = SweepResult(kind="trace", healthy=healthy, unit="cycles")
     links = topo.undirected_links()
     if max_scenarios is not None:
         links = links[:max_scenarios]
+    if cancel is not None:
+        cancel.check()
     cycles = map_ordered(
         _trace_link_worker, links, workers=workers,
-        context=(pod, cfg, topo, cache),
+        context=(pod, cfg, topo, cache, cancel),
     )
     for (a, b), cyc in zip(links, cycles):
         result.rows.append(SweepRow(

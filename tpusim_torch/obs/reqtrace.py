@@ -1,7 +1,8 @@
 """Request-scoped tracing for the serve fleet.
 
-Port of ``tpusim/obs/reqtrace.py`` (stdlib only).  The port has no
-serving plane yet (ROADMAP A11); this module is what it will consume.
+Port of ``tpusim/obs/reqtrace.py`` (stdlib only); the daemon
+(:mod:`tpusim_torch.serve.daemon`, ``serve --trace-requests`` and
+``--access-log``) consumes it.
 
 The batch pillar (``tpusim_torch.obs.hub``) answers "where did this *run*
 spend its time"; this module answers the same question at request

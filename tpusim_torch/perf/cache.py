@@ -37,8 +37,6 @@ Port of ``tpusim/perf/cache.py``, in two tiers of its own:
 Keys hash the port's own sources (:func:`parser_version`, and
 ``model_version`` over its timing model), so the port and the JAX package
 never read each other's records, even in one cache directory.
-
-Not ported yet: the memory watchdog's LRU shrink (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -607,6 +605,31 @@ class ResultCache:
                 self.gc_runs += 1
                 self.gc_deleted += res.deleted
                 self.gc_freed_bytes += res.freed_bytes
+
+    def shrink(self, factor: float = 0.5, floor: int = 16) -> int:
+        """Halve (by default) the in-memory LRU's entry budget and trim
+        to it — the memory watchdog's first ladder step.  Cached results
+        re-materialize from the disk tier or a recompute.  Returns the
+        entries dropped."""
+        dropped = 0
+        with self._lock:
+            self.max_entries = max(int(self.max_entries * factor), floor)
+            while len(self._mem) > self.max_entries:
+                self._mem.popitem(last=False)
+                self.evictions += 1
+                dropped += 1
+            self.lru_shrinks += 1
+        for _ in range(dropped):
+            self.obs.counter_add("cache.evictions")
+        return dropped
+
+    def restore_entry_budget(self, max_entries: int) -> None:
+        """Reverse :meth:`shrink` — the watchdog's recovery hook.  Only
+        the budget comes back (entries refill on demand), so repeated
+        transient excursions do not ratchet a long-lived daemon's L1
+        down to the floor."""
+        with self._lock:
+            self.max_entries = max(int(max_entries), 1)
 
     def guard_stats_dict(self) -> dict[str, float]:
         """Quota/GC accounting, stamped by the driver under the

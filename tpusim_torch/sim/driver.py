@@ -34,10 +34,9 @@ cycle-window series (``SimReport.samples``): each kernel's module series
 at its launch offset, the memcpy and standalone-collective commands, and
 a ``faults`` lane under a fault schedule.  Under obs the ``--workers``
 pool disengages (samplers are run-scoped), and the report carries the
-``obs_*`` keys.
-
-Not ported yet: the wall-clock and memory limits of ``simulate``
-(ROADMAP A11).
+``obs_*`` keys.  ``simulate_trace(cancel=)`` carries the ``--max-wall-s``
+and ``--max-rss`` limits of the CLI (a tripped token raises
+:class:`~tpusim_torch.guard.cancel.OperationCancelled`).
 """
 
 from __future__ import annotations
@@ -695,6 +694,7 @@ def simulate_trace(
     result_cache=None,
     workers: int | None = None,
     pricing_backend: str | None = None,
+    cancel=None,
     compile_cache=None,
 ) -> SimReport:
     """Load a trace dir, compose the config, replay.
@@ -714,7 +714,11 @@ def simulate_trace(
     pricing backend; all backends give the same stats.  ``compile_cache``
     (the ``--compile-cache[=DIR]`` flag) activates the durable compiled-
     module tier before the trace loads, so the parse defers and a warm
-    store prices with zero IR built.  ``validate`` opts into the static
+    store prices with zero IR built.  ``cancel`` (a
+    :class:`tpusim_torch.guard.CancelToken`: the ``--max-wall-s`` and
+    ``--max-rss`` flags) makes the replay cooperatively cancellable: a
+    tripped token raises :class:`tpusim_torch.guard.OperationCancelled`
+    at the next command/op boundary.  ``validate`` opts into the static
     pre-flight (the ``--validate[=strict]`` flag): the trace, the config
     as composed here (the passed ``config`` and ``topology`` are what
     replays, so they are what is analyzed) and the fault schedule run
@@ -758,5 +762,6 @@ def simulate_trace(
         return SimDriver(
             cfg, topology=topology, obs=obs, faults=faults,
             result_cache=result_cache, workers=workers,
-            pricing_backend=pricing_backend, compile_cache=compile_cache,
+            pricing_backend=pricing_backend, cancel=cancel,
+            compile_cache=compile_cache,
         ).run(pod)
