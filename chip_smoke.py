@@ -288,10 +288,39 @@ non-zero and prints no result):
    of the run without the flag; then the cold ``simulate`` process of
    ``matmul_512`` @ v5e alone, timed; ``TPUSIM_STREAM_THRESHOLD`` as it
    was.
+18. the front tier, the sharded campaign, ``serve-bench``, the native
+   bridges and the power fit on the card's host, the kernels' counters set
+   to 0 at the phase's start and read at its end (they must stay 0), (b)
+   first, then (c)'s two fresh processes in the background while (a), (d)
+   and (e) run: (a) a
+   ``FrontSupervisor`` of two acceptors forked from this process, on
+   SO_REUSEPORT and then on the fd-passing fallback: the golden matrix
+   served (fresh connections, so both acceptors serve) equals the goldens
+   under phase 17's canon and float rule, a repeat the same bytes; one
+   acceptor SIGKILLed under traffic (every request answered) and
+   respawned; ``/metrics`` fleet-wide (two acceptors alive, the fleet's
+   request count at least one acceptor's); (b) phase 9 (c)'s v5p 4x4x4
+   campaign single-node, then on 3 forked nodes with one SIGKILLed once
+   its journal holds scenarios (the survivors price the rest, nothing
+   twice), then through the CLI over a dead node's half-done journal
+   (``--nodes 3`` refused, ``--nodes 3 --resume`` finishes it): each
+   merged ``report.json`` equal by bytes to the single-node one; (c)
+   ``serve-bench --worker-sweep 0,2`` and ``--acceptor-sweep 1,2`` over
+   the card's captures (``--reps 1``): every leg 0 errors and its requests
+   answered; req/s and p50 per leg and the cold-CLI ratio printed; (d)
+   ``libtpusim_native.so`` built from ``native/`` (its build seconds
+   printed) and loaded: ``hlo_scan`` v2 parses every capture of phases 4,
+   11 and 12 to the Python parser's ops; golden cells 1-5 and a module of
+   long runs priced through ``native`` equal ``vectorized``'s stats, the
+   long runs through the C scan; golden cell 4 through ``ici_net`` equals
+   its Python backend's stats; each bridge's counter shows it ran; (e)
+   ``tune --power`` for v5e and v5p into a temporary directory: the
+   ``coefficients`` equal ``tpusim_torch/power/fitted/*.json``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, the one before that the kernels' JSON
-record, the one before that phase 17's (``serve: {...}``), phase 16's
+record, the one before that phase 18's (``front: {...}``), phase 17's
+(``serve: {...}``), phase 16's
 (``harness: {...}``), phase 15's
 (``obs: {...}``), before it
 phase 14's (``ubench: {...}``), phase 13's (``models: {...}``), phase 12's (``multidevice: {...}``),
@@ -1628,8 +1657,13 @@ def warm_states_phase(card_name: str, work: Path,
     per_state_records(pod, cfg, topo, states,
                       ResultCache(disk_dir=work / "per_state"))
     want = records(work / "per_state")
-    if fp_batch.resolve_batch_backend(None) != "vectorized":
-        raise AssertionError("auto no longer resolves to vectorized")
+    # auto is the native scan where the library loads (phase 18 (d) holds
+    # it to vectorized), as in the reference
+    from tpusim_torch.fastpath.native import native_batch_available
+
+    auto = "native" if native_batch_available() else "vectorized"
+    if fp_batch.resolve_batch_backend(None) != auto:
+        raise AssertionError(f"auto no longer resolves to {auto}")
     out = {}
     for backend in backends:
         for *_, reset in KERNELS:
@@ -4940,6 +4974,474 @@ def serving_plane(card_name: str, work: Path, kept: Path) -> dict:
           f"(card: {card_name})", flush=True)
     return out
 
+# ---------------------------------------------------------------------------
+# phase 18: the front tier, the sharded campaign, the bench, the native
+# bridges and the power fit on the card's host
+# ---------------------------------------------------------------------------
+
+#: phase 18 (a): the acceptors of each front, and the requests of its
+#: kill-and-heal storm (acceptor 1 SIGKILLed before the sixth)
+FRONT_ACCEPTORS = 2
+FRONT_STORM = 30
+#: phase 18 (b): the nodes phase 9 (c)'s campaign shards over, and the
+#: scenario records the victim's journal holds when it is SIGKILLed
+SHARD_NODES = 3
+SHARD_KILL_AFTER = 8
+#: phase 18 (c): the bench's mix (captures of phases 4, 11 and 12, priced
+#: at v5e); per sweep its legs and the requests of a leg's storm (the
+#: reference's defaults: 64 for the worker sweep, 256 for the acceptor
+#: sweep, whose storm forks its loadgen processes inside the timed
+#: window), at the reference's default concurrency
+BENCH_TRACES = ("flash_attention_pallas", "matmul_chain", "ici_allreduce")
+BENCH_SWEEPS = {"worker": ("--worker-sweep", "0,2", 64),
+                "acceptor": ("--acceptor-sweep", "1,2", 256)}
+BENCH_CONCURRENCY = 8
+#: phase 18 (d): every capture of phases 4, 11 and 12
+PARSED_CAPTURES = ("flash_attention_pallas",) + LOWERED + MULTI
+#: phase 18 (d): a module of long synchronous runs (no golden cell has a
+#: run past the native scan's 192-op threshold): computations x ops
+LONG_RUNS = (4, 400)
+
+
+def kill_and_heal(front, url: str) -> dict:
+    """Acceptor 1 SIGKILLed mid-storm: every request answers (the client
+    reconnects onto the survivor), the supervisor respawns the slot and
+    ``/healthz`` counts both acceptors again."""
+    from tpusim_torch.serve.client import ServeClient
+
+    fixture, arch, overlays, _ = GOLDEN_CELLS[0]
+    boots = front.slots[1].boots
+    t0 = time.perf_counter()
+    for i in range(FRONT_STORM):
+        if i == 5:
+            front.kill_acceptor(1)
+        ServeClient(url, retries=3).simulate(
+            trace=fixture, arch=arch, overlays=list(overlays), tuned=False)
+    deadline = time.monotonic() + 30
+    while (front.slots[1].boots <= boots or not front.slots[1].alive) \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    healed_s = time.perf_counter() - t0
+    health = ServeClient(url, retries=3).healthz()
+    if front.slots[1].boots <= boots or health["acceptors_alive"] != 2:
+        raise AssertionError(f"the killed acceptor did not heal: {health}")
+    return {"storm_requests": FRONT_STORM, "heal_s": healed_s,
+            "restarts": front.slots[1].restarts}
+
+
+def front_leg(work: Path, fd_mode: bool) -> dict:
+    """Phase 18 (a), one transport: the golden matrix through a two-
+    acceptor front, first and repeated on fresh connections; the kill and
+    heal; the fleet-wide ``/metrics``; a clean stop."""
+    from tpusim_torch.serve.client import ServeClient
+    from tpusim_torch.serve.front import FrontSupervisor
+
+    old = os.environ.get("TPUSIM_NO_REUSEPORT")
+    if fd_mode:
+        os.environ["TPUSIM_NO_REUSEPORT"] = "1"
+    tag = "fd" if fd_mode else "reuseport"
+    try:
+        front = FrontSupervisor(
+            {"trace_root": str(FIXTURES), "max_inflight": 4,
+             "hot_cache": str(work / f"hot_{tag}"),
+             "quarantine_dir": str(work / f"quarantine_{tag}")},
+            num_acceptors=FRONT_ACCEPTORS, restart_backoff_s=0.1).start()
+    finally:
+        if old is None:
+            os.environ.pop("TPUSIM_NO_REUSEPORT", None)
+        else:
+            os.environ["TPUSIM_NO_REUSEPORT"] = old
+    out = {}
+    try:
+        if front.reuse_port == fd_mode:
+            raise AssertionError(f"{tag}: reuse_port {front.reuse_port}")
+        health = ServeClient(front.url, retries=3).healthz()
+        if health["acceptors_alive"] != FRONT_ACCEPTORS:
+            raise AssertionError(f"{tag}: healthz {health}")
+        gaps = {}
+        for leg in ("first", "repeated"):
+            for fixture, arch, overlays, stem in GOLDEN_CELLS:
+                r = ServeClient(front.url, retries=3).simulate(
+                    trace=fixture, arch=arch, overlays=list(overlays),
+                    tuned=False)
+                gaps[stem] = held_to_golden(stem, r.stats)
+        out["float_gaps"] = gaps
+        out["kill"] = kill_and_heal(front, front.url)
+        client = ServeClient(front.url, retries=3)
+        fleet = client.metrics_text()
+        _, local = client._raw("GET", "/metrics?scope=local")
+
+        def metric(text, key):
+            return next((float(ln.split()[1]) for ln in text.splitlines()
+                         if ln.startswith(f"tpusim_{key} ")), 0.0)
+
+        if (metric(fleet, "serve_acceptors_alive") != FRONT_ACCEPTORS
+                or metric(fleet, "serve_acceptors_configured")
+                != FRONT_ACCEPTORS
+                or metric(fleet, "serve_requests_total")
+                < metric(local.decode(), "serve_requests_total")):
+            raise AssertionError(f"{tag}: /metrics is not fleet-wide")
+        out["fleet_requests"] = metric(fleet, "serve_requests_total")
+        out["hot_hits"] = metric(fleet, "serve_hot_hits_total")
+    finally:
+        if not front.stop():
+            raise AssertionError(f"{tag}: the front did not stop cleanly")
+    return out
+
+
+def shard_sigs(out_dir: Path) -> tuple[set, int]:
+    """Every (slice, index) the shard journals under ``out_dir`` hold, and
+    how many of them more than once."""
+    from tpusim_torch.campaign.journal import Journal
+
+    seen: set = set()
+    dup = 0
+    for d in sorted((out_dir / "shards").iterdir()):
+        for rec in Journal(d).iter_records():
+            if rec.get("kind") == "scenario":
+                sig = (rec["slice"], rec["index"])
+                dup += sig in seen
+                seen.add(sig)
+    return seen, dup
+
+
+def kill_when_journaled(procs: dict, out_dir: Path, killed: list) -> None:
+    """``on_spawn`` of the sharded run into ``out_dir``: SIGKILL the
+    lowest node of the first wave once its journal holds
+    :data:`SHARD_KILL_AFTER` scenarios (from a thread, so the coordinator
+    joins its nodes meanwhile)."""
+    import signal
+    import threading
+
+    if killed or not procs:
+        return
+    node = sorted(procs)[0]
+    victim = procs[node]
+    journal = out_dir / "shards" / f"n{node}" / "journal.jsonl"
+
+    def watch():
+        deadline = time.monotonic() + 120
+        while victim.is_alive() and time.monotonic() < deadline:
+            try:
+                n = journal.read_text().count('"kind": "scenario"')
+            except OSError:
+                n = 0
+            if n >= SHARD_KILL_AFTER:
+                break
+            time.sleep(0.005)
+        os.kill(victim.pid, signal.SIGKILL)
+
+    killed.append(node)
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def shard_leg(work: Path) -> dict:
+    """Phase 18 (b): phase 9 (c)'s campaign single-node, sharded with a
+    node SIGKILLed mid-run, and resumed elsewhere through the CLI."""
+    from tpusim_torch.campaign import (
+        load_campaign_spec, run_campaign, run_sharded_campaign,
+        shard_assignment, spec_hash,
+    )
+
+    spec = {k: v for k, v in CAMPAIGN_SMOKE_SPEC.items()
+            if k not in ("slo", "candidate_slices")}
+    spec.update(name="campaign-v5p-64", chips=BIG_CAMPAIGN_CHIPS,
+                scenarios=BIG_CAMPAIGN_SCENARIOS)
+    trace = FIXTURES / "llama_tiny_tp2dp2"
+    out = {}
+    t0 = time.perf_counter()
+    run_campaign(spec, trace_path=trace, out_dir=work / "single")
+    out["single_s"] = time.perf_counter() - t0
+    single = (work / "single" / "report.json").read_bytes()
+    killed: list = []
+    msgs: list = []
+    t0 = time.perf_counter()
+    res = run_sharded_campaign(
+        spec, trace_path=trace, out_dir=work / "sharded", nodes=SHARD_NODES,
+        progress=msgs.append,
+        on_spawn=lambda procs: kill_when_journaled(
+            procs, work / "sharded", killed))
+    out["sharded_s"] = time.perf_counter() - t0
+    sigs, dup = shard_sigs(work / "sharded")
+    if not any("died" in m for m in msgs) or dup or \
+            len(sigs) != res.stats.scenarios:
+        raise AssertionError(f"sharded run: {msgs}, {dup} priced twice")
+    if (work / "sharded" / "report.json").read_bytes() != single:
+        raise AssertionError("the sharded report differs from the "
+                             "single-node one")
+    out["waves"] = msgs
+    # a dead node's half-done journal, resumed elsewhere through the CLI
+    parsed = load_campaign_spec(spec)
+    sigs = [(sl.label, i) for sl in parsed.slices(4)
+            for i in range(parsed.scenarios)]
+    share = sorted(shard_assignment(sigs, [0, 1], spec_hash(parsed))[1])
+    resumed = work / "resumed"
+    run_campaign(spec, trace_path=trace, out_dir=resumed / "shards" / "n1",
+                 only=set(share[:len(share) // 2]))
+    spec_path = work / "spec.json"
+    spec_path.write_text(json.dumps(spec))
+    argv = ["campaign", str(spec_path), "--trace", str(trace), "--out",
+            str(resumed), "--nodes", str(SHARD_NODES)]
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), \
+            contextlib.redirect_stdout(io.StringIO()):
+        refused = cli(argv)
+    if refused != 1 or "already holds journaled scenarios" not in \
+            err.getvalue():
+        raise AssertionError(f"--nodes over a journal: exit {refused}")
+    t0 = time.perf_counter()
+    text = run_cli(argv + ["--resume"])
+    out["resume_s"] = time.perf_counter() - t0
+    if (resumed / "report.json").read_bytes() != single:
+        raise AssertionError("the resumed report differs from the "
+                             "single-node one")
+    out["resume_line"] = next(ln.strip() for ln in text.splitlines()
+                              if "resumed from journal" in ln)
+    return out
+
+
+def start_bench(work: Path, kept: Path) -> dict:
+    """Phase 18 (c): both sweeps as fresh ``serve-bench`` processes over a
+    trace root of the card's captures, started together."""
+    root = work / "bench_traces"
+    root.mkdir()
+    for name in BENCH_TRACES:
+        shutil.copytree(kept / name, root / name)
+    mix = [a for t in BENCH_TRACES for a in ("--trace", t)]
+    return {kind: (start([sys.executable, "-m", "tpusim_torch", "serve-bench",
+                          flag, legs, "--trace-root", str(root), *mix,
+                          "--arch", "v5e", "--reps", "1",
+                          "--requests", str(requests),
+                          "--concurrency", str(BENCH_CONCURRENCY),
+                          "--json", str(work / f"bench_{kind}.json")],
+                         work / f"bench_{kind}.log", child_env()),
+                   work / f"bench_{kind}.json", requests)
+            for kind, (flag, legs, requests) in BENCH_SWEEPS.items()}
+
+
+def finish_bench(started: dict) -> dict:
+    """Phase 18 (c)'s checks: exit 0, every leg's requests answered with
+    0 errors; req/s and p50 per leg, and the cold-CLI ratio."""
+    out = {}
+    for kind, (proc, path, requests) in started.items():
+        rc, text, seconds = finish(proc)
+        if rc != 0:
+            raise AssertionError(f"serve-bench {kind} sweep: exit {rc}: "
+                                 f"{text[-800:]}")
+        doc = json.loads(path.read_text())
+        legs = doc[f"{kind}_sweep"]
+        bad = [leg for leg in legs if leg["error_count"]
+               or leg["requests"] != requests]
+        if bad:
+            raise AssertionError(f"serve-bench {kind} sweep: {bad}")
+        key = "serve_workers" if kind == "worker" else "acceptors"
+        out[kind] = {"seconds": seconds, "legs": [
+            {key: leg[key], "rps": leg["throughput_rps"],
+             "p50_ms": leg["latency_ms"]["p50"],
+             "p99_ms": leg["latency_ms"]["p99"]} for leg in legs]}
+        if kind == "worker":
+            out["cli_baseline"] = legs[0]["cli_baseline"]
+    return out
+
+
+def write_long_runs_trace(tdir: Path) -> Path:
+    """A trace of :data:`LONG_RUNS` computations of synchronous runs
+    (adds, multiplies, exponentials, a dot every 50th op, some results in
+    VMEM), called in turn from the entry (``tests/test_torch_native.py``
+    prices it too)."""
+    n_comps, n_ops = LONG_RUNS
+    (tdir / "modules").mkdir(parents=True)
+    (tdir / "meta.json").write_text(json.dumps({
+        "format_version": 1, "platform": "tpu",
+        "device_kind": "TPU v5 lite"}))
+    (tdir / "commandlist.jsonl").write_text(json.dumps({
+        "kind": "kernel_launch", "stream": 0, "device": 0, "bytes": 0,
+        "module": "long", "collective": None, "attrs": {}}) + "\n")
+    lay = "f32[128,128]{1,0:T(8,128)}"
+    vm = "f32[128,128]{1,0:T(8,128)S(1)}"
+    lines = ["HloModule long_runs, is_scheduled=true", ""]
+    for c in range(n_comps):
+        lines.append(f"%body_{c} (p0: f32[128,128]) -> f32[128,128] {{")
+        lines.append(f"  %p0 = {lay} parameter(0)")
+        prev = "%p0"
+        for i in range(n_ops):
+            kind = ("dot" if i % 50 == 49 else
+                    ("add", "multiply", "exponential")[i % 3])
+            if kind == "dot":
+                rhs = (f"dot({prev}, %p0), lhs_contracting_dims={{1}}, "
+                       f"rhs_contracting_dims={{0}}")
+            elif kind == "exponential":
+                rhs = f"exponential({prev})"
+            else:
+                rhs = f"{kind}({prev}, %p0)"
+            lines.append(f"  %op_{i} = {vm if i % 7 == 3 else lay} {rhs}")
+            prev = f"%op_{i}"
+        lines += [f"  ROOT %root = {lay} copy({prev})", "}", ""]
+    lines.append("ENTRY %main (p0: f32[128,128]) -> f32[128,128] {")
+    lines.append(f"  %p0 = {lay} parameter(0)")
+    prev = "%p0"
+    for c in range(n_comps):
+        lines.append(f"  %call_{c} = {lay} call({prev}), to_apply=%body_{c}")
+        prev = f"%call_{c}"
+    lines += [f"  ROOT %out = {lay} copy({prev})", "}"]
+    (tdir / "modules" / "long.hlo").write_text("\n".join(lines) + "\n")
+    return tdir
+
+
+def same_ops(name: str, a, b) -> int:
+    """Two parses of one module hold the same computations and ops (name,
+    opcode, operands, result, attributes, metadata, called computations,
+    collective); returns the op count."""
+    if list(a.computations) != list(b.computations) or \
+            a.entry_name != b.entry_name or a.meta != b.meta:
+        raise AssertionError(f"{name}: computations differ")
+    n = 0
+    for cname, ca in a.computations.items():
+        cb = b.computations[cname]
+        if len(ca.ops) != len(cb.ops):
+            raise AssertionError(f"{name}/{cname}: op counts differ")
+        for x, y in zip(ca.ops, cb.ops):
+            if (x.name, x.opcode, x.operands, str(x.result), x.attrs,
+                    x.metadata, x.called, x.collective, x.is_root) != (
+                    y.name, y.opcode, y.operands, str(y.result), y.attrs,
+                    y.metadata, y.called, y.collective, y.is_root):
+                raise AssertionError(f"{name}/{cname}: op {x.name} differs")
+            n += 1
+    return n
+
+
+def native_leg(kept: Path, work: Path) -> dict:
+    """Phase 18 (d): the three native bridges against the Python paths,
+    with their counters."""
+    import gzip
+
+    from tpusim_torch.fastpath import native as fp_native
+    from tpusim_torch.ici import detailed
+    from tpusim_torch.kernels import native_build
+    from tpusim_torch.trace import native as tn
+    from tpusim_torch.trace.hlo_text import parse_hlo_module
+
+    if not (tn.native_available() and fp_native.native_price_available()
+            and fp_native.native_batch_available()
+            and detailed.native_net_available()):
+        raise AssertionError("libtpusim_native.so is not available")
+    out = {"library": str(native_build.library_path().relative_to(REPO)),
+           "build_s": native_build.build_seconds()}
+    parses, ops, t_native, t_python = tn.NATIVE_PARSES, 0, 0.0, 0.0
+    for name in PARSED_CAPTURES:
+        for path in sorted((kept / name / "modules").iterdir()):
+            text = (gzip.open(path, "rt").read() if path.suffix == ".gz"
+                    else path.read_text())
+            t0 = time.perf_counter()
+            a = tn.parse_hlo_module_native(text, name)
+            t1 = time.perf_counter()
+            b = parse_hlo_module(text, name)
+            t_python += time.perf_counter() - t1
+            t_native += t1 - t0
+            ops += same_ops(name, a, b)
+    out["hlo_scan"] = {"captures": len(PARSED_CAPTURES), "ops": ops,
+                       "v2": tn._HAS_V2,
+                       "parses": tn.NATIVE_PARSES - parses,
+                       "native_s": t_native, "python_s": t_python}
+    scans = fp_native.SCAN_CALLS
+    long_trace = write_long_runs_trace(work / "long_runs")
+    cells = [(FIXTURES / f, a, o, stem) for f, a, o, stem in GOLDEN_CELLS]
+    cells.append((long_trace, "v5e", [], "long_runs"))
+    for trace, arch, overlays, stem in cells:
+        got, want = (compared(stats_of(simulate_trace(
+            trace, arch=arch, overlays=list(overlays), tuned=False,
+            pricing_backend=b))) for b in ("native", "vectorized"))
+        if got != want:
+            raise AssertionError(f"{stem}: native and vectorized differ")
+    out["price_scan"] = {"cells": len(cells),
+                         "calls": fp_native.SCAN_CALLS - scans}
+    if not out["price_scan"]["calls"]:
+        raise AssertionError("the long runs never reached the C scan")
+    fixture, arch, overlays, stem = GOLDEN_CELLS[3]
+    runs = detailed.NET_RUNS
+    native = stats_of(simulate_trace(FIXTURES / fixture, arch=arch,
+                                     overlays=list(overlays), tuned=False))
+    nets = detailed.NET_RUNS - runs
+    available = detailed.native_net_available
+    detailed.native_net_available = lambda: False
+    try:
+        python = stats_of(simulate_trace(FIXTURES / fixture, arch=arch,
+                                         overlays=list(overlays),
+                                         tuned=False))
+    finally:
+        detailed.native_net_available = available
+    if not nets or compared(native) != compared(python):
+        raise AssertionError(f"{stem}: ici_net ({nets} runs) and the "
+                             f"Python network differ")
+    out["ici_net"] = {"cell": stem, "runs": nets}
+    return out
+
+
+def power_fit_leg(work: Path) -> dict:
+    """Phase 18 (e): ``tune --power`` per fitted generation, its
+    coefficients the committed ones."""
+    out = {}
+    for arch in ("v5e", "v5p"):
+        run_cli(["tune", "--power", "--arch", arch, "--out",
+                 str(work / "fitted")])
+        got = json.loads((work / "fitted" / f"{arch}.json").read_text())
+        want = json.loads((REPO / "tpusim_torch" / "power" / "fitted"
+                           / f"{arch}.json").read_text())
+        if got["coefficients"] != want["coefficients"]:
+            raise AssertionError(f"tune --power {arch}: coefficients differ")
+        out[arch] = got["meta"]["source"]
+    return out
+
+
+def front_shards_bench(card_name: str, work: Path, kept: Path) -> dict:
+    """Phase 18: (b) first (its forked nodes fill the host's cores), then
+    (c)'s processes start, and (a), (d) and (e) run in this process while
+    they boot, then (c)'s checks: the bench's storms share the host with
+    the other sweep only.  The kernels' counters are set to 0 at the
+    start and read at the end (they must stay 0)."""
+    for *_, reset in KERNELS:
+        reset()
+    out = {"seconds": {}}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    out["b"] = shard_leg(work)
+    out["seconds"]["b"] = time.perf_counter() - t0
+    print(f"  (b) {out['seconds']['b']:.2f} s: " + json.dumps(out["b"]),
+          flush=True)
+    started = start_bench(work, kept)
+    try:
+        for part, fn in (("a", lambda: {"reuseport": front_leg(work, False),
+                                        "fd": front_leg(work, True)}),
+                         ("d", lambda: native_leg(kept, work)),
+                         ("e", lambda: power_fit_leg(work)),
+                         ("c", lambda: finish_bench(started))):
+            t0 = time.perf_counter()
+            out[part] = fn()
+            out["seconds"][part] = time.perf_counter() - t0
+            print(f"  ({part}) {out['seconds'][part]:.2f} s: "
+                  + json.dumps(out[part]), flush=True)
+    finally:
+        for proc, *_ in started.values():
+            if proc[0].poll() is None:
+                proc[0].kill()
+                proc[0].wait()
+            proc[1].close()
+    out["launches"] = no_launches("phase 18")
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    out["card"] = card_name
+    for kind in BENCH_SWEEPS:
+        print(f"  serve-bench {kind} sweep: " + "; ".join(
+            f"{leg.get('serve_workers', leg.get('acceptors'))}: "
+            f"{leg['rps']} req/s, p50 {leg['p50_ms']} ms"
+            for leg in out["c"][kind]["legs"]) + f" (card: {card_name})")
+    cb = out["c"]["cli_baseline"]
+    print(f"  cold CLI simulate of {cb['trace']} {cb['cold_cli_s']} s -> "
+          f"warm served p50 {cb['warm_p50_ms']} ms = {cb['speedup_p50']}x; "
+          f"native build {out['d']['build_s']} s; kernel launches "
+          f"{out['launches']}; {out['seconds']['phase']:.1f} s "
+          f"(card: {card_name})", flush=True)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5052,7 +5554,7 @@ def main() -> int:
     phase(12, "multi-device capture: seven workloads, all ranks on the card")
     with tempfile.TemporaryDirectory() as tmp:
         multi = multi_device(card_name, Path(tmp))
-        keep_traces(Path(tmp), ("ici_allreduce",), kept)
+        keep_traces(Path(tmp), MULTI, kept)
     print("multidevice: " + json.dumps(multi))
 
     phase(13, "the model suite at registered width")
@@ -5074,6 +5576,11 @@ def main() -> int:
     phase(17, "the serving plane on the card's host")
     with tempfile.TemporaryDirectory() as tmp:
         served = serving_plane(card_name, Path(tmp), kept)
+
+    phase(18, "front tier, shards, bench, native and the power fit on the "
+              "card's host")
+    with tempfile.TemporaryDirectory() as tmp:
+        front = front_shards_bench(card_name, Path(tmp), kept)
     kept_dir.cleanup()
     phase(None)
     models["phase_seconds"] = PHASE_SECONDS
@@ -5082,6 +5589,7 @@ def main() -> int:
     print("obs: " + json.dumps(observed))
     print("harness: " + json.dumps(harness))
     print("serve: " + json.dumps(served))
+    print("front: " + json.dumps(front))
 
     record = {"kernels": [{
         "name": "flash_attention",

@@ -244,11 +244,19 @@ def test_batch_stats_keys_match_reference():
 
 
 def test_resolve_batch_backend_contract(monkeypatch):
+    """``None`` follows the per-state rule: ``native`` when the library
+    is available (it builds with g++ here), else ``vectorized``; a
+    pinned ``native`` without it raises."""
+    from tpusim_torch.fastpath import native as port_native
+
     monkeypatch.delenv("TPUSIM_PRICING_BACKEND", raising=False)
-    assert BATCH_BACKENDS == ("vectorized", "cuda", "serial")
-    assert resolve_batch_backend(None) == "vectorized"
+    assert BATCH_BACKENDS == ("vectorized", "native", "cuda", "serial")
+    assert resolve_batch_backend(None) == "native"
+    assert resolve_batch_backend("native") == "native"
     assert resolve_batch_backend("vectorized") == "vectorized"
     assert resolve_batch_backend("serial") == "serial"
+    monkeypatch.setattr(port_native, "native_price_available", lambda: False)
+    assert resolve_batch_backend(None) == "vectorized"
     with pytest.raises(ValueError, match="native"):
         resolve_batch_backend("native")
 

@@ -388,12 +388,23 @@ def test_result_to_doc_has_the_references_fields():
 
 
 def test_resolve_backend_contract(monkeypatch):
+    """``auto`` is ``native`` when the library is available (it builds
+    with g++ here), else ``vectorized`` — the reference's rule."""
+    from tpusim_torch.fastpath import native as port_native
+
     monkeypatch.delenv("TPUSIM_PRICING_BACKEND", raising=False)
     assert port_price.BACKENDS == ("auto", "serial", "vectorized", "native")
     assert port_price.resolve_backend("serial") == "serial"
     assert port_price.resolve_backend("vectorized") == "vectorized"
+    assert port_native.native_price_available()
+    assert port_price.resolve_backend(None) == "native"
+    assert port_price.resolve_backend("auto") == "native"
+    assert port_price.resolve_backend("native") == "native"
+    monkeypatch.setattr(port_native, "native_price_available", lambda: False)
     assert port_price.resolve_backend(None) == "vectorized"
     assert port_price.resolve_backend("auto") == "vectorized"
+    monkeypatch.undo()
+    monkeypatch.delenv("TPUSIM_PRICING_BACKEND", raising=False)
     monkeypatch.setenv("TPUSIM_PRICING_BACKEND", "serial")
     assert port_price.resolve_backend(None) == "serial"
     assert PortEngine(port_config()).pricing_backend is None
@@ -402,9 +413,12 @@ def test_resolve_backend_contract(monkeypatch):
         port_price.resolve_backend("warp-speed")
 
 
-def test_explicit_native_raises():
-    """Pinning a backend the port does not have fails loudly, never
+def test_explicit_native_raises(monkeypatch):
+    """Pinning ``native`` without the library fails loudly, never
     silently prices through something else."""
+    from tpusim_torch.fastpath import native as port_native
+
+    monkeypatch.setattr(port_native, "native_price_available", lambda: False)
     with pytest.raises(ValueError, match="pricing backend 'native' requested"):
         port_price.resolve_backend("native")
     mod = next(iter(port_load(SILICON / "reduction").modules.values()))
@@ -448,22 +462,26 @@ def test_checkpoint_op_stamps_the_serial_walk():
     assert got["fastpath_backend"] == "serial"
 
 
-def test_cli_pricing_backend_stamps_fastpath_backend(capsys):
+def test_cli_pricing_backend_stamps_fastpath_backend(capsys, monkeypatch):
+    from tpusim_torch.fastpath import native as port_native
+
     trace = str(CI_TRACES / "matmul_512")
     assert port_main(["simulate", trace, "--arch", "v5e"]) == 0
     plain = capsys.readouterr().out.splitlines()
     assert not any(ln.startswith("tpusim_fastpath_") for ln in plain)
-    for backend in ("vectorized", "serial", "auto"):
+    for backend in ("vectorized", "serial", "auto", "native"):
         assert port_main(["simulate", trace, "--arch", "v5e",
                           "--pricing-backend", backend]) == 0
         out = capsys.readouterr().out.splitlines()
-        resolved = "serial" if backend == "serial" else "vectorized"
+        # auto is native: the library builds with g++ here
+        resolved = {"auto": "native"}.get(backend, backend)
         assert f"tpusim_fastpath_backend = {resolved}" in out
         keep = [ln for ln in out if not ln.startswith("tpusim_fastpath_")
                 and not ln.startswith(("tpusim_simulation_rate_kops",
                                        "tpusim_silicon_slowdown"))]
         assert keep == [ln for ln in plain if not ln.startswith(
             ("tpusim_simulation_rate_kops", "tpusim_silicon_slowdown"))]
+    monkeypatch.setattr(port_native, "native_price_available", lambda: False)
     assert port_main(["simulate", trace, "--pricing-backend", "native"]) == 2
     assert "pricing backend 'native'" in capsys.readouterr().err
 

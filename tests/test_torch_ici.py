@@ -235,10 +235,15 @@ def test_torus_network_equals_reference_python_backend(dims, wrap):
             assert got == want, (dims, trial, flit)
 
 
-def test_torus_network_refuses_native_backend():
+def test_torus_network_refuses_native_backend(monkeypatch):
+    """``use_native=True`` raises without the library, as the
+    reference's does; with it (built here) the native backend runs."""
     topo = port_topo.Topology(dims=(4,), wrap=(True,))
-    with pytest.raises(RuntimeError, match="A10"):
+    assert port_det.TorusNetwork(topo, 16.0, 3, use_native=True)._native
+    monkeypatch.setattr(port_det, "native_net_available", lambda: False)
+    with pytest.raises(RuntimeError, match="not built"):
         port_det.TorusNetwork(topo, 16.0, 3, use_native=True)
+    assert not port_det.TorusNetwork(topo, 16.0, 3)._native
     with pytest.raises(ValueError):
         port_det.TorusNetwork(topo, 0.0, 3)
     assert port_det.TorusNetwork(topo, 16.0, 3).run_phases([]) == 0.0

@@ -417,7 +417,8 @@ def test_store_stats_ride_only_while_active(tmp_path):
     got = json.loads(simulate_trace(
         FIXTURES / "matmul_512", arch="v5e", tuned=False,
         compile_cache=tmp_path).stats.to_json())
-    assert got["fastpath_backend"] == "vectorized"
+    # auto: the native scan, whose library builds with g++ here
+    assert got["fastpath_backend"] == "native"
     assert got["fastpath_store_writes"] == 1
     assert "fastpath_ir_ops_built" in got
     assert {k: v for k, v in got.items()

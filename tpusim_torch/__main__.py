@@ -42,7 +42,7 @@
     python -m tpusim_torch cache    {stats,verify,gc,clear} [--dir DIR]
                                     [--quota SIZE] [--max-entries N]
     python -m tpusim_torch campaign <spec.json> --trace DIR [--out DIR]
-                                    [--resume] [--workers N]
+                                    [--resume] [--workers N] [--nodes N]
                                     [--result-cache[=DIR]]
                                     [--compile-cache[=DIR]] [--max-wall-s S]
                                     [--no-scenario-batch] [--json F]
@@ -64,8 +64,17 @@
                                     [--compile-cache[=DIR]] [--hot-cache[=DIR]]
                                     [--cache-quota SIZE] [--max-rss SIZE]
                                     [--max-worker-rss SIZE] [--join HOST:PORT]
-                                    [--strict-lint] [--trace-requests]
+                                    [--acceptors N] [--strict-lint]
+                                    [--trace-requests]
                                     [--access-log[=PATH]] [...]
+    python -m tpusim_torch serve-bench [--url U] [--trace-root DIR]
+                                    [--concurrency N] [--requests N]
+                                    [--trace T]... [--arch A]
+                                    [--no-cli-baseline] [--serve-workers N]
+                                    [--worker-sweep N,..]
+                                    [--acceptor-sweep N,..] [--no-hot-cache]
+                                    [--loadgen-procs N] [--reps N] [--json F]
+    python -m tpusim_torch tune     --power [--arch A] [--out DIR]
     python -m tpusim_torch run      -B SUITE -C ARCH[+NAMED],... [-o DIR]
                                     [--traces DIR] [--yaml F] [--capture]
                                     [--parallel N] [--power] [--obs]
@@ -94,14 +103,19 @@ errors, and on warnings under ``--strict``).  ``lint --self-audit`` and
 ``--stats-keys`` audit the port's own sources.  ``simulate``, ``serve``,
 ``profile`` and the trace tools (``timeline``, ``aerial``, ``debug``,
 ``bbv``, ``occupancy``) are host commands: they take no ``--device`` and
-make no CUDA tensor.  ``campaign`` has no ``--nodes`` and ``serve`` no
-``--acceptors`` yet (N > 0 exits 2; ROADMAP A11 item 2).  ``run`` captures missing traces
-(``--capture``) through ``python -m tpusim_torch capture``, on the card.
-One deviation from the reference's defaults: ``correl-regen`` and ``loo``
-write under :data:`PORT_REPORTS` (``build/tpusim_torch_reports/``), not
-over the JAX package's committed ``reports/correl_ops.json`` and
-``reports/loo.json``, which they still read as input.  The other
-subcommands wait for their slices of the port (see ROADMAP.md).
+make no CUDA tensor; neither do ``serve --acceptors``, the forked nodes
+of ``campaign --nodes`` (which refuses ``cuda`` scenario batching) and
+``serve-bench``, whose processes are all ``python -m tpusim_torch``.
+``run`` captures missing traces (``--capture``) through ``python -m
+tpusim_torch capture``, on the card.  Deviations from the reference's
+defaults: ``correl-regen`` and ``loo`` write under :data:`PORT_REPORTS`
+(``build/tpusim_torch_reports/``), not over the JAX package's committed
+``reports/correl_ops.json`` and ``reports/loo.json``, which they still
+read as input; ``tune --power`` writes under
+``build/tpusim_torch_reports/power_fitted/``, not over the committed
+fitted coefficients.  ``tune`` without ``--power`` exits 2 and
+``correlate-ops`` is not registered: they time a live TPU (ROADMAP A12
+item 5).
 """
 
 from __future__ import annotations
@@ -418,7 +432,9 @@ def _cmd_campaign(args: argparse.Namespace) -> int:
     capacity answer.  Crash-safe: re-run with --resume to continue a
     killed campaign from its last journaled scenario."""
     from tpusim_torch.analysis import ValidationError
-    from tpusim_torch.campaign import JournalError, run_campaign
+    from tpusim_torch.campaign import (
+        JournalError, run_campaign, run_sharded_campaign,
+    )
     from tpusim_torch.guard.cancel import CancelToken, OperationCancelled
 
     progress = None
@@ -428,20 +444,41 @@ def _cmd_campaign(args: argparse.Namespace) -> int:
     cancel = None
     if getattr(args, "max_wall_s", None):
         cancel = CancelToken.after(args.max_wall_s)
+    nodes = getattr(args, "nodes", None)
+    if nodes is not None and nodes > 1 and not args.out:
+        print("tpusim_torch campaign: --nodes needs --out DIR (the "
+              "per-node journal shards and merged report live there)",
+              file=sys.stderr)
+        return 2
     try:
-        res = run_campaign(
-            args.spec,
-            trace_path=args.trace,
-            out_dir=args.out,
-            resume=args.resume,
-            result_cache=args.result_cache,
-            workers=args.workers,
-            progress=progress,
-            cancel=cancel,
-            compile_cache=args.compile_cache,
-            scenario_batch=(
-                False if args.no_scenario_batch else None),
-        )
+        if nodes is not None and nodes > 1:
+            res = run_sharded_campaign(
+                args.spec,
+                trace_path=args.trace,
+                out_dir=args.out,
+                nodes=nodes,
+                resume=args.resume,
+                result_cache=args.result_cache,
+                workers=args.workers,
+                progress=progress,
+                compile_cache=args.compile_cache,
+                scenario_batch=(
+                    False if args.no_scenario_batch else None),
+            )
+        else:
+            res = run_campaign(
+                args.spec,
+                trace_path=args.trace,
+                out_dir=args.out,
+                resume=args.resume,
+                result_cache=args.result_cache,
+                workers=args.workers,
+                progress=progress,
+                cancel=cancel,
+                compile_cache=args.compile_cache,
+                scenario_batch=(
+                    False if args.no_scenario_batch else None),
+            )
     except OperationCancelled as e:
         hint = (
             f"re-run with --resume --out {args.out} to continue from "
@@ -708,19 +745,89 @@ def _parse_sets(items: list[str] | None) -> dict:
     return out
 
 
+def _cmd_serve_front(args: argparse.Namespace) -> int:
+    """The multi-acceptor front tier — N acceptor processes sharing the
+    listen port via SO_REUSEPORT (fd-passing fallback), each with its own
+    HTTP parse + admission, against shared hot-cache / disk-cache /
+    quarantine state."""
+    import tempfile
+
+    from tpusim_torch.serve.front import FrontSupervisor, reuse_port_available
+
+    ephemeral_quarantine = None
+    if args.state_dir:
+        quarantine_dir = str(Path(args.state_dir) / "quarantine")
+    else:
+        # no state dir: the shared quarantine is run-scoped — reclaim
+        # it after the drain or restarts would litter the temp dir
+        ephemeral_quarantine = tempfile.mkdtemp(
+            prefix="tpusim-serve-quar-"
+        )
+        quarantine_dir = ephemeral_quarantine
+    settings = {
+        "trace_root": args.trace_root,
+        "max_inflight": args.max_inflight,
+        "queue_depth": args.queue_depth,
+        "deadline_s": args.deadline_s,
+        "max_request_bytes": args.max_request_bytes,
+        "result_cache": args.result_cache,
+        "workers": args.workers or 1,
+        "workers_per_acceptor": args.serve_workers,
+        "min_workers": args.serve_min_workers,
+        "job_workers": max(args.job_workers, 1),
+        "drain_grace_s": args.drain_grace_s,
+        "state_dir": args.state_dir,
+        "verbose": args.verbose,
+        "disk_quota": args.cache_quota,
+        "max_rss": args.max_rss,
+        "max_worker_rss": args.max_worker_rss,
+        "compile_cache": args.compile_cache,
+        "hot_cache": args.hot_cache,
+        "strict_lint": args.strict_lint,
+        "trace_requests": args.trace_requests,
+        "access_log": args.access_log,
+        "quarantine_dir": quarantine_dir,
+        "join_addr": args.join,
+        "join_min_nodes": args.cluster_min_nodes,
+    }
+    front = FrontSupervisor(
+        settings, num_acceptors=args.acceptors,
+        host=args.host, port=args.port,
+    )
+    try:
+        front.start()
+    except (OSError, RuntimeError, ValueError) as e:
+        print(f"tpusim_torch serve: error: {e}", file=sys.stderr)
+        return 2
+    front.install_signal_handlers()
+    mode = "SO_REUSEPORT" if reuse_port_available() else "fd-passing"
+    hot_note = ", hot-cache on" if args.hot_cache else ""
+    join_note = f", join {args.join}" if args.join else ""
+    print(f"tpusim_torch serve: listening on "
+          f"http://{front.host}:{front.port} "
+          f"(traces: {args.trace_root or 'inline only'}; "
+          f"acceptors {args.acceptors} via {mode}"
+          f"{hot_note}{join_note})",
+          flush=True)
+    front.wait_stopped()
+    if ephemeral_quarantine is not None:
+        import shutil
+
+        shutil.rmtree(ephemeral_quarantine, ignore_errors=True)
+    print("tpusim_torch serve: drained, exiting", flush=True)
+    return 0
+
+
 def _cmd_serve(args: argparse.Namespace) -> int:
     """Long-running simulation service (:mod:`tpusim_torch.serve`): JSON
     API over HTTP with hot traces, admission control, a process-wide
-    shared engine-result cache, and SIGTERM drain.  A host command: it
-    makes no CUDA tensor."""
+    shared engine-result cache, and SIGTERM drain; ``--acceptors N``
+    serves through the front tier.  A host command: it makes no CUDA
+    tensor."""
     from tpusim_torch.serve.daemon import ServeDaemon
 
     if args.acceptors and args.acceptors > 0:
-        print("tpusim_torch serve: error: --acceptors (the multi-acceptor "
-              "front tier, serve/front.py) is not ported yet: ROADMAP "
-              "A11 item 2; run without it (one daemon process)",
-              file=sys.stderr)
-        return 2
+        return _cmd_serve_front(args)
     try:
         daemon = ServeDaemon(
             trace_root=args.trace_root,
@@ -774,6 +881,103 @@ def _cmd_serve(args: argparse.Namespace) -> int:
           flush=True)
     daemon.wait_stopped()
     print("tpusim_torch serve: drained, exiting", flush=True)
+    return 0
+
+
+def _cmd_serve_bench(args: argparse.Namespace) -> int:
+    """Loadgen for the serving daemon: replay a fixture request mix at a
+    target concurrency, report p50/p95/p99 + throughput, and compare the
+    warm served path against the cold one-shot CLI (every process it
+    starts is ``python -m tpusim_torch``)."""
+    from tpusim_torch.serve.bench import (
+        format_acceptor_sweep, format_report, format_sweep,
+        run_acceptor_sweep, run_serve_bench, run_worker_sweep,
+    )
+
+    mix = None
+    if args.trace:
+        mix = [
+            {"trace": t, "arch": args.arch}
+            for t in args.trace
+        ]
+    if args.acceptor_sweep:
+        try:
+            counts = [int(c) for c in args.acceptor_sweep.split(",") if c]
+        except ValueError:
+            print(f"tpusim_torch serve-bench: --acceptor-sweep wants a "
+                  f"comma-separated int list, got {args.acceptor_sweep!r}")
+            return 2
+        doc = run_acceptor_sweep(
+            acceptor_counts=counts,
+            trace_root=args.trace_root,
+            concurrency=args.concurrency,
+            requests=args.requests,
+            mix=mix,
+            hot_cache=not args.no_hot_cache,
+            serve_workers=args.serve_workers,
+            reps=args.reps,
+            loadgen_procs=args.loadgen_procs,
+        )
+        print(format_acceptor_sweep(doc))
+        failed = any(
+            leg["error_count"] for leg in doc["acceptor_sweep"]
+        )
+    elif args.worker_sweep:
+        try:
+            counts = [int(c) for c in args.worker_sweep.split(",") if c]
+        except ValueError:
+            print(f"tpusim_torch serve-bench: --worker-sweep wants a "
+                  f"comma-separated int list, got {args.worker_sweep!r}")
+            return 2
+        doc = run_worker_sweep(
+            worker_counts=counts,
+            trace_root=args.trace_root,
+            concurrency=args.concurrency,
+            requests=args.requests,
+            mix=mix,
+            cli_baseline=not args.no_cli_baseline,
+            reps=args.reps,
+        )
+        print(format_sweep(doc))
+        failed = any(
+            leg["error_count"] for leg in doc["worker_sweep"]
+        )
+    else:
+        doc = run_serve_bench(
+            url=args.url,
+            trace_root=args.trace_root,
+            concurrency=args.concurrency,
+            requests=args.requests,
+            mix=mix,
+            cli_baseline=not args.no_cli_baseline,
+            serve_workers=args.serve_workers,
+            reps=args.reps,
+        )
+        print(format_report(doc))
+        failed = bool(doc.get("error_count") or doc.get("errors"))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(doc, f, indent=2)
+            f.write("\n")
+        print(f"report written to {args.json}")
+    return 1 if failed else 0
+
+
+def _cmd_tune(args: argparse.Namespace) -> int:
+    """``tune --power``: fit power coefficients (telemetry when a source
+    answers, anchor fixtures otherwise) into ``--out`` (default
+    :data:`tpusim_torch.harness.tuner.POWER_OUT`).  The arch tuner
+    (``tune`` without ``--power``) times microbenchmarks on a live TPU
+    and is not ported: it exits 2."""
+    from tpusim_torch.harness.tuner import tune_power
+
+    if not args.power:
+        print("tpusim_torch tune: error: only --power is ported; the arch "
+              "tuner times microbenchmarks on a live TPU (ROADMAP A12 item "
+              "5, the live probes)", file=sys.stderr)
+        return 2
+    path = tune_power(args.arch or "v5e", out_dir=args.out)
+    print(f"fitted power coefficients written to {path}")
     return 0
 
 
@@ -1534,6 +1738,15 @@ def main(argv: list[str] | None = None) -> int:
                           "campaign over an already-compiled trace "
                           "parses and compiles nothing "
                           "(tpusim_torch.fastpath.store)")
+    pcm.add_argument("--nodes", type=int, default=None, metavar="N",
+                     help="shard scenario batches across N node "
+                          "processes by journal signature (requires "
+                          "--out): each shard appends to its own "
+                          "fsync'd journal, the coordinator merges by "
+                          "(slice, index) into a report byte-identical "
+                          "to a single-node run; a killed shard "
+                          "resumes ELSEWHERE with --resume, re-pricing "
+                          "nothing")
     pcm.add_argument("--max-wall-s", type=float, default=None, metavar="S",
                      help="cooperative wall-clock budget: the campaign "
                           "cancels at the next scenario boundary with "
@@ -1714,9 +1927,12 @@ def main(argv: list[str] | None = None) -> int:
                           "over-budget idle worker is restarted "
                           "deliberately between requests")
     psv.add_argument("--acceptors", type=int, default=0, metavar="N",
-                     help="N acceptor processes sharing the listen port "
-                          "(the front tier): not ported yet, N > 0 "
-                          "exits 2 (ROADMAP A11 item 2)")
+                     help="N acceptor processes sharing the listen "
+                          "port via SO_REUSEPORT (fd-passing fallback; "
+                          "TPUSIM_NO_REUSEPORT=1 forces it) — each runs "
+                          "its own HTTP parse + admission, so no single "
+                          "GIL touches every request (default 0: one "
+                          "daemon process)")
     psv.add_argument("--join", default=None, metavar="HOST:PORT",
                      help="join the multi-node cluster whose primary "
                           "listens at HOST:PORT: this node registers, "
@@ -1754,6 +1970,72 @@ def main(argv: list[str] | None = None) -> int:
     psv.add_argument("--verbose", action="store_true",
                      help="per-request access log on stderr")
     psv.set_defaults(fn=_cmd_serve)
+
+    psb = sub.add_parser(
+        "serve-bench",
+        help="loadgen for the serve daemon: fixture request mix at a "
+             "target concurrency -> p50/p95/p99 + throughput vs the "
+             "cold one-shot CLI",
+    )
+    psb.add_argument("--url", default=None,
+                     help="target an already-running daemon (default: "
+                          "boot one in-process on a free port)")
+    psb.add_argument("--trace-root", default=None, metavar="DIR",
+                     help="trace root for the self-booted daemon "
+                          "(default: the committed test fixtures)")
+    psb.add_argument("--concurrency", type=int, default=8)
+    psb.add_argument("--requests", type=int, default=64)
+    psb.add_argument("--trace", action="append", default=None,
+                     help="fixture trace name(s) for the mix (default: "
+                          "llama_tiny_tp2dp2 + matmul_512)")
+    psb.add_argument("--arch", default="v5p",
+                     help="arch for --trace mix entries")
+    psb.add_argument("--no-cli-baseline", action="store_true",
+                     help="skip the cold-CLI comparison run")
+    psb.add_argument("--serve-workers", type=int, default=0, metavar="N",
+                     help="boot the self-hosted daemon with N supervised "
+                          "worker processes (default 0 = single-process)")
+    psb.add_argument("--worker-sweep", default=None, metavar="N,N,...",
+                     help="scaling curve: one warm bench leg per worker "
+                          "count (0 = single-process baseline), e.g. "
+                          "'0,1,2,4'; overrides --url/--serve-workers")
+    psb.add_argument("--acceptor-sweep", default=None, metavar="N,N,...",
+                     help="front-tier scaling curve: one warm leg per "
+                          "acceptor count against an out-of-process "
+                          "front fleet (0 = single-process baseline "
+                          "added automatically), e.g. '1,2,4'; the "
+                          "loadgen fans over processes so its GIL "
+                          "never caps the measurement")
+    psb.add_argument("--no-hot-cache", action="store_true",
+                     help="acceptor-sweep legs WITHOUT the shared mmap "
+                          "hot-response cache (default: on)")
+    psb.add_argument("--loadgen-procs", type=int, default=None,
+                     metavar="N",
+                     help="loadgen processes for --acceptor-sweep "
+                          "(default: min(cores, 4), at least 2)")
+    psb.add_argument("--reps", type=int, default=3, metavar="N",
+                     help="measured storms per leg; each leg reports its "
+                          "best-throughput pass (noisy-neighbor armor; "
+                          "errors from every pass still count)")
+    psb.add_argument("--json", default=None,
+                     help="also write the report document here")
+    psb.set_defaults(fn=_cmd_serve_bench)
+
+    ptu = sub.add_parser(
+        "tune",
+        help="fit power coefficients (--power: telemetry when available, "
+             "anchor fixtures otherwise); the arch tuner needs a live TPU "
+             "and is not ported",
+    )
+    ptu.add_argument("--arch", default=None)
+    ptu.add_argument("--out", default=None, metavar="DIR",
+                     help="where --power writes <arch>.json (default "
+                          "build/tpusim_torch_reports/power_fitted/, never "
+                          "the committed power/fitted/)")
+    ptu.add_argument("--power", action="store_true",
+                     help="fit power coefficients (telemetry when "
+                          "available, anchor fixtures otherwise)")
+    ptu.set_defaults(fn=_cmd_tune)
 
 
     pc = sub.add_parser("capture", help="capture a registered workload")

@@ -8,16 +8,16 @@ simultaneous faults, correlated cable-bundle outages, straggler +
 HBM-throttle mixes — and what is the smallest pod slice that still
 meets my SLO at p99?".
 
-Four pieces: declarative specs with a PRNG seed
+Five pieces: declarative specs with a PRNG seed
 (:mod:`~tpusim_torch.campaign.spec`), per-scenario substream sampling
 (:mod:`~tpusim_torch.campaign.sample`), a crash-safe resumable executor
 over the shared engine-result cache (:mod:`~tpusim_torch.campaign.runner`
-+ :mod:`~tpusim_torch.campaign.journal`), and distribution/capacity
-reports joining the power model (:mod:`~tpusim_torch.campaign.report`).
-Reached via ``python -m tpusim_torch campaign``.
-
-Not ported yet: the sharded campaign (``campaign/shard.py``,
-``--nodes``, over the serving cluster's hash ring; ROADMAP A11 item 2).
++ :mod:`~tpusim_torch.campaign.journal`), distribution/capacity reports
+joining the power model (:mod:`~tpusim_torch.campaign.report`), and the
+sharded run over node processes, placed by the serving cluster's hash
+ring and merged into the single-node report
+(:mod:`~tpusim_torch.campaign.shard`).  Reached via ``python -m
+tpusim_torch campaign`` (``--nodes N`` shards it).
 """
 
 from tpusim_torch.campaign.journal import Journal, JournalError
@@ -28,6 +28,7 @@ from tpusim_torch.campaign.runner import (
     run_campaign,
 )
 from tpusim_torch.campaign.sample import sample_schedule_doc, scenario_rng
+from tpusim_torch.campaign.shard import run_sharded_campaign, shard_assignment
 from tpusim_torch.campaign.spec import (
     CampaignSpec,
     CampaignSpecError,
@@ -46,7 +47,9 @@ __all__ = [
     "load_campaign_spec",
     "percentile",
     "run_campaign",
+    "run_sharded_campaign",
     "sample_schedule_doc",
     "scenario_rng",
+    "shard_assignment",
     "spec_hash",
 ]

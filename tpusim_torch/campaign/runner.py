@@ -395,6 +395,7 @@ def run_campaign(
     sleep=time.sleep,
     cancel=None,
     compile_cache=None,
+    only=None,
     scenario_batch: bool | str | None = None,
 ) -> CampaignResult:
     """Execute one campaign end to end.
@@ -414,6 +415,15 @@ def run_campaign(
     scenario already journaled, so a later ``resume=True`` re-prices
     nothing that finished — the CLI's ``--max-wall-s`` arrives here.
 
+    ``only`` (a set of ``(slice_label, index)`` pairs) restricts the
+    run to ONE SHARD of the campaign: scenarios outside the set are
+    neither priced nor journaled nor counted, slices with no assigned
+    scenario are skipped entirely (healthy baselines price only where
+    needed — they are deterministic, so every shard that touches a
+    slice journals the identical row), and no report is built — the
+    shard coordinator (:mod:`tpusim_torch.campaign.shard`) merges
+    journals by ``(slice, index)`` and builds the one true report itself.
+
     ``scenario_batch`` controls the scenario-batched pricing fastpath
     (:mod:`tpusim_torch.fastpath.batch`): ``None``/``True`` (the default)
     batch-warms each slice's pending degradation states into the
@@ -422,10 +432,7 @@ def run_campaign(
     ``BATCH_BACKENDS`` pins the batch backend (``"cuda"``: the lanes' row
     scans run on the card, and any error of that warm raises).  Batching
     never changes journal or report bytes — it only decides whether the
-    per-scenario replays price or hit the cache.
-
-    Not ported yet: the sharded run (``only=``, ``--nodes``; ROADMAP
-    A11 item 2)."""
+    per-scenario replays price or hit the cache."""
     from tpusim_torch.ici.topology import torus_for
     from tpusim_torch.perf.cache import ResultCache, as_result_cache
     from tpusim_torch.timing.config import load_config
@@ -512,6 +519,10 @@ def run_campaign(
     rows_by_slice: dict[str, list[dict]] = {}
     try:
         for sl in spec.slices(default_chips):
+            if only is not None and not any(
+                (sl.label, i) in only for i in range(spec.scenarios)
+            ):
+                continue
             if cancel is not None:
                 cancel.check()
             stats.slices += 1
@@ -546,7 +557,8 @@ def run_campaign(
             if batch_stats is not None:
                 pend = [
                     i for i in range(spec.scenarios)
-                    if (sl.label, i) not in completed
+                    if (only is None or (sl.label, i) in only)
+                    and (sl.label, i) not in completed
                 ]
                 if pend:
                     _warm_slice(
@@ -575,6 +587,8 @@ def run_campaign(
                 # far stays durable; the raise reaches the caller with
                 # the journal closed (the finally below) and a later
                 # --resume re-prices nothing already completed
+                if only is not None and (sl.label, i) not in only:
+                    continue
                 if cancel is not None:
                     cancel.check()
                 stats.scenarios += 1
@@ -606,6 +620,16 @@ def run_campaign(
         if journal is not None:
             journal.close()
 
+    if only is not None:
+        # shard run: the journal IS the deliverable — a report built
+        # from one shard's rows would be a partial document wearing a
+        # complete document's name
+        return CampaignResult(
+            doc={}, stats=stats, out_dir=out_dir, report_path=None,
+            wall_seconds=time.perf_counter() - t0,
+            rows_by_slice=rows_by_slice,
+            batch_stats=batch_stats,
+        )
     doc = build_report(
         spec=spec,
         spec_digest=digest,

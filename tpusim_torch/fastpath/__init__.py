@@ -11,8 +11,9 @@ phases.
   composed config) in :mod:`tpusim_torch.perf.cache`.
 * **price** (:mod:`tpusim_torch.fastpath.price`) — replays the step
   program for one launch class (clock/HBM multipliers, spill fraction).
-  Runs of sync ops accumulate through serial ``torch.cumsum`` scans;
-  everything stateful (async DMA channels, ICI, HBM contention, control
+  Runs of sync ops accumulate through serial ``torch.cumsum`` scans (or,
+  under ``native``, ``native/op_price.cpp``'s fused scan,
+  :mod:`tpusim_torch.fastpath.native`); everything stateful (async DMA channels, ICI, HBM contention, control
   flow) steps through the same scalar logic as the reference walk.
 * **batch** (:mod:`tpusim_torch.fastpath.batch`) — the scenario axis: S
   degradation states of one module price as ONE lane-axis pass, with the
@@ -23,7 +24,8 @@ phases.
   store prices a lazily loaded module without parsing it.
 
 Contract: every backend — ``serial`` (the reference walk in
-:class:`tpusim_torch.timing.engine.Engine`) and ``vectorized`` — and
+:class:`tpusim_torch.timing.engine.Engine`), ``vectorized`` and
+``native`` — and
 every lane of a batch produce **byte-identical**
 :class:`~tpusim_torch.timing.engine.EngineResult` counters, equal to the
 JAX package's (``tests/test_torch_fastpath.py``,
@@ -44,6 +46,10 @@ from tpusim_torch.fastpath.compile import (
     CompiledModule,
     compile_module,
 )
+from tpusim_torch.fastpath.native import (
+    native_batch_available,
+    native_price_available,
+)
 from tpusim_torch.fastpath.price import (
     BACKENDS,
     fastpath_eligible,
@@ -60,6 +66,8 @@ __all__ = [
     "CompiledModule",
     "compile_module",
     "fastpath_eligible",
+    "native_batch_available",
+    "native_price_available",
     "price_module",
     "price_module_batch",
     "resolve_backend",

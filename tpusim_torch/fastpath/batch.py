@@ -12,8 +12,11 @@ scans.  Collective, async-DMA, and HBM-contended steps step through
 per-lane scalar logic lifted verbatim from the per-state interpreter.
 
 The row scans run on the host (``vectorized``: ``torch.cumsum`` along
-the ops axis of a CPU float64 tensor, a strict serial scan per row) or,
-when explicitly requested, on the card (``cuda``: the hand-written
+the ops axis of a CPU float64 tensor, a strict serial scan per row;
+``native``: a long run's seven accumulator chains through
+``native/op_price.cpp``'s lane-major fused scan, the reference's
+``native`` batch backend, which ``auto`` prefers when the library is
+available) or, when explicitly requested, on the card (``cuda``: the hand-written
 kernel of :mod:`tpusim_torch.kernels.scan_rows`, one thread per lane,
 serial over ops, the counterpart of the JAX package's ``jax`` backend).
 Under ``cuda`` each computation's lane-variant duration column goes to
@@ -48,8 +51,6 @@ degradation states and publishes each lane into a result cache under the
 key the per-state walk looks up; the campaign and fleet executors warm
 their pending degradation states through it.  A cancel token is checked
 between steps, states and modules.
-
-Not ported yet: the ``native`` batch kernel (A10).
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ from tpusim_torch.ici.detailed import make_collective_model
 from tpusim_torch.timing.engine import Engine, EngineResult
 
 from tpusim_torch.fastpath.price import (
+    _NATIVE_MIN,
     _chain,
     entry_of,
     fastpath_eligible,
@@ -79,10 +81,10 @@ __all__ = [
     "warm_states",
 ]
 
-#: lane-axis pricing backends: the host row-scan interpreter, the same
-#: interpreter with its row scans on the card, and the per-lane serial
-#: walk (no batching)
-BATCH_BACKENDS = ("vectorized", "cuda", "serial")
+#: lane-axis pricing backends: the host row-scan interpreter, the fused
+#: C kernel for long runs, the same interpreter with its row scans on the
+#: card, and the per-lane serial walk (no batching)
+BATCH_BACKENDS = ("vectorized", "native", "cuda", "serial")
 
 
 class BatchStats:
@@ -115,8 +117,9 @@ class BatchStats:
 
 def resolve_batch_backend(requested: str | None = None) -> str:
     """Resolve the lane-axis backend.  ``None``/"auto" follows
-    :func:`~tpusim_torch.fastpath.price.resolve_backend` (``vectorized``,
-    or ``serial`` meaning "no batching").  ``"cuda"`` must be requested
+    :func:`~tpusim_torch.fastpath.price.resolve_backend` (``native`` when
+    the library is loadable, else ``vectorized``; ``serial`` meaning "no
+    batching").  ``"cuda"`` must be requested
     explicitly and raises when no CUDA device is available."""
     if requested == "cuda":
         if not torch.cuda.is_available():
@@ -286,12 +289,13 @@ class _BatchCtx:
         "overlap", "cs_col", "hs_col", "ovh_col", "deg_col",
         "any_degraded", "coll_memo", "card", "step_cache",
         "uniform_memo", "seen_cyc", "seen_hbm", "seen_flops", "seen_mxu",
-        "cancel",
+        "cancel", "backend",
     )
 
     def __init__(self, engine, cm, lanes, spill_frac, backend, per_op,
                  cancel):
         self.cm = cm
+        self.backend = backend
         # a lean (streaming) compile has no names: no per-op aggregates
         self.per_op = per_op
         self.cancel = cancel
@@ -629,16 +633,7 @@ def _run_scans(ctx, cc, v, si: int, lo: int, hi: int, want_tb: bool,
     card = ctx.card
     if card is None:
         tarr2 = _scan_rows_host(t, v.dur2[:, lo:hi])
-        for u, idx in ugroups:
-            seeds = [r.unit_busy_cycles[u] for r in results]
-            ends = _scan_rows_host(seeds, v.dur2[:, idx])[:, -1].tolist()
-            for r, e in zip(results, ends):
-                r.unit_busy_cycles[u] = e
-        for b, idx in ogroups:
-            seeds = [r.opcode_cycles[b] for r in results]
-            ends = _scan_rows_host(seeds, v.dur2[:, idx])[:, -1].tolist()
-            for r, e in zip(results, ends):
-                r.opcode_cycles[b] = e
+        _group_scans_host(v, ugroups, ogroups, results)
         return tarr2[:, -1].tolist(), (tarr2[:, :-1] if want_tb else None)
 
     from tpusim_torch.kernels import scan_rows as sr
@@ -665,6 +660,56 @@ def _run_scans(ctx, cc, v, si: int, lo: int, hi: int, want_tb: bool,
     if want_tb:
         return chain[-1].tolist(), chain[:-1].t()
     return chain.tolist(), None
+
+
+def _group_scans_host(v, ugroups, ogroups, results) -> None:
+    """A run step's unit and opcode busy-cycle chains, one host row scan
+    each, their ends into the lanes' dicts."""
+    for u, idx in ugroups:
+        seeds = [r.unit_busy_cycles[u] for r in results]
+        ends = _scan_rows_host(seeds, v.dur2[:, idx])[:, -1].tolist()
+        for r, e in zip(results, ends):
+            r.unit_busy_cycles[u] = e
+    for b, idx in ogroups:
+        seeds = [r.opcode_cycles[b] for r in results]
+        ends = _scan_rows_host(seeds, v.dur2[:, idx])[:, -1].tolist()
+        for r, e in zip(results, ends):
+            r.opcode_cycles[b] = e
+
+
+_ACC_ATTRS = ("flops", "mxu_flops", "transcendentals", "hbm_bytes",
+              "vmem_bytes", "vmem_spill_bytes")
+
+
+def _run_native(ctx, cc, v, lo: int, hi: int, want_tb: bool, t: list,
+                ugroups, ogroups, results, acc_cache):
+    """A long run step through the native lane-major scan: every lane's
+    clock and its six counters in one call (the counters' shared
+    columns read once for all lanes), then the unit and opcode chains on
+    the host.  Returns what :func:`_run_scans` does."""
+    from tpusim_torch.fastpath.native import price_scan_batch
+
+    _flush_acc(results, acc_cache)
+    S, n = ctx.S, hi - lo
+    acc2 = torch.empty((S, 7), dtype=torch.float64)
+    acc2[:, 0] = torch.tensor(t, dtype=torch.float64)
+    for ci, attr in enumerate(_ACC_ATTRS):
+        acc2[:, ci + 1] = torch.tensor([getattr(r, attr) for r in results],
+                                       dtype=torch.float64)
+    tb2 = torch.empty((S, n), dtype=torch.float64) if want_tb else None
+    price_scan_batch(
+        v.dur2[:, lo:hi].contiguous(), cc.flops[lo:hi].contiguous(),
+        cc.mxu[lo:hi].contiguous(), cc.trans[lo:hi].contiguous(),
+        v.hbm[lo:hi].contiguous(), v.vmem[lo:hi].contiguous(),
+        v.spilled[lo:hi].contiguous() if v.spilled is not None else None,
+        acc2, tb2,
+    )
+    rows = acc2.tolist()
+    for r, row in zip(results, rows):
+        for attr, val in zip(_ACC_ATTRS, row[1:]):
+            setattr(r, attr, val)
+    _group_scans_host(v, ugroups, ogroups, results)
+    return [row[0] for row in rows], tb2
 
 
 def _comp_uniform(ctx, comp_name: str) -> bool:
@@ -710,6 +755,11 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
     dma_lat = ctx.dma_lat
     contend = ctx.contend
     overlap = ctx.overlap
+    use_native = ctx.backend == "native"
+    if use_native:
+        from tpusim_torch.fastpath.native import native_batch_available
+
+        use_native = native_batch_available()
 
     names = cc.names
     bases = cc.bases
@@ -740,20 +790,25 @@ def _price_comp_batch(ctx, comp_name: str, t0s: list[float], results,
             n = hi - lo
             spill_on = v.spilled is not None
             want_tb = per_op and len(emit) > 0
-            t, tb2 = _run_scans(ctx, cc, v, si, lo, hi, want_tb, t, ugroups,
-                                ogroups, results)
-            _acc_shared(ctx, results, "flops", cc.flops[lo:hi], acc_cache)
-            _acc_shared(ctx, results, "mxu_flops", cc.mxu[lo:hi],
-                        acc_cache)
-            _acc_shared(ctx, results, "transcendentals", cc.trans[lo:hi],
-                        acc_cache)
-            _acc_shared(ctx, results, "hbm_bytes", v.hbm[lo:hi],
-                        acc_cache)
-            _acc_shared(ctx, results, "vmem_bytes", v.vmem[lo:hi],
-                        acc_cache)
-            if spill_on:
-                _acc_shared(ctx, results, "vmem_spill_bytes",
-                            v.spilled[lo:hi], acc_cache)
+            if use_native and n >= _NATIVE_MIN:
+                t, tb2 = _run_native(ctx, cc, v, lo, hi, want_tb, t,
+                                     ugroups, ogroups, results, acc_cache)
+            else:
+                t, tb2 = _run_scans(ctx, cc, v, si, lo, hi, want_tb, t,
+                                    ugroups, ogroups, results)
+                _acc_shared(ctx, results, "flops", cc.flops[lo:hi],
+                            acc_cache)
+                _acc_shared(ctx, results, "mxu_flops", cc.mxu[lo:hi],
+                            acc_cache)
+                _acc_shared(ctx, results, "transcendentals",
+                            cc.trans[lo:hi], acc_cache)
+                _acc_shared(ctx, results, "hbm_bytes", v.hbm[lo:hi],
+                            acc_cache)
+                _acc_shared(ctx, results, "vmem_bytes", v.vmem[lo:hi],
+                            acc_cache)
+                if spill_on:
+                    _acc_shared(ctx, results, "vmem_spill_bytes",
+                                v.spilled[lo:hi], acc_cache)
             for r in results:
                 r.op_count += n
             if not per_op:

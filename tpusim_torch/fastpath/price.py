@@ -31,8 +31,10 @@ package):
 After a walk that compiled new columns, the durable compile store
 (:mod:`tpusim_torch.fastpath.store`), when active, publishes them.
 
-Not ported yet: the ``native`` backend (``native/op_price.cpp`` through
-ctypes, ROADMAP A10).
+The ``native`` backend runs a long run's seven accumulator chains
+through ``native/op_price.cpp``'s fused serial scan
+(:mod:`tpusim_torch.fastpath.native`); ``auto`` prefers it when the
+library is available, as the reference's does.
 """
 
 from __future__ import annotations
@@ -57,29 +59,39 @@ BACKENDS = ("auto", "serial", "vectorized", "native")
 #: below this run length the chained-scan setup costs more than a plain
 #: Python loop over the cached column lists (byte-identical either way)
 _VEC_MIN = 48
+#: below this run length the ctypes marshalling of the native scan
+#: costs more than the cumsum chain; the native backend uses the C
+#: kernel only past it (byte-identical either way)
+_NATIVE_MIN = 192
 
 
 def resolve_backend(requested: str | None = None) -> str:
     """Resolve a pricing-backend request to the backend that will run.
 
     ``None``/"auto" (or ``$TPUSIM_PRICING_BACKEND``) picks the fastest
-    available path, which in the port is ``vectorized``.  An *explicit*
-    request for an unavailable backend raises — a user pinning ``native``
-    must not silently measure something else."""
+    available path: ``native`` when the shared library is built and
+    loadable, else ``vectorized``.  An *explicit* request for an
+    unavailable backend raises — a user pinning ``native`` must not
+    silently measure something else."""
+    from tpusim_torch.fastpath.native import native_price_available
+
     req = requested or os.environ.get("TPUSIM_PRICING_BACKEND") or "auto"
     if req not in BACKENDS:
         raise ValueError(
             f"unknown pricing backend {req!r} (choose from {BACKENDS})"
         )
-    if req == "serial":
-        return "serial"
+    if req in ("serial", "vectorized"):
+        return req
     if req == "native":
-        raise ValueError(
-            "pricing backend 'native' requested but libtpusim_native.so "
-            "is not loadable from tpusim_torch (its ctypes binding is not "
-            "ported yet)"
-        )
-    return "vectorized"
+        if not native_price_available():
+            raise ValueError(
+                "pricing backend 'native' requested but "
+                "libtpusim_native.so is not loadable (it is built from "
+                "native/ with g++ at first use; TPUSIM_NO_NATIVE also "
+                "disables it)"
+            )
+        return "native"
+    return "native" if native_price_available() else "vectorized"
 
 
 def resolve_engine_scales(engine) -> tuple[float, float]:
@@ -157,11 +169,12 @@ class _Ctx:
     __slots__ = (
         "cm", "coll", "per_op", "views", "arch", "config", "degraded",
         "cs", "hs", "spill_frac", "hbm_bpc", "vmem_bpc", "overhead",
-        "dma_lat", "contend", "overlap", "cancel",
+        "dma_lat", "contend", "overlap", "cancel", "backend",
     )
 
-    def __init__(self, engine, cm, coll, spill_frac, per_op):
+    def __init__(self, engine, cm, coll, spill_frac, backend, per_op):
         self.cm = cm
+        self.backend = backend
         # a lean (streaming) compile has no names: no per-op aggregates
         self.per_op = per_op
         # cooperative cancellation: checked between compiled blocks
@@ -287,11 +300,12 @@ def entry_of(module, cm) -> str:
 
 def price_module(engine, module, backend: str) -> EngineResult:
     """Fastpath equivalent of :meth:`Engine._run_serial` — same result,
-    byte for byte, for ``backend="vectorized"``."""
+    byte for byte, for any ``backend`` in {vectorized, native}."""
     from tpusim_torch.perf.cache import compiled_for
 
-    if backend != "vectorized":
-        raise ValueError(f"price_module prices 'vectorized', not {backend!r}")
+    if backend not in ("vectorized", "native"):
+        raise ValueError(f"price_module prices 'vectorized' or 'native', "
+                         f"not {backend!r}")
     topo = engine._topology_for(module)
     coll = make_collective_model(topo, engine.arch.ici, obs=engine.obs)
     result = EngineResult()
@@ -299,7 +313,7 @@ def price_module(engine, module, backend: str) -> EngineResult:
     resident, spill_frac = module_spill(engine, module, cm)
     if resident is not None:
         result.vmem_resident_bytes = resident
-    ctx = _Ctx(engine, cm, coll, spill_frac, per_op=not cm.lean)
+    ctx = _Ctx(engine, cm, coll, spill_frac, backend, per_op=not cm.lean)
     end = _price_computation(ctx, entry_of(module, cm), 0.0, result, 0)
     result.cycles = end
     result.seconds = engine.arch.cycles_to_seconds(end)
@@ -339,6 +353,9 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
     dma_lat = ctx.dma_lat
     contend = ctx.contend
     overlap = ctx.overlap
+    use_native = ctx.backend == "native"
+    if use_native:
+        from tpusim_torch.fastpath.native import price_scan
 
     names = cc.names
     bases = cc.bases
@@ -365,23 +382,52 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
             dur = v.dur
             spill_on = v.spilled is not None
             if n >= _VEC_MIN:
-                # the t scan keeps its intermediates: per-op aggregates
-                # need the clock BEFORE each op (the serial _emit adds
-                # (t + dur) - t, which is not dur under IEEE rounding)
-                tarr = torch.empty(n + 1, dtype=torch.float64)
-                tarr[0] = t
-                tarr[1:] = dur[lo:hi]
-                tarr.cumsum_(0)
-                t = tarr[-1].item()
-                result.flops = _chain(result.flops, cc.flops[lo:hi])
-                result.mxu_flops = _chain(result.mxu_flops, cc.mxu[lo:hi])
-                result.transcendentals = _chain(
-                    result.transcendentals, cc.trans[lo:hi])
-                result.hbm_bytes = _chain(result.hbm_bytes, v.hbm[lo:hi])
-                result.vmem_bytes = _chain(result.vmem_bytes, v.vmem[lo:hi])
-                if spill_on:
-                    result.vmem_spill_bytes = _chain(
-                        result.vmem_spill_bytes, v.spilled[lo:hi])
+                tb_l = None
+                if use_native and n >= _NATIVE_MIN:
+                    acc = torch.tensor([
+                        t, result.flops, result.mxu_flops,
+                        result.transcendentals, result.hbm_bytes,
+                        result.vmem_bytes, result.vmem_spill_bytes,
+                    ], dtype=torch.float64)
+                    tb = (torch.empty(n, dtype=torch.float64)
+                          if per_op and len(emit) else None)
+                    price_scan(
+                        dur[lo:hi].contiguous(), cc.flops[lo:hi].contiguous(),
+                        cc.mxu[lo:hi].contiguous(),
+                        cc.trans[lo:hi].contiguous(),
+                        v.hbm[lo:hi].contiguous(), v.vmem[lo:hi].contiguous(),
+                        v.spilled[lo:hi].contiguous() if spill_on else None,
+                        acc, tb,
+                    )
+                    (t, result.flops, result.mxu_flops,
+                     result.transcendentals, result.hbm_bytes,
+                     result.vmem_bytes, result.vmem_spill_bytes,
+                     ) = acc.tolist()
+                    if tb is not None:
+                        tb_l = tb.tolist()
+                else:
+                    # the t scan keeps its intermediates: per-op
+                    # aggregates need the clock BEFORE each op (the
+                    # serial _emit adds (t + dur) - t, which is not dur
+                    # under IEEE rounding)
+                    tarr = torch.empty(n + 1, dtype=torch.float64)
+                    tarr[0] = t
+                    tarr[1:] = dur[lo:hi]
+                    tarr.cumsum_(0)
+                    t = tarr[-1].item()
+                    if per_op and len(emit):
+                        tb_l = tarr.tolist()
+                    result.flops = _chain(result.flops, cc.flops[lo:hi])
+                    result.mxu_flops = _chain(result.mxu_flops,
+                                              cc.mxu[lo:hi])
+                    result.transcendentals = _chain(
+                        result.transcendentals, cc.trans[lo:hi])
+                    result.hbm_bytes = _chain(result.hbm_bytes, v.hbm[lo:hi])
+                    result.vmem_bytes = _chain(result.vmem_bytes,
+                                               v.vmem[lo:hi])
+                    if spill_on:
+                        result.vmem_spill_bytes = _chain(
+                            result.vmem_spill_bytes, v.spilled[lo:hi])
                 ub = result.unit_busy_cycles
                 for u, idx in ugroups:
                     ub[u] = _chain(ub[u], dur[idx])
@@ -389,8 +435,7 @@ def _price_computation(ctx, comp_name: str, t0: float, result, depth: int
                 for b, idx in ogroups:
                     oc[b] = _chain(oc[b], dur[idx])
                 result.op_count += n
-                if per_op and len(emit):
-                    tb_l = tarr.tolist()
+                if tb_l is not None:
                     dl = v.col_list("dur")
                     pc = result.per_op_cycles
                     pn = result.per_op_count

@@ -1,6 +1,6 @@
 """Detailed ICI network model: per-packet link contention on the torus.
 
-Port of ``tpusim/ici/detailed.py``, Python backend only.
+Port of ``tpusim/ici/detailed.py``.
 
 The analytic model (:mod:`tpusim_torch.ici.collectives`) prices a collective with
 closed-form schedule math; this module *simulates* it — every transfer is
@@ -11,12 +11,15 @@ the rebuild of the reference's detailed-interconnect option (BookSim2's
 kncube.{hpp,cpp}`` + ``icnt_wrapper.h:36-64``), selected the same way via
 ``IciConfig.network_mode = "detailed"``.
 
-The reference has two interchangeable backends: ``native/ici_net.cpp``
-through ctypes and a pure-Python event-driven twin, its contract
-reference.  The port has the Python twin; the native one is an optional
-accelerator, queued with ``native/`` (ROADMAP A10), so ``use_native=True``
-raises.  ``tests/test_torch_ici.py`` holds this backend to the
-reference's Python backend exactly.
+Two interchangeable backends, as in the reference:
+
+* ``native/ici_net.cpp`` via ctypes (fast path; the library is built
+  from ``native/`` at first use, :mod:`tpusim_torch.kernels.native_build`)
+* a pure-Python event-driven twin (always available, the contract
+  reference)
+
+``tests/test_torch_ici.py`` holds the Python backend to the reference's
+exactly, ``tests/test_torch_native.py`` the native one to both.
 
 Collectives are decomposed into *phases* of point-to-point transfers with a
 barrier between phases (the data dependence of ring steps); the network
@@ -25,6 +28,7 @@ returns the summed phase makespans in network cycles (1 cycle = 1 ns).
 
 from __future__ import annotations
 
+import ctypes
 import heapq
 import itertools
 import math
@@ -43,6 +47,7 @@ __all__ = [
     "TorusNetwork",
     "DetailedCollectiveModel",
     "make_collective_model",
+    "native_net_available",
 ]
 
 #: the detailed network's clock: 1 cycle == 1 ns (independent of the core
@@ -53,6 +58,49 @@ NET_CYCLE_S = 1e-9
 #: forces the rotation direction on that axis (-1/absent = DOR default),
 #: letting counter-rotating rings claim both directions of an axis
 Transfer = tuple
+
+_LIB: ctypes.CDLL | None = None
+_LIB_TRIED = False
+#: networks simulated by the native backend in this process (the chip
+#: check reads it to show the native path was taken)
+NET_RUNS = 0
+
+
+def _load() -> ctypes.CDLL | None:
+    global _LIB, _LIB_TRIED
+    if _LIB_TRIED:
+        return _LIB
+    _LIB_TRIED = True
+    from tpusim_torch.kernels.native_build import load_shared_lib
+
+    lib = load_shared_lib()
+    if lib is None:
+        return None
+    try:
+        lib.ici_net_abi_version.restype = ctypes.c_int
+        if lib.ici_net_abi_version() != 2:
+            return None
+        lib.ici_net_create.restype = ctypes.c_void_p
+        lib.ici_net_create.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_long),
+            ctypes.POINTER(ctypes.c_int), ctypes.c_double, ctypes.c_long,
+        ]
+        lib.ici_net_destroy.argtypes = [ctypes.c_void_p]
+        lib.ici_net_sim_phases.restype = ctypes.c_double
+        lib.ici_net_sim_phases.argtypes = [
+            ctypes.c_void_p, ctypes.c_long,
+            ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
+            ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_long), ctypes.c_double,
+        ]
+    except (OSError, AttributeError):
+        return None
+    _LIB = lib
+    return _LIB
+
+
+def native_net_available() -> bool:
+    return _load() is not None
 
 
 class TorusNetwork:
@@ -77,12 +125,19 @@ class TorusNetwork:
         self.hop_cycles = int(hop_cycles)
         if self.flit_bytes <= 0:
             raise ValueError("flit_bytes must be positive")
-        if use_native:
-            raise RuntimeError(
-                "the native ici_net backend is not ported (ROADMAP A10); "
-                "the python backend prices every network"
-            )
+        # the native backend knows nothing about dead/degraded links; a
+        # faulted topology always runs the python twin
         self._faulted = topo.has_faults
+        if self._faulted and use_native:
+            raise RuntimeError(
+                "native ici_net does not support fault injection; "
+                "a faulted topology runs the python backend"
+            )
+        self._native = not self._faulted and (
+            native_net_available() if use_native is None else use_native
+        )
+        if use_native and not self._faulted and not native_net_available():
+            raise RuntimeError("native ici_net requested but not built")
         self._detour_cache: dict[tuple[int, int], list[int]] = {}
         self._scale_cache: dict[int, float] = {}
 
@@ -102,7 +157,43 @@ class TorusNetwork:
                 flat.append((pi, int(src), int(dst), float(nbytes), int(hint)))
         if not flat:
             return 0.0
+        if self._native:
+            return self._run_native(flat, packet_bytes)
         return self._run_python(flat, packet_bytes)
+
+    # -- native backend ----------------------------------------------------
+
+    def _run_native(
+        self, flat: list[tuple[int, int, int, float, int]],
+        packet_bytes: float,
+    ) -> float:
+        global NET_RUNS
+        lib = _load()
+        assert lib is not None
+        nd = self.topo.ndims
+        dims = (ctypes.c_long * nd)(*self.topo.dims)
+        wrap = (ctypes.c_int * nd)(*(int(w) for w in self.topo.wrap))
+        h = lib.ici_net_create(
+            nd, dims, wrap, self.flit_bytes, self.hop_cycles
+        )
+        if not h:
+            raise RuntimeError("ici_net_create failed")
+        try:
+            n = len(flat)
+            ph = (ctypes.c_long * n)(*(f[0] for f in flat))
+            src = (ctypes.c_long * n)(*(f[1] for f in flat))
+            dst = (ctypes.c_long * n)(*(f[2] for f in flat))
+            byt = (ctypes.c_double * n)(*(f[3] for f in flat))
+            hnt = (ctypes.c_long * n)(*(f[4] for f in flat))
+            out = lib.ici_net_sim_phases(
+                h, n, ph, src, dst, byt, hnt, packet_bytes
+            )
+            if out < 0:
+                raise ValueError("ici_net_sim_phases rejected the input")
+            NET_RUNS += 1
+            return float(out)
+        finally:
+            lib.ici_net_destroy(h)
 
     # -- python backend (the contract reference) ---------------------------
 

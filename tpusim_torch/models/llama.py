@@ -291,11 +291,24 @@ class _Decoder:
     decoder (``mesh`` None)."""
 
     def __init__(self, cfg: LlamaConfig, mesh: Mesh | None):
-        if cfg.kv_heads != cfg.heads:
-            raise ValueError("grouped-query attention (kv_heads != heads) "
-                             "is not ported")
         self.cfg, self.mesh = cfg, mesh
         self.tp = mesh.shape[mesh.names.index("tp")] if mesh else 1
+        # grouped-query attention: each key/value head serves ``rep``
+        # query heads (``jnp.repeat`` over the head axis, the reference's
+        # ``_attention``); a tp rank holds whole key/value heads
+        if cfg.heads % cfg.kv_heads:
+            raise ValueError(f"heads ({cfg.heads}) is not a multiple of "
+                             f"kv_heads ({cfg.kv_heads})")
+        if cfg.kv_heads % self.tp:
+            raise ValueError(f"the tp mesh axis ({self.tp}) does not "
+                             f"divide kv_heads ({cfg.kv_heads})")
+        self.rep = cfg.heads // cfg.kv_heads
+
+    def repeat_kv(self, x):
+        """``x`` [B, S, kv heads, D] with each head repeated ``rep`` times
+        in place (``jnp.repeat(x, rep, axis=2)``)."""
+        return x if self.rep == 1 else torch.repeat_interleave(
+            x, self.rep, dim=2)
 
     def psum_tp(self, x):
         return psum(x, self.mesh, "tp") if self.tp > 1 else x
@@ -351,11 +364,13 @@ class _Decoder:
         psum_tp = self.psum_tp_plain if plain else self.psum_tp
         a = _rmsnorm(h, w["attn_norm"], cfg.eps)
         hq, hk, hv = (a,) * 3 if plain else self.pvary_tp_each(a, 3)
+        kv_heads = heads // self.rep
         q = (hq @ w["wq"]).reshape(b, s, heads, hd)
-        k = (hk @ w["wk"]).reshape(b, s, heads, hd)
-        v = (hv @ w["wv"]).reshape(b, s, heads, hd)
+        k = (hk @ w["wk"]).reshape(b, s, kv_heads, hd)
+        v = (hv @ w["wv"]).reshape(b, s, kv_heads, hd)
         cos, sin = rope_tables(s, hd, cfg.rope_theta, h.device)
         q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+        k, v = self.repeat_kv(k), self.repeat_kv(v)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / (hd ** 0.5)
         scores = torch.where(causal_mask(s, h.device)[None, None], scores,
                              -1e30)

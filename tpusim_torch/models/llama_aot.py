@@ -166,9 +166,15 @@ def layer_backward(dec: _Decoder, dh2, layer, res):
     dscores = (ds / (hd ** 0.5)).to(h.dtype)
     dq = torch.einsum("bhqk,bkhd->bqhd", dscores, k)
     dk = torch.einsum("bhqk,bqhd->bkhd", dscores, q)
+    # grouped-query attention: a key/value head's cotangent sums over the
+    # query heads it served
+    kv = heads // dec.rep
+    if dec.rep > 1:
+        dk = dk.reshape(b, s, kv, dec.rep, hd).sum(3)
+        dv = dv.reshape(b, s, kv, dec.rep, hd).sum(3)
     dq = rotate(dq, cos, sin, inverse=True).reshape(b, s, heads * hd)
-    dk = rotate(dk, cos, sin, inverse=True).reshape(b, s, heads * hd)
-    dv = dv.reshape(b, s, heads * hd)
+    dk = rotate(dk, cos, sin, inverse=True).reshape(b, s, kv * hd)
+    dv = dv.reshape(b, s, kv * hd)
     a = _rmsnorm(h, w["attn_norm"], cfg.eps)
     d_wq, d_wk, d_wv = _wgrad(a, dq), _wgrad(a, dk), _wgrad(a, dv)
     da = dec.psum_tp_sum((dq @ w["wq"].T, dk @ w["wk"].T, dv @ w["wv"].T))

@@ -2,16 +2,18 @@
 
 Port of ``tpusim/power/model.py``, with ``power_timeline`` (per-window
 watts from the interval samples of :mod:`tpusim_torch.sim.interval`, the
-``aerial --power`` lane).  The live power probe of
-``tpusim/power/telemetry.py`` waits for ROADMAP A12.  The fitted
-coefficients of ``tpusim/power/fitted/`` are kept as their own copy in
-``tpusim_torch/power/fitted/``, read by :func:`load_fitted`.
+``aerial --power`` lane).  The fitted coefficients of
+``tpusim/power/fitted/`` are kept as their own copy in
+``tpusim_torch/power/fitted/``, read by :func:`load_fitted`; the offline
+fit that writes such files is :mod:`tpusim_torch.power.telemetry`
+(``tune --power``), the reference's live power probe is ROADMAP A12 item
+5.
 
 Energy coefficients are first-principles estimates for a ~5nm-class TPU,
 chosen so the derived chip power at full utilization lands near published
-TDPs (v5e ~ 200W class, v5p ~ 500W class); the reference's fitting harness
-(``tpusim/harness/tuner.py``) can refine them when real power telemetry is
-available — the analogue of AccelWattch's quadprog coefficient fit
+TDPs (v5e ~ 200W class, v5p ~ 500W class); the fitting harness
+(:func:`tpusim_torch.harness.tuner.tune_power`) can refine them when real
+power telemetry is available — the analogue of AccelWattch's quadprog coefficient fit
 (``util/accelwattch/quadprog_solver.m``, ``AccelWattch.md:110-125``).
 
 Model: for one simulated execution,
@@ -124,9 +126,11 @@ POWER_PRESETS: dict[str, PowerCoefficients] = {
 }
 
 
-def load_fitted(name: str) -> PowerCoefficients | None:
-    """The committed fitted coefficients of ``name``; None when absent."""
-    path = FITTED_DIR / f"{name}.json"
+def load_fitted(name: str, fitted_dir: str | Path = FITTED_DIR
+                ) -> PowerCoefficients | None:
+    """The fitted coefficients of ``name`` in ``fitted_dir`` (the
+    committed ones by default); None when absent."""
+    path = Path(fitted_dir) / f"{name}.json"
     if not path.exists():
         return None
     doc = json.loads(path.read_text())

@@ -24,12 +24,14 @@ cache (:mod:`.worker`), optionally in supervised pre-forked processes
 (:mod:`.supervisor`), a shared mmap hot-response cache
 (:mod:`.hotcache`), and the HTTP + lifecycle layer with SIGTERM drain
 (:mod:`.daemon`).  ``python -m tpusim_torch serve`` starts it;
-:mod:`.client` is the typed urllib client.  The multi-acceptor front
-tier (``serve --acceptors``) and the load generator (``serve-bench``)
-are not ported yet (ROADMAP A11 item 2).
+:mod:`.client` is the typed urllib client.  ``serve --acceptors N``
+runs N daemons behind one port (:mod:`.front`, SO_REUSEPORT or an
+fd-passing fallback); :mod:`.bench` is the load generator
+(``serve-bench``).
 
 Serving is host work: nothing here makes a CUDA tensor, so a daemon
-started beside a CUDA context forks workers that never touch the card.
+started beside a CUDA context forks workers (and a front tier its
+acceptors) that never touch the card.
 """
 
 from tpusim_torch.serve.admission import (
@@ -42,6 +44,7 @@ from tpusim_torch.serve.admission import (
 )
 from tpusim_torch.serve.client import ServeClient, ServeError
 from tpusim_torch.serve.daemon import SERVE_FORMAT_VERSION, ServeDaemon
+from tpusim_torch.serve.front import FrontSupervisor
 from tpusim_torch.serve.hotcache import HotResponseCache
 from tpusim_torch.serve.registry import TraceRegistry
 from tpusim_torch.serve.supervisor import Supervisor, WorkerTimeout
@@ -52,6 +55,7 @@ __all__ = [
     "DeadlineExceeded",
     "Degraded",
     "Draining",
+    "FrontSupervisor",
     "HotResponseCache",
     "JobTable",
     "Overloaded",

@@ -49,12 +49,11 @@ the shared result cache, close the listener, exit 0.  ``/healthz``
 reports 503 from the first drain instant so load balancers stop
 routing before the listener disappears.
 
-The multi-acceptor front tier (the reference's ``serve/front.py``, not
-ported yet: ROADMAP A11 item 2) runs one ``ServeDaemon`` per **acceptor
-process**, each parsing + admitting on its own GIL.  The daemon keeps its
-front-tier identity arguments (``acceptor_index``, ``acceptors_total``,
-``reuse_port``, ``public_listener``, ``close_fds``), which keep their
-standalone defaults until the front tier lands.  Three
+The multi-acceptor front tier (:mod:`tpusim_torch.serve.front`) runs one
+``ServeDaemon`` per **acceptor process**, each parsing + admitting on its
+own GIL; it hands each one its identity (``acceptor_index``,
+``acceptors_total``, ``reuse_port``, ``public_listener``, ``close_fds``),
+which a standalone daemon leaves at their defaults.  Three
 additions engage only in that topology (or, for the hot path, when
 ``hot_cache`` is mounted standalone):
 

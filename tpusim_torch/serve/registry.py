@@ -19,8 +19,8 @@ entry:
   ``meta["content_hash"]``, which is exactly the module-fingerprint slot
   the :mod:`tpusim_torch.perf` result cache keys on — an inline module's priced
   result is as cacheable as a stored trace's.  Inline text parses through
-  the port's Python parser (:func:`tpusim_torch.trace.hlo_text.
-  parse_hlo_module`); the port has no native scanner yet (ROADMAP A10).
+  :func:`tpusim_torch.trace.native.parse_hlo_module_fast` (the native
+  scanner when the library is available).
 """
 
 from __future__ import annotations
@@ -159,9 +159,9 @@ class TraceRegistry:
             entry = self._inline.get(key)
         if entry is not None:
             return entry
-        from tpusim_torch.trace.hlo_text import parse_hlo_module
+        from tpusim_torch.trace.native import parse_hlo_module_fast
 
-        mod = parse_hlo_module(hlo_text, "inline")
+        mod = parse_hlo_module_fast(hlo_text, name_hint="inline")
         if not mod.computations:
             # the lenient scanners skip lines they cannot read; text
             # that yields NO program is a client error, not a pod

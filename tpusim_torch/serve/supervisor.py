@@ -265,6 +265,7 @@ class Supervisor:
         import tpusim_torch.sim.driver  # noqa: F401
         import tpusim_torch.timing.config  # noqa: F401
         import tpusim_torch.trace.format  # noqa: F401
+        import tpusim_torch.trace.native  # noqa: F401
 
     def stop(self, grace_s: float = 2.0) -> None:
         """Shut the fleet down: a shutdown sentinel to every live

@@ -9,12 +9,13 @@ other::
       modules/<name>.hlo         HLO text (one per module; .hlo.gz if large)
       commandlist.jsonl          per-device program streams
 
-The loader parses modules eagerly with the port's Python parser, lazily
-(:mod:`tpusim_torch.trace.lazy`) when they are large or a durable compile
-store is active, and file-backed (streamed from disk, never read whole)
-when a plain ``.hlo`` reaches the streaming threshold.  The JAX package's
-native parser is a host-side accelerator that is not ported yet
-(ROADMAP A10).
+The loader parses modules eagerly, lazily (:mod:`tpusim_torch.trace.lazy`)
+when they are large or a durable compile store is active, and file-backed
+(streamed from disk, never read whole) when a plain ``.hlo`` reaches the
+streaming threshold.  A parse goes through the native scanner
+(:func:`tpusim_torch.trace.native.parse_hlo_module_fast`) when the
+library is available, the port's Python parser otherwise; a lenient
+(salvage) load always takes the Python parser.
 """
 
 from __future__ import annotations
@@ -285,6 +286,7 @@ def load_trace(
         parse_hlo_module_lazy,
         parse_hlo_module_streaming,
     )
+    from tpusim_torch.trace.native import parse_hlo_module_fast
 
     stream_threshold = int(os.environ.get(
         "TPUSIM_STREAM_THRESHOLD", STREAM_THRESHOLD_BYTES
@@ -330,7 +332,7 @@ def load_trace(
         elif defer_parse or len(src) >= LAZY_THRESHOLD_BYTES:
             mod = parse_hlo_module_lazy(src, name_hint=key)
         else:
-            mod = parse_hlo_module(src, name_hint=key)
+            mod = parse_hlo_module_fast(src, name_hint=key)
         # file name is the trace key; HloModule header name may differ
         pod.modules[key] = mod
         mod.meta.setdefault("trace_key", key)

@@ -27,7 +27,7 @@ from __future__ import annotations
 import re
 
 from tpusim_torch.ir import FREE_OPCODES, ModuleTrace
-from tpusim_torch.trace.hlo_text import parse_hlo_module, parse_module_attrs
+from tpusim_torch.trace.hlo_text import parse_module_attrs
 
 __all__ = [
     "LAZY_THRESHOLD_BYTES",
@@ -120,10 +120,10 @@ _DTYPE_BYTES = {
 
 def _unwrap_header(span: str) -> str:
     """A computation's text with a header wrapped over several lines
-    joined into one (the port's parser reads a header from one line; the
-    JAX package's lazy modules parse through its native scanner, which
-    reads wrapped headers).  A header that fits its first line is left
-    as it is."""
+    joined into one, so that its span parses without the native scanner
+    too (the Python parser reads a header from one line; the scanner
+    reads either form to the same computation).  A header that fits its
+    first line is left as it is."""
     end = span.find("{\n")
     first = span.find("\n")
     if end < 0 or first < 0 or first > end:
@@ -250,11 +250,14 @@ class LazyModuleTrace(ModuleTrace):
         return dict.__len__(self.computations)
 
     def _parse_span(self, name: str, span: tuple[int, int]):
+        from tpusim_torch.trace.native import parse_hlo_module_fast
+
         fragment = (
             "HloModule __lazy_fragment__\n\n"
             + _unwrap_header(self._text[span[0]:span[1]])
         )
-        sub = parse_hlo_module(fragment, name_hint="__lazy_fragment__")
+        sub = parse_hlo_module_fast(fragment,
+                                    name_hint="__lazy_fragment__")
         comp = sub.computations.get(name)
         if comp is None:
             # header/name normalization mismatch: take the only computation
@@ -560,11 +563,14 @@ class StreamingModuleTrace(ModuleTrace):
             )
 
     def _parse_span(self, name: str, span: tuple[int, int]):
+        from tpusim_torch.trace.native import parse_hlo_module_fast
+
         fragment = (
             "HloModule __lazy_fragment__\n\n"
             + _unwrap_header(self._read_span(span))
         )
-        sub = parse_hlo_module(fragment, name_hint="__lazy_fragment__")
+        sub = parse_hlo_module_fast(fragment,
+                                    name_hint="__lazy_fragment__")
         comp = sub.computations.get(name)
         if comp is None:
             comps = list(sub.computations.values())
