@@ -315,11 +315,27 @@ non-zero and prints no result):
    long runs through the C scan; golden cell 4 through ``ici_net`` equals
    its Python backend's stats; each bridge's counter shows it ran; (e)
    ``tune --power`` for v5e and v5p into a temporary directory: the
-   ``coefficients`` equal ``tpusim_torch/power/fitted/*.json``.
+   ``coefficients`` equal ``tpusim_torch/power/fitted/*.json``;
+19. the live probes on the card (:data:`PROBE_STEPS`-step loops at
+   registered width, device time from ``torch.profiler``): (a) ``tune()``
+   on the card, its ``TunerResult`` printed, with no fit errors, no fall
+   back to wall time, no link bandwidth on one card, and achieved bf16
+   TFLOP/s and HBM GB/s above 0 and at most 1.05x the card's peaks; (b)
+   ``correlate_workload`` on ``matmul``, ``elementwise_stream`` and
+   ``flash_attention_pallas`` with an op profile, each timed on the
+   device (``real_source == "device"``), sim and real seconds per step,
+   the error and the idle share printed, flash's kernel launched there;
+   (c) ``correlate-ops matmul_chain --json`` in a fresh process and
+   ``correlate_workload_ops`` on ``flash_attention_pallas`` here: at least
+   half the device time matched, and flash's ``custom-call`` row measured;
+   (d) ``sample_workload_power`` on ``matmul`` for 3 s through NVML, its
+   watts in (0, 1.05 x the power limit]; (e) the looped ``matmul``'s
+   profiler busy time within [0.8, 1.02]x its CUDA-event wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, the one before that the kernels' JSON
-record, the one before that phase 18's (``front: {...}``), phase 17's
+record (flash's launches: phases 4 and 19), the one before that phase
+19's (``probes: {...}``), phase 18's (``front: {...}``), phase 17's
 (``serve: {...}``), phase 16's
 (``harness: {...}``), phase 15's
 (``obs: {...}``), before it
@@ -332,6 +348,7 @@ the rest of the repository beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -394,6 +411,16 @@ from tpusim_torch.timing.config import load_config  # noqa: E402
 from tpusim_torch.timing.engine import Engine  # noqa: E402
 from tpusim_torch.trace.format import load_trace  # noqa: E402
 from tpusim_torch.models import get_workload  # noqa: E402
+from tpusim_torch.harness.correl_ops import (  # noqa: E402
+    correlate_workload_ops,
+    measure_device_time,
+)
+from tpusim_torch.harness.correlate import (  # noqa: E402
+    correlate_workload,
+    loopify,
+)
+from tpusim_torch.harness.tuner import tune  # noqa: E402
+from tpusim_torch.power.telemetry import sample_workload_power  # noqa: E402
 from tpusim_torch.tracer.capture import (  # noqa: E402
     capture_to_dir,
     export_to_hlo,
@@ -5443,6 +5470,138 @@ def front_shards_bench(card_name: str, work: Path, kept: Path) -> dict:
     return out
 
 
+#: phase 19: the loop length of every probe, and the workloads it
+#: correlates at registered width
+PROBE_STEPS = 16
+PROBED = ("matmul", "elementwise_stream", "flash_attention_pallas")
+#: (e): the profiler's busy time over the CUDA-event wall time of the
+#: looped 4096^3 matmul, which keeps the card busy
+BUSY_OVER_WALL = (0.8, 1.02)
+
+
+def tuner_leg() -> dict:
+    """Phase 19 (a): ``tune()`` on the card."""
+    result = tune(device="cuda")
+    doc = dataclasses.asdict(result)
+    print("  tune: " + json.dumps(doc), flush=True)
+    det = result.details
+    if det.get("fit_errors") or det.get("wall_time_fallbacks"):
+        raise AssertionError(f"tune: {det}")
+    if result.ici_link_bandwidth is not None:
+        raise AssertionError("tune fitted a link bandwidth on one card")
+    tflops, gbps = det["mxu_achieved_tflops"], det["hbm_achieved_gbps"]
+    if not 0 < tflops <= 1.05 * PEAK_BF16_FLOPS / 1e12:
+        raise AssertionError(f"tune: bf16 {tflops} TFLOP/s")
+    if not 0 < gbps <= 1.05 * PEAK_HBM_BYTES / 1e9:
+        raise AssertionError(f"tune: HBM {gbps} GB/s")
+    return doc
+
+
+def correlate_leg() -> dict:
+    """Phase 19 (b): ``correlate_workload`` on :data:`PROBED`, each with
+    an op profile, timed on the device."""
+    out = {}
+    for name in PROBED:
+        module, args = get_workload(name).build(device="cuda")
+        prof: dict = {}
+        before = fa.launch_count()
+        pt = correlate_workload(module, args, name=name,
+                                n_steps=PROBE_STEPS, op_profile_out=prof)
+        if pt.real_source != "device" or "ops" not in prof:
+            raise AssertionError(f"correlate {name}: {pt.real_source}")
+        out[name] = {"sim_s": pt.sim_seconds, "real_s": pt.real_seconds,
+                     "error_pct": pt.error_pct,
+                     "idle_share": prof["idle_share"],
+                     "flash_launches": fa.launch_count() - before}
+        del module, args
+    if out["flash_attention_pallas"]["flash_launches"] < 1:
+        raise AssertionError("correlate never launched flash_attention")
+    return out
+
+
+def correlate_ops_leg(work: Path) -> dict:
+    """Phase 19 (c): ``correlate-ops matmul_chain`` through the CLI in a
+    fresh process, then ``correlate_workload_ops`` on flash here."""
+    path = work / "correl_ops.json"
+    cli_process(["correlate-ops", "matmul_chain", "--json", str(path)])
+    doc = json.loads(path.read_text())["workloads"][0]
+    out = {"matmul_chain": {"matched_time_fraction":
+                            doc["matched_time_fraction"],
+                            "n_matched": doc["n_matched"]}}
+    module, args = get_workload("flash_attention_pallas").build(
+        device="cuda")
+    corr = correlate_workload_ops(module, args,
+                                  name="flash_attention_pallas")
+    calls = [r for r in corr.rows if r.opcode == "custom-call"]
+    out["flash_attention_pallas"] = {
+        "matched_time_fraction": corr.matched_time_fraction,
+        "n_matched": len(corr.rows),
+        "custom_call": calls[0].to_json() if calls else None}
+    for name, got in out.items():
+        if got["matched_time_fraction"] < 0.5:
+            raise AssertionError(f"correlate-ops {name}: {got}")
+    if not calls or calls[0].real_ns <= 0:
+        raise AssertionError(f"flash: no measured custom-call row: {out}")
+    return out
+
+
+def power_leg(card_name: str) -> dict:
+    """Phase 19 (d): ``sample_workload_power`` on ``matmul`` for 3 s."""
+    limit = float(card_name.rsplit(",", 1)[1].split()[0])
+    module, args = get_workload("matmul").build(device="cuda")
+    sample = sample_workload_power(module, args, name="matmul", seconds=3.0)
+    if sample is None or not 0 < sample.watts <= 1.05 * limit:
+        raise AssertionError(f"power sample {sample} (limit {limit} W)")
+    return {"watts": sample.watts, "limit_w": limit}
+
+
+def busy_leg() -> dict:
+    """Phase 19 (e): the looped ``matmul``'s profiler busy time per step
+    against its CUDA-event wall time."""
+    module, args = get_workload("matmul").build(device="cuda")
+    looped = loopify(module, PROBE_STEPS)
+    busy = measure_device_time(looped, *args)
+    wall = measure_wall_time(looped, *args, iters=3)
+    ratio = busy["median_s"] / wall["median_s"]
+    lo, hi = BUSY_OVER_WALL
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"busy / wall = {ratio} for {busy}, {wall}")
+    return {"busy_ms_per_step": busy["median_s"] / PROBE_STEPS * 1e3,
+            "wall_ms_per_step": wall["median_s"] / PROBE_STEPS * 1e3,
+            "busy_over_wall": ratio, "idle_share": busy["idle_share"],
+            "lost_execs": busy["lost_execs"]}
+
+
+def live_probes(card_name: str, work: Path) -> dict:
+    """Phase 19: (a)-(e) in turn, the kernels' counters set to 0 at the
+    start; flash's launches are read at the end."""
+    for *_, reset in KERNELS:
+        reset()
+    out = {"seconds": {}}
+    t_phase = time.perf_counter()
+    for part, fn in (("a", tuner_leg), ("b", correlate_leg),
+                     ("c", lambda: correlate_ops_leg(work)),
+                     ("d", lambda: power_leg(card_name)),
+                     ("e", busy_leg)):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        out["seconds"][part] = time.perf_counter() - t0
+        if part != "a":
+            print(f"  ({part}) {out['seconds'][part]:.2f} s: "
+                  + json.dumps(out[part]), flush=True)
+    out["launches"] = {name: count() for name, _, _, count, _ in KERNELS}
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    out["card"] = card_name
+    for name, pt in out["b"].items():
+        print(f"  correlate {name}: sim {pt['sim_s'] * 1e3:.4f} ms/step, "
+              f"real {pt['real_s'] * 1e3:.4f} ms/step (device), error "
+              f"{pt['error_pct']:+.1f}%, idle share {pt['idle_share']:.3f} "
+              f"(card: {card_name})", flush=True)
+    print(f"  kernel launches {out['launches']}; "
+          f"{out['seconds']['phase']:.1f} s (card: {card_name})", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -5582,6 +5741,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         front = front_shards_bench(card_name, Path(tmp), kept)
     kept_dir.cleanup()
+
+    phase(19, "the live probes on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        probes = live_probes(card_name, Path(tmp))
     phase(None)
     models["phase_seconds"] = PHASE_SECONDS
     print("models: " + json.dumps(models))
@@ -5590,13 +5753,15 @@ def main() -> int:
     print("harness: " + json.dumps(harness))
     print("serve: " + json.dumps(served))
     print("front: " + json.dumps(front))
+    print("probes: " + json.dumps(probes))
 
     record = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
         "source": KERNELS[0][1],
         "replaces": KERNELS[0][2],
-        "launches": launches["flash_attention"],
+        "launches": (launches["flash_attention"]
+                     + probes["launches"]["flash_attention"]),
         "max_abs_err": errs[(MAIN_SHAPE, torch.float32)],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],

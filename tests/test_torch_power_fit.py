@@ -9,7 +9,9 @@ holds ``tune --power`` to the JAX package.
   ``coefficients`` equal the committed
   ``tpusim_torch/power/fitted/A.json`` by value, for v5e and v5p;
 * without ``--out`` it writes under ``build/``, never the committed dir;
-  ``tune`` without ``--power`` exits 2 naming ROADMAP A12 item 5;
+  ``tune`` without ``--power`` runs the arch tuner instead (its timings
+  stubbed here; ``tests/test_torch_tuner_live.py`` holds it to the JAX
+  package);
 * the fit, the anchors and the report equal the JAX package's (the fit
   by float ``==``: both solve the 7x7 system with ``numpy.linalg.solve``
   in float64).
@@ -202,8 +204,15 @@ def test_tune_defaults_and_refusal(tmp_path, monkeypatch, capsys):
     assert json.loads((out / "v5e.json").read_text())["name"] == "v5e"
     assert {p: p.read_bytes() for p in committed} == committed
     capsys.readouterr()
-    assert port_main(["tune", "--arch", "v5e"]) == 2
-    assert "ROADMAP A12 item 5" in capsys.readouterr().err
+    import tpusim_torch.harness.tuner as tuner
+
+    monkeypatch.setattr(tuner, "_per_step", lambda *a, **k: 1e-3)
+    monkeypatch.setattr(tuner, "_fit_host_bw", lambda device=None: 1e10)
+    assert port_main(["tune", "--arch", "v5e", "--device", "cpu",
+                      "--out", ""]) == 0
+    assert json.loads(capsys.readouterr().out)["base_arch"] == "v5e"
+    assert not (tmp_path / "build" / "tpusim_torch_reports"
+                / "tuned").exists()
 
 
 # -- the correlation report (tests/test_plots.py) ---------------------------

@@ -74,12 +74,16 @@
                                     [--worker-sweep N,..]
                                     [--acceptor-sweep N,..] [--no-hot-cache]
                                     [--loadgen-procs N] [--reps N] [--json F]
+    python -m tpusim_torch tune     [--arch A] [--out PATH|auto|''] [--device D]
     python -m tpusim_torch tune     --power [--arch A] [--out DIR]
     python -m tpusim_torch run      -B SUITE -C ARCH[+NAMED],... [-o DIR]
                                     [--traces DIR] [--yaml F] [--capture]
                                     [--parallel N] [--power] [--obs]
                                     [--monitor-interval S]
                                     [--result-cache DIR]
+    python -m tpusim_torch correlate-ops <workload> [--arch A] [--iters N]
+                                    [--top N] [--json F] [--set K=V]
+                                    [--device cuda|cpu]
     python -m tpusim_torch stats-diff <old-run-dir> <new-run-dir>
                                     [--rel-tol R] [--check]
     python -m tpusim_torch derive-arch [--src v5e] [--dst v5p] [--out F]
@@ -113,9 +117,12 @@ defaults: ``correl-regen`` and ``loo`` write under :data:`PORT_REPORTS`
 ``reports/correl_ops.json`` and ``reports/loo.json``, which they still
 read as input; ``tune --power`` writes under
 ``build/tpusim_torch_reports/power_fitted/``, not over the committed
-fitted coefficients.  ``tune`` without ``--power`` exits 2 and
-``correlate-ops`` is not registered: they time a live TPU (ROADMAP A12
-item 5).
+fitted coefficients; ``tune`` without ``--power`` times its
+microbenchmarks on the card (``--device``) and ``--out auto`` (the
+default) writes ``build/tpusim_torch_reports/tuned/<arch>.tuned.flags``,
+not ``configs/`` — ``TPUSIM_TUNED_DIR=build/tpusim_torch_reports/tuned``
+applies it.  ``correlate-ops`` profiles its workload on the card
+(``--device``; ``--set`` resizes it as ``capture``'s does).
 """
 
 from __future__ import annotations
@@ -966,18 +973,59 @@ def _cmd_serve_bench(args: argparse.Namespace) -> int:
 def _cmd_tune(args: argparse.Namespace) -> int:
     """``tune --power``: fit power coefficients (telemetry when a source
     answers, anchor fixtures otherwise) into ``--out`` (default
-    :data:`tpusim_torch.harness.tuner.POWER_OUT`).  The arch tuner
-    (``tune`` without ``--power``) times microbenchmarks on a live TPU
-    and is not ported: it exits 2."""
-    from tpusim_torch.harness.tuner import tune_power
+    :data:`tpusim_torch.harness.tuner.POWER_OUT`).  ``tune``: fit the
+    arch knobs from microbenchmarks timed on ``--device`` (default the
+    card), print the result and write the overlay to ``--out`` (default
+    ``auto`` = :data:`~tpusim_torch.harness.tuner.TUNED_OUT`
+    ``/<arch>.tuned.flags``; ``''`` writes nothing)."""
+    import dataclasses
 
-    if not args.power:
-        print("tpusim_torch tune: error: only --power is ported; the arch "
-              "tuner times microbenchmarks on a live TPU (ROADMAP A12 item "
-              "5, the live probes)", file=sys.stderr)
-        return 2
-    path = tune_power(args.arch or "v5e", out_dir=args.out)
-    print(f"fitted power coefficients written to {path}")
+    from tpusim_torch.harness.tuner import (
+        TUNED_OUT, tune, tune_power, write_overlay,
+    )
+
+    if args.power:
+        path = tune_power(args.arch or "v5e", out_dir=args.out)
+        print(f"fitted power coefficients written to {path}")
+        return 0
+    result = tune(args.arch, device=args.device)
+    print(json.dumps(dataclasses.asdict(result), indent=2))
+    out = "auto" if args.out is None else args.out
+    if out == "auto":
+        out = TUNED_OUT / f"{result.base_arch}.tuned.flags"
+        out.parent.mkdir(parents=True, exist_ok=True)
+    if out:
+        write_overlay(result, out)
+        print(f"overlay written to {out} (TPUSIM_TUNED_DIR={Path(out).parent} "
+              f"applies <arch>.tuned.flags)")
+    return 0
+
+
+def _cmd_correlate_ops(args: argparse.Namespace) -> int:
+    """Per-op sim-vs-silicon correlation for one workload on its device
+    (plot-correlation.py at HLO-instruction grain)."""
+    from tpusim_torch.harness.correl_ops import (
+        correlate_workload_ops, write_correl_ops,
+    )
+    from tpusim_torch.models import get_workload
+
+    wl = get_workload(args.workload)
+    fn, wl_args = wl.build(device=args.device, **_parse_sets(args.set))
+    corr = correlate_workload_ops(
+        fn, wl_args, name=wl.name, arch=args.arch, iters=args.iters,
+    )
+    print(f"matched {len(corr.rows)} ops "
+          f"({corr.matched_time_fraction:.0%} of device time); "
+          f"sync-op weighted |error| = "
+          f"{corr.sync_weighted_abs_error_pct:.1f}% "
+          f"(all rows {corr.weighted_abs_error_pct:.1f}%)")
+    for r in corr.worst(args.top):
+        print(f"  {r.name:40s} {r.opcode:16s} "
+              f"sim={r.sim_ns:10.0f}ns real={r.real_ns:10.0f}ns "
+              f"err={r.error_pct:+7.1f}%")
+    if args.json:
+        p = write_correl_ops([corr], args.json)
+        print(f"report written to {p}")
     return 0
 
 
@@ -2022,19 +2070,23 @@ def main(argv: list[str] | None = None) -> int:
     psb.set_defaults(fn=_cmd_serve_bench)
 
     ptu = sub.add_parser(
-        "tune",
-        help="fit power coefficients (--power: telemetry when available, "
-             "anchor fixtures otherwise); the arch tuner needs a live TPU "
-             "and is not ported",
+        "tune", help="fit arch parameters on the local device (tuner)",
     )
     ptu.add_argument("--arch", default=None)
-    ptu.add_argument("--out", default=None, metavar="DIR",
-                     help="where --power writes <arch>.json (default "
+    ptu.add_argument("--out", default=None,
+                     help="overlay destination; 'auto' (the default) = "
+                          "build/tpusim_torch_reports/tuned/<arch>.tuned."
+                          "flags (TPUSIM_TUNED_DIR applies it; never "
+                          "configs/); '' disables writing.  With --power: "
+                          "the directory for <arch>.json (default "
                           "build/tpusim_torch_reports/power_fitted/, never "
                           "the committed power/fitted/)")
     ptu.add_argument("--power", action="store_true",
-                     help="fit power coefficients (telemetry when "
+                     help="fit power coefficients instead (telemetry when "
                           "available, anchor fixtures otherwise)")
+    ptu.add_argument("--device", default=None,
+                     help="where the microbenchmarks run (default cuda; "
+                          "cpu times the host, through wall time)")
     ptu.set_defaults(fn=_cmd_tune)
 
 
@@ -2085,6 +2137,22 @@ def main(argv: list[str] | None = None) -> int:
                          "simulate cell mounts (repeat cells price "
                          "nothing)")
     pr.set_defaults(fn=_cmd_run)
+
+    pco = sub.add_parser(
+        "correlate-ops",
+        help="per-op sim-vs-silicon correlation for a workload (live)",
+    )
+    pco.add_argument("workload")
+    pco.add_argument("--arch", default=None)
+    pco.add_argument("--iters", type=int, default=3)
+    pco.add_argument("--top", type=int, default=10)
+    pco.add_argument("--json", default=None, help="write correl_ops.json")
+    pco.add_argument("--set", action="append", metavar="K=V",
+                     help="override a workload parameter (repeatable)")
+    pco.add_argument("--device", default=None,
+                     help="where the workload runs (default cuda; cpu "
+                          "profiles the host's op events)")
+    pco.set_defaults(fn=_cmd_correlate_ops)
 
     pda = sub.add_parser(
         "derive-arch",

@@ -11,11 +11,18 @@ This closes the hole the end-to-end number can hide: a 2x-too-fast matmul
 model compensating for a 2x-too-slow DMA model nets out invisible at
 wall-clock grain but lights up here as two top-N mispredicted op classes.
 
-Port of the offline half of ``tpusim/harness/correl_ops.py``: correlation,
-the known-outlier list, the artifact document and its offline
-regeneration from the device rows a committed artifact stores.  The live
-half (profiling a workload on the device and reading its xplane) is not
-ported yet.
+Port of ``tpusim/harness/correl_ops.py``.  Where the reference reads an
+xplane, the live half here reads ``torch.profiler``: the captured FX
+graph runs node by node, each node inside a profiler range
+(:class:`NodeRanges`), and every kernel, copy and fill on the card is
+filed under the node that launched it, then under the HLO instruction
+that node became (the capture's provenance, :func:`node_instructions`).
+The whole-program truth is the card's busy time within one execution:
+the sum of those device events' durations (one stream), with the span
+from first start to last end beside it.  On CPU tensors the per-op view
+takes the host's op events in place of kernels (the reference's CPU
+planes), and :func:`measure_device_time` raises, as the reference's does
+without a device plane.
 """
 
 from __future__ import annotations
@@ -23,10 +30,12 @@ from __future__ import annotations
 import json
 import math
 import re
+import statistics
 import sys
+from collections import defaultdict
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 from tpusim_torch.perf.pool import map_ordered, pool_context
 
@@ -34,6 +43,15 @@ __all__ = [
     "OpSilicon",
     "OpRow",
     "OpCorrelation",
+    "DeviceProfile",
+    "NodeRanges",
+    "node_instructions",
+    "extract_op_profile",
+    "extract_module_events",
+    "extract_module_profile",
+    "measure_device_time",
+    "profile_workload",
+    "correlate_workload_ops",
     "xla_op_estimates",
     "correlate_ops",
     "correlate_counters",
@@ -235,6 +253,440 @@ def _event_op_name(event_name: str) -> str:
 
 
 # ---------------------------------------------------------------------------
+# the device profile
+# ---------------------------------------------------------------------------
+
+#: profiler range of one timed execution
+EXEC_RANGE = "tpusim_torch.exec"
+#: prefix of each FX node's range: ``<NODE_RANGE><qualified node name>``
+NODE_RANGE = "tpusim_torch.node:"
+#: where device time goes that no instruction stands for: work launched
+#: outside every node (a scan's own stacking copies, allocator fills) or
+#: by a node the lowering turned into no instruction (a ``clone``)
+UNATTRIBUTED = "unattributed"
+#: the device activities that are work: kernels, copies and fills
+_DEVICE_ACTIVITIES = frozenset({"kernel", "gpu_memcpy", "gpu_memset"})
+#: opcodes that stand for no kernel
+_FREE_OPCODES = frozenset({"parameter", "constant", "bitcast", "tuple",
+                           "get-tuple-element"})
+#: opcodes a node's time goes to first when it became several
+_HEAVY_OPCODES = frozenset({
+    "dot", "convolution", "custom-call", "all-reduce", "all-gather",
+    "reduce-scatter", "all-to-all", "collective-permute",
+})
+
+
+@dataclass
+class DeviceProfile:
+    """A profiled run's whole executions: per execution, the device's busy
+    time (the sum of its events' durations), span (first start to last
+    end) and event count, and per node label its occurrences, device
+    events and device time; ``lost`` executions were left out (the
+    profiler lost some of their work)."""
+
+    device: str
+    execs: list[dict] = field(default_factory=list)
+    lost: int = 0
+
+    @property
+    def nodes(self) -> dict[str, list[float]]:
+        """label → [occurrences, events, total_ns] over the executions."""
+        out: dict[str, list[float]] = {}
+        for e in self.execs:
+            for label, rec in e["nodes"].items():
+                acc = out.setdefault(label, [0, 0, 0.0])
+                for i, v in enumerate(rec):
+                    acc[i] += v
+        return out
+
+    @property
+    def unattributed_ns(self) -> float:
+        """Device time launched outside every node."""
+        return sum(e["unattributed_ns"] for e in self.execs)
+
+
+def _activity(event) -> str | None:
+    fn = getattr(event, "activity_type", None)
+    return fn() if callable(fn) else None
+
+
+def _is_launch(name: str) -> bool:
+    """A host API call that launches a kernel: its kernel's device event
+    carries the call's correlation id."""
+    return "LaunchKernel" in name
+
+
+def _parse_profile(prof, device: str) -> list[dict]:
+    """Nest the host's ranges and ops per thread, then file each unit of
+    work — a device event on the card (through the op that launched it),
+    an outermost host op on the CPU — under its execution and the
+    innermost node range around its launch.  Returns one record per
+    execution; ``lost`` marks one with a launch whose work never reached
+    the profile."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.profiler.kineto_results.events())
+    host = sorted((e for e in events if e.device_type() == DeviceType.CPU),
+                  key=lambda e: (e.start_ns(), -e.end_ns()))
+    #: a host event's correlation id → (execution, node label)
+    ctx: dict[int, tuple] = {}
+    exec_starts: list[int] = []
+    ranges: list[tuple] = []        # (execution, label) of each node range
+    launches: list = []
+    work: list[tuple] = []          # (execution, label, start, end)
+    stacks: dict[int, list] = defaultdict(list)
+    for e in host:
+        stack = stacks[e.start_thread_id()]
+        while stack and stack[-1][0] <= e.start_ns():
+            stack.pop()
+        ex, label, in_op = stack[-1][1] if stack else (None, None, False)
+        name = e.name()
+        frontend = e.linked_correlation_id() == 0
+        if e.is_user_annotation() and name == EXEC_RANGE:
+            ex, label, in_op = len(exec_starts), None, False
+            exec_starts.append(e.start_ns())
+        elif e.is_user_annotation() and name.startswith(NODE_RANGE):
+            label = name[len(NODE_RANGE):]
+            ranges.append((ex, label))
+        elif "::" in name and frontend:
+            # a dispatched op (aten::mm, tpusim_torch::flash_attention)
+            if device == "cpu" and ex is not None and not in_op:
+                work.append((ex, label, e.start_ns(), e.end_ns()))
+            in_op = True
+        elif not frontend and _is_launch(name):
+            launches.append(e)
+        if (e.is_user_annotation() or "::" in name) and frontend:
+            # what a device event's linked correlation id names: the op
+            # or range that launched it.  The profiler's own host events
+            # ("Activity Buffer Request", module loading) may reuse its
+            # id; they name nothing
+            ctx.setdefault(e.correlation_id(), (ex, label))
+        stack.append((e.end_ns(), (ex, label, in_op)))
+    lost: set = set()
+    if device == "cuda":
+        seen = set()
+        for e in events:
+            if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                    or _activity(e) not in (None, *_DEVICE_ACTIVITIES)):
+                continue
+            seen.add(e.correlation_id())
+            linked = ctx.get(e.linked_correlation_id())
+            if linked is not None:
+                ex, label = linked
+            else:
+                # launched outside every op: the execution running when
+                # it started (work never starts before its launch)
+                started = [i for i, t in enumerate(exec_starts)
+                           if t <= e.start_ns()]
+                ex, label = (started[-1] if started else None), None
+            if ex is not None:
+                work.append((ex, label, e.start_ns(), e.end_ns()))
+        lost = {ctx.get(r.linked_correlation_id(), (None,))[0]
+                for r in launches if r.correlation_id() not in seen}
+    execs = [{"busy_ns": 0.0, "span": None, "events": 0, "nodes": {},
+              "unattributed_ns": 0.0, "lost": i in lost}
+             for i in range(len(exec_starts))]
+    for ex, label in ranges:
+        if ex is not None:
+            execs[ex]["nodes"].setdefault(label, [0, 0, 0.0])[0] += 1
+    for ex, label, start, end in work:
+        rec = execs[ex]
+        dur = float(end - start)
+        sp = rec["span"] or (start, end)
+        rec["span"] = (min(sp[0], start), max(sp[1], end))
+        rec["busy_ns"] += dur
+        rec["events"] += 1
+        if label is None:
+            rec["unattributed_ns"] += dur
+        else:
+            node = rec["nodes"].setdefault(label, [0, 0, 0.0])
+            node[1] += 1
+            node[2] += dur
+    for rec in execs:
+        span = rec.pop("span")
+        rec["span_ns"] = float(span[1] - span[0]) if span else 0.0
+    return execs
+
+
+def _scan_trips(body, init, xs, additional) -> list:
+    """A ``scan`` node run eagerly: one ``body`` call per trip (some torch
+    versions' eager scan calls it once more, for the output shapes), the
+    outputs stacked at the end."""
+    import torch
+
+    carry, ys = list(init), []
+    for i in range(xs[0].shape[0]):
+        out = list(body(*carry, *(x[i] for x in xs), *additional))
+        carry, y = out[:len(carry)], out[len(carry):]
+        ys.append(y)
+    return [*carry, *(torch.stack(col) for col in zip(*ys))]
+
+
+class NodeRanges:
+    """Runs a captured graph node by node, each node inside a profiler
+    range named ``NODE_RANGE + <qualified name>``; the body (and
+    condition) of a ``scan`` or ``while_loop`` node runs through another
+    such runner on every trip, its nodes qualified ``<loop node>/``
+    (``<loop node>/cond/`` for a condition), as the lowering qualifies
+    them in the capture's origins."""
+
+    def __init__(self, gm, prefix: str = ""):
+        import torch
+
+        class _Interp(torch.fx.Interpreter):
+            def run_node(inner, n):
+                if n.op in ("placeholder", "output", "get_attr"):
+                    return super().run_node(n)
+                inner.label = prefix + n.name
+                with torch.profiler.record_function(NODE_RANGE + inner.label):
+                    return super().run_node(n)
+
+            def call_function(inner, target, args, kwargs):
+                if isinstance(target, torch._ops.HigherOrderOperator):
+                    loop = inner.label + "/"
+                    if target.name() == "scan":
+                        return _scan_trips(NodeRanges(args[0], loop),
+                                           *args[1:], **kwargs)
+                    if target.name() == "while_loop":
+                        args = (NodeRanges(args[0], loop + "cond/"),
+                                NodeRanges(args[1], loop), *args[2:])
+                return super().call_function(target, args, kwargs)
+
+        self._interp = _Interp(gm)
+
+    def __call__(self, *args):
+        return self._interp.run(*args)
+
+
+def node_instructions(cap) -> dict[str, str | None]:
+    """The instruction each FX node's device time goes to, by the
+    capture's provenance: among the live instructions the node became (a
+    fused one counts as its fusion), a dot, convolution, custom call or
+    collective first, else the last that does work.  A ``scan`` or
+    ``while_loop`` node maps to None (its bodies' nodes carry the work)."""
+    opcode = {op.name: op.opcode
+              for comp in cap.module.computations.values()
+              for op in comp.ops}
+    became: dict[str, list[str]] = {}
+    for instr, node in cap.origins.items():
+        top = cap.fused.get(instr, instr)
+        if top in opcode and top not in became.get(node, ()):
+            became.setdefault(node, []).append(top)
+    out: dict[str, str | None] = {}
+    for node, tops in became.items():
+        if any(opcode[t] == "while" for t in tops):
+            out[node] = None
+            continue
+        work = [t for t in tops if opcode[t] not in _FREE_OPCODES]
+        heavy = [t for t in work if opcode[t] in _HEAVY_OPCODES]
+        out[node] = heavy[0] if heavy else (work[-1] if work else None)
+    return out
+
+
+#: device records a profiler session makes before its first execution
+_WARM_RECORDS = 64
+#: profiler sessions run at most to collect whole executions
+_SESSIONS = 3
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _trace_capture(
+    fn: Callable,
+    args: tuple,
+    log_dir: str | Path | None,
+    warmup: int = 2,
+    iters: int = 3,
+    graph=None,
+) -> DeviceProfile:
+    """Warm up, then run ``iters`` executions under ``torch.profiler``,
+    each inside an :data:`EXEC_RANGE` range: ``fn(*args)``, or with
+    ``graph`` the captured graph node by node (:class:`NodeRanges`).
+    The single timing-protocol home for the per-op and per-execution
+    profiles; writes ``trace.json`` (chrome format, the last session's)
+    under ``log_dir`` when one is given.
+
+    The profiler can lose device records (seen on an H100: a session's
+    first few, kernels and their launches alike): each session opens
+    with :data:`_WARM_RECORDS` fills outside every execution, an
+    execution with a launch whose work is missing, or with fewer device
+    events than another execution of the same program, is left out, and
+    another session runs (up to :data:`_SESSIONS`) until ``iters`` whole
+    executions are in; none at all raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tpusim_torch.spmd import SpmdModule
+    from tpusim_torch.tracer.capture import _concrete
+
+    dev = _concrete(args, "device profiling")
+    if graph is not None:
+        if isinstance(fn, SpmdModule):
+            raise NotImplementedError(
+                "per-op profiles of a multi-device workload: its ranks run "
+                "as one vmapped program, not node by node")
+        run = NodeRanges(graph)
+    else:
+        run = fn.run if isinstance(fn, SpmdModule) else fn
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    iters = max(iters, 1)
+    seen: list[dict] = []
+    with torch.no_grad():
+        for _ in range(max(warmup, 1)):
+            run(*args)
+        _sync(dev)
+        for _ in range(_SESSIONS):
+            with profile(activities=activities) as prof:
+                # the profiler can lose a session's first device records:
+                # let them be fills outside every execution
+                for _ in range(_WARM_RECORDS if dev.type == "cuda" else 0):
+                    torch.zeros(1, device=dev)
+                _sync(dev)
+                for _ in range(iters):
+                    with record_function(EXEC_RANGE):
+                        run(*args)
+                _sync(dev)
+            seen += _parse_profile(prof, dev.type)
+            events = max(e["events"] for e in seen)
+            whole = [e for e in seen
+                     if not e["lost"] and e["events"] == events]
+            if len(whole) >= iters:
+                break
+    if log_dir is not None:
+        Path(log_dir).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+    if not whole:
+        raise RuntimeError(
+            f"the profiler lost device work in all {len(seen)} executions "
+            f"of {_SESSIONS} sessions")
+    return DeviceProfile(dev.type, whole[:iters], lost=len(seen) - len(whole))
+
+
+def extract_op_profile(profile: DeviceProfile, cap) -> dict[str, OpSilicon]:
+    """Per-instruction device durations from a node-by-node profile:
+    each node's time under the instruction :func:`node_instructions`
+    gives it, counted once per occurrence of that instruction (a loop
+    body's every trip); what no instruction stands for under
+    :data:`UNATTRIBUTED`, which the correlation's time denominator
+    counts."""
+    instr_of = node_instructions(cap)
+    ops: dict[str, OpSilicon] = {}
+    stray = profile.unattributed_ns
+    for label, (occurrences, n_events, total) in profile.nodes.items():
+        if not n_events:
+            continue
+        instr = instr_of.get(label)
+        if instr is None:
+            stray += total
+            continue
+        rec = ops.setdefault(instr, OpSilicon(instr))
+        rec.count = max(rec.count, float(occurrences))
+        rec.total_ns += total
+    if stray:
+        ops[UNATTRIBUTED] = OpSilicon(UNATTRIBUTED,
+                                      count=float(len(profile.execs) or 1),
+                                      total_ns=stray)
+    return ops
+
+
+def extract_module_events(profile: DeviceProfile,
+                          name: str = "module") -> dict[str, list[float]]:
+    """Per-execution device busy time (ns) under the program's name —
+    the counterpart of the reference's ``XLA Modules`` durations: the
+    device's own time with no host dispatch gaps.  Empty off the card."""
+    if profile.device != "cuda" or not profile.execs:
+        return {}
+    return {name: [e["busy_ns"] for e in profile.execs]}
+
+
+def extract_module_profile(profile: DeviceProfile,
+                           name: str = "module") -> dict[str, OpSilicon]:
+    """Aggregated view of :func:`extract_module_events`."""
+    return {
+        n: OpSilicon(n, count=float(len(durs)), total_ns=sum(durs))
+        for n, durs in extract_module_events(profile, name).items()
+    }
+
+
+def _program_name(fn: Any) -> str:
+    return getattr(fn, "__name__", type(fn).__name__)
+
+
+def measure_device_time(
+    fn: Callable,
+    *args: Any,
+    iters: int = 3,
+    warmup: int = 2,
+    log_dir: str | Path | None = None,
+    with_ops: bool = False,
+) -> dict[str, Any]:
+    """Measure per-execution DEVICE time from the profiler's device
+    timeline (the nvprof-``Duration`` equivalent; the reference
+    correlates against kernel durations, not wall clock —
+    ``util/plotting/correl_mappings.py:24``).
+
+    Returns the median over ``iters`` executions of the card's busy time
+    (``median_s``), and the median span and idle share (``span_s``,
+    ``idle_share`` = 1 - busy/span).  With ``with_ops=True`` the program
+    runs as its captured graph, node by node, and the SAME profile also
+    yields the per-instruction view under ``"ops"``.  Raises when the
+    profile holds no device events (e.g. CPU tensors) — callers fall
+    back to wall time."""
+    from tpusim_torch.tracer.capture import capture
+
+    name = _program_name(fn)
+    cap = capture(fn, *args, name=name) if with_ops else None
+    prof = _trace_capture(fn, args, log_dir, warmup=warmup, iters=iters,
+                          graph=cap.graph if cap is not None else None)
+    durs = extract_module_events(prof, name).get(name)
+    if not durs:
+        raise RuntimeError(
+            "no device events in the profile; use wall-clock timing")
+    spans = [e["span_ns"] for e in prof.execs]
+    out: dict[str, Any] = {
+        "median_s": statistics.median(durs) / 1e9,
+        "n_exec": float(len(durs)),
+        "lost_execs": prof.lost,
+        "module": name,
+        "span_s": statistics.median(spans) / 1e9,
+        "idle_share": statistics.median(
+            1.0 - e["busy_ns"] / e["span_ns"] if e["span_ns"] > 0 else 0.0
+            for e in prof.execs),
+    }
+    if with_ops:
+        out["ops"] = extract_op_profile(prof, cap)
+    return out
+
+
+def profile_workload(
+    fn: Callable,
+    args: tuple,
+    *,
+    log_dir: str | Path | None = None,
+    warmup: int = 2,
+    iters: int = 3,
+    cap=None,
+) -> dict[str, OpSilicon]:
+    """Run ``fn``'s captured graph node by node under the profiler and
+    return per-instruction durations (the nvprof-per-kernel pass of
+    ``util/hw_stats``); ``cap``: the capture to reuse."""
+    from tpusim_torch.tracer.capture import capture
+
+    if cap is None:
+        cap = capture(fn, *args, name=_program_name(fn))
+    return extract_op_profile(
+        _trace_capture(fn, args, log_dir, warmup=warmup, iters=iters,
+                       graph=cap.graph), cap)
+
+
+# ---------------------------------------------------------------------------
 # correlation
 # ---------------------------------------------------------------------------
 
@@ -409,6 +861,44 @@ def correlate_counters(
             ),
         }
     return out
+
+
+def correlate_workload_ops(
+    fn: Callable,
+    args: tuple,
+    *,
+    name: str = "workload",
+    arch: str | None = None,
+    log_dir: str | Path | None = None,
+    iters: int = 3,
+) -> OpCorrelation:
+    """End-to-end: capture + simulate + profile + per-op correlate one
+    workload on its device (the card, or the CPU's op events for CPU
+    tensors).  The chrome trace is written under ``log_dir`` only when
+    one is given."""
+    from tpusim_torch.harness.correlate import _device_kind
+    from tpusim_torch.timing.arch import detect_arch
+    from tpusim_torch.timing.config import load_config
+    from tpusim_torch.timing.engine import Engine
+    from tpusim_torch.tracer.capture import _device_of, capture
+
+    cap = capture(fn, *args, name=name)
+    if arch is None:
+        # named-preset route so a tuner overlay in $TPUSIM_TUNED_DIR applies
+        arch = detect_arch(_device_kind(_device_of(args))).name
+    cfg = load_config(arch=arch)
+    res = Engine(cfg).run(cap.module)
+
+    silicon = profile_workload(fn, args, log_dir=log_dir, iters=iters,
+                               cap=cap)
+    corr = correlate_ops(
+        res, silicon, clock_hz=cfg.arch.clock_hz, workload=name,
+        real_iters=iters, xla_estimates=xla_op_estimates(cap.module),
+    )
+    corr.counters = correlate_counters(
+        res, silicon, clock_hz=cfg.arch.clock_hz, arch=cfg.arch,
+    )
+    return corr
 
 
 def load_known_outliers(path: str | Path | None = None) -> list[dict]:

@@ -15,8 +15,9 @@ that its exported graph lowers to the HLO the reference's capture holds
   convolution's ``dim_labels`` (``b01f_01io->b01f``);
 * ``embedding_lookup`` takes ``int32`` ids, as the reference does;
 * ``mlp_train_step`` returns ``(loss, *new_params)`` with the backward
-  taken by ``torch.autograd.grad``; capture traces it with ``make_fx``
-  (:attr:`MlpTrainStep.train_step`);
+  taken by ``torch.func.grad_and_value`` (which a ``scan`` body can hold:
+  :func:`~tpusim_torch.harness.correlate.loopify`); capture traces it
+  with ``make_fx`` (:attr:`MlpTrainStep.train_step`);
 * ``lstm_layer`` runs its cell through the ``scan`` higher-order op,
   which lowers to one ``while``, as ``lax.scan`` does;
 * ``dynamic_loop`` runs its Babylonian square root through the
@@ -144,7 +145,7 @@ class MlpTrainStep(nn.Module):
     the reference's ``(loss, new_params)`` flattened the same way."""
 
     #: capture traces the step with ``make_fx`` (``torch.export`` does not
-    #: take ``torch.autograd.grad``)
+    #: take the backward)
     train_step = True
 
     def __init__(self, lr: float):
@@ -162,12 +163,10 @@ class MlpTrainStep(nn.Module):
 
     def forward(self, *flat: torch.Tensor) -> tuple[torch.Tensor, ...]:
         params, x, y = flat[:-2], flat[-2], flat[-1]
-        with torch.enable_grad():
-            leaves = [p.detach().requires_grad_(True) for p in params]
-            loss = self.loss_fn(leaves, x, y)
-            grads = torch.autograd.grad(loss, leaves)
+        grads, loss = torch.func.grad_and_value(
+            lambda ps: self.loss_fn(ps, x, y))(list(params))
         new_params = [p - self.lr * g for p, g in zip(params, grads)]
-        return (loss.detach(), *new_params)
+        return (loss, *new_params)
 
     @staticmethod
     def from_numpy(params, x, y, *, device=None) -> tuple[torch.Tensor, ...]:
@@ -444,7 +443,11 @@ def build_mlp_train(batch: int, width: int, depth: int, dtype: str,
     # reducible — this workload doubles as a training self-check)
     target_map = _randn(gen, (width, width), dt, dev) * (1.0 / width ** 0.5)
     y = x @ target_map
-    return MlpTrainStep(lr), (*params, x, y)
+    step = MlpTrainStep(lr)
+    # the reference's first argument is the parameter list (loopify
+    # threads it as the carry)
+    step.carry_leaves = len(params)
+    return step, (*params, x, y)
 
 
 @register(

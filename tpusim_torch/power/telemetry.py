@@ -1,5 +1,5 @@
-"""Power telemetry capture + coefficient fitting, the offline half (port
-of ``tpusim/power/telemetry.py``).
+"""Power telemetry capture + coefficient fitting (port of
+``tpusim/power/telemetry.py``).
 
 The rebuild of AccelWattch's hardware-validation pipeline
 (``util/accelwattch/accelwattch_hw_profiler/measureGpuPower.cpp`` — an
@@ -25,9 +25,13 @@ TPU equivalents:
   document must equal the reference's by bytes, and another LAPACK path
   can move the last bit.
 
-The reference's live sampler (``sample_workload_power``, which runs a JAX
-workload while polling) is not here: the port replays TPU traces and has
-no TPU to sample (ROADMAP A12 item 5).
+* **live sampler** (:func:`sample_workload_power`): runs a workload in a
+  loop while polling a meter — on the card, the card's own
+  (:func:`read_card_watts`, NVML's ``nvmlDeviceGetPowerUsage`` through
+  ``ctypes`` on ``libnvidia-ml.so.1``), the counterpart of the
+  reference's ``tpu_info`` source.  :func:`read_power_watts` and
+  :func:`probe_power_sources` keep the reference's sources, so ``tune
+  --power`` documents stay the reference's by bytes.
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ __all__ = [
     "PowerSample",
     "read_power_watts",
     "probe_power_sources",
+    "read_card_watts",
+    "sample_workload_power",
     "anchor_samples",
     "fit_power_coefficients",
     "save_fitted",
@@ -155,6 +161,112 @@ def probe_power_sources() -> dict:
                       "detail": "no /sys/class/hwmon power rails"})
 
     return {"watts": watts, "chips": n_chips, "tried": tried}
+
+
+def _nvml_bus_id(device) -> bytes | None:
+    """The PCI bus id NVML names ``device``'s card by, or None (then the
+    card is taken by its index)."""
+    import torch
+
+    props = torch.cuda.get_device_properties(device)
+    try:
+        return (f"{props.pci_domain_id:08x}:{props.pci_bus_id:02x}:"
+                f"{props.pci_device_id:02x}.0").encode()
+    except AttributeError:
+        return None
+
+
+def read_card_watts(device=None) -> float | None:
+    """One reading of the card's own power meter in watts — NVML's
+    ``nvmlDeviceGetPowerUsage`` (milliwatts) through ``ctypes`` on
+    ``libnvidia-ml.so.1`` — or None when no meter answers (no library, no
+    card, or an NVML error)."""
+    import ctypes
+
+    import torch
+
+    try:
+        lib = ctypes.CDLL("libnvidia-ml.so.1")
+    except OSError:
+        return None
+    lib.nvmlInit_v2.restype = ctypes.c_int
+    lib.nvmlShutdown.restype = ctypes.c_int
+    lib.nvmlDeviceGetHandleByIndex_v2.argtypes = [
+        ctypes.c_uint, ctypes.POINTER(ctypes.c_void_p)]
+    lib.nvmlDeviceGetHandleByIndex_v2.restype = ctypes.c_int
+    lib.nvmlDeviceGetHandleByPciBusId_v2.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_void_p)]
+    lib.nvmlDeviceGetHandleByPciBusId_v2.restype = ctypes.c_int
+    lib.nvmlDeviceGetPowerUsage.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint)]
+    lib.nvmlDeviceGetPowerUsage.restype = ctypes.c_int
+    if lib.nvmlInit_v2() != 0:
+        return None
+    try:
+        handle = ctypes.c_void_p()
+        bus = None
+        if torch.cuda.is_available():
+            dev = torch.device("cuda" if device is None else device)
+            bus = _nvml_bus_id(dev)
+        if bus is not None:
+            rc = lib.nvmlDeviceGetHandleByPciBusId_v2(bus,
+                                                      ctypes.byref(handle))
+        else:
+            rc = lib.nvmlDeviceGetHandleByIndex_v2(0, ctypes.byref(handle))
+        if rc != 0:
+            return None
+        mw = ctypes.c_uint()
+        if lib.nvmlDeviceGetPowerUsage(handle, ctypes.byref(mw)) != 0:
+            return None
+        return mw.value / 1000.0
+    finally:
+        lib.nvmlShutdown()
+
+
+def sample_workload_power(
+    fn, args, *, name: str = "workload", seconds: float = 3.0,
+    poll_s: float = 0.1, meter=None,
+) -> PowerSample | None:
+    """Run ``fn`` in a loop for ~``seconds`` while polling a power meter;
+    returns the averaged sample (rates must be attached by the caller from
+    the capture's cost analysis), or None when no meter answers.
+
+    ``meter`` (a callable returning watts or None) defaults to the card's
+    own (:func:`read_card_watts`) for CUDA tensors, the reference's
+    sources (:func:`read_power_watts`) otherwise."""
+    import time
+
+    import torch
+
+    from tpusim_torch.spmd import SpmdModule
+    from tpusim_torch.tracer.capture import _concrete
+
+    dev = _concrete(tuple(args), "sample_workload_power")
+    if meter is None:
+        meter = ((lambda: read_card_watts(dev)) if dev.type == "cuda"
+                 else read_power_watts)
+    if meter() is None:
+        return None
+    run = fn.run if isinstance(fn, SpmdModule) else fn
+
+    def step():
+        run(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    readings: list[float] = []
+    with torch.no_grad():
+        step()
+        t_end = time.time() + seconds
+        while time.time() < t_end:
+            step()
+            w = meter()
+            if w is not None:
+                readings.append(w)
+            time.sleep(poll_s)
+    if not readings:
+        return None
+    return PowerSample(name=name, watts=sum(readings) / len(readings))
 
 
 # ---------------------------------------------------------------------------

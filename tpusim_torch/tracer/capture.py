@@ -93,13 +93,43 @@ def export_to_hlo(module: torch.nn.Module, args: tuple[torch.Tensor, ...],
 
 @dataclass
 class Capture:
-    """One captured module + its metadata."""
+    """One captured module + its metadata.
+
+    ``graph`` is the FX graph that was lowered, and ``origins`` /
+    ``fused`` its provenance (see :class:`~tpusim_torch.tracer.hlo_ir.
+    HloModule`), which the HLO text does not carry: the per-op profile
+    (:mod:`tpusim_torch.harness.correl_ops`) runs the graph and files each
+    node's device time under the instruction that node became."""
 
     name: str
     hlo_text: str
     meta: dict[str, Any] = field(default_factory=dict)
     in_bytes: int = 0
     out_bytes: int = 0
+    graph: torch.fx.GraphModule | None = None
+    origins: dict[str, str] = field(default_factory=dict)
+    fused: dict[str, str] = field(default_factory=dict)
+
+    _module: Any = field(default=None, repr=False)
+
+    @property
+    def module(self):
+        """The parsed :class:`~tpusim_torch.ir.ModuleTrace` of
+        ``hlo_text`` (lazily, as the reference's), with the meta."""
+        if self._module is None:
+            from tpusim_torch.trace.lazy import (
+                LAZY_THRESHOLD_BYTES, parse_hlo_module_lazy,
+            )
+            from tpusim_torch.trace.native import parse_hlo_module_fast
+
+            if len(self.hlo_text) >= LAZY_THRESHOLD_BYTES:
+                self._module = parse_hlo_module_lazy(
+                    self.hlo_text, name_hint=self.name)
+            else:
+                self._module = parse_hlo_module_fast(
+                    self.hlo_text, name_hint=self.name)
+            self._module.meta.update(self.meta)
+        return self._module
 
     def commands(self) -> list[TraceCommand]:
         """The command-stream entries for one launch of this capture on
@@ -178,8 +208,9 @@ def capture(module: torch.nn.Module, *args: torch.Tensor,
             raise ValueError(f"TPUSIM_TRACE_DEVICE={trace_device} is not a "
                              f"device of the {world}-device mesh")
         local = module.local_args(*args, rank=trace_device)
-    hlo_text, out_vals = export_to_hlo(module, local, cap_name,
-                                       num_partitions=world)
+    graph = capture_graph(module, local)
+    hlo, out_vals = lower_graph(graph, cap_name, num_partitions=world)
+    hlo_text = hlo.text()
     meta: dict[str, Any] = {
         "capture_name": cap_name,
         **_device_meta(_device_of(args), world),
@@ -197,7 +228,8 @@ def capture(module: torch.nn.Module, *args: torch.Tensor,
         out_bytes = sum(_nbytes(v) for v in out_vals)
     return Capture(name=cap_name, hlo_text=hlo_text, meta=meta,
                    in_bytes=sum(_nbytes(a) for a in args),
-                   out_bytes=out_bytes)
+                   out_bytes=out_bytes, graph=graph, origins=hlo.origins,
+                   fused=hlo.fused)
 
 
 def _runner(module: torch.nn.Module):

@@ -122,6 +122,8 @@ def fuse_computation(module: HloModule, comp: Computation) -> None:
         replaced[root.name] = Instr(root.name, root.shape, "fusion", ext,
                                     [f"kind={kind}", f"calls=%{fc.name}"])
         moved.update(names[:-1])
+        for n in names[:-1]:
+            module.fused[n] = root.name
     comp.instrs = [replaced.get(i.name, i) for i in comp.instrs
                    if i.name not in moved]
     comp.remove_dead()

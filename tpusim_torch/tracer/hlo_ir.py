@@ -133,6 +133,12 @@ class HloModule:
         #: devices of the SPMD program (``num_partitions`` in the header)
         self.num_partitions = 1
         self._channels = 0
+        #: provenance, never printed: instruction name → the qualified
+        #: name of the FX node that emitted it (a loop body's nodes under
+        #: ``<loop node>/``), for the entry, loop bodies and conditions
+        self.origins: dict[str, str] = {}
+        #: each fused member → the name of the ``fusion`` that holds it
+        self.fused: dict[str, str] = {}
 
     def channel(self) -> int:
         """A fresh ``channel_id`` for a collective (1, 2, ...)."""

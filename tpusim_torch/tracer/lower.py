@@ -160,6 +160,10 @@ class _Builder:
         #: a reversed scan's stacked outputs, which torch flips back
         self.unflipped: set[str] = set()
         self._consts: dict[tuple[str, str], str] = {}
+        #: the qualified name of the FX node being lowered: what
+        #: :meth:`emit` records as each instruction's origin (None in the
+        #: shared reduce regions)
+        self.node: str | None = None
 
     def emit(self, base: str, shape, opcode: str,
              operands: Sequence[str] = (), attrs: Sequence[str] = (),
@@ -167,6 +171,8 @@ class _Builder:
         name = self.module.fresh(base)
         instr = Instr(name, shape, opcode, list(operands), list(attrs), arg)
         self.comp.add(instr)
+        if self.node is not None:
+            self.module.origins[name] = self.node
         self.shapes[name] = shape
         self.by_name[name] = instr
         return name
@@ -367,6 +373,18 @@ class _GraphLowering:
         self.b = builder
         self.gm = gm
         self.env: dict[Any, Any] = {}
+        #: qualifies this graph's node names in the origins (a loop
+        #: body's: ``<loop node>/``)
+        self.prefix = ""
+
+    def nested(self, b, gm: torch.fx.GraphModule,
+               suffix: str = "/") -> "_GraphLowering":
+        """The lowering of a loop's body (or condition) graph into the
+        emitter ``b``, its nodes qualified under the loop node being
+        lowered."""
+        inner = _GraphLowering(b, gm)
+        inner.prefix = f"{self.b.node}{suffix}"
+        return inner
 
     # -- values ------------------------------------------------------------
 
@@ -401,7 +419,11 @@ class _GraphLowering:
                     f"lowering's op table (ROADMAP A5)")
             if str(node.target) in _ASSERT_OPS:
                 continue
-            self.env[node] = self.call(node)
+            outer, self.b.node = self.b.node, self.prefix + node.name
+            try:
+                self.env[node] = self.call(node)
+            finally:
+                self.b.node = outer
         raise LoweringError("graph has no output node")
 
     def out_array(self, node) -> Array:
@@ -1409,6 +1431,7 @@ def _lower_scan(L: _GraphLowering, node) -> list[str]:
     body = module.new_computation(f"{node.name}_body")
     body.fusible = True
     bb = _Builder(module, body, b.registry)
+    bb.node = b.node
     arg = bb.emit("arg_tuple", carry, "parameter", arg="0")
     gtes = [bb.emit("get-tuple-element", s, "get-tuple-element", [arg],
                     [f"index={i}"]) for i, s in enumerate(carry)]
@@ -1430,7 +1453,7 @@ def _lower_scan(L: _GraphLowering, node) -> list[str]:
         slices.append(bb.bitcast(ds, s.dims[1:]))
     it = iter(add_b)
     add_in = [next(it) if isinstance(a, str) else a for a in add_all]
-    outs = _GraphLowering(bb, gm).run([*carries, *slices, *add_in])
+    outs = L.nested(bb, gm).run([*carries, *slices, *add_in])
     new_bufs = []
     for buf, y in zip(bufs, outs[nc:]):
         s = bb.shape(buf)
@@ -1445,6 +1468,7 @@ def _lower_scan(L: _GraphLowering, node) -> list[str]:
     # the condition: iv < n
     cond = module.new_computation(f"{node.name}_cond")
     cb = _Builder(module, cond)
+    cb.node = b.node
     carg = cb.emit("arg_tuple", carry, "parameter", arg="0")
     civ = cb.emit("get-tuple-element", s32, "get-tuple-element", [carg],
                   ["index=0"])
@@ -1497,16 +1521,18 @@ def _lower_while(L: _GraphLowering, node) -> list[str]:
     body = module.new_computation(f"{node.name}_body")
     body.fusible = True
     bb = _Builder(module, body, b.registry)
+    bb.node = b.node
     gtes, ins = unpack(bb)
-    outs = _GraphLowering(bb, body_gm).run(ins)
+    outs = L.nested(bb, body_gm).run(ins)
     outs = [bb.convert(o, s.dtype) for o, s in zip(outs, carry)]
     body.root = bb.emit("tuple", carry, "tuple", [*outs, *gtes[nc:]])
 
     cond = module.new_computation(f"{node.name}_cond")
     cond.fusible = True
     cb = _Builder(module, cond, b.registry)
+    cb.node = b.node
     _, ins = unpack(cb)
-    (pred,) = _GraphLowering(cb, cond_gm).run(ins)
+    (pred,) = L.nested(cb, cond_gm, "/cond/").run(ins)
     cond.root = cb.bitcast(pred, ())
 
     init_t = b.emit("tuple", carry, "tuple", [*init_v, *add_v])
@@ -1618,9 +1644,12 @@ def lower_graph(gm: torch.fx.GraphModule, name: str,
             # s32 the reference's inputs hold
             raise LoweringError(f"input {n.name} is int64; pass int32 "
                                 f"indices, as JAX does")
+        b.node = n.name
         params.append(b.emit(n.name, _array(val), "parameter", arg=str(i)))
+    b.node = None
     outs = _GraphLowering(b, gm).run(params)
     out_node = next(n for n in gm.graph.nodes if n.op == "output")
+    b.node = out_node.name
     leaves = out_node.args[0]
     leaves = list(leaves) if isinstance(leaves, (list, tuple)) else [leaves]
     out_vals = [n.meta["val"] for n in leaves]
