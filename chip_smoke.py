@@ -6,7 +6,8 @@
 Drives the port's main path, ``tpusim_torch capture → simulate``, at the
 registered width of ``flash_attention_pallas`` ([32, 1024, 128] f32), of
 the ten workloads the general lowering captures, of the seven
-multi-device workloads (all their ranks on the one card) and of the
+multi-device workloads (all their ranks on the one card, in one process
+and as a process a rank) and of the
 model suite (the two 64-device steps over meta tensors),
 simulate's lane-batched pricing with its row scans on the card, the
 campaign and fleet layers whose scenario-batched warm runs those scans,
@@ -319,8 +320,9 @@ non-zero and prints no result):
 19. the live probes on the card (:data:`PROBE_STEPS`-step loops at
    registered width, device time from ``torch.profiler``): (a) ``tune()``
    on the card, its ``TunerResult`` printed, with no fit errors, no fall
-   back to wall time, no link bandwidth on one card, and achieved bf16
-   TFLOP/s and HBM GB/s above 0 and at most 1.05x the card's peaks; (b)
+   back to wall time, a link bandwidth only on a host of several cards,
+   and achieved bf16 TFLOP/s and HBM GB/s above 0 and at most 1.05x the
+   card's peaks; (b)
    ``correlate_workload`` on ``matmul``, ``elementwise_stream`` and
    ``flash_attention_pallas`` with an op profile, each timed on the
    device (``real_source == "device"``), sim and real seconds per step,
@@ -331,11 +333,32 @@ non-zero and prints no result):
    (d) ``sample_workload_power`` on ``matmul`` for 3 s through NVML, its
    watts in (0, 1.05 x the power limit]; (e) the looped ``matmul``'s
    profiler busy time within [0.8, 1.02]x its CUDA-event wall time.
+20. ranks as processes (``tpusim_torch.spmd_procs.RankGroup``: one
+   spawned process a rank), the kernels' counters set to 0 at the start
+   and read at the end (they must stay 0): (a) groups of 2, 4 and 8 rank
+   processes, every rank on ``cuda:0``, joined over gloo (each collective
+   staged through host memory), started at once: a collective probe
+   (every collective, ``(2, 2)`` mesh on both axes in either order and on
+   one, 1-D meshes of 8 and 2; data movement equal by bits to the vmap
+   runner, float32 sums within 1e-6, bf16 within one rounding); then
+   ``llama_tiny_tp2dp2`` (a snapshot of 2 launches), ``moe_ep4``,
+   ``ulysses_attention_sp8``, ``ring_attention_sp8``, ``decode_step_tp8``
+   and ``ici_allreduce`` over 2 ranks at registered width through
+   ``snapshot_buffers`` and ``measure_wall_time`` on the group: every
+   buffer against the vmap runner on the card (rtol = atol 1e-4
+   float32, 2e-2 bfloat16, integers by bits), replicas equal bit for bit
+   (``unshard``), the median step beside phase 12 (e)'s vmap median; (b)
+   on a host with a card for each rank, the probe and the same workloads
+   one rank a card over NCCL (the route ``ranks_for`` takes for capture
+   and the probes) and ``tune``'s ``ici_link_bandwidth`` (phase 19 (a)'s
+   fit over every card, none of its fit errors); on one card, what each
+   needs.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, the one before that the kernels' JSON
 record (flash's launches: phases 4 and 19), the one before that phase
-19's (``probes: {...}``), phase 18's (``front: {...}``), phase 17's
+20's (``ranks: {...}``), phase 19's (``probes: {...}``), phase 18's
+(``front: {...}``), phase 17's
 (``serve: {...}``), phase 16's
 (``harness: {...}``), phase 15's
 (``obs: {...}``), before it
@@ -411,6 +434,8 @@ from tpusim_torch.timing.config import load_config  # noqa: E402
 from tpusim_torch.timing.engine import Engine  # noqa: E402
 from tpusim_torch.trace.format import load_trace  # noqa: E402
 from tpusim_torch.models import get_workload  # noqa: E402
+from tpusim_torch import spmd  # noqa: E402
+from tpusim_torch.spmd import Mesh, P, SpmdModule  # noqa: E402
 from tpusim_torch.harness.correl_ops import (  # noqa: E402
     correlate_workload_ops,
     measure_device_time,
@@ -5487,8 +5512,10 @@ def tuner_leg() -> dict:
     det = result.details
     if det.get("fit_errors") or det.get("wall_time_fallbacks"):
         raise AssertionError(f"tune: {det}")
-    if result.ici_link_bandwidth is not None:
-        raise AssertionError("tune fitted a link bandwidth on one card")
+    if (result.ici_link_bandwidth is None) != (torch.cuda.device_count() < 2):
+        raise AssertionError(f"tune: link bandwidth "
+                             f"{result.ici_link_bandwidth} on "
+                             f"{torch.cuda.device_count()} card(s)")
     tflops, gbps = det["mxu_achieved_tflops"], det["hbm_achieved_gbps"]
     if not 0 < tflops <= 1.05 * PEAK_BF16_FLOPS / 1e12:
         raise AssertionError(f"tune: bf16 {tflops} TFLOP/s")
@@ -5600,6 +5627,325 @@ def live_probes(card_name: str, work: Path) -> dict:
     print(f"  kernel launches {out['launches']}; "
           f"{out['seconds']['phase']:.1f} s (card: {card_name})", flush=True)
     return out
+
+
+#: phase 20: the multi-device workloads run one rank a process, each at its
+#: registered width (``ici_allreduce`` over 2 ranks: its world is a build
+#: override)
+RANKED = ("llama_tiny_tp2dp2", "moe_ep4", "ulysses_attention_sp8",
+          "ring_attention_sp8", "decode_step_tp8", "ici_allreduce")
+RANKED_SETS = {"ici_allreduce": {"world": 2}}
+#: phase 20: launches snapshotted (the llama step's second launch starts
+#: from the first's parameters)
+RANKED_LAUNCHES = {"llama_tiny_tp2dp2": 2}
+#: phase 20: seconds a group's ranks have to start and to answer a call
+#: (a hung rank is killed then, inside the script's limit)
+RANK_TIMEOUT_S = 300
+#: phase 20: the collective probe's block a rank, float32 and bf16
+PROBE_BLOCK = (1024, 1024)
+
+
+class CollectiveProbe(SpmdModule):
+    """Phase 20: every collective over ``axis`` of ``mesh`` on a
+    block a rank (``x`` float32, ``h`` bfloat16), in one program:
+    ``psum`` of each, ``pmax``, ``all_gather``, ``psum_scatter``,
+    ``all_to_all``, ``ppermute`` with position 0 no pair's target, and
+    ``axis_index``."""
+
+    def __init__(self, mesh: Mesh, axis):
+        super().__init__()
+        self.mesh, self.axis = mesh, axis
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        rest = tuple(n for n in mesh.names if n not in names)
+        every, rep = P(mesh.names), P(rest or None)
+        self.in_specs = (every, every)
+        self.out_specs = (rep, rep, rep, rep, every, every, every, every)
+
+    def forward(self, x, h):
+        m, a = self.mesh, self.axis
+        g = math.prod(m.shape[i] for i in m.axes(a))
+        return (spmd.psum(x, m, a), spmd.psum(h, m, a), spmd.pmax(x, m, a),
+                spmd.all_gather(h, m, a, 1), spmd.psum_scatter(x, m, a, 0),
+                spmd.all_to_all(h, m, a, 0, 1),
+                spmd.ppermute(h, m, a, [(j, j + 1) for j in range(g - 1)]),
+                spmd.axis_index(x, m, a).reshape(1))
+
+
+#: phase 20: which of the probe's outputs are sums (held by tolerance:
+#: float32 within 1e-6, bf16 within one rounding); the rest move data and
+#: are held by bits
+PROBE_SUMS = {0: 1e-6, 1: 2.0 ** -7, 4: 1e-6}
+
+
+def probe_collectives(group, mesh: Mesh, axis) -> dict:
+    """Phase 20: :class:`CollectiveProbe` on ``group`` against the
+    vmap runner on the same global arrays."""
+    module = CollectiveProbe(mesh, axis)
+    gen = torch.Generator(device="cpu").manual_seed(mesh.size)
+    rows = PROBE_BLOCK[0] * mesh.size
+    x = torch.randn((rows, PROBE_BLOCK[1]), generator=gen).to("cuda")
+    h = torch.randn((rows, PROBE_BLOCK[1]), generator=gen).to(
+        "cuda", torch.bfloat16)
+    with torch.no_grad():
+        got = group.run_module(module, x, h)
+        want = module.run(x, h)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"probe {axis}: output {i} {g.shape} "
+                                 f"{g.dtype} vs {w.shape} {w.dtype}")
+        if i not in PROBE_SUMS:
+            if not torch.equal(g, w):
+                raise AssertionError(f"probe {axis}: output {i} (data "
+                                     f"movement) differs by bits")
+            continue
+        tol = PROBE_SUMS[i]
+        gap = (g.double() - w.double()).abs() / (tol + tol * w.double().abs())
+        worst = max(worst, float(gap.max()))
+    if worst > 1.0:
+        raise AssertionError(f"probe {axis}: sums {worst:.3g} of the "
+                             f"tolerance")
+    return {"mesh": list(mesh.shape), "axis": axis, "sums_worst_of_tol": worst,
+            "moves_equal_bits": len(got) - len(PROBE_SUMS)}
+
+
+def vmap_launches(module, args, launches: int) -> list[list[torch.Tensor]]:
+    """Phase 20: the vmap runner's outputs of each launch on the card (a
+    later launch from the updated parameters, as ``snapshot_buffers``
+    threads them), on the CPU."""
+    outs, cur = [], args
+    with torch.no_grad():
+        for _ in range(launches):
+            out = module.run(*cur)
+            out = list(out) if isinstance(out, (tuple, list)) else [out]
+            outs.append([o.cpu() for o in out])
+            cur = (*out[1:], *args[len(out) - 1:])
+    return outs
+
+
+def ranks_held(name: str, snaps: Path, want: list) -> dict:
+    """Phase 20: each snapshot of the rank processes against the vmap
+    runner's output of the same launch: equal by bits (``exact``), or
+    floats within |x - y| <= tol + tol |y| at their dtype; integers by
+    bits."""
+    worst, err, exact = 0.0, 0.0, 0
+    for i, outs in enumerate(want):
+        for j, w in enumerate(outs):
+            x = np.load(snaps / f"launch{i}_buf{j}.npy")
+            y = (w.float() if w.dtype == torch.bfloat16 else w).numpy()
+            if x.shape != y.shape or not np.isfinite(x).all():
+                raise AssertionError(f"{name}: bad snapshot launch{i}_buf{j} "
+                                     f"{x.shape} vs {y.shape}")
+            if np.array_equal(x, y):
+                exact += 1
+                continue
+            if not w.is_floating_point():
+                raise AssertionError(f"{name}: integer output {j} of "
+                                     f"launch {i} differs")
+            tol = TOL_LOWERED[w.dtype]
+            gap = np.abs(x.astype(np.float64) - y.astype(np.float64))
+            err = max(err, float(gap.max(initial=0.0)))
+            worst = max(worst, float((gap / (tol + tol * np.abs(y)))
+                                     .max(initial=0.0)))
+    if worst > 1.0:
+        raise AssertionError(f"{name}: the rank processes' outputs differ "
+                             f"from the vmap runner's ({worst:.3g} of the "
+                             f"tolerance)")
+    return {"max_abs_err": err, "worst_of_tol": worst, "exact": exact,
+            "buffers": sum(len(o) for o in want)}
+
+
+def vmap_reference(name: str) -> tuple:
+    """Phase 20: a workload built on the card and the vmap runner's
+    outputs of its snapshotted launches, with the seconds they took."""
+    t0 = time.perf_counter()
+    module, args = get_workload(name).build(device="cuda",
+                                            **RANKED_SETS.get(name, {}))
+    want = vmap_launches(module, args, RANKED_LAUNCHES.get(name, 1))
+    torch.cuda.empty_cache()
+    return module, args, want, time.perf_counter() - t0
+
+
+def ranked_workload(name: str, group, work: Path, ref: tuple) -> dict:
+    """Phase 20: one workload on ``group`` (None: the route
+    ``ranks_for`` takes, one rank a card) against the vmap runner's
+    outputs ``ref`` (:func:`vmap_reference`) on the card: snapshots held,
+    replicas checked by ``unshard``, the median step of
+    ``measure_wall_time``."""
+    from tpusim_torch.spmd_procs import runner_text
+
+    module, args, want, vmap_s = ref
+    launches = len(want)
+    seconds = {"vmap": vmap_s}
+    out = work / name
+    t0 = time.perf_counter()
+    snapshot_buffers(module, *args, out_dir=out, launches=launches,
+                     group=group)
+    seconds["snapshot"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    held = ranks_held(name, out, want)
+    shutil.rmtree(out)
+    seconds["held"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wall = measure_wall_time(module, *args, iters=3, warmup=1, group=group)
+    seconds["timing"] = time.perf_counter() - t0
+    runner = runner_text(module, args[0].device, group)
+    del module, args, want
+    torch.cuda.empty_cache()
+    return {"runner": runner, "launches": launches, "seconds": seconds,
+            "vs_vmap": held, "median_ms": wall["median_s"] * 1e3}
+
+
+#: phase 20: the probes' (group size, mesh, axis)
+PROBE_MESHES = ((4, Mesh((2, 2), ("a", "b")), ("b", "a")),
+                (4, Mesh((2, 2), ("a", "b")), "a"),
+                (8, Mesh((8,), ("d",)), "d"),
+                (2, Mesh((2,), ("d",)), "d"))
+
+
+def _worlds() -> dict:
+    """Phase 20: each workload's ranks."""
+    return {n: RANKED_SETS.get(n, {}).get("world")
+            or get_workload(n).num_devices for n in RANKED}
+
+
+def shared_card_leg(card_name: str, vmap_ms: dict, work: Path) -> dict:
+    """Phase 20 (a): groups of 2, 4 and 8 rank processes with every rank
+    on ``cuda:0``, joined over gloo and started at once: the collective
+    probes, then each workload against the vmap runner, its median step
+    beside phase 12 (e)'s ``vmap_ms``."""
+    from tpusim_torch.spmd_procs import RankGroup
+
+    worlds = _worlds()
+    groups = {w: RankGroup(["cuda:0"] * w, timeout=RANK_TIMEOUT_S).start()
+              for w in sorted(set(worlds.values()))}
+    out = {"probes": [], "workloads": {}}
+    try:
+        # the references while the ranks start
+        refs = {name: vmap_reference(name) for name in RANKED}
+        for w, mesh, axis in PROBE_MESHES:
+            t0 = time.perf_counter()
+            out["probes"].append(probe_collectives(groups[w], mesh, axis))
+            out["probes"][-1]["seconds"] = time.perf_counter() - t0
+        print(f"  (a) collective probes on {groups[8].describe()} and its "
+              f"4- and 2-rank peers: " + json.dumps(out["probes"]),
+              flush=True)
+        for name in RANKED:
+            row = ranked_workload(name, groups[worlds[name]], work,
+                                  refs.pop(name))
+            out["workloads"][name] = row
+            print(f"  (a) {name} ({row['runner']}): {row['launches']} "
+                  f"launch(es) vs the vmap runner max |err| "
+                  f"{row['vs_vmap']['max_abs_err']:.3g} "
+                  f"({row['vs_vmap']['worst_of_tol']:.3g} of tol), replicas "
+                  f"equal; median step {row['median_ms']:.4f} ms (vmap, "
+                  f"phase 12 (e): {vmap_ms.get(name, 'n/a')}) on "
+                  f"{card_name}; seconds " + json.dumps(row["seconds"]),
+                  flush=True)
+    finally:
+        for g in groups.values():
+            g.close()
+    return out
+
+
+def card_a_rank_leg(card_name: str, tuned: dict | None, work: Path) -> dict:
+    """Phase 20 (b): with a card for each rank, the probes over NCCL, each
+    workload the route ``ranks_for`` takes (one rank a card) against the
+    vmap runner, and ``tune``'s ``ici_link_bandwidth`` (``tuned``: phase
+    19 (a)'s result; fitted here when None); on fewer cards, what each
+    needs."""
+    from tpusim_torch.harness import tuner
+    from tpusim_torch.spmd_procs import RankGroup
+    from tpusim_torch.timing.arch import detect_arch
+
+    worlds = _worlds()
+    cards = torch.cuda.device_count()
+    out: dict = {"probes": [], "workloads": {}}
+    for w, mesh, axis in PROBE_MESHES:
+        if cards >= w:
+            with RankGroup([f"cuda:{i}" for i in range(w)],
+                           timeout=RANK_TIMEOUT_S) as group:
+                out["probes"].append(probe_collectives(group, mesh, axis))
+    if out["probes"]:
+        print("  (b) collective probes over nccl: "
+              + json.dumps(out["probes"]), flush=True)
+    for name in RANKED:
+        if cards < worlds[name]:
+            print(f"  (b) {name}: one rank a card needs {worlds[name]} "
+                  f"cards; this host has {cards}")
+            continue
+        row = ranked_workload(name, None, work, vmap_reference(name))
+        out["workloads"][name] = row
+        print(f"  (b) {name} ({row['runner']}): max |err| "
+              f"{row['vs_vmap']['max_abs_err']:.3g} "
+              f"({row['vs_vmap']['worst_of_tol']:.3g} of tol); median step "
+              f"{row['median_ms']:.4f} ms on {card_name}; seconds "
+              + json.dumps(row["seconds"]), flush=True)
+    if cards < 2:
+        print(f"  (b) tune ici_link_bandwidth: "
+              f"{tuner.ici_runner_text('cuda')}")
+        return out
+    bw = (tuned or {}).get("ici_link_bandwidth")
+    if tuned is None:
+        tuner._WALL_FALLBACKS.clear()
+        bw = tuner._fit_ici(detect_arch(torch.cuda.get_device_name(0)),
+                            device="cuda")
+        if tuner._WALL_FALLBACKS:
+            raise AssertionError(f"tune: the ICI fit fell back to wall "
+                                 f"time: {tuner._WALL_FALLBACKS}")
+    if not bw or (tuned or {}).get("details", {}).get(
+            "fit_errors", {}).get("ici_link_bandwidth"):
+        raise AssertionError(f"tune: no ICI fit on {cards} cards: {tuned}")
+    out["ici_link_bandwidth"] = bw
+    print(f"  (b) tune ici_link_bandwidth {bw:.6g} B/s "
+          f"({tuner.ici_runner_text('cuda')}; {card_name})")
+    return out
+
+
+def ranks_as_processes(card_name: str, vmap_ms: dict, tuned: dict | None,
+                       legs: str = "ab") -> dict:
+    """Phase 20: :func:`shared_card_leg` (a) and :func:`card_a_rank_leg`
+    (b), the kernels' counters set to 0 before and read after (they must
+    stay 0); ``legs``: which to run."""
+    for *_, reset in KERNELS:
+        reset()
+    t_phase = time.perf_counter()
+    # the rank processes share the card with what this one cached
+    torch.cuda.empty_cache()
+    out = {"seconds": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for leg, fn in (("a", lambda: shared_card_leg(
+                            card_name, vmap_ms, Path(tmp))),
+                        ("b", lambda: card_a_rank_leg(
+                            card_name, tuned, Path(tmp)))):
+            if leg in legs:
+                t0 = time.perf_counter()
+                out[leg] = fn()
+                out["seconds"][leg] = time.perf_counter() - t0
+    launches = {name: count() for name, _, _, count, _ in KERNELS}
+    if any(launches.values()):
+        raise AssertionError(f"phase 20 launched a custom kernel: {launches}")
+    out["launches"] = launches
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    out["card"] = card_name
+    print(f"  kernel launches across phase 20: {launches}; "
+          f"{out['seconds']['phase']:.1f} s (card: {card_name})", flush=True)
+    return out
+
+
+def ranks_alone(legs: str = "ab") -> int:
+    """Phase 20 alone on this host's cards (its leg (b) needs a card a
+    rank): ``python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.
+    ranks_alone('b'))"``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card_name = card()
+    print(f"card: {card_name}; {torch.cuda.device_count()} cards; torch "
+          f"{torch.__version__}")
+    out = ranks_as_processes(card_name, {}, None, legs=legs)
+    print("ranks: " + json.dumps(out))
+    return 0
 
 
 def main() -> int:
@@ -5745,6 +6091,12 @@ def main() -> int:
     phase(19, "the live probes on the card")
     with tempfile.TemporaryDirectory() as tmp:
         probes = live_probes(card_name, Path(tmp))
+
+    phase(20, "ranks as processes: over gloo on the card, over NCCL on a "
+              "card a rank")
+    ranked = ranks_as_processes(
+        card_name, {n: f"{r['median_ms']:.4f} ms at {r['world']} ranks"
+                    for n, r in multi["workloads"].items()}, probes["a"])
     phase(None)
     models["phase_seconds"] = PHASE_SECONDS
     print("models: " + json.dumps(models))
@@ -5754,6 +6106,7 @@ def main() -> int:
     print("serve: " + json.dumps(served))
     print("front: " + json.dumps(front))
     print("probes: " + json.dumps(probes))
+    print("ranks: " + json.dumps(ranked))
 
     record = {"kernels": [{
         "name": "flash_attention",

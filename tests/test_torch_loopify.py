@@ -160,3 +160,40 @@ def test_carry_rules():
         device="cpu", batch=4, width=8, depth=3, dtype="float32", lr=1e-2)
     assert loopify(step, 2).carry_leaves == 6
     assert loopify(step, 2).train_step
+
+
+@pytest.mark.parametrize("dim,reverse", [(0, False), (0, True), (1, False),
+                                         (1, True)])
+def test_model_scan_runs_the_trips_of_the_scan_op(dim, reverse):
+    """``tpusim_torch.models.loop.scan`` (the models' scans): run, a loop
+    with torch's ``scan`` op's outputs by bits, each trip once; traced,
+    the op itself (one ``while`` in the capture)."""
+    import torch.utils._pytree as pytree
+    from torch._higher_order_ops.scan import scan as scan_op
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from tpusim_torch.models.loop import scan
+
+    trips = []
+
+    def body(c, x):
+        c2 = c * 0.5 + x.sum()
+        return c2, (x * c2, c2.clone())
+
+    def counted(c, x):
+        trips.append(1)
+        return body(c, x)
+
+    init = torch.ones(3)
+    xs = torch.randn((5, 4, 3), generator=torch.Generator().manual_seed(1))
+    xs = xs.movedim(0, dim)
+    got = scan(counted, init, xs, dim=dim, reverse=reverse)
+    assert len(trips) == 5
+    want = scan_op(body, init, xs, dim=dim, reverse=reverse)
+    for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        assert torch.equal(g, w)
+    graph = make_fx(lambda i, x: scan(body, i, x, dim=dim, reverse=reverse),
+                    tracing_mode="fake")(init, xs)
+    assert [n.target.name() for n in graph.graph.nodes
+            if isinstance(n.target, torch._ops.HigherOrderOperator)] == [
+                "scan"]

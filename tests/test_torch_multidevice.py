@@ -25,7 +25,15 @@ run.
 (iv)  the fixture: the port's ``llama_tiny_tp2dp2`` at registered shapes
       with ``--launches 1`` has the fixture's ``commandlist.jsonl`` by
       bytes, 4 devices, the fixture's ``tot_mxu_flops`` and all-reduce
-      count at v5p; the ICI bytes are printed beside the fixture's.
+      count at v5p; the ICI bytes are printed beside the fixture's;
+(v)   one rank a process (``tpusim_torch.spmd_procs.RankGroup``, four CPU
+      processes over gloo): ``llama_tiny_tp2dp2`` and ``moe_ep4`` against
+      the JAX function as (ii) holds the vmap runner, the step's
+      ``loss_and_grads`` within 2e-2 of each leaf's norm, two launches'
+      snapshots equal to the vmap runner's; ``loopify`` of
+      ``ici_allreduce`` a 4-rank program on the group; the per-op profile
+      of ``llama_tiny_tp2dp2`` on the group matched > 0.5 (the
+      reference's own bound), and refused on the vmap runner.
 
 ``PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_multidevice.py``
 prints the yardstick table and the fixture comparison PERF.md records.
@@ -504,6 +512,117 @@ def test_collectives_equal_the_jax_capture_float32(name, jax_side,
             == (ref / "commandlist.jsonl").read_text())
     meta = json.loads((port / "meta.json").read_text())
     assert meta["num_devices"] == WORLD[name] == _stats(port)["num_devices"]
+
+
+# ---------------------------------------------------------------------------
+# (v) one rank a process
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ranks4():
+    from tpusim_torch.spmd_procs import RankGroup
+
+    with RankGroup(["cpu"] * 4) as group:
+        yield group
+    assert group.alive() == []
+
+
+#: the two workloads (v) holds to the JAX function on the processes
+PROCS = [(n, d) for n, d in CASES if n in ("llama_tiny_tp2dp2", "moe_ep4")]
+
+
+@pytest.mark.parametrize("name,dtype", PROCS)
+def test_rank_processes_match_jax(name, dtype, jax_side, ranks4):
+    module = _port_build(name, dtype)
+    args = _port_inputs(jax_side, name, dtype)
+    with torch.no_grad():
+        out = ranks4.run_module(module, *args)
+    got = list(out) if isinstance(out, (tuple, list)) else [out]
+    want, _ = _load(jax_side, name, dtype, "out")
+    assert len(got) == len(want)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=tol, atol=tol)
+
+
+def test_rank_processes_gradients_match_jax(jax_side, ranks4):
+    name = "llama_tiny_tp2dp2"
+    module = _port_build(name, "native")
+    loss, *grads = ranks4.run(
+        module.loss_and_grads, module.mesh,
+        *_port_inputs(jax_side, name, "native"),
+        in_specs=module.in_specs, out_specs=module.out_specs)
+    want, _ = _load(jax_side, name, "native", "grad")
+    assert len(grads) == len(want)
+    np.testing.assert_allclose(loss.item(),
+                               _load(jax_side, name, "native", "out")[0][0],
+                               rtol=1e-4)
+    for i, (g, w) in enumerate(zip(grads, want)):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        assert _norm_err(g, w) <= 2e-2, (i, _norm_err(g, w))
+
+
+@pytest.mark.parametrize("name", ["llama_tiny_tp2dp2", "moe_ep4"])
+def test_rank_process_snapshots_equal_the_vmap_runner(name, ranks4,
+                                                      tmp_path):
+    """Two launches, the second from the first's outputs; the sums of
+    these meshes' groups of two are order-free, so the bytes agree."""
+    from tpusim_torch.tracer.capture import snapshot_buffers
+
+    module, args = get_workload(name).build(
+        device="cpu", **_kw(name, "native" if name != "moe_ep4"
+                            else "float32"))
+    procs = snapshot_buffers(module, *args, out_dir=tmp_path / "procs",
+                             launches=2, group=ranks4)
+    vmap = snapshot_buffers(module, *args, out_dir=tmp_path / "vmap",
+                            launches=2)
+    assert [p.name for p in procs] == [p.name for p in vmap]
+    assert len(procs) >= 2
+    for p, v in zip(procs, vmap):
+        np.testing.assert_array_equal(np.load(p), np.load(v))
+
+
+def test_looped_ici_allreduce_stays_a_rank_program(ranks4):
+    from tpusim_torch.harness.correlate import loopify
+    from tpusim_torch.spmd import SpmdModule
+    from tpusim_torch.tracer.capture import capture
+
+    module, args = get_workload("ici_allreduce").build(
+        device="cpu", elems=64, world=4)
+    looped = loopify(module, 3)
+    assert isinstance(looped, SpmdModule)
+    assert (looped.mesh, looped.in_specs, looped.out_specs) == (
+        module.mesh, module.in_specs, module.out_specs)
+    text = capture(looped, *args, name="ar").hlo_text
+    assert "num_partitions=4" in text.splitlines()[0]
+    assert "(f32[64]{0})->f32[64]{0}" in text.splitlines()[0]
+    assert text.count(" all-reduce(") == 1 and " while(" in text
+    with torch.no_grad():
+        got = ranks4.run_module(looped, *args)
+        want = looped.run(*args)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    # the mean of the shards, three times over, is the mean
+    mean = args[0].view(4, -1).mean(0).repeat(4)
+    torch.testing.assert_close(got, mean, rtol=1e-5, atol=1e-6)
+
+
+def test_per_op_profile_of_a_4_rank_step_on_rank_processes(ranks4):
+    from tpusim_torch.harness.correl_ops import (
+        correlate_workload_ops, profile_workload,
+    )
+
+    module, args = get_workload("llama_tiny_tp2dp2").build(
+        device="cpu", **_kw("llama_tiny_tp2dp2", "native"))
+    corr = correlate_workload_ops(module, args, name="llama_tiny_tp2dp2",
+                                  arch="v5p", iters=1, group=ranks4)
+    assert corr.matched_time_fraction > 0.5 and len(corr.rows) >= 2
+    assert "all-reduce" in {r.opcode for r in corr.rows}
+    # every rank's executions pooled: one execution of each of 4 ranks
+    assert max(r.real_count for r in corr.rows) >= 1
+    with pytest.raises(RuntimeError, match="needs 4 cards"):
+        profile_workload(module, args, iters=1)
 
 
 if __name__ == "__main__":   # the yardstick table and the fixture line

@@ -7,7 +7,10 @@
   <arch>.tuned.flags`` and leaves ``configs/`` untouched, and
   ``TPUSIM_TUNED_DIR`` pointed there applies it;
 * ``_per_step`` off the card falls back to wall time, loudly, and the
-  fall back reaches ``details``; ``_fit_ici`` is None on one device;
+  fall back reaches ``details``; ``_fit_ici`` is None on one device, and
+  with ``_per_step`` and the card count stubbed it is the JAX package's
+  fit on 2, 4 and 8 cards (the looped ``ici_allreduce`` of 8M floats a
+  rank, over every card);
 * ``sample_workload_power`` averages what its meter reads and returns
   None when no meter answers; the NVML reader answers None without
   ``libnvidia-ml``.
@@ -144,6 +147,39 @@ def test_tune_records_wall_fallbacks_and_fit_errors(monkeypatch):
     assert list(got.details["fit_errors"]) == ["host_bandwidth"]
     assert got.host_bandwidth is None and got.ici_link_bandwidth is None
     assert tuner._fit_ici(None, device="cpu") is None
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_fit_ici_is_the_references_fit(n, monkeypatch):
+    import jax
+
+    from tpusim_torch.timing.arch import arch_preset
+
+    calls = {"port": [], "jax": []}
+
+    def stub(side):
+        def per_step(workload, n_steps, iters=3, **kw):
+            calls[side].append((workload, n_steps, kw["elems"]))
+            return 3.7e-4
+        return per_step
+
+    monkeypatch.setattr(tuner, "_per_step", stub("port"))
+    monkeypatch.setattr(ref_tuner, "_per_step", stub("jax"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+    monkeypatch.setattr(jax, "devices", lambda *a: [None] * n)
+    arch = arch_preset("v5p")
+    got = tuner._fit_ici(arch, device="cuda")
+    assert got == ref_tuner._fit_ici(arch)
+    assert calls["port"] == calls["jax"]
+    if n == 1:
+        assert got is None and calls["port"] == []
+    else:
+        assert got > 0 and calls["port"] == [("ici_allreduce", 8,
+                                              8 * 1024 * 1024)]
+        assert tuner.ici_runner_text("cuda") == (
+            f"{n} rank processes over nccl on "
+            + ", ".join(f"cuda:{i}" for i in range(n)))
 
 
 def test_sample_workload_power_averages_the_meter():

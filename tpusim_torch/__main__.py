@@ -970,6 +970,18 @@ def _cmd_serve_bench(args: argparse.Namespace) -> int:
     return 1 if failed else 0
 
 
+def _say_runner(cmd: str, module, wl_args) -> None:
+    """Name on stderr the runner a multi-device workload's ranks take
+    (never in a trace file): one process a card, or all on one device."""
+    from tpusim_torch.spmd import SpmdModule
+    from tpusim_torch.spmd_procs import runner_text
+    from tpusim_torch.tracer.capture import _device_of
+
+    if isinstance(module, SpmdModule) and module.world > 1:
+        print(f"tpusim_torch {cmd}: {module.world} ranks: "
+              f"{runner_text(module, _device_of(wl_args))}", file=sys.stderr)
+
+
 def _cmd_tune(args: argparse.Namespace) -> int:
     """``tune --power``: fit power coefficients (telemetry when a source
     answers, anchor fixtures otherwise) into ``--out`` (default
@@ -981,13 +993,15 @@ def _cmd_tune(args: argparse.Namespace) -> int:
     import dataclasses
 
     from tpusim_torch.harness.tuner import (
-        TUNED_OUT, tune, tune_power, write_overlay,
+        TUNED_OUT, ici_runner_text, tune, tune_power, write_overlay,
     )
 
     if args.power:
         path = tune_power(args.arch or "v5e", out_dir=args.out)
         print(f"fitted power coefficients written to {path}")
         return 0
+    print(f"tpusim_torch tune: ici_link_bandwidth: "
+          f"{ici_runner_text(args.device)}", file=sys.stderr)
     result = tune(args.arch, device=args.device)
     print(json.dumps(dataclasses.asdict(result), indent=2))
     out = "auto" if args.out is None else args.out
@@ -1011,6 +1025,7 @@ def _cmd_correlate_ops(args: argparse.Namespace) -> int:
 
     wl = get_workload(args.workload)
     fn, wl_args = wl.build(device=args.device, **_parse_sets(args.set))
+    _say_runner("correlate-ops", fn, wl_args)
     corr = correlate_workload_ops(
         fn, wl_args, name=wl.name, arch=args.arch, iters=args.iters,
     )
@@ -1041,6 +1056,7 @@ def _cmd_capture(args: argparse.Namespace) -> int:
         args.out, module, *wl_args, name=wl.name, launches=args.launches
     )
     if args.snapshot:
+        _say_runner("capture", module, wl_args)
         paths = snapshot_buffers(
             module, *wl_args,
             out_dir=Path(args.out) / "checkpoint_files",

@@ -503,6 +503,7 @@ def _trace_capture(
     warmup: int = 2,
     iters: int = 3,
     graph=None,
+    group=None,
 ) -> DeviceProfile:
     """Warm up, then run ``iters`` executions under ``torch.profiler``,
     each inside an :data:`EXEC_RANGE` range: ``fn(*args)``, or with
@@ -511,6 +512,15 @@ def _trace_capture(
     profiles; writes ``trace.json`` (chrome format, the last session's)
     under ``log_dir`` when one is given.
 
+    A multi-device workload on ranks of their own
+    (:func:`~tpusim_torch.spmd_procs.ranks_for`: ``group``, or one rank a
+    card) is profiled inside each rank's process under the same rules,
+    node by node through its own capture of the rank's graph with
+    ``graph``, and the executions of every rank are pooled, as the
+    reference pools its device planes (``rank<r>/trace.json`` under
+    ``log_dir``).  Without such ranks it runs on the vmap runner, which
+    has no per-op view.
+
     The profiler can lose device records (seen on an H100: a session's
     first few, kernels and their launches alike): each session opens
     with :data:`_WARM_RECORDS` fills outside every execution, an
@@ -518,21 +528,61 @@ def _trace_capture(
     events than another execution of the same program, is left out, and
     another session runs (up to :data:`_SESSIONS`) until ``iters`` whole
     executions are in; none at all raises."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-
     from tpusim_torch.spmd import SpmdModule
+    from tpusim_torch.spmd_procs import ranks_for
     from tpusim_torch.tracer.capture import _concrete
 
     dev = _concrete(args, "device profiling")
-    if graph is not None:
-        if isinstance(fn, SpmdModule):
-            raise NotImplementedError(
-                "per-op profiles of a multi-device workload: its ranks run "
-                "as one vmapped program, not node by node")
-        run = NodeRanges(graph)
-    else:
+    with ranks_for(fn, dev, group) as ranks:
+        if ranks is not None:
+            profs = ranks.call(_profile_rank, [
+                (fn, a, None if log_dir is None else
+                 str(Path(log_dir) / f"rank{r}"), warmup, iters,
+                 graph is not None)
+                for r, a in enumerate(ranks.shards(fn.mesh, args,
+                                                   fn.in_specs))])
+            return DeviceProfile(profs[0].device,
+                                 [e for p in profs for e in p.execs],
+                                 lost=sum(p.lost for p in profs))
+    if graph is None:
         run = fn.run if isinstance(fn, SpmdModule) else fn
+    elif isinstance(fn, SpmdModule) and fn.world > 1:
+        import torch
+
+        cards = torch.cuda.device_count()
+        raise RuntimeError(
+            f"a per-op profile of a {fn.world}-rank workload runs one rank "
+            f"a card, node by node: it needs {fn.world} cards and this host "
+            f"has {cards} (or pass a RankGroup)")
+    else:
+        run = NodeRanges(graph)
+    return _profile(run, args, dev, log_dir, warmup, iters)
+
+
+def _profile_rank(rank, fn, args: tuple, log_dir: str | None, warmup: int,
+                  iters: int, per_op: bool) -> DeviceProfile:
+    """A rank's own profile, in its process: ``fn`` over its shards, or
+    with ``per_op`` its own capture of the rank's graph node by node
+    (the same program, so the same node names as the parent's
+    capture)."""
+    from tpusim_torch.spmd_procs import every_rank
+    from tpusim_torch.tracer.capture import capture_graph
+
+    run = NodeRanges(capture_graph(fn, args)) if per_op else fn
+    return _profile(run, args, rank.device, log_dir, warmup, iters,
+                    all_done=lambda done: every_rank(rank, done))
+
+
+def _profile(run: Callable, args: tuple, dev, log_dir, warmup: int,
+             iters: int, all_done: Callable[[bool], bool] = bool
+             ) -> DeviceProfile:
+    """:func:`_trace_capture`'s protocol in this process.  ``all_done``
+    turns this process's "enough whole executions" into the decision to
+    stop: a rank process stops only with every rank (its executions run
+    collectives that need all its peers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
@@ -557,7 +607,7 @@ def _trace_capture(
             events = max(e["events"] for e in seen)
             whole = [e for e in seen
                      if not e["lost"] and e["events"] == events]
-            if len(whole) >= iters:
+            if all_done(len(whole) >= iters):
                 break
     if log_dir is not None:
         Path(log_dir).mkdir(parents=True, exist_ok=True)
@@ -630,7 +680,10 @@ def measure_device_time(
     """Measure per-execution DEVICE time from the profiler's device
     timeline (the nvprof-``Duration`` equivalent; the reference
     correlates against kernel durations, not wall clock —
-    ``util/plotting/correl_mappings.py:24``).
+    ``util/plotting/correl_mappings.py:24``).  A multi-device workload
+    runs one rank a card on a host with the cards
+    (:func:`~tpusim_torch.spmd_procs.ranks_for`), every rank's
+    executions pooled.
 
     Returns the median over ``iters`` executions of the card's busy time
     (``median_s``), and the median span and idle share (``span_s``,
@@ -673,17 +726,21 @@ def profile_workload(
     warmup: int = 2,
     iters: int = 3,
     cap=None,
+    group=None,
 ) -> dict[str, OpSilicon]:
     """Run ``fn``'s captured graph node by node under the profiler and
     return per-instruction durations (the nvprof-per-kernel pass of
-    ``util/hw_stats``); ``cap``: the capture to reuse."""
+    ``util/hw_stats``); ``cap``: the capture to reuse.  A multi-device
+    workload runs each rank's graph in its own process (``group``, or
+    one rank a card), the device events of every rank pooled: an op's
+    count is its occurrences over ``iters`` executions of every rank."""
     from tpusim_torch.tracer.capture import capture
 
     if cap is None:
         cap = capture(fn, *args, name=_program_name(fn))
     return extract_op_profile(
         _trace_capture(fn, args, log_dir, warmup=warmup, iters=iters,
-                       graph=cap.graph), cap)
+                       graph=cap.graph, group=group), cap)
 
 
 # ---------------------------------------------------------------------------
@@ -871,11 +928,13 @@ def correlate_workload_ops(
     arch: str | None = None,
     log_dir: str | Path | None = None,
     iters: int = 3,
+    group=None,
 ) -> OpCorrelation:
     """End-to-end: capture + simulate + profile + per-op correlate one
     workload on its device (the card, or the CPU's op events for CPU
-    tensors).  The chrome trace is written under ``log_dir`` only when
-    one is given."""
+    tensors); a multi-device workload on ranks of their own, as
+    :func:`profile_workload` runs it.  The chrome trace is written under
+    ``log_dir`` only when one is given."""
     from tpusim_torch.harness.correlate import _device_kind
     from tpusim_torch.timing.arch import detect_arch
     from tpusim_torch.timing.config import load_config
@@ -890,10 +949,12 @@ def correlate_workload_ops(
     res = Engine(cfg).run(cap.module)
 
     silicon = profile_workload(fn, args, log_dir=log_dir, iters=iters,
-                               cap=cap)
+                               cap=cap, group=group)
+    # the profile pools every rank's executions
     corr = correlate_ops(
         res, silicon, clock_hz=cfg.arch.clock_hz, workload=name,
-        real_iters=iters, xla_estimates=xla_op_estimates(cap.module),
+        real_iters=iters * getattr(fn, "world", 1),
+        xla_estimates=xla_op_estimates(cap.module),
     )
     corr.counters = correlate_counters(
         res, silicon, clock_hz=cfg.arch.clock_hz, arch=cfg.arch,

@@ -28,7 +28,10 @@ from typing import Any
 import torch
 from torch import nn
 
-__all__ = ["CorrelationPoint", "correlate_workload", "loopify", "Looped"]
+from tpusim_torch.spmd import SpmdModule
+
+__all__ = ["CorrelationPoint", "correlate_workload", "loopify", "Looped",
+           "LoopedSpmd"]
 
 
 @dataclass
@@ -85,10 +88,8 @@ class Looped(nn.Module):
                          f"{getattr(module, '__name__', type(module).__name__)}")
 
     def forward(self, *args: torch.Tensor):
-        from torch._higher_order_ops.scan import scan
-        from torch._subclasses.fake_tensor import is_fake
-
         from tpusim_torch.models.decode import dynamic_update_slice
+        from tpusim_torch.models.loop import scan
 
         n = self.carry_leaves
         first, rest = list(args[:n]), args[n:]
@@ -128,18 +129,25 @@ class Looped(nn.Module):
             # the scan op refuses an output that aliases the carry
             return [new, *(t.clone() for t in carry[1:])], []
 
-        if torch.compiler.is_compiling() or any(is_fake(t) for t in first):
-            # traced (capture): one scan, which lowers to one while
-            steps = torch.zeros(self.n_steps, dtype=torch.int32,
-                                device=first[0].device)
-            final, _ = scan(body, first, steps)
-        else:
-            # run: the trips from Python, as the scan op's eager
-            # implementation runs them, each body exactly once
-            final = first
-            for _ in range(self.n_steps):
-                final, _ = body(final, None)
+        # traced (capture): one scan, which lowers to one while; run: the
+        # trips from Python, each body once
+        steps = torch.zeros(self.n_steps, dtype=torch.int32,
+                            device=first[0].device)
+        final, _ = scan(body, first, steps)
         return final[0] if n == 1 else tuple(final)
+
+
+class LoopedSpmd(Looped, SpmdModule):
+    """A multi-device workload looped: still one rank's program, on the
+    same mesh, so each rank loops its own program with the collectives
+    inside the ``scan``.  It returns the final carry, laid out as the
+    arguments it threads."""
+
+    def __init__(self, module: SpmdModule, n_steps: int):
+        super().__init__(module, n_steps)
+        self.mesh, self.in_specs = module.mesh, module.in_specs
+        carried = module.in_specs[:self.carry_leaves]
+        self.out_specs = carried[0] if self.carry_leaves == 1 else carried
 
 
 def loopify(module: nn.Module, n_steps: int) -> Looped:
@@ -152,7 +160,10 @@ def loopify(module: nn.Module, n_steps: int) -> Looped:
     is threaded as carry — replaced by a structurally matching output
     (same leaves, shapes and dtypes) when one exists, otherwise kept
     alive by adding ``sum(outputs) * 1e-30`` into one element.  The other
-    arguments are loop-invariant inputs."""
+    arguments are loop-invariant inputs.  A multi-device workload stays
+    one (:class:`LoopedSpmd`)."""
+    if isinstance(module, SpmdModule):
+        return LoopedSpmd(module, n_steps)
     return Looped(module, n_steps)
 
 

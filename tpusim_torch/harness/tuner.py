@@ -17,7 +17,8 @@ on the port's device — the card unless the caller asks for the CPU — and
 * ``dtype_mult['f32']`` from the f32/bf16 matmul throughput ratio
 * ``dtype_mult['s8']``  from the int8/bf16 matmul throughput ratio
 * ``host_bandwidth``   from pageable host-to-device copies
-* ``ici.link_bandwidth`` from a psum sweep (multi-chip hosts only)
+* ``ici.link_bandwidth`` from a psum over every card, one rank a card
+  (hosts of several cards only)
 
 emitting a reference-style flag-file overlay (``-arch.clock_ghz 1.67``)
 that ``load_config`` composes from ``$TPUSIM_TUNED_DIR``.  The base arch
@@ -35,8 +36,8 @@ import sys
 from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["POWER_OUT", "TUNED_OUT", "TunerResult", "tune", "tune_power",
-           "write_overlay"]
+__all__ = ["POWER_OUT", "TUNED_OUT", "TunerResult", "ici_runner_text", "tune",
+           "tune_power", "write_overlay"]
 
 #: where ``tune_power`` writes by default (relative to the working dir,
 #: like the CLI's other reports; git-ignored)
@@ -253,19 +254,41 @@ def _fit_host_bw(device=None) -> float:
 
 
 def _fit_ici(arch, device=None) -> float | None:
-    """psum over the local mesh -> achieved per-link bandwidth.  Needs
-    more than one device; returns None on single-card hosts."""
+    """psum over the local mesh -> achieved per-link bandwidth: the looped
+    ``ici_allreduce`` over every card, one rank a card (its world is the
+    card count), timed on the device timeline.  Needs more than one card;
+    returns None on one card and off the card."""
     import torch
 
+    from tpusim_torch.ici.topology import torus_for
     from tpusim_torch.models.registry import resolve_device
 
     dev = resolve_device(device)
     n = torch.cuda.device_count() if dev.type == "cuda" else 1
     if n < 2:
         return None
-    raise NotImplementedError(
-        f"{n} cards: the port runs every rank of ici_allreduce on one card "
-        f"(tpusim_torch.spmd.run_ranks), so no link carries its traffic")
+    elems = 8 * 1024 * 1024
+    per_step = _per_step("ici_allreduce", 8, elems=elems, device=dev)
+    payload = 4.0 * elems               # f32 bytes per device
+    # ring all-reduce moves 2(n-1)/n * payload over D directions
+    topo = torus_for(n, arch.name)
+    directions = max(2 * sum(1 for d in topo.dims if d > 1), 2)
+    moved = 2.0 * (n - 1) / n * payload
+    return moved / per_step / directions
+
+
+def ici_runner_text(device=None) -> str:
+    """Where :func:`_fit_ici` runs ``ici_allreduce`` on ``device``'s host,
+    in words."""
+    import torch
+
+    from tpusim_torch.spmd_procs import RankGroup
+
+    dev = torch.device("cuda" if device is None else device)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n < 2:
+        return f"not fitted: needs 2 cards, this host has {n}"
+    return RankGroup([f"cuda:{i}" for i in range(n)]).describe()
 
 
 def tune(arch_name: str | None = None, device=None) -> TunerResult:

@@ -84,7 +84,7 @@ def _decode(hidden, cache_k, cache_v, pos, wq, wk, wv, wo, *,
     """Every layer for one token: ``heads`` are the heads this device
     holds; ``reduce`` sums the partial output projections across devices
     (None on one device)."""
-    from torch._higher_order_ops.scan import scan
+    from tpusim_torch.models.loop import scan
 
     batch = hidden.shape[0]
     d_loc = heads * head_dim

@@ -221,7 +221,7 @@ class LlamaAotTrainStep(SpmdModule):
     def loss_and_grads(self, *flat: torch.Tensor) -> tuple[torch.Tensor, ...]:
         """One rank's ``(loss, *grads)``, each gradient float32 and
         all-reduced over ``dp``."""
-        from torch._higher_order_ops.scan import scan
+        from tpusim_torch.models.loop import scan
 
         embed, final_norm = flat[0], flat[1]
         stacked, tokens, targets = flat[2:-2], flat[-2], flat[-1]

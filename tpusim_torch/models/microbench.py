@@ -180,7 +180,7 @@ class LstmLayer(nn.Module):
 
     def forward(self, xs: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
-        from torch._higher_order_ops.scan import scan
+        from tpusim_torch.models.loop import scan
 
         def cell(carry, x):
             h, c = carry
@@ -486,6 +486,10 @@ def build_op_overhead_chain(depth: int, device=None):
 )
 def build_ici_allreduce(elems: int, dtype: str, device=None,
                         world: int | None = None):
+    """Over every visible card by default (the reference's
+    ``jax.devices()``): its snapshots and timings then run one rank a
+    card (:func:`tpusim_torch.spmd_procs.ranks_for`).  ``world`` (not a
+    registered parameter) sets another mesh size."""
     dev, dt = resolve_device(device), torch_dtype(dtype)
     if world is None:
         world = max(torch.cuda.device_count(), 1)

@@ -86,7 +86,7 @@ class PipelineStages(SpmdModule):
         self.out_specs = P("pp")
 
     def forward(self, w1, b1, w2, b2, x_mb):
-        from torch._higher_order_ops.scan import scan
+        from tpusim_torch.models.loop import scan
 
         mesh, pp = self.mesh, self.pp
         m, mb, d = x_mb.shape

@@ -1,6 +1,6 @@
-"""SPMD on one device: the port's counterpart of ``shard_map``,
-``lax.psum``, ``all_gather``, ``psum_scatter``, ``all_to_all``,
-``ppermute`` and ``axis_index``.
+"""SPMD: the port's counterpart of ``shard_map``, ``lax.psum``,
+``all_gather``, ``psum_scatter``, ``all_to_all``, ``ppermute`` and
+``axis_index``.
 
 A multi-device workload is written as one rank's program over its local
 shards, as a ``shard_map`` body is.  Its collectives are custom ops
@@ -11,13 +11,17 @@ mesh reads like ``P("tp")`` or ``P("dp")``:
 * traced over fake tensors (capture), each collective stays one graph
   node, which :mod:`tpusim_torch.tracer.lower` turns into an HLO
   collective with ``replica_groups`` and a ``channel_id``;
-* run, :func:`run_ranks` stacks every rank's shards along a leading rank
-  dim and runs the program once under ``torch.func.vmap``: each op's vmap
-  rule computes the collective over that dim.  All ranks run on one
-  device, in one thread, with no process group.  The memory is the
-  world size times one rank's working set.
+* run on one device, :func:`run_ranks` stacks every rank's shards along a
+  leading rank dim and runs the program once under ``torch.func.vmap``:
+  each op's vmap rule computes the collective over that dim.  All ranks
+  run on one device, in one thread, with no process group.  The memory
+  is the world size times one rank's working set;
+* run one rank a process (:class:`tpusim_torch.spmd_procs.RankGroup`),
+  each op's own implementation runs the collective on
+  ``torch.distributed`` over the rank's replica group, while the
+  process's :class:`RankContext` is active (:func:`rank_context`).
 
-Outside ``run_ranks`` a collective has no ranks to talk to and raises.
+Outside both a collective has no ranks to talk to and raises.
 
 Autograd follows the ``shard_map`` typing of JAX (and Megatron's f/g):
 :func:`psum`'s output is the same on every rank of its group, so its
@@ -33,6 +37,7 @@ with ``torch.func.grad_and_value`` (functorch refuses
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Sequence
@@ -44,7 +49,7 @@ __all__ = ["Mesh", "P", "groups", "psum", "pmax", "psum_coalesced", "pvary",
            "pvary_coalesced", "psum_plain",
            "all_gather", "psum_scatter", "all_to_all", "ppermute",
            "axis_index", "local_shard", "global_shape", "shard", "unshard",
-           "run_ranks", "SpmdModule"]
+           "run_ranks", "SpmdModule", "RankContext", "rank_context"]
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +155,15 @@ def _outside(name: str):
     raise RuntimeError(
         f"tpusim_torch::{name} called outside run_ranks: a collective needs "
         f"the ranks of its group (run the program through "
-        f"tpusim_torch.spmd.run_ranks)")
+        f"tpusim_torch.spmd.run_ranks or a tpusim_torch.spmd_procs."
+        f"RankGroup)")
+
+
+def _active(name: str) -> "RankContext":
+    """The process's rank context; outside one, the op raises."""
+    if _RANK is None:
+        _outside(name)
+    return _RANK
 
 
 def _ranked(info, in_dim, x: torch.Tensor, shape) -> torch.Tensor:
@@ -182,7 +195,7 @@ def _group_reduce(xr: torch.Tensor, shape, axes, op: str) -> torch.Tensor:
 @custom_op("tpusim_torch::all_reduce", mutates_args=())
 def _all_reduce(x: torch.Tensor, mesh: list[int], axes: list[int],
                 op: str) -> torch.Tensor:
-    _outside("all_reduce")
+    return _active("all_reduce").all_reduce([x], mesh, axes, op)[0]
 
 
 @_all_reduce.register_fake
@@ -201,7 +214,7 @@ register_vmap(_all_reduce, _all_reduce_vmap)
 @custom_op("tpusim_torch::all_reduce_coalesced", mutates_args=())
 def _all_reduce_coalesced(xs: list[torch.Tensor], mesh: list[int],
                           axes: list[int]) -> list[torch.Tensor]:
-    _outside("all_reduce_coalesced")
+    return _active("all_reduce_coalesced").all_reduce(xs, mesh, axes, "sum")
 
 
 @_all_reduce_coalesced.register_fake
@@ -221,7 +234,7 @@ register_vmap(_all_reduce_coalesced, _all_reduce_coalesced_vmap)
 @custom_op("tpusim_torch::all_gather", mutates_args=())
 def _all_gather(x: torch.Tensor, mesh: list[int], axes: list[int],
                 dim: int) -> torch.Tensor:
-    _outside("all_gather")
+    return _active("all_gather").all_gather(x, mesh, axes, dim)
 
 
 @_all_gather.register_fake
@@ -249,7 +262,7 @@ register_vmap(_all_gather, _all_gather_vmap)
 @custom_op("tpusim_torch::reduce_scatter", mutates_args=())
 def _reduce_scatter(x: torch.Tensor, mesh: list[int], axes: list[int],
                     dim: int) -> torch.Tensor:
-    _outside("reduce_scatter")
+    return _active("reduce_scatter").reduce_scatter(x, mesh, axes, dim)
 
 
 @_reduce_scatter.register_fake
@@ -286,7 +299,8 @@ register_vmap(_reduce_scatter, _reduce_scatter_vmap)
 @custom_op("tpusim_torch::all_to_all", mutates_args=())
 def _all_to_all(x: torch.Tensor, mesh: list[int], axes: list[int],
                 split_dim: int, concat_dim: int) -> torch.Tensor:
-    _outside("all_to_all")
+    return _active("all_to_all").all_to_all(x, mesh, axes, split_dim,
+                                            concat_dim)
 
 
 @_all_to_all.register_fake
@@ -330,7 +344,7 @@ register_vmap(_all_to_all, _all_to_all_vmap)
 @custom_op("tpusim_torch::collective_permute", mutates_args=())
 def _collective_permute(x: torch.Tensor, mesh: list[int], axes: list[int],
                         pairs: list[int]) -> torch.Tensor:
-    _outside("collective_permute")
+    return _active("collective_permute").permute(x, mesh, axes, pairs)
 
 
 @_collective_permute.register_fake
@@ -363,7 +377,7 @@ register_vmap(_collective_permute, _collective_permute_vmap)
 @custom_op("tpusim_torch::axis_index", mutates_args=())
 def _axis_index(anchor: torch.Tensor, mesh: list[int],
                 axes: list[int]) -> torch.Tensor:
-    _outside("axis_index")
+    return _active("axis_index").axis_index(anchor, mesh, axes)
 
 
 @_axis_index.register_fake
@@ -381,6 +395,202 @@ def _axis_index_vmap(info, in_dims, anchor, mesh, axes):
 
 
 register_vmap(_axis_index, _axis_index_vmap)
+
+# ---------------------------------------------------------------------------
+# One rank a process: the ops' own implementations on torch.distributed
+# ---------------------------------------------------------------------------
+
+#: float types whose sums accumulate in float32 and round once, as
+#: :func:`_group_reduce` does (a ring of bf16 adds rounds at every hop)
+_WIDENED = (torch.bfloat16, torch.float16)
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (contiguous) as a flat uint8 view: data movement by bits, in
+    any dtype either backend takes."""
+    return x.reshape(-1).view(torch.uint8)
+
+
+class RankContext:
+    """This process's rank of a process group (one rank a process,
+    :mod:`tpusim_torch.spmd_procs`).  Each collective runs over the
+    process group of the rank's replica group, made once per ``(mesh,
+    axes)`` by every rank in the same order (the ranks run one SPMD
+    program, so they reach each collective in the same order).  With
+    ``staged`` the data goes through host memory (gloo, on a card shared
+    by several ranks or on the CPU); otherwise it stays on the device
+    (NCCL, one card a rank).
+
+    Torch orders a process group's ranks ascending; the data-movement ops
+    reorder the blocks from that order to the replica group's own
+    (:func:`groups`)."""
+
+    def __init__(self, rank: int, world: int, staged: bool):
+        self.rank, self.world, self.staged = rank, world, staged
+        self._groups: dict[tuple, Any] = {}
+
+    def members(self, mesh, axes) -> list[int]:
+        """The replica group this rank is in, in group order."""
+        if math.prod(mesh) != self.world:
+            raise RuntimeError(f"collective over a mesh of {math.prod(mesh)} "
+                               f"ranks run with {self.world} ranks")
+        return next(g for g in groups(mesh, axes) if self.rank in g)
+
+    def _pg(self, mesh, axes):
+        """The process group of this rank's replica group (None: the
+        world's)."""
+        key = (tuple(mesh), tuple(axes))
+        if key not in self._groups:
+            import torch.distributed as dist
+
+            size = len(self.members(mesh, axes))
+            self._groups[key] = (
+                None if size == self.world else
+                dist.new_subgroups_by_enumeration(
+                    [sorted(g) for g in groups(mesh, axes)])[0])
+        return self._groups[key]
+
+    def _host(self, x: torch.Tensor) -> torch.Tensor:
+        return x.cpu() if self.staged else x
+
+    @staticmethod
+    def _reordered(blocks: torch.Tensor, src: list[int],
+                   dst: list[int]) -> torch.Tensor:
+        """``blocks`` [G, ...] in the rank order ``src``, as ``dst``."""
+        return blocks[[src.index(r) for r in dst]]
+
+    def all_reduce(self, xs: list[torch.Tensor], mesh, axes,
+                   op: str) -> list[torch.Tensor]:
+        """Every tensor reduced over the group (``sum`` or ``max``), in
+        one call when they share an accumulation type."""
+        import torch.distributed as dist
+
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}.get(op)
+        if red is None:
+            raise ValueError(f"all_reduce op {op!r} (sum, max)")
+        accs = [x.float() if x.dtype in _WIDENED else x for x in xs]
+        if len(self.members(mesh, axes)) > 1:
+            pg = self._pg(mesh, axes)
+            if len({a.dtype for a in accs}) == 1:
+                flat = self._host(torch.cat([a.reshape(-1) for a in accs]))
+                dist.all_reduce(flat, op=red, group=pg)
+                accs = [f.view(a.shape) for f, a in
+                        zip(flat.split([a.numel() for a in accs]), accs)]
+            else:
+                accs = [self._host(a).clone() for a in accs]
+                for a in accs:
+                    dist.all_reduce(a, op=red, group=pg)
+        return [a.to(x.device, x.dtype, copy=True) for a, x in zip(accs, xs)]
+
+    def all_gather(self, x: torch.Tensor, mesh, axes,
+                   dim: int) -> torch.Tensor:
+        import torch.distributed as dist
+
+        members = self.members(mesh, axes)
+        xm = x.movedim(dim, 0).contiguous()
+        if len(members) == 1:
+            return x.clone()
+        src = _bytes(self._host(xm))
+        out = src.new_empty(len(members) * src.numel())
+        gather = getattr(dist, "all_gather_single",
+                         dist.all_gather_into_tensor)
+        gather(out, src, group=self._pg(mesh, axes))
+        blocks = out.view(x.dtype).view(len(members), *xm.shape)
+        blocks = self._reordered(blocks, sorted(members), members)
+        full = blocks.reshape(-1, *xm.shape[1:]).movedim(0, dim)
+        return full.to(x.device, copy=True).contiguous()
+
+    def reduce_scatter(self, x: torch.Tensor, mesh, axes,
+                       dim: int) -> torch.Tensor:
+        import torch.distributed as dist
+
+        members = self.members(mesh, axes)
+        g = len(members)
+        if g == 1:
+            return x.clone()
+        acc = x.float() if x.dtype in _WIDENED else x
+        xm = acc.movedim(dim, 0)
+        blocks = xm.reshape(g, xm.shape[0] // g, *xm.shape[1:])
+        # block j of the input goes to the group's j-th rank (ascending)
+        send = self._host(self._reordered(blocks, members, sorted(members))
+                          .contiguous())
+        out = send.new_empty(send.shape[1:])
+        scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+        scatter(out, send.view(-1, *send.shape[2:]),
+                group=self._pg(mesh, axes))
+        return out.movedim(0, dim).to(x.device, x.dtype,
+                                      copy=True).contiguous()
+
+    def all_to_all(self, x: torch.Tensor, mesh, axes, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """Rank r sends the j-th member its chunk j along ``split_dim``
+        and concatenates what it receives in member order along
+        ``concat_dim`` (the vmap rule's layout)."""
+        import torch.distributed as dist
+
+        members = self.members(mesh, axes)
+        g = len(members)
+        if g == 1:
+            return x.clone()
+        order = sorted(members)
+        xs = x.movedim(split_dim, 0)
+        blocks = xs.reshape(g, xs.shape[0] // g, *xs.shape[1:])
+        send = _bytes(self._host(self._reordered(blocks, members, order)
+                                 .contiguous()))
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self._pg(mesh, axes))
+        got = recv.view(x.dtype).view(blocks.shape)
+        got = self._reordered(got, order, members)     # [G(j), k, ...]
+        shape = list(x.shape)
+        shape[split_dim] //= g
+        shape[concat_dim] *= g
+        out = got.movedim(1, 1 + split_dim).movedim(0, concat_dim)
+        return out.reshape(shape).to(x.device, copy=True).contiguous()
+
+    def permute(self, x: torch.Tensor, mesh, axes,
+                pairs: list[int]) -> torch.Tensor:
+        """``ppermute`` as one exchange over the world: each rank sends its
+        bytes to the rank it feeds and receives from its source; a rank
+        with no source gets zeros."""
+        import torch.distributed as dist
+
+        if math.prod(mesh) != self.world:
+            raise RuntimeError(f"collective over a mesh of {math.prod(mesh)} "
+                               f"ranks run with {self.world} ranks")
+        src = _permute_sources(mesh, axes, pairs)
+        if all(s < 0 for s in src):
+            return torch.zeros_like(x)
+        flat = _bytes(self._host(x.contiguous()))
+        n = flat.numel()
+        sends = [n if s == self.rank else 0 for s in src]
+        gets = [n if r == src[self.rank] else 0 for r in range(self.world)]
+        send = flat.repeat(sum(s == self.rank for s in src))
+        recv = flat.new_empty(sum(gets))
+        dist.all_to_all_single(recv, send, output_split_sizes=gets,
+                               input_split_sizes=sends)
+        if src[self.rank] < 0:
+            return torch.zeros_like(x)
+        return recv.view(x.dtype).view(x.shape).to(x.device, copy=True)
+
+    def axis_index(self, anchor: torch.Tensor, mesh, axes) -> torch.Tensor:
+        pos = self.members(mesh, axes).index(self.rank)
+        return torch.tensor(pos, dtype=torch.int32, device=anchor.device)
+
+
+#: the process's active rank (None outside :func:`rank_context`)
+_RANK: RankContext | None = None
+
+
+@contextlib.contextmanager
+def rank_context(ctx: RankContext):
+    """Make ``ctx`` the rank the collectives of this process run as."""
+    global _RANK
+    prev, _RANK = _RANK, ctx
+    try:
+        yield ctx
+    finally:
+        _RANK = prev
 
 # ---------------------------------------------------------------------------
 # Differentiable wrappers

@@ -14,9 +14,13 @@ tensors.  The custom op ``tpusim_torch::flash_attention`` stays one
 A multi-device workload (:class:`~tpusim_torch.spmd.SpmdModule`)
 is captured as the program of one device (``$TPUSIM_TRACE_DEVICE``,
 default 0) over its shards, with ``num_partitions`` in the header and the
-mesh size as ``num_devices`` in the meta; its snapshots and timings run
-every device's program at once on the one card
-(:func:`~tpusim_torch.spmd.run_ranks`).
+mesh size as ``num_devices`` in the meta.  Its snapshots and timings run
+one rank a process on ``cuda:0`` … ``cuda:N-1`` when the host has a card
+for each of its N ranks (:func:`~tpusim_torch.spmd_procs.ranks_for`, the
+reference's ``jax.devices()[:n]``), on the ranks of a given
+:class:`~tpusim_torch.spmd_procs.RankGroup`, and otherwise every rank at
+once on the one card (:func:`~tpusim_torch.spmd.run_ranks`).  The trace
+is the same bytes either way: capture runs nothing.
 
 An abstract workload (its arguments on the ``meta`` device, the port's
 counterpart of the reference's ``ShapeDtypeStruct`` arguments) is
@@ -49,6 +53,7 @@ import torch
 
 from tpusim_torch.ir import CommandKind, TraceCommand
 from tpusim_torch.spmd import SpmdModule, global_shape
+from tpusim_torch.spmd_procs import RankGroup, ranks_for
 from tpusim_torch.trace.format import TraceDir, save_trace
 from tpusim_torch.tracer.lower import lower_graph
 
@@ -232,9 +237,12 @@ def capture(module: torch.nn.Module, *args: torch.Tensor,
                    fused=hlo.fused)
 
 
-def _runner(module: torch.nn.Module):
-    """What runs one launch of the workload on global arrays: the rank
-    runner for an SPMD workload, else the module."""
+def _runner(module: torch.nn.Module, group: RankGroup | None = None):
+    """What runs one launch of the workload on global arrays: the ranks
+    of ``group``, the vmap rank runner for an SPMD workload without one,
+    else the module."""
+    if group is not None:
+        return lambda *a: group.run_module(module, *a)
     return module.run if isinstance(module, SpmdModule) else module
 
 
@@ -282,16 +290,19 @@ def _sig(x: Any):
 
 
 def snapshot_buffers(module: torch.nn.Module, *args: torch.Tensor,
-                     out_dir: str | Path, launches: int = 1) -> list[Path]:
+                     out_dir: str | Path, launches: int = 1,
+                     group: RankGroup | None = None) -> list[Path]:
     """Run the workload on its device and dump every output buffer to
-    ``launch{i}_buf{j}.npy`` after each launch.
+    ``launch{i}_buf{j}.npy`` after each launch; a multi-device workload
+    on the ranks :func:`~tpusim_torch.spmd_procs.ranks_for` gives it
+    (``group``, or one rank a card, or the vmap runner).
 
     As in the reference, outputs are fed back into arguments of the same
     shape and dtype (a train step's updated state) before the next
     launch; a program none of whose outputs matches an argument is
     stateless, and its launch-0 buffers are replicated for the later
     launches instead of re-running it."""
-    _concrete(args, "snapshot_buffers")
+    dev = _concrete(args, "snapshot_buffers")
     out_root = Path(out_dir)
     out_root.mkdir(parents=True, exist_ok=True)
     paths: list[Path] = []
@@ -325,9 +336,9 @@ def snapshot_buffers(module: torch.nn.Module, *args: torch.Tensor,
             paths.append(path)
         return len(leaves)
 
-    step = _runner(module)
-    cur_args = args
-    with torch.no_grad():
+    with ranks_for(module, dev, group) as ranks, torch.no_grad():
+        step = _runner(module, ranks)
+        cur_args = args
         out = step(*cur_args)
         n_bufs = _save(0, out)
         for i in range(1, launches):
@@ -356,18 +367,43 @@ def snapshot_buffers(module: torch.nn.Module, *args: torch.Tensor,
 
 
 def measure_wall_time(module: torch.nn.Module, *args: torch.Tensor,
-                      iters: int = 10, warmup: int = 3) -> dict[str, float]:
+                      iters: int = 10, warmup: int = 3,
+                      group: RankGroup | None = None) -> dict[str, float]:
     """Time real execution of ``module(*args)``; the same keys as the
     reference.  On a CUDA device each of 3 batches of ``iters`` launches is
     timed with CUDA events (``fence_s`` is 0: the events need no host
-    readback); on the CPU with the host clock.  Abstract (``meta``)
-    arguments are refused."""
+    readback); on the CPU with the host clock.  A multi-device workload
+    on ranks of their own (:func:`~tpusim_torch.spmd_procs.ranks_for`)
+    times each launch after a barrier, at its slowest rank's time
+    (:meth:`~tpusim_torch.spmd_procs.RankGroup.time_launches`), a batch
+    the mean of its launches.  Abstract (``meta``) arguments are
+    refused."""
     dev = _concrete(args, "measure_wall_time")
-    module = _runner(module)
+    n = max(iters, 1)
+    with ranks_for(module, dev, group) as ranks:
+        if ranks is None:
+            times = _batches(_runner(module), args, dev, n, warmup)
+        else:
+            each = ranks.time_launches(module, *args, launches=3 * n,
+                                       warmup=max(warmup, 1))
+            times = [sum(each[i * n:(i + 1) * n]) / n for i in range(3)]
+    times.sort()
+    return {
+        "iters": float(3 * n),
+        "fence_s": 0.0,
+        "min_s": times[0],
+        "median_s": statistics.median(times),
+        "mean_s": sum(times) / len(times),
+    }
+
+
+def _batches(module, args: tuple, dev: torch.device, n: int,
+             warmup: int) -> list[float]:
+    """Seconds a launch in each of 3 batches of ``n`` back-to-back
+    launches in this process."""
     with torch.no_grad():
         for _ in range(max(warmup, 1)):
             module(*args)
-        n = max(iters, 1)
         times = []
         for _ in range(3):
             if dev.type == "cuda":
@@ -385,11 +421,4 @@ def measure_wall_time(module: torch.nn.Module, *args: torch.Tensor,
                 for _ in range(n):
                     module(*args)
                 times.append((time.perf_counter() - t0) / n)
-    times.sort()
-    return {
-        "iters": float(3 * n),
-        "fence_s": 0.0,
-        "min_s": times[0],
-        "median_s": statistics.median(times),
-        "mean_s": sum(times) / len(times),
-    }
+    return times
