@@ -66,6 +66,7 @@ from tpusim_torch.models.registry import (
     tensor_from_numpy,
     torch_dtype,
 )
+from tpusim_torch.obs.ranges import device_range
 from tpusim_torch.spmd import (
     Mesh,
     P,
@@ -114,6 +115,19 @@ PRESETS: dict[str, LlamaConfig] = {
 #: a layer's parameters in the reference pytree's leaf order (sorted keys)
 LAYER_KEYS = ("attn_norm", "mlp_norm", "w_down", "w_gate", "w_up", "wk",
               "wo", "wq", "wv")
+
+#: the profiler ranges of the decoder (open only under a running profiler,
+#: :func:`~tpusim_torch.obs.ranges.device_range`): each ``_rmsnorm``; the
+#: q, k and v projections, and apart the o projection with its residual
+#: add; the rotary tables and rotations; the attention from ``repeat_kv``
+#: to the PV product; the MLP with its residual add; the tied output
+#: projection.  The embedding lookup is in none.
+NORM_RANGE = "tpusim_torch.llama.norm"
+PROJ_RANGE = "tpusim_torch.llama.proj"
+ROPE_RANGE = "tpusim_torch.llama.rope"
+ATTENTION_RANGE = "tpusim_torch.llama.attention"
+MLP_RANGE = "tpusim_torch.llama.mlp"
+HEAD_RANGE = "tpusim_torch.llama.head"
 
 #: the partition spec of each layer parameter on a (dp, tp) mesh — the
 #: reference's ``param_shardings``
@@ -362,28 +376,35 @@ class _Decoder:
         b, s, _ = h.shape
         hd, heads = cfg.head_dim, cfg.heads // self.tp
         psum_tp = self.psum_tp_plain if plain else self.psum_tp
-        a = _rmsnorm(h, w["attn_norm"], cfg.eps)
-        hq, hk, hv = (a,) * 3 if plain else self.pvary_tp_each(a, 3)
-        kv_heads = heads // self.rep
-        q = (hq @ w["wq"]).reshape(b, s, heads, hd)
-        k = (hk @ w["wk"]).reshape(b, s, kv_heads, hd)
-        v = (hv @ w["wv"]).reshape(b, s, kv_heads, hd)
-        cos, sin = rope_tables(s, hd, cfg.rope_theta, h.device)
-        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
-        k, v = self.repeat_kv(k), self.repeat_kv(v)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / (hd ** 0.5)
-        scores = torch.where(causal_mask(s, h.device)[None, None], scores,
-                             -1e30)
-        probs = torch.softmax(scores.float(), dim=-1).to(h.dtype)
-        o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(
-            b, s, heads * hd)
-        h1 = h + psum_tp(o @ w["wo"])
-        m = _rmsnorm(h1, w["mlp_norm"], cfg.eps)
-        hg, hu = (m, m) if plain else self.pvary_tp_each(m, 2)
-        g = hg @ w["w_gate"]
-        gate = g * torch.sigmoid(g)         # jax.nn.silu
-        u = hu @ w["w_up"]
-        h2 = h1 + psum_tp((gate * u) @ w["w_down"])
+        with device_range(NORM_RANGE):
+            a = _rmsnorm(h, w["attn_norm"], cfg.eps)
+        with device_range(PROJ_RANGE):
+            hq, hk, hv = (a,) * 3 if plain else self.pvary_tp_each(a, 3)
+            kv_heads = heads // self.rep
+            q = (hq @ w["wq"]).reshape(b, s, heads, hd)
+            k = (hk @ w["wk"]).reshape(b, s, kv_heads, hd)
+            v = (hv @ w["wv"]).reshape(b, s, kv_heads, hd)
+        with device_range(ROPE_RANGE):
+            cos, sin = rope_tables(s, hd, cfg.rope_theta, h.device)
+            q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+        with device_range(ATTENTION_RANGE):
+            k, v = self.repeat_kv(k), self.repeat_kv(v)
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / (hd ** 0.5)
+            scores = torch.where(causal_mask(s, h.device)[None, None],
+                                 scores, -1e30)
+            probs = torch.softmax(scores.float(), dim=-1).to(h.dtype)
+            o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(
+                b, s, heads * hd)
+        with device_range(PROJ_RANGE):
+            h1 = h + psum_tp(o @ w["wo"])
+        with device_range(NORM_RANGE):
+            m = _rmsnorm(h1, w["mlp_norm"], cfg.eps)
+        with device_range(MLP_RANGE):
+            hg, hu = (m, m) if plain else self.pvary_tp_each(m, 2)
+            g = hg @ w["w_gate"]
+            gate = g * torch.sigmoid(g)         # jax.nn.silu
+            u = hu @ w["w_up"]
+            h2 = h1 + psum_tp((gate * u) @ w["w_down"])
         return h2, (q, k, v, probs, o, h1, g, u)
 
     def logits(self, params, tokens, out_embed=None):
@@ -396,9 +417,12 @@ class _Decoder:
         x = self.embed(embed, tokens, offset)
         for layer in layers:
             x, _ = self.layer(x, layer)
-        x = self.pvary_tp(_rmsnorm(x, final_norm, eps))
-        table = embed if out_embed is None else out_embed
-        return x @ table.T, offset
+        with device_range(NORM_RANGE):
+            x = _rmsnorm(x, final_norm, eps)
+        with device_range(HEAD_RANGE):
+            x = self.pvary_tp(x)
+            table = embed if out_embed is None else out_embed
+            return x @ table.T, offset
 
     def nll(self, logits, offset, targets, count: int):
         """The mean token NLL over ``count`` tokens and its cotangent of

@@ -29,13 +29,15 @@ TPU equivalents:
   loop while polling a meter — on the card, the card's own
   (:func:`read_card_watts`, NVML's ``nvmlDeviceGetPowerUsage`` through
   ``ctypes`` on ``libnvidia-ml.so.1``), the counterpart of the
-  reference's ``tpu_info`` source.  :func:`read_power_watts` and
+  reference's ``tpu_info`` source; :func:`read_card_clocks` reads the
+  card's SM clock through the same library.  :func:`read_power_watts` and
   :func:`probe_power_sources` keep the reference's sources, so ``tune
   --power`` documents stay the reference's by bytes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -52,6 +54,7 @@ __all__ = [
     "read_power_watts",
     "probe_power_sources",
     "read_card_watts",
+    "read_card_clocks",
     "sample_workload_power",
     "anchor_samples",
     "fit_power_coefficients",
@@ -176,11 +179,15 @@ def _nvml_bus_id(device) -> bytes | None:
         return None
 
 
-def read_card_watts(device=None) -> float | None:
-    """One reading of the card's own power meter in watts — NVML's
-    ``nvmlDeviceGetPowerUsage`` (milliwatts) through ``ctypes`` on
-    ``libnvidia-ml.so.1`` — or None when no meter answers (no library, no
-    card, or an NVML error)."""
+#: NVML's ``nvmlClockType_t`` of the streaming multiprocessors' clock
+NVML_CLOCK_SM = 1
+
+
+@contextlib.contextmanager
+def _nvml_card(device):
+    """NVML started and ``(library, handle)`` of ``device``'s card
+    (``cuda`` when None) for the ``with`` block, or None when NVML does not
+    answer (no library, no card, or an NVML error)."""
     import ctypes
 
     import torch
@@ -188,7 +195,8 @@ def read_card_watts(device=None) -> float | None:
     try:
         lib = ctypes.CDLL("libnvidia-ml.so.1")
     except OSError:
-        return None
+        yield None
+        return
     lib.nvmlInit_v2.restype = ctypes.c_int
     lib.nvmlShutdown.restype = ctypes.c_int
     lib.nvmlDeviceGetHandleByIndex_v2.argtypes = [
@@ -197,11 +205,9 @@ def read_card_watts(device=None) -> float | None:
     lib.nvmlDeviceGetHandleByPciBusId_v2.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_void_p)]
     lib.nvmlDeviceGetHandleByPciBusId_v2.restype = ctypes.c_int
-    lib.nvmlDeviceGetPowerUsage.argtypes = [
-        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint)]
-    lib.nvmlDeviceGetPowerUsage.restype = ctypes.c_int
     if lib.nvmlInit_v2() != 0:
-        return None
+        yield None
+        return
     try:
         handle = ctypes.c_void_p()
         bus = None
@@ -213,14 +219,49 @@ def read_card_watts(device=None) -> float | None:
                                                       ctypes.byref(handle))
         else:
             rc = lib.nvmlDeviceGetHandleByIndex_v2(0, ctypes.byref(handle))
-        if rc != 0:
+        yield None if rc != 0 else (lib, handle)
+    finally:
+        lib.nvmlShutdown()
+
+
+def read_card_watts(device=None) -> float | None:
+    """One reading of the card's own power meter in watts — NVML's
+    ``nvmlDeviceGetPowerUsage`` (milliwatts) through ``ctypes`` on
+    ``libnvidia-ml.so.1`` — or None when no meter answers (no library, no
+    card, or an NVML error)."""
+    import ctypes
+
+    with _nvml_card(device) as card:
+        if card is None:
             return None
+        lib, handle = card
+        lib.nvmlDeviceGetPowerUsage.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint)]
+        lib.nvmlDeviceGetPowerUsage.restype = ctypes.c_int
         mw = ctypes.c_uint()
         if lib.nvmlDeviceGetPowerUsage(handle, ctypes.byref(mw)) != 0:
             return None
         return mw.value / 1000.0
-    finally:
-        lib.nvmlShutdown()
+
+
+def read_card_clocks(device=None) -> float | None:
+    """One reading of the card's streaming-multiprocessor clock in MHz —
+    NVML's ``nvmlDeviceGetClockInfo`` of :data:`NVML_CLOCK_SM` — or None
+    when NVML does not answer (no library, no card, or an NVML error)."""
+    import ctypes
+
+    with _nvml_card(device) as card:
+        if card is None:
+            return None
+        lib, handle = card
+        lib.nvmlDeviceGetClockInfo.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_uint)]
+        lib.nvmlDeviceGetClockInfo.restype = ctypes.c_int
+        mhz = ctypes.c_uint()
+        if lib.nvmlDeviceGetClockInfo(handle, NVML_CLOCK_SM,
+                                      ctypes.byref(mhz)) != 0:
+            return None
+        return float(mhz.value)
 
 
 def sample_workload_power(
