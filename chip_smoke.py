@@ -184,7 +184,8 @@ non-zero and prints no result):
    captured in a fresh process that runs beside the phase and never
    touches the card); (c) each
    one's check — the card against the CPU (``llama7b`` at 2 layers, seq
-   256, norm-wise; the ResNets at batch 2, the forward in float32 and the
+   256, norm-wise, against a float32 evaluation on the CPU, the CPU's
+   bf16 run and the two apart reported beside it; the ResNets at batch 2, the forward in float32 and the
    train step in float64, and in bfloat16 the forward's logits, the train
    step's loss and each batch-norm layer alone on its input, output and
    vjp), the ranks against the unsharded step (``moe_ep8_train``;
@@ -353,10 +354,36 @@ non-zero and prints no result):
    and the probes) and ``tune``'s ``ici_link_bandwidth`` (phase 19 (a)'s
    fit over every card, none of its fit errors); on one card, what each
    needs.
+21. the causal entry of the flash-attention kernel, which the Llama
+   decoder's eager forward on the card runs once a layer (phase 13's
+   ``llama7b`` check runs such a forward too; the counters of
+   :data:`KERNELS` count the ported TPU kernels, ``causal_launch_count``
+   this entry):
+   (a) the kernel against its plain version in bf16 at each benchmark
+   cell's attention shape and ``llama_tiny``'s (atol = rtol 1e-2), and at
+   its edges (one row, sequences of no whole key tile or query block,
+   head dims 80 and 50, rows wider than their heads, float32 at atol
+   2e-5), and what the wrapper refuses; (b) its time, its plain version's,
+   the score chain's it replaced and PyTorch's SDPA as a yardstick at
+   each of those shapes, with the bound; (c) one forward step of
+   Mistral-7B and DeepSeek-LLM-7B (at a 2k cell's shape), ``llama_tiny``
+   and ``llama7b``: one launch a layer, the worst logit row against the
+   score chain's within 0.5 (the benchmark's limit on ``logit_row_err``),
+   each path's step time and peak memory, and ``LlamaForwardSharded``
+   (``llama_tiny``, tp 2) with a rank process a rank on the card: one
+   launch a layer on each rank, its logits against the chain's within
+   0.5; (d) ``llama_tiny`` and
+   ``llama7b`` captured over CUDA arguments: the HLO text equal by bytes
+   to the capture over meta tensors and to the parent commit's
+   (:data:`CAUSAL_HLO_DIGESTS`), no launch; (e) the non-causal kernel's
+   time at its registered shape beside PERF.md's kernel table
+   (:data:`FLASH_TABLE_MS`), a reading, not a check.
+   ``causal_alone()`` runs phases 1, 2 and 21 by themselves.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, the one before that the kernels' JSON
-record (flash's launches: phases 4 and 19), the one before that phase
+record (flash's launches: phases 4 and 19; the causal entry's a step:
+phase 21), the one before that phase 21's (``causal: {...}``), phase
 20's (``ranks: {...}``), phase 19's (``probes: {...}``), phase 18's
 (``front: {...}``), phase 17's
 (``serve: {...}``), phase 16's
@@ -3009,6 +3036,14 @@ LLAMA_SMALL = dict(vocab=512, dim=256, layers=2, heads=8, kv_heads=8,
 CARD_VS_CPU = {"llama7b": dict(layers=2, seq=256),
                "resnet50": dict(batch=2, dtype="float32"),
                "resnet50_train": dict(batch=2, dtype="float32")}
+#: phase 13 (c): the workloads whose card run is held against a float32
+#: evaluation on the CPU of the same (bf16) parameters and tokens, not
+#: against the CPU's bf16 run: on the card the decoder's attention is the
+#: causal kernel (float32 scores), on the CPU the score chain (scores
+#: rounded to bf16), whose own distance from float32 is reported beside it
+#: (``llama7b``, 2 layers, seq 256, on an H100 80GB HBM3: the CPU's bf16
+#: run 1.01 of the 2e-2 from float32, norm-wise)
+F32_HELD = ("llama7b",)
 #: phase 13 (c): the ResNets' float32 logits, norm-wise (the JAX
 #: package's own float32 logits lie 1.7e-4 from its float64 ones,
 #: norm-wise, at batch 8, 32²)
@@ -3254,7 +3289,24 @@ def card_against_cpu(name: str, kw: dict) -> dict:
     run = module.run if train else module
     with torch.no_grad():
         pair = (_listed(run(*args)), _listed(run(*cpu_args)))
-    out = close(name, *pair, tol, normwise)
+        if name in F32_HELD:
+            f32 = _listed(run(*(a.float() if a.is_floating_point() else a
+                                for a in cpu_args)))
+    if name in F32_HELD:
+        # the card's run held within ``tol`` of float32; the CPU's (the
+        # score chain, scores rounded to bf16) and the two apart are
+        # readings, printed before the check
+        rel = [close(f"{name} {label}", *two, 1.0, normwise)["worst_of_tol"]
+               / tol for label, two in (("card vs float32", (pair[0], f32)),
+                                        ("CPU vs float32", (pair[1], f32)),
+                                        ("card vs CPU", pair))]
+        print(f"  {name} against float32 on the CPU: card {rel[0]:.3g} of "
+              f"tol {tol}{', norm-wise' if normwise else ''}; readings: CPU "
+              f"{rel[1]:.3g}, card vs CPU {rel[2]:.3g}", flush=True)
+        out = close(f"{name} card vs float32", pair[0], f32, tol, normwise)
+        out.update(card_vs_f32=rel[0], cpu_vs_f32=rel[1], card_vs_cpu=rel[2])
+    else:
+        out = close(name, *pair, tol, normwise)
     if train:
         out["grads"] = close(name, module.grads(*args),
                              module.grads(*cpu_args), tol if f64 else 2e-2,
@@ -5948,6 +6000,339 @@ def ranks_alone(legs: str = "ab") -> int:
     return 0
 
 
+#: phase 21: the decoder's attention at each benchmark cell's shape and at
+#: ``llama_tiny``'s registered one: (label, (batch, seq, heads, kv heads,
+#: head dim))
+CAUSAL_SHAPES = (
+    ("mistral7b.prefill_2k", (2, 2048, 32, 8, 128)),
+    ("deepseek7b.prefill_2k", (2, 2048, 32, 32, 128)),
+    ("mistral7b.prefill_4k", (1, 4096, 32, 8, 128)),
+    ("mistral7b.prefill_256", (16, 256, 32, 8, 128)),
+    ("llama_tiny", (4, 256, 4, 4, 32)),
+)
+#: phase 21: the kernel's edges: one row, sequences that are no multiple of
+#: the 64-key tile or the 128-row block, a padded head dim (80), one whose
+#: rows are not whole 16-byte chunks (50, loaded element by element), and
+#: float32; (shape, dtype, strided: q, k and v read in rows wider than
+#: their heads)
+CAUSAL_EDGES = (
+    ((1, 1, 4, 1, 64), torch.bfloat16, False),
+    ((2, 200, 8, 2, 64), torch.bfloat16, True),
+    ((1, 333, 4, 4, 80), torch.bfloat16, False),
+    ((2, 200, 8, 2, 64), torch.float32, True),
+    ((1, 130, 4, 2, 128), torch.float32, False),
+    ((3, 77, 2, 1, 50), torch.float32, False),
+)
+#: phase 21: the configurations whose forward step is counted: the
+#: benchmark's two (Mistral-7B-v0.1 and DeepSeek-LLM-7B-base
+#: ``config.json``, the output tied to the embedding as the port has it)
+#: at a cell's shape each, and the registered ``llama_tiny`` and
+#: ``llama7b``: (label, config fields, batch, seq)
+CAUSAL_CONFIGS = (
+    ("mistral7b", dict(vocab=32000, dim=4096, layers=32, heads=32,
+                       kv_heads=8, ffn=14336, max_seq=4096, eps=1e-5),
+     (2, 2048)),
+    ("deepseek7b", dict(vocab=102400, dim=4096, layers=30, heads=32,
+                        kv_heads=32, ffn=11008, max_seq=4096, eps=1e-6),
+     (2, 2048)),
+    ("llama_tiny", "tiny", (4, 256)),
+    ("llama7b", "7b", (1, 2048)),
+)
+#: phase 21: sha256 of the HLO text the parent commit of the causal kernel
+#: captured for ``llama_tiny`` (on the CPU) and ``llama7b`` (over meta
+#: tensors): the lowering reads only shapes, and a capture traces over fake
+#: tensors, so the decoder's graph is the score chain on every device
+CAUSAL_HLO_DIGESTS = {
+    "llama_tiny": "8cfb07e57d021ce60f5b4e08ed2e36210ad2fec7ee2e8ef05ad90cd709f1939b",
+    "llama7b": "432582491b0dd2b3014469cc843cd0af735f00c4746d39752d1ee600a282a6f5",
+}
+#: phase 21: the non-causal kernel's table figures at its registered shape
+#: (PERF.md's kernel table, one NVIDIA H100 80GB HBM3 at 700 W): a reading
+#: more than :data:`FLASH_TABLE_TOL` outside is reported as such, not
+#: failed, since the same build reads several percent apart from machine
+#: to machine; a regression of that kernel is told by timing it against
+#: the earlier build in one call
+FLASH_TABLE_MS = {"float32": (0.2945, 0.3005), "bfloat16": (0.0725, 0.0725)}
+FLASH_TABLE_TOL = 0.03
+#: phase 21: the worst row of a forward's logits, kernel path against the
+#: score chain on the card, may differ by at most the benchmark's limit on
+#: ``logit_row_err`` (both are bf16 evaluations; each is held to a float32
+#: reference by the benchmark)
+CAUSAL_STEP_ROW_ERR = 0.5
+
+
+def causal_inputs(shape, dtype, seed: int, strided: bool = False):
+    """Seeded q [B, S, H, D] and k, v [B, S, KVH, D] on the card;
+    ``strided``: each a view of rows 8 elements wider than its heads."""
+    b, s, h, kvh, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pad = 8 if strided else 0
+
+    def draw(heads):
+        rows = torch.randn(b, s, heads * d + pad, generator=gen,
+                           device="cuda", dtype=dtype)
+        return rows[..., :heads * d].view(b, s, heads, d)
+
+    return draw(h), draw(kvh), draw(kvh)
+
+
+def causal_flops(shape) -> float:
+    """Operations of causal attention over the lower triangle with its
+    diagonal: QK^T and PV, 2 x 2 x D a kept score."""
+    b, s, h, _, d = shape
+    return 2.0 * b * h * s * (s + 1) * d
+
+
+def check_causal(shape, dtype, strided: bool = False) -> float:
+    """The causal kernel against its plain version on the card; returns the
+    max abs error.  Raises on a disagreement."""
+    q, k, v = causal_inputs(shape, dtype, seed=5, strided=strided)
+    got = fa.causal_attention_fwd(q, k, v)
+    want = fa.causal_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if dtype == torch.float32:
+        ok, tol = err <= ATOL_F32, f"atol {ATOL_F32}"
+    else:
+        ok = bool((diff <= TOL_BF16 + TOL_BF16 * want.float().abs()).all())
+        tol = f"atol {TOL_BF16} + rtol {TOL_BF16}"
+    ok = ok and bool(torch.isfinite(got.float()).all())
+    print(f"  causal {list(shape)} {str(dtype)[6:]}"
+          f"{' strided' if strided else ''}: max |kernel - plain| "
+          f"{err:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"causal kernel disagrees at {shape} {dtype}")
+    return err
+
+
+def time_causal(label: str, shape, card_name: str) -> dict:
+    """The causal kernel, its plain version, the decoder's score chain it
+    replaced and PyTorch's SDPA (a yardstick the port never calls) at one
+    shape in bf16, with the card's bound."""
+    from tpusim_torch.models import llama as port_llama
+
+    b, s, h, kvh, d = shape
+    q, k, v = causal_inputs(shape, torch.bfloat16, seed=6)
+    cfg = port_llama.LlamaConfig(dim=h * d, heads=h, kv_heads=kvh)
+    dec = port_llama._Decoder(cfg, None)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out = {
+        "ms": time_ms(lambda: fa.causal_attention_fwd(q, k, v)),
+        "plain_ms": time_ms(lambda: fa.causal_attention_reference(q, k, v)),
+        "chain_ms": time_ms(lambda: dec.score_chain(q, k, v)),
+        "library_ms": time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+    }
+    flops = causal_flops(shape)
+    nbytes = 2 * b * s * (h + kvh) * d * 2
+    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    out["bound_ms"] = max(ops_ms, bytes_ms)
+    out["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    out["tflops"] = flops / out["ms"] / 1e9
+    print(f"time causal {label} {list(shape)} bf16: kernel {out['ms']:.4f} ms "
+          f"({out['tflops']:.1f} TFLOP/s, {out['bound_ms'] / out['ms']:.1%} "
+          f"of the bound {out['bound_ms']:.4f} ms by {out['bound_by']}), "
+          f"plain {out['plain_ms']:.4f} ms, score chain {out['chain_ms']:.4f} "
+          f"ms, library SDPA {out['library_ms']:.4f} ms; median of {SAMPLES} "
+          f"x {REPS} back-to-back calls (card: {card_name})", flush=True)
+    return out
+
+
+def causal_steps(card_name: str) -> dict:
+    """One forward step of each of :data:`CAUSAL_CONFIGS` on the card: the
+    causal kernel launched once a layer; its logits against the score
+    chain's (``_Decoder.logits`` without ``forward_only``); and each
+    path's step time (host clock over 5 synchronised steps after 2)."""
+    from tpusim_torch.models import llama as port_llama
+
+    out = {}
+    for label, fields, (batch, seq) in CAUSAL_CONFIGS:
+        cfg = (port_llama.PRESETS[fields] if isinstance(fields, str)
+               else port_llama.LlamaConfig(**fields))
+        params = port_llama.init_params(cfg, "cuda", seed=7)
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        module = port_llama.LlamaForward(cfg)
+        chain = port_llama._Decoder(cfg, None)
+        with torch.no_grad():
+            fa.reset_causal_launch_count()
+            got = module(*params, tokens)
+            torch.cuda.synchronize()
+            launches = fa.causal_launch_count()
+            want, _ = chain.logits(params, tokens)
+            if launches != cfg.layers or fa.causal_launch_count() != launches:
+                raise AssertionError(
+                    f"{label}: {launches} causal launches for "
+                    f"{cfg.layers} layers")
+            g, w = got.float(), want.float()
+            row = ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
+            if not row <= CAUSAL_STEP_ROW_ERR:
+                raise AssertionError(f"{label}: kernel vs chain row {row}")
+            del got, want, g, w
+            ms = {}
+            for path, fn in (("kernel", lambda: module(*params, tokens)),
+                             ("chain", lambda: chain.logits(params, tokens))):
+                torch.cuda.reset_peak_memory_stats()
+                for _ in range(2):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+                ms[path] = (time.perf_counter() - t0) / 5 * 1e3
+                ms[f"{path}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out[label] = {"layers": cfg.layers, "launches": launches,
+                      "row_err_vs_chain": row, **ms}
+        print(f"  step {label} [{batch}, {seq}]: {launches} causal launches "
+              f"({cfg.layers} layers); worst logit row kernel vs chain "
+              f"{row:.4f}; step {ms['kernel']:.2f} ms (chain "
+              f"{ms['chain']:.2f} ms), peak {ms['kernel_peak_gib']:.2f} GiB "
+              f"(chain {ms['chain_peak_gib']:.2f}) (card: {card_name})",
+              flush=True)
+        del params, module, chain
+        torch.cuda.empty_cache()
+    return out
+
+
+#: phase 21 (c): the sharded forward whose ranks each run the causal kernel
+#: at ``heads / tp`` query and ``kv_heads / tp`` key/value heads:
+#: ``llama_tiny`` on a ``(dp, tp)`` mesh of 1 x 2, two rank processes
+#: sharing the card over gloo
+CAUSAL_SHARDED = dict(preset="tiny", batch=4, dp=1, tp=2)
+
+
+def causal_sharded(card_name: str) -> dict:
+    """One no-grad forward of ``LlamaForwardSharded`` with a rank process
+    a rank: the causal kernel launched once a layer on every rank, and the
+    reassembled logits against the single-card score chain's."""
+    from tpusim_torch.models import llama as port_llama
+    from tpusim_torch.spmd import unshard
+    from tpusim_torch.spmd_procs import RankGroup, _run_task
+
+    module, args = port_llama.build_llama(device="cuda", train=False,
+                                          **CAUSAL_SHARDED)
+    cfg, mesh = module.cfg, module.mesh
+    torch.cuda.empty_cache()
+    with RankGroup(["cuda:0"] * mesh.size, timeout=RANK_TIMEOUT_S) as group:
+        group.call(_run_task, [(fa.reset_causal_launch_count, (), False)]
+                   * group.world)
+        with torch.no_grad():
+            got = group.run_module(module, *args)
+        launches = [int(n) for n in group.call(
+            _run_task, [(fa.causal_launch_count, (), False)] * group.world)]
+        ranks = group.describe()
+    with torch.no_grad():
+        want, _ = port_llama._Decoder(cfg, None).logits(args[:-1], args[-1])
+    g, w = got.float(), want.float()
+    row = ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
+    print(f"  sharded step llama_tiny dp {mesh.shape[0]} x tp {mesh.shape[1]} "
+          f"on {ranks}: causal launches by rank {launches} ({cfg.layers} "
+          f"layers); worst logit row against the chain {row:.4f} (card: "
+          f"{card_name})", flush=True)
+    if launches != [cfg.layers] * mesh.size:
+        raise AssertionError(f"sharded step: causal launches {launches} for "
+                             f"{cfg.layers} layers a rank")
+    if not row <= CAUSAL_STEP_ROW_ERR:
+        raise AssertionError(f"sharded step: kernel vs chain row {row}")
+    return {"mesh": list(mesh.shape), "layers": cfg.layers,
+            "launches": launches, "row_err_vs_chain": row}
+
+
+def causal_hlo(card_name: str) -> dict:
+    """``llama_tiny`` and ``llama7b`` captured over CUDA arguments and over
+    meta tensors, each text equal by bytes to the other and to the parent
+    commit's (:data:`CAUSAL_HLO_DIGESTS`); the kernel never launches."""
+    import hashlib
+
+    fa.reset_causal_launch_count()
+    out = {}
+    for name, want in CAUSAL_HLO_DIGESTS.items():
+        got = {}
+        for dev in ("cuda", "meta"):
+            module, args = get_workload(name).build(device=dev)
+            text, _ = export_to_hlo(module, args, name)
+            got[dev] = hashlib.sha256(text.encode()).hexdigest()
+            del module, args
+        torch.cuda.empty_cache()
+        if got["cuda"] != got["meta"] or got["cuda"] != want:
+            raise AssertionError(f"{name}: HLO digests {got}, parent {want}")
+        out[name] = got["cuda"]
+        print(f"  capture {name}: HLO sha256 {got['cuda'][:16]} on the card "
+              f"== over meta == the parent's (card: {card_name})")
+    if fa.causal_launch_count():
+        raise AssertionError("a capture launched the causal kernel")
+    return out
+
+
+def flash_against_table(card_name: str) -> dict:
+    """The non-causal kernel at its registered shape beside
+    :data:`FLASH_TABLE_MS`: each reading, and whether it lies within
+    :data:`FLASH_TABLE_TOL` of the table."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        ms = time_attention(dtype, card_name)["ms"]
+        lo, hi = FLASH_TABLE_MS[name]
+        within = lo * (1 - FLASH_TABLE_TOL) <= ms <= hi * (1 + FLASH_TABLE_TOL)
+        print(f"  flash {name}: {ms:.4f} ms against the table's "
+              f"{lo}-{hi} ms ({'within' if within else 'OUTSIDE'} "
+              f"{FLASH_TABLE_TOL:.0%}; a reading, not a check)")
+        out[name] = {"ms": ms, "table_ms": [lo, hi], "within": within}
+    return out
+
+
+def causal_attention_phase(card_name: str) -> dict:
+    """Phase 21: the causal entry and the decoder's route to it."""
+    t_phase = time.perf_counter()
+    out = {"card": card_name}
+    out["errors"] = {label: check_causal(shape, torch.bfloat16)
+                     for label, shape in CAUSAL_SHAPES}
+    out["edges"] = [check_causal(shape, dtype, strided)
+                    for shape, dtype, strided in CAUSAL_EDGES]
+    q, k, v = causal_inputs((1, 16, 4, 2, 64), torch.bfloat16, seed=9)
+    for bad in ((q.float(), k, v), (q, k[:, :, :1].expand(-1, -1, 3, -1), v),
+                (q.transpose(-1, -2).contiguous().transpose(-1, -2), k, v)):
+        try:
+            fa.causal_attention_fwd(*bad)
+        except (ValueError, TypeError) as e:
+            print(f"  refused: {e}")
+        else:
+            raise AssertionError("the causal wrapper took what it refuses")
+    out["times"] = {label: time_causal(label, shape, card_name)
+                    for label, shape in CAUSAL_SHAPES}
+    out["steps"] = causal_steps(card_name)
+    out["sharded"] = causal_sharded(card_name)
+    out["hlo"] = causal_hlo(card_name)
+    out["flash"] = flash_against_table(card_name)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def causal_alone() -> int:
+    """Phases 1, 2 and 21 alone: ``python3 -c "import chip_smoke, sys;
+    sys.exit(chip_smoke.causal_alone())"``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase(1, "card")
+    card_name = card()
+    print(f"card: {card_name}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    phase(2, "build")
+    build_kernels()
+    phase(21, "the causal attention kernel on the decoder's step")
+    out = causal_attention_phase(card_name)
+    phase(None)
+    print("causal: " + json.dumps(out))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -6097,6 +6482,9 @@ def main() -> int:
     ranked = ranks_as_processes(
         card_name, {n: f"{r['median_ms']:.4f} ms at {r['world']} ranks"
                     for n, r in multi["workloads"].items()}, probes["a"])
+
+    phase(21, "the causal attention kernel on the decoder's step")
+    causal = causal_attention_phase(card_name)
     phase(None)
     models["phase_seconds"] = PHASE_SECONDS
     print("models: " + json.dumps(models))
@@ -6107,6 +6495,7 @@ def main() -> int:
     print("front: " + json.dumps(front))
     print("probes: " + json.dumps(probes))
     print("ranks: " + json.dumps(ranked))
+    print("causal: " + json.dumps(causal))
 
     record = {"kernels": [{
         "name": "flash_attention",
@@ -6169,6 +6558,16 @@ def main() -> int:
         "campaign_smokes": fleet["a"],
         "campaign_v5p64_1024": fleet["c"],
         "fleet_8x300s": fleet["d"],
+    }, {
+        "name": "causal_attention",
+        "route": "cuda",
+        "source": KERNELS[0][1] + " (tpusim_causal_attention_fwd)",
+        "replaces": "the score chain of tpusim_torch/models/llama.py "
+                    "_Decoder.score_chain (no TPU kernel)",
+        "launches_per_step": {n: r["launches"]
+                              for n, r in causal["steps"].items()},
+        "max_abs_err": causal["errors"],
+        "times": causal["times"],
     }]}
     keys = ("ms", "plain_ms", "library_ms", "library_fused_ms")
     times = [f32[k] for k in keys] + [bf16[k] for k in keys] + [

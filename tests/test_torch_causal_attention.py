@@ -1,0 +1,250 @@
+"""The causal entry of the flash-attention kernel and the decoder's route to
+it, on the CPU.
+
+* :func:`~tpusim_torch.kernels.flash_attention.causal_attention_reference`
+  (the kernel's plain version, which the wrapper takes for CPU tensors)
+  against the decoder's score chain (``_Decoder.score_chain``, what a
+  captured graph holds) on ``[B, S, H, D]`` queries and grouped
+  ``[B, S, KVH, D]`` keys and values, in float32.  Tolerance: atol and
+  rtol 1e-5; both compute in float32 and differ only in summation order
+  and in the chain's division by √D where the plain version multiplies by
+  its reciprocal (at most 6e-7 apart here);
+* the wrapper refuses what neither route takes, and the kernel's layout
+  (rows of packed heads, any number of elements apart) is told apart
+  from the rest before a launch;
+* with the device check forced open (``_on_card``), a no-grad forward of
+  ``LlamaForward`` takes the kernel path once a layer, the plain version
+  standing in for the launch, and its logits match the chain's; a
+  profiler sees each launch inside a dispatched
+  ``tpusim_torch::causal_attention`` op (the op a profile links its kernel
+  to) inside the layer's attention range;
+* with the same check forced open, a head dim or a dtype the kernel does
+  not take reaches the wrapper and raises, with no quiet fallback;
+* with the same check forced open and the wrapper made to raise, the
+  callers that keep the chain never reach it: a gradient or ``torch.func``
+  transform (``LlamaTrainStep``), the scanned AOT step (``llama_aot``,
+  whose backward reads the probabilities), the vmap rank runner of
+  ``LlamaForwardSharded``, and captures (``torch.export``, ``make_fx``),
+  whose graphs stay the score chain.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch.fx.experimental.proxy_tensor import make_fx  # noqa: E402
+
+from tpusim_torch.kernels import flash_attention as fa  # noqa: E402
+from tpusim_torch.models import get_workload  # noqa: E402
+from tpusim_torch.models import llama as port_llama  # noqa: E402
+from tpusim_torch.models.llama_aot import build_llama_aot  # noqa: E402
+from tpusim_torch.tracer.capture import capture_graph  # noqa: E402
+
+TOL = 1e-5
+HEADS = 4
+
+
+def _qkv(batch, seq, heads, kv_heads, hd, dtype=torch.float32, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(batch, seq, heads, hd, generator=gen)
+    k, v = (torch.randn(batch, seq, kv_heads, hd, generator=gen)
+            for _ in range(2))
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _decoder(rep: int, hd: int):
+    cfg = dataclasses.replace(port_llama.PRESETS["tiny"], dim=HEADS * hd,
+                              heads=HEADS, kv_heads=HEADS // rep,
+                              dtype="float32")
+    return port_llama._Decoder(cfg, None)
+
+
+@pytest.mark.parametrize("seq", [1, 200, 256])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("rep", [1, 4])
+def test_plain_version_matches_the_score_chain(rep, hd, seq):
+    q, k, v = _qkv(2, seq, HEADS, HEADS // rep, hd, seed=rep * hd + seq)
+    *_, want = _decoder(rep, hd).score_chain(q, k, v)
+    got = fa.causal_attention_fwd(q, k, v)
+    assert got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(fa.causal_attention_reference(q, k, v), got,
+                               atol=0, rtol=0)
+
+
+def test_plain_version_reads_no_later_key_and_keeps_the_dtype():
+    q, k, v = _qkv(1, 48, 8, 2, 64, seed=3)
+    out = fa.causal_attention_fwd(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 30:] += 5.0
+    v2[:, 30:] -= 5.0
+    changed = fa.causal_attention_fwd(q, k2, v2)
+    assert torch.equal(changed[:, :30], out[:, :30])
+    assert not torch.equal(changed[:, 30:], out[:, 30:])
+    # query head h reads key/value head h // 4
+    q8 = q[:, :, :1].expand(-1, -1, 8, -1)
+    o8 = fa.causal_attention_fwd(q8, k, v)
+    assert torch.equal(o8[:, :, 1:4], o8[:, :, :1].expand(-1, -1, 3, -1))
+    assert not torch.equal(o8[:, :, 4], o8[:, :, 0])
+    bq, bk, bv = _qkv(1, 48, 8, 2, 64, dtype=torch.bfloat16, seed=3)
+    assert fa.causal_attention_fwd(bq, bk, bv).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("case", ["rank", "shape", "heads", "dtype",
+                                  "head_dim", "device"])
+def test_causal_wrapper_refuses_what_it_does_not_take(case):
+    q, k, v = _qkv(1, 16, 4, 2, 32)
+    if case == "rank":
+        args, err = (q[0], k[0], v[0]), ValueError
+    elif case == "shape":
+        args, err = (q, k[:, :8], v[:, :8]), ValueError
+    elif case == "heads":
+        args, err = (q, *_qkv(1, 16, 4, 3, 32)[1:]), ValueError
+    elif case == "dtype":
+        args, err = (q.double(), k.double(), v.double()), TypeError
+    elif case == "head_dim":
+        args, err = _qkv(1, 16, 4, 2, 160), ValueError
+    else:
+        args, err = (x.to("meta") for x in (q, k, v)), ValueError
+    with pytest.raises(err):
+        fa.causal_attention_fwd(*args)
+
+
+@pytest.fixture
+def on_card(monkeypatch):
+    """The decoder's device check forced open: what a CUDA tensor would
+    pass, on the CPU."""
+    monkeypatch.setattr(port_llama, "_on_card", lambda x: True)
+
+
+@pytest.mark.parametrize("kv_heads", [4, 2, 1])
+def test_forced_kernel_path_gives_the_chains_logits(on_card, monkeypatch,
+                                                    kv_heads):
+    module, args = get_workload("llama_tiny").build(
+        device="cpu", seq=40, kv_heads=kv_heads, dtype="float32")
+    calls = []
+    plain = fa.causal_attention_fwd
+
+    def counted(q, k, v):
+        calls.append((tuple(q.shape), tuple(k.shape)))
+        return plain(q, k, v)
+
+    with torch.no_grad():
+        monkeypatch.setattr(port_llama, "_on_card", lambda x: False)
+        want = module(*args)
+        monkeypatch.setattr(port_llama, "_on_card", lambda x: True)
+        monkeypatch.setattr(fa, "causal_attention_fwd", counted)
+        got = module(*args)
+    cfg = module.cfg
+    assert calls == [((4, 40, cfg.heads, cfg.head_dim),
+                      (4, 40, kv_heads, cfg.head_dim))] * cfg.layers
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.fixture
+def kernel_raises(on_card, monkeypatch):
+    def refuse(q, k, v):
+        raise AssertionError("the causal kernel was reached")
+
+    monkeypatch.setattr(fa, "causal_attention_fwd", refuse)
+
+
+def test_a_forward_reaches_the_patched_kernel(kernel_raises):
+    # the control: the patch is live where the kernel path is taken
+    module, args = get_workload("llama_tiny").build(device="cpu", seq=16)
+    with torch.no_grad(), pytest.raises(AssertionError, match="reached"):
+        module(*args)
+
+
+@pytest.mark.parametrize("case", ["head_dim", "dtype"])
+def test_what_the_kernel_does_not_take_reaches_it_and_raises(on_card, case):
+    # no quiet fallback to the chain on the card: an input the kernel does
+    # not take is refused by the wrapper (here its plain version, which
+    # checks alike)
+    if case == "head_dim":
+        module, args = get_workload("llama_tiny").build(
+            device="cpu", seq=16, dim=4 * 160)
+        err = ValueError
+    else:
+        module, args = get_workload("llama_tiny").build(device="cpu", seq=16)
+        args = [a.half() if a.is_floating_point() else a for a in args]
+        err = TypeError
+    with torch.no_grad(), pytest.raises(err):
+        module(*args)
+
+
+@pytest.mark.parametrize("caller", [
+    "train_step", "train_step_no_grad", "aot_step", "forward_with_grad",
+    "sharded_vmap_ranks", "export", "make_fx_fake", "make_fx_real"])
+def test_callers_that_keep_the_chain_never_reach_the_kernel(kernel_raises,
+                                                           caller):
+    if caller.startswith("train_step"):
+        module, args = get_workload("llama_tiny_train").build(
+            device="cpu", batch=2, seq=16)
+        with (torch.no_grad() if caller.endswith("no_grad")
+              else torch.enable_grad()):
+            loss, *_ = module(*args)
+        assert torch.isfinite(loss)
+    elif caller == "aot_step":
+        module, args = build_llama_aot(preset="tiny", batch=2, seq=16, dp=1,
+                                       tp=1, device="cpu", dtype="float32")
+        with torch.no_grad():
+            loss, *_ = module(*args)
+        assert torch.isfinite(loss)
+    elif caller == "forward_with_grad":
+        module, args = get_workload("llama_tiny").build(device="cpu", seq=16)
+        params = [a.requires_grad_() if a.is_floating_point() else a
+                  for a in args]
+        module(*params).float().sum().backward()
+    elif caller == "sharded_vmap_ranks":
+        module, args = port_llama.build_llama(
+            preset="tiny", batch=2, seq=16, dp=1, tp=2, train=False,
+            device="cpu", dtype="float32")
+        with torch.no_grad():
+            assert torch.isfinite(module.run(*args)).all()
+    else:
+        module, args = get_workload("llama_tiny").build(device="cpu", seq=16)
+        with torch.no_grad():
+            if caller == "export":
+                gm = capture_graph(module, args)
+            else:
+                gm = make_fx(module,
+                             tracing_mode=caller.split("_")[-1])(*args)
+        targets = {str(n.target) for n in gm.graph.nodes
+                   if n.op == "call_function"}
+        assert not any("causal_attention" in t for t in targets)
+        assert any("_softmax" in t for t in targets)
+
+
+def test_the_layout_the_causal_kernel_reads():
+    # rows of packed heads, any number of elements apart; anything else is
+    # refused before a launch
+    q = torch.empty(2, 8, 4, 16)
+    assert fa._rows_apart(q) == 64
+    wide = torch.empty(2, 8, 4 * 16 + 8)[..., :64].view(2, 8, 4, 16)
+    assert fa._rows_apart(wide) == 72
+    assert fa._rows_apart(q.transpose(1, 2).contiguous().transpose(1, 2)) \
+        is None
+    assert fa._rows_apart(torch.empty(2, 8, 4, 32)[..., :16]) is None
+    assert fa._rows_apart(torch.empty(8, 2, 4, 16).transpose(0, 1)) is None
+    assert fa._rows_apart(torch.empty(1, 8, 1, 16)[:, :, :, :]) == 16
+
+
+def test_the_kernel_path_is_an_op_for_a_profiler(on_card):
+    from torch.profiler import ProfilerActivity, profile
+
+    module, args = get_workload("llama_tiny").build(device="cpu", seq=16)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        module(*args)
+    spans = {name: [e.time_range for e in prof.events() if e.name == name]
+             for name in ("tpusim_torch::causal_attention",
+                          port_llama.ATTENTION_RANGE)}
+    ops, attention = spans.values()
+    assert len(ops) == len(attention) == module.cfg.layers
+    for op, outer in zip(sorted(ops, key=lambda r: r.start),
+                         sorted(attention, key=lambda r: r.start)):
+        assert outer.start <= op.start and op.end <= outer.end

@@ -54,6 +54,36 @@
 // Not used: wgmma (TF32 wgmma takes both operands K-major from shared
 // memory, so the split would need a transposed V tile and lo copies of K
 // and V^T: no room for two stages), TMA and warp specialisation.
+//
+// The causal entry, tpusim_causal_attention_fwd, is the same kernel
+// instantiated with CAUSAL for the Llama decoder's attention
+// (tpusim_torch/models/llama.py): it replaces no TPU kernel but the
+// decoder's chain of score kernels (repeat_kv, the QK^T einsum, the scale,
+// the causal where, the float casts, softmax, the PV einsum), each a full
+// pass over [B, H, S, S] scores in device memory.  It reads q as
+// [B, S, H, D] and k, v as [B, S, KVH, D] in place, their rows any number
+// of elements apart (the heads of a row packed), and writes o as a
+// contiguous [B, S, H, D].  What bounds it on an H100: 2*B*H*S*(S+1)*D
+// flops over the lower triangle (6.87e10 a Mistral-7B layer at batch 2,
+// seq 2048: 0.069 ms at 989 TFLOP/s bf16) against 2*B*S*(H+KVH)*D
+// elements moved (1.6e8 bytes there, 0.048 ms at 3.35 TB/s): arithmetic
+// again, and mma.sync's ~533 TFLOP/s bf16 ceiling on that card is its
+// nearer floor.  What the design does about it:
+//   * a 128-row query block reads only the key tiles at or below its
+//     diagonal and computes only the 32-key (f32: 64-key) steps at or below
+//     each warp's rows: the upper triangle is never loaded or multiplied.
+//     A key past its row is masked to -inf as a key past the end is; only
+//     the diagonal steps mask anything.
+//   * a block's work grows with its query index, so blockIdx.y counts the
+//     query blocks from the last (the heaviest) and blockIdx.x runs over
+//     batch x heads: the longest blocks launch first and the last wave
+//     holds the shortest.
+//   * query head h reads key/value head h / (H / KVH), and neighbouring
+//     blockIdx.x are neighbouring query heads, so the heads that share a
+//     K/V head run together and read its tiles from L2 (one K/V head of
+//     Mistral-7B at seq 2048 is 1 MB).  Nothing is copied out per head.
+//   * any sequence length: query rows past the end are zero-filled and not
+//     written, keys past the end masked, as in the non-causal entry.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,13 +140,14 @@ __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16(0.f);
 }
 
-// rows [row0, row0 + ROWS) of one head's [seq, dim] matrix into a padded
-// [ROWS][LD] tile; rows past seq and columns past dim become zero.  vec:
-// 16-byte cp.async copies (dim a whole number of chunks, pointers aligned),
-// else element by element through registers.
+// rows [row0, row0 + ROWS) of one head's [seq, dim] matrix, whose rows lie
+// ld elements apart, into a padded [ROWS][LD] tile; rows past seq and
+// columns past dim become zero.  vec: 16-byte cp.async copies (dim and ld
+// whole numbers of chunks, pointers aligned), else element by element
+// through registers.
 template <typename T, int DMAX, int ROWS>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int seq, int dim, bool vec) {
+                                          int seq, int dim, int ld, bool vec) {
   using TL = Tiles<T, DMAX>;
   constexpr int THREADS = Cfg<T>::THREADS;
   constexpr int CPR = DMAX / TL::EPC;  // chunks per row
@@ -128,7 +159,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
       const int r = i / CPR, c = (i % CPR) * TL::EPC;
       const int g = row0 + r;
       const bool ok = g < seq && c < dim;
-      cp_async16(dst + r * TL::LD + c, ok ? src + (size_t)g * dim + c : src,
+      cp_async16(dst + r * TL::LD + c, ok ? src + (size_t)g * ld + c : src,
                  ok ? 16 : 0);
     }
   } else {
@@ -136,7 +167,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
       const int r = i / DMAX, c = i % DMAX;
       const int g = row0 + r;
       dst[r * TL::LD + c] =
-          g < seq && c < dim ? src[(size_t)g * dim + c] : zero<T>();
+          g < seq && c < dim ? src[(size_t)g * ld + c] : zero<T>();
     }
   }
 }
@@ -293,11 +324,30 @@ __device__ __forceinline__ int out_dim(int i, int e, int t) {
   return 8 * i + 2 * t + e;
 }
 
-template <typename T, int DMAX>
+// read anew at each use, so that no value derived from it stays live in a
+// register across the key loop
+__device__ __forceinline__ unsigned block_x() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(r));
+  return r;
+}
+
+// The causal entry's layout: q [B, S, H, D] with rows ldq elements apart,
+// k and v [B, S, KVH, D] with rows ldkv apart, o [B, S, H, D] contiguous;
+// query head h reads key/value head h / group.  (The non-causal entry's
+// [BH, S, D] is contiguous.)
+struct Heads {
+  int heads, group, ldq, ldkv;
+};
+
+// CAUSAL: query row i keeps keys j <= i only, and a block reads no key past
+// its last row.  Grid: non-causal (query blocks, BH); causal (B x H, query
+// blocks counted from the last), so that the heaviest blocks launch first.
+template <typename T, int DMAX, bool CAUSAL>
 __global__ void __launch_bounds__(Cfg<T>::THREADS, Cfg<T>::BLOCKS_PER_SM)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int seq,
-                       int dim, float scale_log2, bool vec) {
+                       int dim, float scale_log2, bool vec, Heads hl) {
   using TL = Tiles<T, DMAX>;
   constexpr bool F32 = sizeof(T) == 4;
   constexpr int BQ = Cfg<T>::BQ, BK = Cfg<T>::BK, STAGES = Cfg<T>::STAGES;
@@ -310,13 +360,30 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * BQ;
-  const size_t head = (size_t)blockIdx.y * seq * dim;
-  const int ntiles = (seq + BK - 1) / BK;
+  // the head's first element in q (and o) and in k and v, and their row
+  // strides; the keys the block reads (under the mask none past its last
+  // row)
+  int q0, ldq, ldkv, kend;
+  size_t head, kv_head;
+  if constexpr (CAUSAL) {
+    const int b = blockIdx.x / hl.heads, h = blockIdx.x % hl.heads;
+    q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+    ldq = hl.ldq;
+    ldkv = hl.ldkv;
+    head = (size_t)b * seq * ldq + (size_t)h * dim;
+    kv_head = (size_t)b * seq * ldkv + (size_t)(h / hl.group) * dim;
+    kend = min(seq, q0 + BQ);
+  } else {
+    q0 = blockIdx.x * BQ;
+    ldq = ldkv = dim;
+    head = kv_head = (size_t)blockIdx.y * seq * dim;
+    kend = seq;
+  }
+  const int ntiles = (kend + BK - 1) / BK;
 
-  load_tile<T, DMAX, BQ>(qs, q + head, q0, seq, dim, vec);
-  load_tile<T, DMAX, BK>(ks, k + head, 0, seq, dim, vec);
-  load_tile<T, DMAX, BK>(vs, v + head, 0, seq, dim, vec);
+  load_tile<T, DMAX, BQ>(qs, q + head, q0, seq, dim, ldq, vec);
+  load_tile<T, DMAX, BK>(ks, k + kv_head, 0, seq, dim, ldkv, vec);
+  load_tile<T, DMAX, BK>(vs, v + kv_head, 0, seq, dim, ldkv, vec);
   cp_async_commit();
 
   float acc[MT][DMAX / 8][4];
@@ -344,19 +411,26 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // tile it has landed; tile it - 1's readers are done
     if (it + 1 < ntiles) {
       const int st = (it + 1) % STAGES;
-      load_tile<T, DMAX, BK>(ks + st * TL::KV_ELEMS, k + head, (it + 1) * BK,
-                             seq, dim, vec);
-      load_tile<T, DMAX, BK>(vs + st * TL::KV_ELEMS, v + head, (it + 1) * BK,
-                             seq, dim, vec);
+      load_tile<T, DMAX, BK>(ks + st * TL::KV_ELEMS, k + kv_head,
+                             (it + 1) * BK, seq, dim, ldkv, vec);
+      load_tile<T, DMAX, BK>(vs + st * TL::KV_ELEMS, v + kv_head,
+                             (it + 1) * BK, seq, dim, ldkv, vec);
       cp_async_commit();
     }
     // the tile in sub-tiles of NK keys, an online-softmax step each
 #pragma unroll
-    for (int h = 0; h < BK / NK; ++h) {
-      const int k0 = it * BK + h * NK;
+    for (int sub = 0; sub < BK / NK; ++sub) {
+      const int k0 = it * BK + sub * NK;
       if (k0 >= seq) break;
-      const T* kt = ks + (it % STAGES) * TL::KV_ELEMS + h * NK * TL::LD;
-      const T* vt = vs + (it % STAGES) * TL::KV_ELEMS + h * NK * TL::LD;
+      // off: the warp's first row less the step's first key.  Under the
+      // mask a step past the warp's last row is all masked: the warp skips
+      // it.  k0 and the warp's first row are multiples of 16 * MT, so a step
+      // it takes keeps key k0 in every one of its rows, and no row's max is
+      // -inf.
+      const int off = q0 + row0 - k0;
+      if (CAUSAL && off < 1 - 16 * MT) break;
+      const T* kt = ks + (it % STAGES) * TL::KV_ELEMS + sub * NK * TL::LD;
+      const T* vt = vs + (it % STAGES) * TL::KV_ELEMS + sub * NK * TL::LD;
 
       float s[MT][NK / 8][4];
 #pragma unroll
@@ -371,6 +445,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         scores_bf16<DMAX, MT, NK>(qw, kt, s, lane);
 
       // accumulator column 2t + e of score tile j is key k0 + 8j + 2t + e
+      // % 2, in row q0 + row0 + 16 mt + g + 8 (e / 2).  Without the mask a
+      // key past the end is masked.  Under it only a step that reaches past
+      // the warp's first row (diag) masks, and only keys past their row:
+      // 8j + e % 2 - 16 mt - 8 (e / 2) > lim.  (A key past the end lies
+      // past every row that is written.)  Offsets from the step, not keys
+      // and rows, keep the bf16 instantiation at D = 128 within its 255
+      // registers.
+      const bool diag = CAUSAL && off < NK - 1;
+      const int lim = off + g - 2 * t;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         float mx[2] = {-INFINITY, -INFINITY};
@@ -379,8 +462,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float& x = s[mt][j][e];
-            x = k0 + 8 * j + 2 * t + (e & 1) < seq ? x * scale_log2
-                                                   : -INFINITY;
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            const bool keep =
+                CAUSAL ? !diag || 8 * j + (e & 1) - 16 * mt - 8 * (e / 2) <= lim
+                       : key < seq;
+            x = keep ? x * scale_log2 : -INFINITY;
             mx[e / 2] = fmaxf(mx[e / 2], x);
           }
         float alpha[2];
@@ -388,7 +474,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int r = 0; r < 2; ++r) {
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          const float m_new = fmaxf(m_run[mt][r], mx[r]);  // finite: k0 < seq
+          const float m_new = fmaxf(m_run[mt][r], mx[r]);  // finite: key k0 kept
           alpha[r] = exp2f(m_run[mt][r] - m_new);  // 0 on the first step
           m_run[mt][r] = m_new;
           l_run[mt][r] *= alpha[r];
@@ -423,7 +509,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const int row = q0 + row0 + 16 * mt + g + 8 * r;
       if (row >= seq) continue;
-      T* orow = o + head + (size_t)row * dim;
+      T* orow;
+      if constexpr (CAUSAL) {
+        const unsigned bh = block_x();
+        orow = o + ((size_t)(bh / hl.heads) * seq + row) * hl.heads * dim +
+               (size_t)(bh % hl.heads) * dim;
+      } else {
+        orow = o + head + (size_t)row * dim;
+      }
       const float(&a)[DMAX / 8][4] = acc[mt];
       if constexpr (F32) {
         // dims 32c + 8t + 4e + [0, 4) are a[4c + u][2r + e], u = 0..3
@@ -464,52 +557,95 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int DMAX>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int seq, int dim, float scale, cudaStream_t stream) {
+template <typename T, int DMAX, bool CAUSAL>
+int launch(const void* q, const void* k, const void* v, void* o, dim3 grid,
+           int seq, int dim, float scale, bool vec, Heads hl,
+           cudaStream_t stream) {
   constexpr size_t smem = Tiles<T, DMAX>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, DMAX>,
+      flash_attention_kernel<T, DMAX, CAUSAL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_attention_kernel<T, DMAX>,
+  err = cudaFuncSetAttribute(flash_attention_kernel<T, DMAX, CAUSAL>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  const uintptr_t any =
-      (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
-  const bool vec = dim % Tiles<T, DMAX>::EPC == 0 && any % 16 == 0;
-  const dim3 grid((seq + Cfg<T>::BQ - 1) / Cfg<T>::BQ, bh);
-  flash_attention_kernel<T, DMAX><<<grid, Cfg<T>::THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), seq, dim, scale * LOG2E,
-      vec);
+  flash_attention_kernel<T, DMAX, CAUSAL>
+      <<<grid, Cfg<T>::THREADS, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(o), seq, dim,
+          scale * LOG2E, vec, hl);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dim(const void* q, const void* k, const void* v, void* o, int bh,
-               int seq, int dim, float scale, cudaStream_t stream) {
-  if (dim <= 32) return launch<T, 32>(q, k, v, o, bh, seq, dim, scale, stream);
-  if (dim <= 64) return launch<T, 64>(q, k, v, o, bh, seq, dim, scale, stream);
-  return launch<T, 128>(q, k, v, o, bh, seq, dim, scale, stream);
+// grid: non-causal (query blocks, bh); causal (batch x heads, query blocks).
+// vec: 16-byte copies, when every pointer and row starts on a 16-byte
+// boundary
+template <typename T, bool CAUSAL>
+int launch_dim(const void* q, const void* k, const void* v, void* o,
+               dim3 grid, int seq, int dim, float scale, Heads hl,
+               cudaStream_t stream) {
+  constexpr int EPC = 16 / sizeof(T);
+  const uintptr_t any =
+      (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
+  const bool vec = dim % EPC == 0 && any % 16 == 0 && hl.ldq % EPC == 0 &&
+                   hl.ldkv % EPC == 0;
+  if (dim <= 32)
+    return launch<T, 32, CAUSAL>(q, k, v, o, grid, seq, dim, scale, vec, hl,
+                                 stream);
+  if (dim <= 64)
+    return launch<T, 64, CAUSAL>(q, k, v, o, grid, seq, dim, scale, vec, hl,
+                                 stream);
+  return launch<T, 128, CAUSAL>(q, k, v, o, grid, seq, dim, scale, vec, hl,
+                                stream);
+}
+
+template <bool CAUSAL>
+int launch_dtype(const void* q, const void* k, const void* v, void* o,
+                 dim3 grid, int seq, int dim, int dtype, float scale,
+                 Heads hl, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_dim<float, CAUSAL>(q, k, v, o, grid, seq, dim, scale, hl, s);
+  if (dtype == 1)
+    return launch_dim<__nv_bfloat16, CAUSAL>(q, k, v, o, grid, seq, dim,
+                                             scale, hl, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// q, k, v, o: [bh, seq, dim], contiguous.  dtype: 0 = float32,
+// 1 = bfloat16.  Returns a cudaError_t (0 = launched).
 int tpusim_flash_attention_fwd(const void* q, const void* k, const void* v,
                                void* o, int bh, int seq, int dim, int dtype,
                                float scale, void* stream) {
   if (bh < 1 || bh > 65535 || seq < 1 || dim < 1 || dim > 128)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dim<float>(q, k, v, o, bh, seq, dim, scale, s);
-  if (dtype == 1)
-    return launch_dim<__nv_bfloat16>(q, k, v, o, bh, seq, dim, scale, s);
-  return (int)cudaErrorInvalidValue;
+  const dim3 grid((seq + 127) / 128, bh);
+  return launch_dtype<false>(q, k, v, o, grid, seq, dim, dtype, scale,
+                             Heads{1, 1, dim, dim}, stream);
+}
+
+// Causal attention with grouped key/value heads: q [batch, seq, heads,
+// dim] with rows ldq elements apart, k and v [batch, seq, kv_heads, dim]
+// with rows ldkv apart, o [batch, seq, heads, dim] contiguous.  Query head
+// h reads key/value head h / (heads / kv_heads); row i keeps keys j <= i.
+// dtype as above.  Returns a cudaError_t (0 = launched).
+int tpusim_causal_attention_fwd(const void* q, const void* k, const void* v,
+                                void* o, int batch, int seq, int heads,
+                                int kv_heads, int dim, int ldq, int ldkv,
+                                int dtype, float scale, void* stream) {
+  if (batch < 1 || seq < 1 || heads < 1 || kv_heads < 1 ||
+      heads % kv_heads != 0 || dim < 1 || dim > 128 ||
+      ldq < heads * dim || ldkv < kv_heads * dim ||
+      (long long)batch * heads > 0x7fffffffLL || (seq + 127) / 128 > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(batch * heads, (seq + 127) / 128);
+  return launch_dtype<true>(q, k, v, o, grid, seq, dim, dtype, scale,
+                            Heads{heads, heads / kv_heads, ldq, ldkv}, stream);
 }
 
 const char* tpusim_cuda_error_string(int err) {

@@ -1,10 +1,14 @@
-"""Wrapper of the flash-attention CUDA kernel and its plain version.
+"""Wrappers of the flash-attention CUDA kernel and their plain versions.
 
 The kernel (``tpusim_torch/csrc/flash_attention.cu``) replaces the TPU
-kernel ``_attn_kernel`` of ``tpusim/models/pallas_attention.py``.  A CUDA
-tensor goes to the kernel, which raises if it cannot build or launch; a
-CPU tensor goes to :func:`flash_attention_reference`.  There is no other
-route.
+kernel ``_attn_kernel`` of ``tpusim/models/pallas_attention.py``
+(:func:`flash_attention_fwd`, over ``[BH, S, D]``).  Its causal entry,
+:func:`causal_attention_fwd`, is the Llama decoder's attention over
+``[B, S, H, D]`` queries and ``[B, S, KVH, D]`` grouped keys and values,
+read in place.  A CUDA tensor goes to the kernel, which raises if it
+cannot build or launch; a CPU tensor goes to the plain version
+(:func:`flash_attention_reference`, :func:`causal_attention_reference`).
+There is no other route.
 """
 
 from __future__ import annotations
@@ -17,14 +21,18 @@ import torch
 from tpusim_torch.kernels.build import load_library
 
 __all__ = ["flash_attention_fwd", "flash_attention_reference",
-           "check_inputs", "launch_count", "reset_launch_count"]
+           "check_inputs", "launch_count", "reset_launch_count",
+           "causal_attention_fwd", "causal_attention_reference",
+           "check_causal_inputs", "causal_launch_count",
+           "reset_causal_launch_count"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 
-#: launches of the CUDA kernel in this process (the wrapper adds one per
-#: launch and nowhere else)
+#: launches of the CUDA kernel's non-causal and causal entries in this
+#: process (each wrapper adds one per launch and nowhere else)
 _launches = 0
+_causal_launches = 0
 
 
 def launch_count() -> int:
@@ -36,6 +44,25 @@ def reset_launch_count() -> None:
     _launches = 0
 
 
+def causal_launch_count() -> int:
+    return _causal_launches
+
+
+def reset_causal_launch_count() -> None:
+    global _causal_launches
+    _causal_launches = 0
+
+
+def _check_types(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
+        raise TypeError(
+            f"q, k, v must all be float32 or bfloat16; got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v must lie on one device")
+
+
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  block_q: int) -> None:
     """Raise on what neither the kernel nor the plain version takes."""
@@ -44,13 +71,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"q, k, v must share one [BH, S, D] shape; got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
-        raise TypeError(
-            f"q, k, v must all be float32 or bfloat16; got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}"
-        )
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v must lie on one device")
+    _check_types(q, k, v)
     bh, s, d = q.shape
     if bh < 1 or s < 1 or d < 1:
         raise ValueError(f"empty attention input {tuple(q.shape)}")
@@ -87,6 +108,10 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        causal = lib.tpusim_causal_attention_fwd
+        causal.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_void_p]
+        causal.restype = ctypes.c_int
         lib.tpusim_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tpusim_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -124,3 +149,100 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v)
     raise ValueError(f"no flash_attention for device {q.device}")
+
+
+def check_causal_inputs(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> None:
+    """Raise on what neither the causal kernel nor its plain version
+    takes: q ``[B, S, H, D]``, k and v ``[B, S, KVH, D]`` with ``H`` a
+    multiple of ``KVH``, float32 or bfloat16 on one device, ``D`` at most
+    :data:`MAX_HEAD_DIM`."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"q must be [B, S, H, D] and k, v one [B, S, KVH, D] shape; got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, d):
+        raise ValueError(
+            f"k and v {tuple(k.shape)} do not match q {tuple(q.shape)} in "
+            f"batch, sequence and head dim"
+        )
+    _check_types(q, k, v)
+    if min(b, s, h, d, kvh) < 1:
+        raise ValueError(f"empty attention input {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    if h % kvh:
+        raise ValueError(f"{h} query heads are not a multiple of {kvh} "
+                         f"key/value heads")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM} is not supported")
+
+
+def causal_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor) -> torch.Tensor:
+    """softmax(Q Kᵀ / √D, keys j <= i of row i) V over ``[B, S, H, D]`` in
+    float32, cast back to the input dtype: query head ``h`` reads
+    key/value head ``h // (H / KVH)``.  The causal kernel's arithmetic in
+    plain PyTorch."""
+    b, s, h, d = q.shape
+    kv = torch.arange(h, device=q.device) // (h // k.shape[2])
+    qf = q.float().transpose(1, 2)
+    kf = k.float().index_select(2, kv).transpose(1, 2)
+    vf = v.float().index_select(2, kv).transpose(1, 2)
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(scores.masked_fill(~keep, float("-inf")), dim=-1)
+    return torch.matmul(p, vf).transpose(1, 2).contiguous().to(q.dtype)
+
+
+def _rows_apart(x: torch.Tensor) -> int | None:
+    """The elements between two rows of ``x`` [B, S, heads, D] when its
+    heads and head dim are packed and its batches follow each other (the
+    layout the causal kernel reads), else None."""
+    b, s, h, d = x.shape
+    row = x.stride(1)
+    packed = (x.stride(3) == 1 or d == 1) and (x.stride(2) == d or h == 1)
+    batches = x.stride(0) == s * row or b == 1
+    return row if packed and batches and row >= h * d else None
+
+
+def _cuda_causal(q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    global _causal_launches
+    ldq, ldkv = _rows_apart(q), _rows_apart(k)
+    if ldq is None or ldkv is None or _rows_apart(v) != ldkv:
+        raise ValueError(
+            "the causal kernel takes q, k, v whose rows hold their heads "
+            "packed, k and v laid out alike; got strides "
+            f"{q.stride()}, {k.stride()}, {v.stride()}")
+    b, s, h, d = q.shape
+    lib = _library()
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.tpusim_causal_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+            h, k.shape[2], d, ldq, ldkv, _DTYPE_CODES[q.dtype],
+            1.0 / math.sqrt(d), stream)
+    if err != 0:
+        msg = lib.tpusim_cuda_error_string(err).decode()
+        raise RuntimeError(f"causal attention kernel launch failed: {msg}")
+    _causal_launches += 1
+    return out
+
+
+def causal_attention_fwd(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """Causal attention over q ``[B, S, H, D]`` and grouped k, v
+    ``[B, S, KVH, D]``, the output laid out as q (contiguous): the CUDA
+    kernel's causal entry for CUDA tensors (launched on the current
+    stream; it allocates only the output), the plain version for CPU
+    tensors."""
+    check_causal_inputs(q, k, v)
+    if q.is_cuda:
+        return _cuda_causal(q, k, v)
+    if q.device.type == "cpu":
+        return causal_attention_reference(q, k, v)
+    raise ValueError(f"no causal attention for device {q.device}")

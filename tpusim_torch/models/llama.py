@@ -59,7 +59,10 @@ from typing import Any, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
+from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
+from tpusim_torch.kernels import flash_attention as fa
 from tpusim_torch.models.registry import (
     register,
     resolve_device,
@@ -119,9 +122,10 @@ LAYER_KEYS = ("attn_norm", "mlp_norm", "w_down", "w_gate", "w_up", "wk",
 #: the profiler ranges of the decoder (open only under a running profiler,
 #: :func:`~tpusim_torch.obs.ranges.device_range`): each ``_rmsnorm``; the
 #: q, k and v projections, and apart the o projection with its residual
-#: add; the rotary tables and rotations; the attention from ``repeat_kv``
-#: to the PV product; the MLP with its residual add; the tied output
-#: projection.  The embedding lookup is in none.
+#: add; the rotary tables and rotations; the attention (the causal kernel,
+#: or the score chain from ``repeat_kv`` to the PV product); the MLP with
+#: its residual add; the tied output projection.  The embedding lookup is
+#: in none.
 NORM_RANGE = "tpusim_torch.llama.norm"
 PROJ_RANGE = "tpusim_torch.llama.proj"
 ROPE_RANGE = "tpusim_torch.llama.rope"
@@ -300,6 +304,39 @@ def causal_mask(s: int, device) -> torch.Tensor:
     return idx[:, None] >= idx[None, :]
 
 
+#: the causal kernel as a dispatched op, ``tpusim_torch::causal_attention``:
+#: a profiler links a launch to the op around it (a ``record_function``
+#: range gets no link), and its readers file each kernel under its
+#: launching op.  Registered through the low-level library, whose first
+#: call costs milliseconds where ``torch.library.custom_op``'s cost seconds.
+_CAUSAL_LIB = torch.library.Library("tpusim_torch", "FRAGMENT")
+_CAUSAL_LIB.define("causal_attention(Tensor q, Tensor k, Tensor v) -> Tensor")
+for _key in ("CPU", "CUDA"):
+    _CAUSAL_LIB.impl("causal_attention",
+                     lambda q, k, v: fa.causal_attention_fwd(q, k, v), _key)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` lies where the causal kernel runs."""
+    return x.is_cuda
+
+
+def _takes_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether a forward's attention over ``q, k, v`` may run the causal
+    kernel: no gradient is recorded and nothing traces the call
+    (``torch.export``, ``make_fx``, dynamo: a captured graph holds the
+    score chain, which the simulator prices), and each is a real CUDA
+    tensor, not a fake, functional or functorch-wrapped one.  What the
+    kernel does not take reaches it and raises there."""
+    if (torch.is_grad_enabled() or torch.compiler.is_compiling()
+            or get_proxy_mode() is not None):
+        return False
+    return all(type(x) is torch.Tensor and _on_card(x) and not is_fake(x)
+               and not torch._is_functional_tensor(x)
+               and not torch._C._functorch.is_functorch_wrapped_tensor(x)
+               for x in (q, k, v))
+
+
 class _Decoder:
     """One rank's decoder over a ``(dp, tp)`` mesh, or the single-chip
     decoder (``mesh`` None)."""
@@ -364,14 +401,30 @@ class _Decoder:
             total = total + x
         return total
 
-    def layer(self, h, w: dict, plain: bool = False):
+    def score_chain(self, q, k, v):
+        """The attention over ``q`` [B, S, heads, D] and ``k``, ``v`` [B, S,
+        kv heads, D] as the reference writes it, and as a captured graph
+        holds it: the repeated keys and values, the probabilities and the
+        output [B, S, heads, D]."""
+        hd, s = q.shape[-1], q.shape[1]
+        k, v = self.repeat_kv(k), self.repeat_kv(v)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / (hd ** 0.5)
+        scores = torch.where(causal_mask(s, q.device)[None, None],
+                             scores, -1e30)
+        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        return k, v, probs, torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+    def layer(self, h, w: dict, plain: bool = False,
+              forward_only: bool = False):
         """One decoder layer, ``h + attention(norm(h))`` then ``+
         mlp(norm(...))``: the next ``h`` and the residuals a hand-written
         backward reads (the rotated queries and keys, the values, the
         attention probabilities and output, the stream after attention,
         the MLP's gate and up projections).  ``plain``: the bare
         collectives and no ``pvary``, for a scan body, which nothing
-        differentiates through."""
+        differentiates through.  ``forward_only``: the caller drops the
+        residuals (None), so the attention runs the causal kernel where
+        :func:`_takes_kernel` allows, else the score chain."""
         cfg = self.cfg
         b, s, _ = h.shape
         hd, heads = cfg.head_dim, cfg.heads // self.tp
@@ -388,13 +441,11 @@ class _Decoder:
             cos, sin = rope_tables(s, hd, cfg.rope_theta, h.device)
             q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         with device_range(ATTENTION_RANGE):
-            k, v = self.repeat_kv(k), self.repeat_kv(v)
-            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / (hd ** 0.5)
-            scores = torch.where(causal_mask(s, h.device)[None, None],
-                                 scores, -1e30)
-            probs = torch.softmax(scores.float(), dim=-1).to(h.dtype)
-            o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(
-                b, s, heads * hd)
+            if forward_only and _takes_kernel(q, k, v):
+                o = torch.ops.tpusim_torch.causal_attention(q, k, v)
+            else:
+                k, v, probs, o = self.score_chain(q, k, v)
+            o = o.reshape(b, s, heads * hd)
         with device_range(PROJ_RANGE):
             h1 = h + psum_tp(o @ w["wo"])
         with device_range(NORM_RANGE):
@@ -405,18 +456,22 @@ class _Decoder:
             gate = g * torch.sigmoid(g)         # jax.nn.silu
             u = hu @ w["w_up"]
             h2 = h1 + psum_tp((gate * u) @ w["w_down"])
+        if forward_only:
+            return h2, None
         return h2, (q, k, v, probs, o, h1, g, u)
 
-    def logits(self, params, tokens, out_embed=None):
+    def logits(self, params, tokens, out_embed=None,
+               forward_only: bool = False):
         """``(logits of the rank's vocab shard, vocab offset)``;
         ``out_embed``: the tied projection's table, when it is taken apart
-        from the lookup's (for its gradient part)."""
+        from the lookup's (for its gradient part); ``forward_only``: a
+        forward's, whose layers keep no residuals (:meth:`layer`)."""
         embed, final_norm, layers = _unflatten(params)
         eps = self.cfg.eps
         offset = self.vocab_offset(embed, tokens)
         x = self.embed(embed, tokens, offset)
         for layer in layers:
-            x, _ = self.layer(x, layer)
+            x, _ = self.layer(x, layer, forward_only=forward_only)
         with device_range(NORM_RANGE):
             x = _rmsnorm(x, final_norm, eps)
         with device_range(HEAD_RANGE):
@@ -460,7 +515,8 @@ class LlamaForward(nn.Module):
         self.cfg = cfg
 
     def forward(self, *flat: torch.Tensor) -> torch.Tensor:
-        logits, _ = _Decoder(self.cfg, None).logits(flat[:-1], flat[-1])
+        logits, _ = _Decoder(self.cfg, None).logits(flat[:-1], flat[-1],
+                                                    forward_only=True)
         return logits
 
 
@@ -476,7 +532,8 @@ class LlamaForwardSharded(SpmdModule):
         self.out_specs = P("dp", None, "tp")
 
     def forward(self, *flat: torch.Tensor) -> torch.Tensor:
-        logits, _ = _Decoder(self.cfg, self.mesh).logits(flat[:-1], flat[-1])
+        logits, _ = _Decoder(self.cfg, self.mesh).logits(
+            flat[:-1], flat[-1], forward_only=True)
         return logits
 
 
