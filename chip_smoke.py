@@ -379,11 +379,26 @@ non-zero and prints no result):
    time at its registered shape beside PERF.md's kernel table
    (:data:`FLASH_TABLE_MS`), a reading, not a check.
    ``causal_alone()`` runs phases 1, 2 and 21 by themselves.
+22. the causal entry at two head dims, which DeepSeek-V2's latent
+   attention (``tpusim_torch/models/deepseek_v2.py``) runs once a layer:
+   (a) the kernel against its plain version at q.k head dim 192, value
+   head dim 128 and the model's scale, v read in place from a wider row,
+   in bf16 at the benchmark cell's shape [1, 16384, 16] and at a short and
+   an odd length (atol = rtol 1e-2), in float32 at the last two (atol
+   2e-5), and what the wrapper refuses; (b) its time, its plain version's
+   and PyTorch's SDPA as a yardstick at those shapes, with the bound,
+   beside the head-dim-128 causal entry at the 4k cell's shape and the
+   non-causal kernel at its registered shape; (c) one forward of
+   DeepSeek-V2-Lite at published widths and full depth over 2048 tokens:
+   one launch a layer, its logits against the score chain's within 0.5,
+   and the busiest expert's tokens over the mean in each expert layer.
+   ``mla_alone()`` runs phases 1, 2 and 22 by themselves.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, the one before that the kernels' JSON
 record (flash's launches: phases 4 and 19; the causal entry's a step:
-phase 21), the one before that phase 21's (``causal: {...}``), phase
+phases 21 and 22), the one before that phase 22's (``mla: {...}``),
+phase 21's (``causal: {...}``), phase
 20's (``ranks: {...}``), phase 19's (``probes: {...}``), phase 18's
 (``front: {...}``), phase 17's
 (``serve: {...}``), phase 16's
@@ -6312,6 +6327,194 @@ def causal_attention_phase(card_name: str) -> dict:
     return out
 
 
+#: phase 22: DeepSeek-V2's latent attention (q.k over 192 dims, values over
+#: 128, scale 192^-0.5 * m^2) at the benchmark cell's shape and at a short
+#: and an odd length: (label, (batch, seq, heads, q/k head dim, v head dim))
+MLA_SHAPES = (
+    ("dsv2lite.prefill_16k", (1, 16384, 16, 192, 128)),
+    ("short", (2, 256, 16, 192, 128)),
+    ("odd", (1, 333, 16, 192, 128)),
+)
+#: phase 22: float32 at the short and the odd shape
+MLA_F32_SHAPES = MLA_SHAPES[1:]
+#: phase 22 (c): the forward step counted: DeepSeek-V2-Lite at published
+#: widths and full depth, one sequence of this many tokens
+MLA_STEP_SEQ = 2048
+
+
+def mla_scale() -> float:
+    from tpusim_torch.models import deepseek_v2
+
+    return deepseek_v2.softmax_scale(deepseek_v2.PRESETS["lite"])
+
+
+def mla_inputs(shape, dtype, seed: int):
+    """Seeded q [B, S, H, DQK], k [B, S, H, DQK] and v [B, S, H, DV] on
+    the card, v read in place as the model reads it: the second half of
+    each head's [keys, values] row of the latent's up-projection."""
+    b, s, h, dqk, dv = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*size):
+        return torch.randn(*size, generator=gen, device="cuda", dtype=dtype)
+
+    kv = draw(b, s, h, 128 + dv)
+    return draw(b, s, h, dqk), draw(b, s, h, dqk), kv[..., 128:]
+
+
+def mla_flops(shape) -> float:
+    """Operations of causal attention over the lower triangle with its
+    diagonal: 2 DQK for a score's QK^T and 2 DV for its PV."""
+    b, s, h, dqk, dv = shape
+    return float(b * h * s * (s + 1) * (dqk + dv))
+
+
+def check_mla(shape, dtype) -> float:
+    """The causal kernel at two head dims against its plain version on the
+    card; returns the max abs error.  Raises on a disagreement."""
+    q, k, v = mla_inputs(shape, dtype, seed=11)
+    scale = mla_scale()
+    got = fa.causal_attention_fwd(q, k, v, scale)
+    want = fa.causal_attention_reference(q, k, v, scale)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if dtype == torch.float32:
+        ok, tol = err <= ATOL_F32, f"atol {ATOL_F32}"
+    else:
+        ok = bool((diff <= TOL_BF16 + TOL_BF16 * want.float().abs()).all())
+        tol = f"atol {TOL_BF16} + rtol {TOL_BF16}"
+    ok = ok and bool(torch.isfinite(got.float()).all()) and \
+        got.shape == (*shape[:3], shape[4])
+    print(f"  mla {list(shape)} {str(dtype)[6:]}: max |kernel - plain| "
+          f"{err:.3e} ({tol}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"latent attention disagrees at {shape} {dtype}")
+    del q, k, v, got, want, diff
+    torch.cuda.empty_cache()
+    return err
+
+
+def time_mla(label: str, shape, card_name: str) -> dict:
+    """The causal kernel at two head dims, its plain version and PyTorch's
+    SDPA (a yardstick the port never calls) at one shape in bf16, with the
+    card's bound."""
+    b, s, h, dqk, dv = shape
+    q, k, v = mla_inputs(shape, torch.bfloat16, seed=12)
+    scale = mla_scale()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out = {"ms": time_ms(lambda: fa.causal_attention_fwd(q, k, v, scale)),
+           "plain_ms": time_ms(
+               lambda: fa.causal_attention_reference(q, k, v, scale))}
+    torch.cuda.empty_cache()
+    out["library_ms"] = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale))
+    flops = mla_flops(shape)
+    nbytes = b * s * h * 2 * (dqk + dv) * 2
+    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    out["bound_ms"] = max(ops_ms, bytes_ms)
+    out["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    out["tflops"] = flops / out["ms"] / 1e9
+    print(f"time mla {label} {list(shape)} bf16: kernel {out['ms']:.4f} ms "
+          f"({out['tflops']:.1f} TFLOP/s, {out['bound_ms'] / out['ms']:.1%} "
+          f"of the bound {out['bound_ms']:.4f} ms by {out['bound_by']}), "
+          f"plain {out['plain_ms']:.4f} ms, library SDPA "
+          f"{out['library_ms']:.4f} ms; median of {SAMPLES} x {REPS} "
+          f"back-to-back calls (card: {card_name})", flush=True)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_step(card_name: str) -> dict:
+    """One forward of DeepSeek-V2-Lite at :data:`MLA_STEP_SEQ` tokens: the
+    causal kernel launched once a layer, the expert layers' balance, and
+    the logits against the score chain's (the same forward with a
+    gradient recorded, which keeps the chain)."""
+    from tpusim_torch.models import get_workload
+
+    module, args = get_workload("deepseek_v2_lite").build(
+        device="cuda", seq=MLA_STEP_SEQ)
+    layers = module.cfg.layers
+    with torch.no_grad():
+        fa.reset_causal_launch_count()
+        got = module(*args)
+        torch.cuda.synchronize()
+        launches = fa.causal_launch_count()
+    balance = list(module.busiest_over_mean)
+    with torch.enable_grad():
+        want = module(*args)
+    if launches != layers or fa.causal_launch_count() != launches:
+        raise AssertionError(f"deepseek_v2_lite: {launches} causal launches "
+                             f"for {layers} layers")
+    g, w = got.float(), want.detach().float()
+    row = ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
+    print(f"  step deepseek_v2_lite [1, {MLA_STEP_SEQ}]: {launches} causal "
+          f"launches ({layers} layers); worst logit row kernel vs chain "
+          f"{row:.4f}; busiest expert over the mean by layer "
+          f"{[round(x, 3) for x in balance]} (card: {card_name})", flush=True)
+    if not row <= CAUSAL_STEP_ROW_ERR:
+        raise AssertionError(f"deepseek_v2_lite: kernel vs chain row {row}")
+    del module, args, got, want, g, w
+    torch.cuda.empty_cache()
+    return {"layers": layers, "launches": launches, "row_err_vs_chain": row,
+            "busiest_over_mean": balance}
+
+
+def mla_attention_phase(card_name: str) -> dict:
+    """Phase 22: the causal entry at two head dims, DeepSeek-V2's latent
+    attention, beside the entries the Llama cells run."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"card": card_name, "scale": mla_scale()}
+    out["errors"] = {label: check_mla(shape, torch.bfloat16)
+                     for label, shape in MLA_SHAPES}
+    out["f32_errors"] = {label: check_mla(shape, torch.float32)
+                         for label, shape in MLA_F32_SHAPES}
+    q, k, v = mla_inputs((1, 16, 2, 224, 128), torch.bfloat16, seed=13)
+    for bad in ((q, k, v), (q[..., :160], k[..., :160], v[:, :, :1])):
+        try:
+            fa.causal_attention_fwd(*bad)
+        except (ValueError, TypeError) as e:
+            print(f"  refused: {e}")
+        else:
+            raise AssertionError("the causal wrapper took what it refuses")
+    out["times"] = {label: time_mla(label, shape, card_name)
+                    for label, shape in MLA_SHAPES}
+    out["beside"] = {
+        "causal_hd128": time_causal("mistral7b.prefill_4k",
+                                    dict(CAUSAL_SHAPES)["mistral7b.prefill_4k"],
+                                    card_name),
+        "flash_bf16": time_attention(torch.bfloat16, card_name),
+    }
+    out["step"] = mla_step(card_name)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def mla_alone() -> int:
+    """Phases 1, 2 and 22 alone: ``python3 -c "import chip_smoke, sys;
+    sys.exit(chip_smoke.mla_alone())"``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase(1, "card")
+    card_name = card()
+    print(f"card: {card_name}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    phase(2, "build")
+    build_kernels()
+    phase(22, "the causal kernel at two head dims: DeepSeek-V2's latent "
+              "attention")
+    out = mla_attention_phase(card_name)
+    phase(None)
+    print("mla: " + json.dumps(out))
+    return 0
+
+
 def causal_alone() -> int:
     """Phases 1, 2 and 21 alone: ``python3 -c "import chip_smoke, sys;
     sys.exit(chip_smoke.causal_alone())"``."""
@@ -6485,6 +6688,9 @@ def main() -> int:
 
     phase(21, "the causal attention kernel on the decoder's step")
     causal = causal_attention_phase(card_name)
+    phase(22, "the causal kernel at two head dims: DeepSeek-V2's latent "
+              "attention")
+    mla = mla_attention_phase(card_name)
     phase(None)
     models["phase_seconds"] = PHASE_SECONDS
     print("models: " + json.dumps(models))
@@ -6496,6 +6702,7 @@ def main() -> int:
     print("probes: " + json.dumps(probes))
     print("ranks: " + json.dumps(ranked))
     print("causal: " + json.dumps(causal))
+    print("mla: " + json.dumps(mla))
 
     record = {"kernels": [{
         "name": "flash_attention",
@@ -6568,6 +6775,16 @@ def main() -> int:
                               for n, r in causal["steps"].items()},
         "max_abs_err": causal["errors"],
         "times": causal["times"],
+    }, {
+        "name": "causal_attention_mla",
+        "route": "cuda",
+        "source": KERNELS[0][1] + " (tpusim_causal_attention_fwd, "
+                  "flash_attention_kernel<T, 192, 128, true>)",
+        "replaces": "the score chain of tpusim_torch/models/deepseek_v2.py "
+                    "score_chain (no TPU kernel)",
+        "launches_per_step": {"deepseek_v2_lite": mla["step"]["launches"]},
+        "max_abs_err": mla["errors"],
+        "times": mla["times"],
     }]}
     keys = ("ms", "plain_ms", "library_ms", "library_fused_ms")
     times = [f32[k] for k in keys] + [bf16[k] for k in keys] + [

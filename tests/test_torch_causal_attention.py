@@ -129,9 +129,9 @@ def test_forced_kernel_path_gives_the_chains_logits(on_card, monkeypatch,
     calls = []
     plain = fa.causal_attention_fwd
 
-    def counted(q, k, v):
-        calls.append((tuple(q.shape), tuple(k.shape)))
-        return plain(q, k, v)
+    def counted(q, k, v, scale=None):
+        calls.append((tuple(q.shape), tuple(k.shape), scale))
+        return plain(q, k, v, scale)
 
     with torch.no_grad():
         monkeypatch.setattr(port_llama, "_on_card", lambda x: False)
@@ -141,13 +141,13 @@ def test_forced_kernel_path_gives_the_chains_logits(on_card, monkeypatch,
         got = module(*args)
     cfg = module.cfg
     assert calls == [((4, 40, cfg.heads, cfg.head_dim),
-                      (4, 40, kv_heads, cfg.head_dim))] * cfg.layers
+                      (4, 40, kv_heads, cfg.head_dim), None)] * cfg.layers
     torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
 
 
 @pytest.fixture
 def kernel_raises(on_card, monkeypatch):
-    def refuse(q, k, v):
+    def refuse(q, k, v, scale=None):
         raise AssertionError("the causal kernel was reached")
 
     monkeypatch.setattr(fa, "causal_attention_fwd", refuse)

@@ -166,12 +166,16 @@ def test_registered_as_the_reference(name):
 def test_registry_holds_every_reference_workload():
     """All 36 of the reference's workloads, with its suites, parameters,
     devices and descriptions; ``flash_attention_pallas`` alone describes
-    the port's own kernel (a CUDA kernel, not a Pallas one)."""
+    the port's own kernel (a CUDA kernel, not a Pallas one).  Beside them
+    the port registers its own DeepSeek-V2 decoder
+    (``tpusim_torch.models.deepseek_v2``), which the reference has not."""
     def table(workloads):
         return {w.name: (w.suite, w.params, w.num_devices, w.description)
-                for w in workloads}
+                for w in workloads
+                if w.builder.__module__ != "tpusim_torch.models.deepseek_v2"}
 
     port, ref = table(list_workloads()), table(ref_list_workloads())
+    assert len(list_workloads()) == 36 + 2
     assert len(port) == 36 and port.keys() == ref.keys()
     own = "flash_attention_pallas"
     assert "CUDA kernel" in port[own][3] and "Pallas" in ref[own][3]

@@ -84,6 +84,20 @@
 //     Mistral-7B at seq 2048 is 1 MB).  Nothing is copied out per head.
 //   * any sequence length: query rows past the end are zero-filled and not
 //     written, keys past the end masked, as in the non-causal entry.
+// The causal entry also takes a value head dim other than the query/key
+// one, and a softmax scale of the caller's: DeepSeek-V2's multi-head latent
+// attention (tpusim_torch/models/deepseek_v2.py) takes q.k over 192 dims
+// (128 from the latent, 64 rotary) and values of 128, at scale
+// 192^-0.5 * mscale^2.  That instantiation, flash_attention_kernel<T, 192,
+// 128, true>, reads v in place from the latent's up-projection, with rows
+// and heads of its own strides (a head's 128 values sit beside its 128
+// keys there).  Its bound at a 16k-token DeepSeek-V2-Lite layer: B*H*S*(S+1)
+// *(192 + 128) flops, 1.37e12 (1.39 ms at 989 TFLOP/s bf16), against 2.2e8
+// bytes: about 6,000 flops a byte, so arithmetic.  What the design does
+// about it: the same block, warps and causal skipping as at 128; a query
+// tile of 192 dims takes 51 KB of bf16, so its key tiles hold 32 keys
+// (one softmax step) and not 64, which keeps two bf16 blocks an SM
+// (100 KB each); the instantiations with one head dim are unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,11 +117,15 @@ constexpr float LOG2E = 1.4426950408889634f;
 // bf16 gives each warp two row tiles, which share every K and V fragment
 // it loads, and runs two 4-warp blocks an SM; its softmax goes in 32-key
 // steps so that the scores of both row tiles fit without a spill.
-template <typename T>
+//
+// DQK: the query/key head dim the kernel is built for; past 128 a K/V tile
+// holds 32 keys, so that the Q tile and two stages of K and V still fit
+// two bf16 blocks an SM.
+template <typename T, int DQK = 128>
 struct Cfg {
   static constexpr bool F32 = sizeof(T) == 4;
   static constexpr int BQ = 128;             // query rows a block
-  static constexpr int BK = 64;              // keys a K/V tile
+  static constexpr int BK = DQK > 128 ? 32 : 64;  // keys a K/V tile
   static constexpr int STAGES = 2;           // K/V tiles in flight
   static constexpr int MT = F32 ? 1 : 2;     // 16-row mma tiles a warp
   static constexpr int NK = F32 ? BK : 32;   // keys a softmax step
@@ -115,21 +133,36 @@ struct Cfg {
   static constexpr int BLOCKS_PER_SM = F32 ? 1 : 2;
 };
 
-// Shared-memory layout of one block: Q [BQ][LD], then K [STAGES][BK][LD],
-// then V [STAGES][BK][LD].  Rows are padded by 16 bytes, so that the
-// fragment loads of a quarter warp (eight 16-byte pieces) hit 32 distinct
-// banks.
+// A tile row of DMAX elements, padded by 16 bytes, so that the fragment
+// loads of a quarter warp (eight 16-byte pieces) hit 32 distinct banks.
 template <typename T, int DMAX>
-struct Tiles {
+struct Row {
   static constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
   static constexpr int LD = DMAX + EPC;       // row stride in elements
-  static constexpr int Q_ELEMS = Cfg<T>::BQ * LD;
-  static constexpr int KV_ELEMS = Cfg<T>::BK * LD;
-  static constexpr size_t BYTES =
-      ((size_t)Q_ELEMS + 2 * Cfg<T>::STAGES * KV_ELEMS) * sizeof(T);
 };
-static_assert(Tiles<float, 128>::BYTES <= 232448,
+
+// Shared-memory layout of one block: Q [BQ][LDQK], then K
+// [STAGES][BK][LDQK], then V [STAGES][BK][LDV], V's stages as far apart as
+// K's (with two head dims its tiles are narrower than their slots), so
+// that a stage's V tile lies at one fixed distance from its K tile: the
+// bf16 instantiation at 192 / 128 then needs no register more than the one
+// at 128 / 128 for V's address and does not spill.
+template <typename T, int DQK, int DV>
+struct Tiles {
+  static constexpr int LDQK = Row<T, DQK>::LD;
+  static constexpr int LDV = Row<T, DV>::LD;
+  static constexpr int Q_ELEMS = Cfg<T, DQK>::BQ * LDQK;
+  static constexpr int K_ELEMS = Cfg<T, DQK>::BK * LDQK;  // a stage of K or V
+  static constexpr size_t BYTES =
+      ((size_t)Q_ELEMS + Cfg<T, DQK>::STAGES * 2 * K_ELEMS) * sizeof(T);
+};
+static_assert(Tiles<float, 128, 128>::BYTES <= 232448,
               "f32 tiles do not fit in shared memory");
+static_assert(Tiles<float, 192, 128>::BYTES <= 232448,
+              "f32 tiles do not fit in shared memory");
+static_assert(2 * (Tiles<__nv_bfloat16, 192, 128>::BYTES + 1024 + 16) <=
+                  233472,
+              "two bf16 blocks do not fit an SM's shared memory");
 
 template <typename T>
 __device__ __forceinline__ T zero();
@@ -148,7 +181,7 @@ __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
 template <typename T, int DMAX, int ROWS>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
                                           int seq, int dim, int ld, bool vec) {
-  using TL = Tiles<T, DMAX>;
+  using TL = Row<T, DMAX>;
   constexpr int THREADS = Cfg<T>::THREADS;
   constexpr int CPR = DMAX / TL::EPC;  // chunks per row
   static_assert(ROWS * CPR % THREADS == 0, "chunks split evenly");
@@ -187,7 +220,7 @@ template <int DMAX, int NK>
 __device__ __forceinline__ void scores_tf32(const float* qw, const float* kt,
                                             float (&s)[NK / 8][4], int g,
                                             int t) {
-  constexpr int LD = Tiles<float, DMAX>::LD;
+  constexpr int LD = Row<float, DMAX>::LD;
 #pragma unroll
   for (int c = 0; c < DMAX / 32; ++c) {
     float qa[2][8];
@@ -225,7 +258,7 @@ __device__ __forceinline__ void scores_bf16(const __nv_bfloat16* qw,
                                             const __nv_bfloat16* kt,
                                             float (&s)[MT][NK / 8][4],
                                             int lane) {
-  constexpr int LD = Tiles<__nv_bfloat16, DMAX>::LD;
+  constexpr int LD = Row<__nv_bfloat16, DMAX>::LD;
 #pragma unroll
   for (int kk = 0; kk < DMAX / 16; ++kk) {
     uint32_t a[MT][4];
@@ -258,7 +291,7 @@ __device__ __forceinline__ void pv_tf32(const float (&p)[NK / 8][4],
                                         const float* vt,
                                         float (&acc)[DMAX / 8][4], int g,
                                         int t) {
-  constexpr int LD = Tiles<float, DMAX>::LD;
+  constexpr int LD = Row<float, DMAX>::LD;
 #pragma unroll
   for (int j = 0; j < NK / 8; ++j) {
     uint32_t ah[4], al[4];
@@ -292,7 +325,7 @@ __device__ __forceinline__ void pv_bf16(const float (&p)[MT][NK / 8][4],
                                         const __nv_bfloat16* vt,
                                         float (&acc)[MT][DMAX / 8][4],
                                         int lane) {
-  constexpr int LD = Tiles<__nv_bfloat16, DMAX>::LD;
+  constexpr int LD = Row<__nv_bfloat16, DMAX>::LD;
 #pragma unroll
   for (int kk = 0; kk < NK / 16; ++kk) {
     uint32_t a[MT][4];
@@ -333,30 +366,46 @@ __device__ __forceinline__ unsigned block_x() {
 }
 
 // The causal entry's layout: q [B, S, H, D] with rows ldq elements apart,
-// k and v [B, S, KVH, D] with rows ldkv apart, o [B, S, H, D] contiguous;
-// query head h reads key/value head h / group.  (The non-causal entry's
-// [BH, S, D] is contiguous.)
+// k [B, S, KVH, D] with rows ldkv apart, o [B, S, H, DV] contiguous; query
+// head h reads key/value head h / group.  With one head dim (DV = D) v is
+// laid out as k; with two, v [B, S, KVH, DV] has rows ldv and heads hsv
+// elements apart.  (The non-causal entry's [BH, S, D] is contiguous.)
 struct Heads {
   int heads, group, ldq, ldkv;
+  int dv, ldv, hsv;
 };
+
+// With two head dims: the offset of the block's value head in v
+__device__ __forceinline__ size_t v_head_offset(Heads hl, int seq) {
+  const unsigned bh = block_x();
+  return (size_t)(bh / hl.heads) * seq * hl.ldv +
+         (size_t)(bh % hl.heads / hl.group) * hl.hsv;
+}
 
 // CAUSAL: query row i keeps keys j <= i only, and a block reads no key past
 // its last row.  Grid: non-causal (query blocks, BH); causal (B x H, query
 // blocks counted from the last), so that the heaviest blocks launch first.
-template <typename T, int DMAX, bool CAUSAL>
-__global__ void __launch_bounds__(Cfg<T>::THREADS, Cfg<T>::BLOCKS_PER_SM)
+// DQK, DV: the query/key and value head dims it is built for (dim and
+// hl.dv at most these); SPLIT when they differ, the causal entry only.
+template <typename T, int DQK, int DV, bool CAUSAL>
+__global__ void __launch_bounds__(Cfg<T, DQK>::THREADS,
+                                  Cfg<T, DQK>::BLOCKS_PER_SM)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int seq,
                        int dim, float scale_log2, bool vec, Heads hl) {
-  using TL = Tiles<T, DMAX>;
+  using TL = Tiles<T, DQK, DV>;
+  using C = Cfg<T, DQK>;
   constexpr bool F32 = sizeof(T) == 4;
-  constexpr int BQ = Cfg<T>::BQ, BK = Cfg<T>::BK, STAGES = Cfg<T>::STAGES;
-  constexpr int MT = Cfg<T>::MT, NK = Cfg<T>::NK;
+  constexpr bool SPLIT = DQK != DV;
+  static_assert(!SPLIT || CAUSAL, "two head dims: the causal entry only");
+  constexpr int BQ = C::BQ, BK = C::BK, STAGES = C::STAGES;
+  constexpr int MT = C::MT, NK = C::NK;
   static_assert(!F32 || (MT == 1 && NK == BK), "f32: one row tile, whole tiles");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* ks = qs + TL::Q_ELEMS;
-  T* vs = ks + STAGES * TL::KV_ELEMS;
+  T* vs = ks + STAGES * TL::K_ELEMS;
+  const int dv = SPLIT ? hl.dv : dim;  // the value (and output) head dim
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -381,16 +430,25 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const int ntiles = (kend + BK - 1) / BK;
 
-  load_tile<T, DMAX, BQ>(qs, q + head, q0, seq, dim, ldq, vec);
-  load_tile<T, DMAX, BK>(ks, k + kv_head, 0, seq, dim, ldkv, vec);
-  load_tile<T, DMAX, BK>(vs, v + kv_head, 0, seq, dim, ldkv, vec);
+  load_tile<T, DQK, BQ>(qs, q + head, q0, seq, dim, ldq, vec);
+  load_tile<T, DQK, BK>(ks, k + kv_head, 0, seq, dim, ldkv, vec);
+  // SPLIT: the block's value head in v, kept in shared memory rather than
+  // in registers across the key loop (read back at each tile's load)
+  __shared__ size_t v_head;
+  if constexpr (SPLIT) {
+    const size_t off = v_head_offset(hl, seq);
+    if (threadIdx.x == 0) v_head = off;  // read after the loop's barrier
+    load_tile<T, DV, BK>(vs, v + off, 0, seq, dv, hl.ldv, vec);
+  } else {
+    load_tile<T, DV, BK>(vs, v + kv_head, 0, seq, dim, ldkv, vec);
+  }
   cp_async_commit();
 
-  float acc[MT][DMAX / 8][4];
+  float acc[MT][DV / 8][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int i = 0; i < DMAX / 8; ++i)
+    for (int i = 0; i < DV / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.f;
   // rows g and g + 8 of each row tile: running max (log2 domain, the same
@@ -404,16 +462,20 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l_run[mt][r] = 0.f;
     }
   const int row0 = warp * 16 * MT;  // the warp's first row in the block
-  const T* qw = qs + row0 * TL::LD;
+  const T* qw = qs + row0 * TL::LDQK;
 
   for (int it = 0; it < ntiles; ++it) {
     cp_async_wait<0>();
     __syncthreads();  // tile it has landed; tile it - 1's readers are done
     if (it + 1 < ntiles) {
       const int st = (it + 1) % STAGES;
-      load_tile<T, DMAX, BK>(ks + st * TL::KV_ELEMS, k + kv_head,
-                             (it + 1) * BK, seq, dim, ldkv, vec);
-      load_tile<T, DMAX, BK>(vs + st * TL::KV_ELEMS, v + kv_head,
+      load_tile<T, DQK, BK>(ks + st * TL::K_ELEMS, k + kv_head,
+                            (it + 1) * BK, seq, dim, ldkv, vec);
+      if constexpr (SPLIT)
+        load_tile<T, DV, BK>(vs + st * TL::K_ELEMS, v + v_head,
+                             (it + 1) * BK, seq, dv, hl.ldv, vec);
+      else
+        load_tile<T, DV, BK>(vs + st * TL::K_ELEMS, v + kv_head,
                              (it + 1) * BK, seq, dim, ldkv, vec);
       cp_async_commit();
     }
@@ -429,8 +491,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // -inf.
       const int off = q0 + row0 - k0;
       if (CAUSAL && off < 1 - 16 * MT) break;
-      const T* kt = ks + (it % STAGES) * TL::KV_ELEMS + sub * NK * TL::LD;
-      const T* vt = vs + (it % STAGES) * TL::KV_ELEMS + sub * NK * TL::LD;
+      const T* kt = ks + (it % STAGES) * TL::K_ELEMS + sub * NK * TL::LDQK;
+      const T* vt = vs + (it % STAGES) * TL::K_ELEMS + sub * NK * TL::LDV;
 
       float s[MT][NK / 8][4];
 #pragma unroll
@@ -440,9 +502,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
       if constexpr (F32)
-        scores_tf32<DMAX, NK>(qw, kt, s[0], g, t);
+        scores_tf32<DQK, NK>(qw, kt, s[0], g, t);
       else
-        scores_bf16<DMAX, MT, NK>(qw, kt, s, lane);
+        scores_bf16<DQK, MT, NK>(qw, kt, s, lane);
 
       // accumulator column 2t + e of score tile j is key k0 + 8j + 2t + e
       // % 2, in row q0 + row0 + 16 mt + g + 8 (e / 2).  Without the mask a
@@ -488,15 +550,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             l_run[mt][e / 2] += x;
           }
 #pragma unroll
-        for (int i = 0; i < DMAX / 8; ++i)
+        for (int i = 0; i < DV / 8; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][i][e] *= alpha[e / 2];
       }
 
       if constexpr (F32)
-        pv_tf32<DMAX, NK>(s[0], vt, acc[0], g, t);
+        pv_tf32<DV, NK>(s[0], vt, acc[0], g, t);
       else
-        pv_bf16<DMAX, MT, NK>(s, vt, acc, lane);
+        pv_bf16<DV, MT, NK>(s, vt, acc, lane);
     }
   }
 
@@ -512,16 +574,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       T* orow;
       if constexpr (CAUSAL) {
         const unsigned bh = block_x();
-        orow = o + ((size_t)(bh / hl.heads) * seq + row) * hl.heads * dim +
-               (size_t)(bh % hl.heads) * dim;
+        orow = o + ((size_t)(bh / hl.heads) * seq + row) * hl.heads * dv +
+               (size_t)(bh % hl.heads) * dv;
       } else {
         orow = o + head + (size_t)row * dim;
       }
-      const float(&a)[DMAX / 8][4] = acc[mt];
+      const float(&a)[DV / 8][4] = acc[mt];
       if constexpr (F32) {
         // dims 32c + 8t + 4e + [0, 4) are a[4c + u][2r + e], u = 0..3
 #pragma unroll
-        for (int c = 0; c < DMAX / 32; ++c)
+        for (int c = 0; c < DV / 32; ++c)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int col = out_dim<T>(4 * c, e, t);
@@ -530,48 +592,48 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                 a[4 * c + 2][2 * r + e] / l,
                                 a[4 * c + 3][2 * r + e] / l};
             if (vec) {
-              if (col < dim)
+              if (col < dv)
                 *reinterpret_cast<float4*>(orow + col) =
                     make_float4(x[0], x[1], x[2], x[3]);
             } else {
 #pragma unroll
               for (int u = 0; u < 4; ++u)
-                if (col + u < dim) orow[col + u] = x[u];
+                if (col + u < dv) orow[col + u] = x[u];
             }
           }
       } else {
 #pragma unroll
-        for (int i = 0; i < DMAX / 8; ++i) {
+        for (int i = 0; i < DV / 8; ++i) {
           const int col = out_dim<T>(i, 0, t);
           const float x0 = a[i][2 * r] / l, x1 = a[i][2 * r + 1] / l;
           if (vec) {
-            if (col < dim)
+            if (col < dv)
               *reinterpret_cast<__nv_bfloat162*>(orow + col) =
                   __floats2bfloat162_rn(x0, x1);
           } else {
-            if (col < dim) orow[col] = __float2bfloat16(x0);
-            if (col + 1 < dim) orow[col + 1] = __float2bfloat16(x1);
+            if (col < dv) orow[col] = __float2bfloat16(x0);
+            if (col + 1 < dv) orow[col + 1] = __float2bfloat16(x1);
           }
         }
       }
     }
 }
 
-template <typename T, int DMAX, bool CAUSAL>
+template <typename T, int DQK, int DV, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, void* o, dim3 grid,
            int seq, int dim, float scale, bool vec, Heads hl,
            cudaStream_t stream) {
-  constexpr size_t smem = Tiles<T, DMAX>::BYTES;
+  constexpr size_t smem = Tiles<T, DQK, DV>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, DMAX, CAUSAL>,
+      flash_attention_kernel<T, DQK, DV, CAUSAL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_attention_kernel<T, DMAX, CAUSAL>,
+  err = cudaFuncSetAttribute(flash_attention_kernel<T, DQK, DV, CAUSAL>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  flash_attention_kernel<T, DMAX, CAUSAL>
-      <<<grid, Cfg<T>::THREADS, smem, stream>>>(
+  flash_attention_kernel<T, DQK, DV, CAUSAL>
+      <<<grid, Cfg<T, DQK>::THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<T*>(o), seq, dim,
           scale * LOG2E, vec, hl);
@@ -579,8 +641,9 @@ int launch(const void* q, const void* k, const void* v, void* o, dim3 grid,
 }
 
 // grid: non-causal (query blocks, bh); causal (batch x heads, query blocks).
-// vec: 16-byte copies, when every pointer and row starts on a 16-byte
-// boundary
+// vec: 16-byte copies, when every pointer and row (and v's head) starts on
+// a 16-byte boundary.  Two head dims (hl.dv != dim, causal only): the
+// 192 / 128 instantiation.
 template <typename T, bool CAUSAL>
 int launch_dim(const void* q, const void* k, const void* v, void* o,
                dim3 grid, int seq, int dim, float scale, Heads hl,
@@ -589,15 +652,21 @@ int launch_dim(const void* q, const void* k, const void* v, void* o,
   const uintptr_t any =
       (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
   const bool vec = dim % EPC == 0 && any % 16 == 0 && hl.ldq % EPC == 0 &&
-                   hl.ldkv % EPC == 0;
+                   hl.ldkv % EPC == 0 && hl.dv % EPC == 0 &&
+                   hl.ldv % EPC == 0 && hl.hsv % EPC == 0;
+  if constexpr (CAUSAL) {
+    if (hl.dv != dim)
+      return launch<T, 192, 128, true>(q, k, v, o, grid, seq, dim, scale,
+                                       vec, hl, stream);
+  }
   if (dim <= 32)
-    return launch<T, 32, CAUSAL>(q, k, v, o, grid, seq, dim, scale, vec, hl,
-                                 stream);
+    return launch<T, 32, 32, CAUSAL>(q, k, v, o, grid, seq, dim, scale, vec,
+                                     hl, stream);
   if (dim <= 64)
-    return launch<T, 64, CAUSAL>(q, k, v, o, grid, seq, dim, scale, vec, hl,
-                                 stream);
-  return launch<T, 128, CAUSAL>(q, k, v, o, grid, seq, dim, scale, vec, hl,
-                                stream);
+    return launch<T, 64, 64, CAUSAL>(q, k, v, o, grid, seq, dim, scale, vec,
+                                     hl, stream);
+  return launch<T, 128, 128, CAUSAL>(q, k, v, o, grid, seq, dim, scale, vec,
+                                     hl, stream);
 }
 
 template <bool CAUSAL>
@@ -626,26 +695,36 @@ int tpusim_flash_attention_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((seq + 127) / 128, bh);
   return launch_dtype<false>(q, k, v, o, grid, seq, dim, dtype, scale,
-                             Heads{1, 1, dim, dim}, stream);
+                             Heads{1, 1, dim, dim, dim, dim, dim}, stream);
 }
 
 // Causal attention with grouped key/value heads: q [batch, seq, heads,
-// dim] with rows ldq elements apart, k and v [batch, seq, kv_heads, dim]
-// with rows ldkv apart, o [batch, seq, heads, dim] contiguous.  Query head
-// h reads key/value head h / (heads / kv_heads); row i keeps keys j <= i.
-// dtype as above.  Returns a cudaError_t (0 = launched).
+// dim] with rows ldq elements apart, k [batch, seq, kv_heads, dim] with
+// rows ldk apart, v [batch, seq, kv_heads, dim_v] with rows ldv and heads
+// hsv apart, o [batch, seq, heads, dim_v] contiguous; the scores are
+// scaled by scale.  Query head h reads key/value head h / (heads /
+// kv_heads); row i keeps keys j <= i.  One head dim (dim_v == dim): at
+// most 128, v laid out as k (ldv == ldk, hsv == dim).  Two: dim at most
+// 192, dim_v at most 128.  dtype as above.  Returns a cudaError_t (0 =
+// launched).
 int tpusim_causal_attention_fwd(const void* q, const void* k, const void* v,
                                 void* o, int batch, int seq, int heads,
-                                int kv_heads, int dim, int ldq, int ldkv,
-                                int dtype, float scale, void* stream) {
+                                int kv_heads, int dim, int dim_v, int ldq,
+                                int ldk, int ldv, int hsv, int dtype,
+                                float scale, void* stream) {
+  const bool split = dim_v != dim;
   if (batch < 1 || seq < 1 || heads < 1 || kv_heads < 1 ||
-      heads % kv_heads != 0 || dim < 1 || dim > 128 ||
-      ldq < heads * dim || ldkv < kv_heads * dim ||
+      heads % kv_heads != 0 || dim < 1 || dim_v < 1 ||
+      dim > (split ? 192 : 128) || dim_v > 128 ||
+      (!split && (ldv != ldk || hsv != dim)) || hsv < dim_v ||
+      ldq < heads * dim || ldk < kv_heads * dim ||
+      (long long)ldv < (long long)(kv_heads - 1) * hsv + dim_v ||
       (long long)batch * heads > 0x7fffffffLL || (seq + 127) / 128 > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(batch * heads, (seq + 127) / 128);
-  return launch_dtype<true>(q, k, v, o, grid, seq, dim, dtype, scale,
-                            Heads{heads, heads / kv_heads, ldq, ldkv}, stream);
+  return launch_dtype<true>(
+      q, k, v, o, grid, seq, dim, dtype, scale,
+      Heads{heads, heads / kv_heads, ldq, ldk, dim_v, ldv, hsv}, stream);
 }
 
 const char* tpusim_cuda_error_string(int err) {

@@ -5,8 +5,10 @@ kernel ``_attn_kernel`` of ``tpusim/models/pallas_attention.py``
 (:func:`flash_attention_fwd`, over ``[BH, S, D]``).  Its causal entry,
 :func:`causal_attention_fwd`, is the Llama decoder's attention over
 ``[B, S, H, D]`` queries and ``[B, S, KVH, D]`` grouped keys and values,
-read in place.  A CUDA tensor goes to the kernel, which raises if it
-cannot build or launch; a CPU tensor goes to the plain version
+read in place, and DeepSeek-V2's latent attention, whose queries and keys
+have another head dim than its values (192 and 128) and whose softmax
+scale is not ``1 / sqrt(D)``.  A CUDA tensor goes to the kernel, which
+raises if it cannot build or launch; a CPU tensor goes to the plain version
 (:func:`flash_attention_reference`, :func:`causal_attention_reference`).
 There is no other route.
 """
@@ -28,6 +30,9 @@ __all__ = ["flash_attention_fwd", "flash_attention_reference",
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+#: the causal entry's query/key head dim when the values' differs (theirs
+#: at most :data:`MAX_HEAD_DIM`)
+MAX_QK_HEAD_DIM = 192
 
 #: launches of the CUDA kernel's non-causal and causal entries in this
 #: process (each wrapper adds one per launch and nowhere else)
@@ -109,7 +114,7 @@ def _library() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         causal = lib.tpusim_causal_attention_fwd
-        causal.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        causal.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
             ctypes.c_float, ctypes.c_void_p]
         causal.restype = ctypes.c_int
         lib.tpusim_cuda_error_string.argtypes = [ctypes.c_int]
@@ -154,44 +159,53 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def check_causal_inputs(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> None:
     """Raise on what neither the causal kernel nor its plain version
-    takes: q ``[B, S, H, D]``, k and v ``[B, S, KVH, D]`` with ``H`` a
-    multiple of ``KVH``, float32 or bfloat16 on one device, ``D`` at most
-    :data:`MAX_HEAD_DIM`."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    takes: q ``[B, S, H, D]``, k ``[B, S, KVH, D]`` and v ``[B, S, KVH,
+    DV]`` with ``H`` a multiple of ``KVH``, float32 or bfloat16 on one
+    device; ``D = DV`` at most :data:`MAX_HEAD_DIM`, or ``D`` at most
+    :data:`MAX_QK_HEAD_DIM` and ``DV`` at most :data:`MAX_HEAD_DIM`."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
         raise ValueError(
-            f"q must be [B, S, H, D] and k, v one [B, S, KVH, D] shape; got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+            f"q must be [B, S, H, D], k [B, S, KVH, D] and v [B, S, KVH, DV]; "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     b, s, h, d = q.shape
-    kvh = k.shape[2]
+    kvh, dv = k.shape[2], v.shape[3]
     if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, d):
         raise ValueError(
             f"k and v {tuple(k.shape)} do not match q {tuple(q.shape)} in "
             f"batch, sequence and head dim"
         )
     _check_types(q, k, v)
-    if min(b, s, h, d, kvh) < 1:
+    if min(b, s, h, d, kvh, dv) < 1:
         raise ValueError(f"empty attention input {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}")
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     if h % kvh:
         raise ValueError(f"{h} query heads are not a multiple of {kvh} "
                          f"key/value heads")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM} is not supported")
+    if dv > MAX_HEAD_DIM or d > (MAX_HEAD_DIM if d == dv
+                                 else MAX_QK_HEAD_DIM):
+        raise ValueError(f"head dims {d} (q, k) and {dv} (v) are not "
+                         f"supported: one dim of at most {MAX_HEAD_DIM}, or "
+                         f"q, k at most {MAX_QK_HEAD_DIM} and v at most "
+                         f"{MAX_HEAD_DIM}")
 
 
 def causal_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor) -> torch.Tensor:
-    """softmax(Q Kᵀ / √D, keys j <= i of row i) V over ``[B, S, H, D]`` in
-    float32, cast back to the input dtype: query head ``h`` reads
-    key/value head ``h // (H / KVH)``.  The causal kernel's arithmetic in
-    plain PyTorch."""
+                               v: torch.Tensor,
+                               scale: float | None = None) -> torch.Tensor:
+    """softmax(Q Kᵀ · scale, keys j <= i of row i) V over ``[B, S, H, D]``
+    in float32 (``scale``: ``1 / √D`` when None), cast back to the input
+    dtype: query head ``h`` reads key/value head ``h // (H / KVH)``; the
+    output has v's head dim.  The causal kernel's arithmetic in plain
+    PyTorch."""
     b, s, h, d = q.shape
     kv = torch.arange(h, device=q.device) // (h // k.shape[2])
     qf = q.float().transpose(1, 2)
     kf = k.float().index_select(2, kv).transpose(1, 2)
     vf = v.float().index_select(2, kv).transpose(1, 2)
-    scores = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
     p = torch.softmax(scores.masked_fill(~keep, float("-inf")), dim=-1)
     return torch.matmul(p, vf).transpose(1, 2).contiguous().to(q.dtype)
@@ -208,24 +222,42 @@ def _rows_apart(x: torch.Tensor) -> int | None:
     return row if packed and batches and row >= h * d else None
 
 
-def _cuda_causal(q: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor) -> torch.Tensor:
+def _rows_and_heads(x: torch.Tensor) -> tuple[int, int] | None:
+    """The elements between two rows and between two heads of ``x`` [B, S,
+    heads, D] when each head's D elements are packed, its heads lie apart
+    in a row and its batches follow each other, else None."""
+    b, s, h, d = x.shape
+    row, head = x.stride(1), (x.stride(2) if h > 1 else d)
+    packed = (x.stride(3) == 1 or d == 1) and head >= d
+    batches = x.stride(0) == s * row or b == 1
+    return (row, head) if packed and batches and row >= (h - 1) * head + d \
+        else None
+
+
+def _cuda_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float) -> torch.Tensor:
     global _causal_launches
-    ldq, ldkv = _rows_apart(q), _rows_apart(k)
-    if ldq is None or ldkv is None or _rows_apart(v) != ldkv:
-        raise ValueError(
-            "the causal kernel takes q, k, v whose rows hold their heads "
-            "packed, k and v laid out alike; got strides "
-            f"{q.stride()}, {k.stride()}, {v.stride()}")
     b, s, h, d = q.shape
+    dv = v.shape[3]
+    ldq, ldk = _rows_apart(q), _rows_apart(k)
+    if d == dv:
+        lv = (ldk, d) if _rows_apart(v) == ldk else None
+    else:
+        lv = _rows_and_heads(v)
+    if ldq is None or ldk is None or lv is None:
+        raise ValueError(
+            "the causal kernel takes q, k whose rows hold their heads packed, "
+            "and v laid out as k (with two head dims: the head dim of each "
+            f"of its heads packed); got strides {q.stride()}, {k.stride()}, "
+            f"{v.stride()}")
     lib = _library()
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    out = q.new_empty((b, s, h, dv))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.tpusim_causal_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-            h, k.shape[2], d, ldq, ldkv, _DTYPE_CODES[q.dtype],
-            1.0 / math.sqrt(d), stream)
+            h, k.shape[2], d, dv, ldq, ldk, lv[0], lv[1],
+            _DTYPE_CODES[q.dtype], scale, stream)
     if err != 0:
         msg = lib.tpusim_cuda_error_string(err).decode()
         raise RuntimeError(f"causal attention kernel launch failed: {msg}")
@@ -233,16 +265,18 @@ def _cuda_causal(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-def causal_attention_fwd(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor) -> torch.Tensor:
-    """Causal attention over q ``[B, S, H, D]`` and grouped k, v
-    ``[B, S, KVH, D]``, the output laid out as q (contiguous): the CUDA
+def causal_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float | None = None) -> torch.Tensor:
+    """Causal attention over q ``[B, S, H, D]``, grouped k ``[B, S, KVH,
+    D]`` and v ``[B, S, KVH, DV]``, scores scaled by ``scale`` (``1 /
+    √D`` when None), the output ``[B, S, H, DV]`` contiguous: the CUDA
     kernel's causal entry for CUDA tensors (launched on the current
     stream; it allocates only the output), the plain version for CPU
     tensors."""
     check_causal_inputs(q, k, v)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     if q.is_cuda:
-        return _cuda_causal(q, k, v)
+        return _cuda_causal(q, k, v, scale)
     if q.device.type == "cpu":
-        return causal_attention_reference(q, k, v)
+        return causal_attention_reference(q, k, v, scale)
     raise ValueError(f"no causal attention for device {q.device}")

@@ -309,11 +309,16 @@ def causal_mask(s: int, device) -> torch.Tensor:
 #: range gets no link), and its readers file each kernel under its
 #: launching op.  Registered through the low-level library, whose first
 #: call costs milliseconds where ``torch.library.custom_op``'s cost seconds.
+#: ``scale``: the softmax scale, ``1 / sqrt(D)`` when None (this decoder's;
+#: DeepSeek-V2's latent attention gives its own).
 _CAUSAL_LIB = torch.library.Library("tpusim_torch", "FRAGMENT")
-_CAUSAL_LIB.define("causal_attention(Tensor q, Tensor k, Tensor v) -> Tensor")
+_CAUSAL_LIB.define("causal_attention(Tensor q, Tensor k, Tensor v, "
+                   "float? scale=None) -> Tensor")
 for _key in ("CPU", "CUDA"):
-    _CAUSAL_LIB.impl("causal_attention",
-                     lambda q, k, v: fa.causal_attention_fwd(q, k, v), _key)
+    _CAUSAL_LIB.impl(
+        "causal_attention",
+        lambda q, k, v, scale=None: fa.causal_attention_fwd(q, k, v, scale),
+        _key)
 
 
 def _on_card(x: torch.Tensor) -> bool:
