@@ -354,22 +354,27 @@ non-zero and prints no result):
    and the probes) and ``tune``'s ``ici_link_bandwidth`` (phase 19 (a)'s
    fit over every card, none of its fit errors); on one card, what each
    needs.
-21. the causal entry of the flash-attention kernel, which the Llama
+21. the causal entry of the flash-attention kernels, which the Llama
    decoder's eager forward on the card runs once a layer (phase 13's
    ``llama7b`` check runs such a forward too; the counters of
-   :data:`KERNELS` count the ported TPU kernels, ``causal_launch_count``
-   this entry):
-   (a) the kernel against its plain version in bf16 at each benchmark
-   cell's attention shape and ``llama_tiny``'s (atol = rtol 1e-2), and at
-   its edges (one row, sequences of no whole key tile or query block,
-   head dims 80 and 50, rows wider than their heads, float32 at atol
-   2e-5), and what the wrapper refuses; (b) its time, its plain version's,
-   the score chain's it replaced and PyTorch's SDPA as a yardstick at
-   each of those shapes, with the bound; (c) one forward step of
-   Mistral-7B and DeepSeek-LLM-7B (at a 2k cell's shape), ``llama_tiny``
-   and ``llama7b``: one launch a layer, the worst logit row against the
-   score chain's within 0.5 (the benchmark's limit on ``logit_row_err``),
-   each path's step time and peak memory, and ``LlamaForwardSharded``
+   :data:`KERNELS` count the ported TPU kernels, ``causal_launch_counts``
+   this entry's launches by design, ``wgmma`` and ``mma_sync``):
+   (a) the kernel the wrapper picks against its plain version in bf16 at
+   each benchmark cell's attention shape and ``llama_tiny``'s (atol = rtol
+   1e-2), and at its edges (one row, sequences of no whole key tile or
+   query block, head dims 80 and 50, rows wider than their heads, float32
+   at atol 2e-5), both designs at the wgmma design's edges at head dim
+   128 (one row, 130, 200 and 333 rows, rep 1, 2 and 4, rows wider than
+   their heads), and what the wrapper refuses; (b) the time of each design
+   that takes the shape (in turns, in this call), each one's host cost a
+   call, its plain version's, the score chain's it replaced and PyTorch's
+   SDPA as a yardstick at each of those shapes, with the bound; (c) one
+   forward step of Mistral-7B and DeepSeek-LLM-7B (at a 2k cell's shape),
+   ``llama_tiny`` and ``llama7b``: one launch a layer, every one of the
+   design the wrapper's rule names for the layer's shapes, the worst
+   logit row against the score chain's within 0.5 (the benchmark's limit
+   on ``logit_row_err``), each path's step time and peak memory, and
+   ``LlamaForwardSharded``
    (``llama_tiny``, tp 2) with a rank process a rank on the card: one
    launch a layer on each rank, its logits against the chain's within
    0.5; (d) ``llama_tiny`` and
@@ -381,17 +386,20 @@ non-zero and prints no result):
    ``causal_alone()`` runs phases 1, 2 and 21 by themselves.
 22. the causal entry at two head dims, which DeepSeek-V2's latent
    attention (``tpusim_torch/models/deepseek_v2.py``) runs once a layer:
-   (a) the kernel against its plain version at q.k head dim 192, value
-   head dim 128 and the model's scale, v read in place from a wider row,
-   in bf16 at the benchmark cell's shape [1, 16384, 16] and at a short and
-   an odd length (atol = rtol 1e-2), in float32 at the last two (atol
-   2e-5), and what the wrapper refuses; (b) its time, its plain version's
+   (a) the kernel the wrapper picks against its plain version at q.k
+   head dim 192, value head dim 128 and the model's scale, v read in place
+   from a wider row, in bf16 at the benchmark cell's shape [1, 16384, 16]
+   and at a short and an odd length (atol = rtol 1e-2), in float32 at the
+   last two (atol 2e-5), both designs in bf16 at one row and 130 and 200
+   rows, and what the wrapper refuses; (b) the time of both designs (in
+   turns, in this call) with their host cost a call, the plain version's
    and PyTorch's SDPA as a yardstick at those shapes, with the bound,
    beside the head-dim-128 causal entry at the 4k cell's shape and the
    non-causal kernel at its registered shape; (c) one forward of
    DeepSeek-V2-Lite at published widths and full depth over 2048 tokens:
-   one launch a layer, its logits against the score chain's within 0.5,
-   and the busiest expert's tokens over the mean in each expert layer.
+   one launch a layer, every one of the design the rule names, its logits
+   against the score chain's within 0.5, and the busiest expert's tokens
+   over the mean in each expert layer.
    ``mla_alone()`` runs phases 1, 2 and 22 by themselves.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -682,21 +690,29 @@ CHECKS = (
 
 #: sources built in phase 2: every kernel, and the instruction probes whose
 #: dependent-add latency phase 6 (d) reads
-BUILT = tuple(k[0] for k in KERNELS) + ("mma_probe",)
+BUILT = tuple(k[0] for k in KERNELS) + ("flash_attention_wgmma",
+                                        "mma_probe")
+#: ptxas notes that undo a design: wgmma serialized (C7520), a register
+#: budget the warp-specialised kernel asked for and did not get (C7508)
+PTXAS_REFUSED = ("C7520", "C7508")
 
 
 def build_kernels() -> None:
     """Phase 2: build every kernel and the probes, one nvcc per source, all
-    started together; print ptxas's registers, shared memory and spills,
-    and fail on a spill in a kernel."""
+    started together; print ptxas's registers, shared memory, spills and
+    wgmma notes, and fail on a spill in a kernel or on a note of
+    :data:`PTXAS_REFUSED`."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(BUILT)) as pool:
         libs = list(pool.map(build.build_library, BUILT))
     for name, so in zip(BUILT, libs):
         log = (so.parent / "build.log").read_text()
         for line in log.splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line \
+                    or "(C75" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+            if any(f"({code})" in line for code in PTXAS_REFUSED):
+                raise AssertionError(f"{name}: {line.strip()}")
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                line)
             if name != "mma_probe" and spills and spills.groups() != ("0", "0"):
@@ -6038,6 +6054,18 @@ CAUSAL_EDGES = (
     ((1, 130, 4, 2, 128), torch.float32, False),
     ((3, 77, 2, 1, 50), torch.float32, False),
 )
+#: phase 21: the wgmma design's edges at head dim 128 in bf16, held to the
+#: plain version with that design forced: one row, sequences of no whole
+#: 128-key tile or query block (130, 200, 333), rep 4, 2 and 1, rows wider
+#: than their heads by 16 bytes; (shape, strided)
+CAUSAL_WGMMA_EDGES = (
+    ((1, 1, 4, 1, 128), False),
+    ((1, 130, 4, 2, 128), False),
+    ((2, 200, 8, 2, 128), True),
+    ((1, 333, 4, 4, 128), False),
+)
+#: phase 21 (b): host calls of the wrapper a reading of its host cost
+HOST_CALLS = 50
 #: phase 21: the configurations whose forward step is counted: the
 #: benchmark's two (Mistral-7B-v0.1 and DeepSeek-LLM-7B-base
 #: ``config.json``, the output tied to the embedding as the port has it)
@@ -6098,11 +6126,14 @@ def causal_flops(shape) -> float:
     return 2.0 * b * h * s * (s + 1) * d
 
 
-def check_causal(shape, dtype, strided: bool = False) -> float:
-    """The causal kernel against its plain version on the card; returns the
-    max abs error.  Raises on a disagreement."""
+def check_causal(shape, dtype, strided: bool = False,
+                 design: str | None = None) -> float:
+    """The causal kernel (``design``, or the one the wrapper picks) against
+    its plain version on the card; returns the max abs error.  Raises on a
+    disagreement."""
     q, k, v = causal_inputs(shape, dtype, seed=5, strided=strided)
-    got = fa.causal_attention_fwd(q, k, v)
+    design = design or fa.causal_design(q, k, v)
+    got = fa._cuda_causal(q, k, v, 1.0 / math.sqrt(shape[-1]), design)
     want = fa.causal_attention_reference(q, k, v)
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
@@ -6113,7 +6144,7 @@ def check_causal(shape, dtype, strided: bool = False) -> float:
         ok = bool((diff <= TOL_BF16 + TOL_BF16 * want.float().abs()).all())
         tol = f"atol {TOL_BF16} + rtol {TOL_BF16}"
     ok = ok and bool(torch.isfinite(got.float()).all())
-    print(f"  causal {list(shape)} {str(dtype)[6:]}"
+    print(f"  causal {design} {list(shape)} {str(dtype)[6:]}"
           f"{' strided' if strided else ''}: max |kernel - plain| "
           f"{err:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -6121,10 +6152,44 @@ def check_causal(shape, dtype, strided: bool = False) -> float:
     return err
 
 
+def host_us(fn) -> float:
+    """Host microseconds a call of ``fn``: :data:`HOST_CALLS` calls after
+    a warm one, timed before the card is waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def time_designs(q, k, v, scale) -> dict:
+    """Each causal design at q, k, v, in turns (the picked one, the other,
+    the other, the picked one), the better of each pair: ``ms`` the picked
+    design's, ``<design>_ms`` each one's, ``host_us_<design>`` each one's
+    host cost a call."""
+    picked = fa.causal_design(q, k, v)
+    # the wgmma design takes only what the wrapper picks it for
+    order = ("wgmma", "mma_sync") if picked == "wgmma" else ("mma_sync",)
+    times: dict = {}
+    for design in order + order[::-1]:
+        times.setdefault(design, []).append(time_ms(
+            lambda: fa._cuda_causal(q, k, v, scale, design)))
+    out = {"design": picked, "ms": min(times[picked])}
+    for design in order:
+        out[f"{design}_ms"] = min(times[design])
+        out[f"host_us_{design}"] = host_us(
+            lambda: fa._cuda_causal(q, k, v, scale, design))
+    return out
+
+
 def time_causal(label: str, shape, card_name: str) -> dict:
-    """The causal kernel, its plain version, the decoder's score chain it
-    replaced and PyTorch's SDPA (a yardstick the port never calls) at one
-    shape in bf16, with the card's bound."""
+    """The causal kernel (both designs where both take the shape), its
+    plain version, the decoder's score chain it replaced and PyTorch's
+    SDPA (a yardstick the port never calls) at one shape in bf16, with the
+    card's bound."""
     from tpusim_torch.models import llama as port_llama
 
     b, s, h, kvh, d = shape
@@ -6133,7 +6198,7 @@ def time_causal(label: str, shape, card_name: str) -> dict:
     dec = port_llama._Decoder(cfg, None)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     out = {
-        "ms": time_ms(lambda: fa.causal_attention_fwd(q, k, v)),
+        **time_designs(q, k, v, 1.0 / math.sqrt(d)),
         "plain_ms": time_ms(lambda: fa.causal_attention_reference(q, k, v)),
         "chain_ms": time_ms(lambda: dec.score_chain(q, k, v)),
         "library_ms": time_ms(
@@ -6146,13 +6211,34 @@ def time_causal(label: str, shape, card_name: str) -> dict:
     out["bound_ms"] = max(ops_ms, bytes_ms)
     out["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
     out["tflops"] = flops / out["ms"] / 1e9
-    print(f"time causal {label} {list(shape)} bf16: kernel {out['ms']:.4f} ms "
-          f"({out['tflops']:.1f} TFLOP/s, {out['bound_ms'] / out['ms']:.1%} "
-          f"of the bound {out['bound_ms']:.4f} ms by {out['bound_by']}), "
+    print(f"time causal {label} {list(shape)} bf16: kernel ({out['design']}) "
+          f"{out['ms']:.4f} ms ({out['tflops']:.1f} TFLOP/s, "
+          f"{out['bound_ms'] / out['ms']:.1%} of the bound "
+          f"{out['bound_ms']:.4f} ms by {out['bound_by']}), {designs_text(out)}, "
           f"plain {out['plain_ms']:.4f} ms, score chain {out['chain_ms']:.4f} "
           f"ms, library SDPA {out['library_ms']:.4f} ms; median of {SAMPLES} "
           f"x {REPS} back-to-back calls (card: {card_name})", flush=True)
     return out
+
+
+def designs_text(out: dict) -> str:
+    return ", ".join(
+        f"{d} {out[f'{d}_ms']:.4f} ms (host {out[f'host_us_{d}']:.1f} us a call)"
+        for d in ("wgmma", "mma_sync") if f"{d}_ms" in out)
+
+
+def layer_design(batch, seq, heads, kv_heads, dim, dim_v) -> str:
+    """The design the wrapper's rule names for a decoder layer's attention
+    at these shapes, in bf16 and in the layout the decoders hand it (q, k
+    and v contiguous; v read in place beside the keys with two head
+    dims)."""
+    def empty(*size):
+        return torch.empty(*size, device="cuda", dtype=torch.bfloat16)
+
+    q, k = empty(batch, seq, heads, dim), empty(batch, seq, kv_heads, dim)
+    v = empty(batch, seq, kv_heads, dim_v) if dim == dim_v else \
+        empty(batch, seq, kv_heads, 128 + dim_v)[..., 128:]
+    return fa.causal_design(q, k, v)
 
 
 def causal_steps(card_name: str) -> dict:
@@ -6172,16 +6258,20 @@ def causal_steps(card_name: str) -> dict:
                                device="cuda", dtype=torch.int32)
         module = port_llama.LlamaForward(cfg)
         chain = port_llama._Decoder(cfg, None)
+        design = layer_design(batch, seq, cfg.heads, cfg.kv_heads,
+                              cfg.head_dim, cfg.head_dim)
         with torch.no_grad():
             fa.reset_causal_launch_count()
             got = module(*params, tokens)
             torch.cuda.synchronize()
             launches = fa.causal_launch_count()
+            by_design = fa.causal_launch_counts()
             want, _ = chain.logits(params, tokens)
-            if launches != cfg.layers or fa.causal_launch_count() != launches:
+            if launches != cfg.layers or fa.causal_launch_count() != launches \
+                    or by_design[design] != cfg.layers:
                 raise AssertionError(
-                    f"{label}: {launches} causal launches for "
-                    f"{cfg.layers} layers")
+                    f"{label}: causal launches {by_design} for "
+                    f"{cfg.layers} layers of the {design} design")
             g, w = got.float(), want.float()
             row = ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
             if not row <= CAUSAL_STEP_ROW_ERR:
@@ -6201,9 +6291,10 @@ def causal_steps(card_name: str) -> dict:
                 ms[path] = (time.perf_counter() - t0) / 5 * 1e3
                 ms[f"{path}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         out[label] = {"layers": cfg.layers, "launches": launches,
-                      "row_err_vs_chain": row, **ms}
+                      "by_design": by_design, "row_err_vs_chain": row, **ms}
         print(f"  step {label} [{batch}, {seq}]: {launches} causal launches "
-              f"({cfg.layers} layers); worst logit row kernel vs chain "
+              f"({cfg.layers} layers; by design {by_design}, the rule names "
+              f"{design}); worst logit row kernel vs chain "
               f"{row:.4f}; step {ms['kernel']:.2f} ms (chain "
               f"{ms['chain']:.2f} ms), peak {ms['kernel_peak_gib']:.2f} GiB "
               f"(chain {ms['chain_peak_gib']:.2f}) (card: {card_name})",
@@ -6308,6 +6399,10 @@ def causal_attention_phase(card_name: str) -> dict:
                      for label, shape in CAUSAL_SHAPES}
     out["edges"] = [check_causal(shape, dtype, strided)
                     for shape, dtype, strided in CAUSAL_EDGES]
+    out["wgmma_edges"] = {
+        design: [check_causal(shape, torch.bfloat16, strided, design)
+                 for shape, strided in CAUSAL_WGMMA_EDGES]
+        for design in ("wgmma", "mma_sync")}
     q, k, v = causal_inputs((1, 16, 4, 2, 64), torch.bfloat16, seed=9)
     for bad in ((q.float(), k, v), (q, k[:, :, :1].expand(-1, -1, 3, -1), v),
                 (q.transpose(-1, -2).contiguous().transpose(-1, -2), k, v)):
@@ -6337,6 +6432,14 @@ MLA_SHAPES = (
 )
 #: phase 22: float32 at the short and the odd shape
 MLA_F32_SHAPES = MLA_SHAPES[1:]
+#: phase 22: the edges at two head dims in bf16, held to the plain version
+#: with each design forced: one row, and sequences of no whole 128-key
+#: tile (130, 200) besides the odd shape's 333
+MLA_EDGES = (
+    ("one_row", (1, 1, 16, 192, 128)),
+    ("rows_130", (1, 130, 16, 192, 128)),
+    ("rows_200", (2, 200, 16, 192, 128)),
+)
 #: phase 22 (c): the forward step counted: DeepSeek-V2-Lite at published
 #: widths and full depth, one sequence of this many tokens
 MLA_STEP_SEQ = 2048
@@ -6369,12 +6472,14 @@ def mla_flops(shape) -> float:
     return float(b * h * s * (s + 1) * (dqk + dv))
 
 
-def check_mla(shape, dtype) -> float:
-    """The causal kernel at two head dims against its plain version on the
-    card; returns the max abs error.  Raises on a disagreement."""
+def check_mla(shape, dtype, design: str | None = None) -> float:
+    """The causal kernel at two head dims (``design``, or the one the
+    wrapper picks) against its plain version on the card; returns the max
+    abs error.  Raises on a disagreement."""
     q, k, v = mla_inputs(shape, dtype, seed=11)
     scale = mla_scale()
-    got = fa.causal_attention_fwd(q, k, v, scale)
+    design = design or fa.causal_design(q, k, v)
+    got = fa._cuda_causal(q, k, v, scale, design)
     want = fa.causal_attention_reference(q, k, v, scale)
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
@@ -6386,7 +6491,7 @@ def check_mla(shape, dtype) -> float:
         tol = f"atol {TOL_BF16} + rtol {TOL_BF16}"
     ok = ok and bool(torch.isfinite(got.float()).all()) and \
         got.shape == (*shape[:3], shape[4])
-    print(f"  mla {list(shape)} {str(dtype)[6:]}: max |kernel - plain| "
+    print(f"  mla {design} {list(shape)} {str(dtype)[6:]}: max |kernel - plain| "
           f"{err:.3e} ({tol}) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"latent attention disagrees at {shape} {dtype}")
@@ -6403,7 +6508,7 @@ def time_mla(label: str, shape, card_name: str) -> dict:
     q, k, v = mla_inputs(shape, torch.bfloat16, seed=12)
     scale = mla_scale()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    out = {"ms": time_ms(lambda: fa.causal_attention_fwd(q, k, v, scale)),
+    out = {**time_designs(q, k, v, scale),
            "plain_ms": time_ms(
                lambda: fa.causal_attention_reference(q, k, v, scale))}
     torch.cuda.empty_cache()
@@ -6416,10 +6521,11 @@ def time_mla(label: str, shape, card_name: str) -> dict:
     out["bound_ms"] = max(ops_ms, bytes_ms)
     out["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
     out["tflops"] = flops / out["ms"] / 1e9
-    print(f"time mla {label} {list(shape)} bf16: kernel {out['ms']:.4f} ms "
-          f"({out['tflops']:.1f} TFLOP/s, {out['bound_ms'] / out['ms']:.1%} "
-          f"of the bound {out['bound_ms']:.4f} ms by {out['bound_by']}), "
-          f"plain {out['plain_ms']:.4f} ms, library SDPA "
+    print(f"time mla {label} {list(shape)} bf16: kernel ({out['design']}) "
+          f"{out['ms']:.4f} ms ({out['tflops']:.1f} TFLOP/s, "
+          f"{out['bound_ms'] / out['ms']:.1%} of the bound "
+          f"{out['bound_ms']:.4f} ms by {out['bound_by']}), "
+          f"{designs_text(out)}, plain {out['plain_ms']:.4f} ms, library SDPA "
           f"{out['library_ms']:.4f} ms; median of {SAMPLES} x {REPS} "
           f"back-to-back calls (card: {card_name})", flush=True)
     del q, k, v, qt, kt, vt
@@ -6436,30 +6542,36 @@ def mla_step(card_name: str) -> dict:
 
     module, args = get_workload("deepseek_v2_lite").build(
         device="cuda", seq=MLA_STEP_SEQ)
-    layers = module.cfg.layers
+    cfg = module.cfg
+    layers = cfg.layers
+    design = layer_design(1, MLA_STEP_SEQ, cfg.heads, cfg.heads,
+                          cfg.qk_head_dim, cfg.v_head_dim)
     with torch.no_grad():
         fa.reset_causal_launch_count()
         got = module(*args)
         torch.cuda.synchronize()
         launches = fa.causal_launch_count()
+        by_design = fa.causal_launch_counts()
     balance = list(module.busiest_over_mean)
     with torch.enable_grad():
         want = module(*args)
-    if launches != layers or fa.causal_launch_count() != launches:
-        raise AssertionError(f"deepseek_v2_lite: {launches} causal launches "
-                             f"for {layers} layers")
+    if launches != layers or fa.causal_launch_count() != launches or \
+            by_design[design] != layers:
+        raise AssertionError(f"deepseek_v2_lite: causal launches {by_design} "
+                             f"for {layers} layers of the {design} design")
     g, w = got.float(), want.detach().float()
     row = ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
     print(f"  step deepseek_v2_lite [1, {MLA_STEP_SEQ}]: {launches} causal "
-          f"launches ({layers} layers); worst logit row kernel vs chain "
+          f"launches ({layers} layers; by design {by_design}, the rule names "
+          f"{design}); worst logit row kernel vs chain "
           f"{row:.4f}; busiest expert over the mean by layer "
           f"{[round(x, 3) for x in balance]} (card: {card_name})", flush=True)
     if not row <= CAUSAL_STEP_ROW_ERR:
         raise AssertionError(f"deepseek_v2_lite: kernel vs chain row {row}")
     del module, args, got, want, g, w
     torch.cuda.empty_cache()
-    return {"layers": layers, "launches": launches, "row_err_vs_chain": row,
-            "busiest_over_mean": balance}
+    return {"layers": layers, "launches": launches, "by_design": by_design,
+            "row_err_vs_chain": row, "busiest_over_mean": balance}
 
 
 def mla_attention_phase(card_name: str) -> dict:
@@ -6472,6 +6584,9 @@ def mla_attention_phase(card_name: str) -> dict:
                      for label, shape in MLA_SHAPES}
     out["f32_errors"] = {label: check_mla(shape, torch.float32)
                          for label, shape in MLA_F32_SHAPES}
+    out["edges"] = {design: {label: check_mla(shape, torch.bfloat16, design)
+                             for label, shape in MLA_EDGES}
+                    for design in ("wgmma", "mma_sync")}
     q, k, v = mla_inputs((1, 16, 2, 224, 128), torch.bfloat16, seed=13)
     for bad in ((q, k, v), (q[..., :160], k[..., :160], v[:, :, :1])):
         try:

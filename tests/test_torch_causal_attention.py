@@ -20,6 +20,11 @@ it, on the CPU.
   to) inside the layer's attention range;
 * with the same check forced open, a head dim or a dtype the kernel does
   not take reaches the wrapper and raises, with no quiet fallback;
+* with the kernels' libraries stubbed, the wrapper launches the design
+  :func:`~tpusim_torch.kernels.flash_attention.causal_design` names
+  (``wgmma`` for bf16 at head dims 128 / 128 and 192 / 128 in rows TMA
+  addresses, ``mma_sync`` for the rest), counts each launch under its
+  design, and raises on what neither design takes;
 * with the same check forced open and the wrapper made to raise, the
   callers that keep the chain never reach it: a gradient or ``torch.func``
   transform (``LlamaTrainStep``), the scanned AOT step (``llama_aot``,
@@ -248,3 +253,122 @@ def test_the_kernel_path_is_an_op_for_a_profiler(on_card):
     for op, outer in zip(sorted(ops, key=lambda r: r.start),
                          sorted(attention, key=lambda r: r.start)):
         assert outer.start <= op.start and op.end <= outer.end
+
+
+class _StubEntry:
+    """A C entry of a kernel library: records its arguments, returns
+    ``err``."""
+
+    def __init__(self, calls: list, err=0):
+        self.argtypes = self.restype = None
+        self.calls, self.err = calls, err
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.err
+
+
+class _StubLibrary:
+    def __init__(self, name: str, calls: dict, err: int):
+        for entry in fa._ENTRIES[name]:
+            setattr(self, entry, _StubEntry(calls.setdefault(entry, []), err))
+        self.tpusim_cuda_error_string = _StubEntry([], b"invalid argument")
+
+
+@pytest.fixture
+def stub_kernels(monkeypatch):
+    """Both kernel libraries stubbed and the stream taken as 0: the launch
+    path runs on CPU tensors.  Returns the calls by entry; ``err`` is what
+    every entry returns."""
+    calls: dict = {}
+    state = {"err": 0}
+    monkeypatch.setattr(fa, "load_library",
+                        lambda name: _StubLibrary(name, calls, state["err"]))
+    monkeypatch.setattr(fa, "_on_stream", lambda x, launch: launch(0))
+    fa.reset_causal_launch_count()
+    yield calls, state
+    fa.reset_causal_launch_count()
+
+
+def _latent_qkv(seq=16, heads=4, dtype=torch.bfloat16):
+    """DeepSeek-V2's shapes: q, k over 192 dims, v read in place from the
+    second half of each head's [keys, values] row."""
+    gen = torch.Generator().manual_seed(11)
+    q, k = (torch.randn(1, seq, heads, 192, generator=gen).to(dtype)
+            for _ in range(2))
+    kv = torch.randn(1, seq, heads, 256, generator=gen).to(dtype)
+    return q, k, kv[..., 128:]
+
+
+@pytest.mark.parametrize("case, design", [
+    ("bf16_128", "wgmma"), ("bf16_192_128_in_place", "wgmma"),
+    ("bf16_rows_wider_by_16_bytes", "wgmma"), ("f32_128", "mma_sync"),
+    ("f32_192_128", "mma_sync"), ("bf16_64", "mma_sync"),
+    ("bf16_rows_wider_by_8_bytes", "mma_sync")])
+def test_each_design_counts_the_launches_that_reach_it(stub_kernels, case,
+                                                       design):
+    calls, _ = stub_kernels
+    if case.startswith("bf16_192") or case == "f32_192_128":
+        q, k, v = _latent_qkv(
+            dtype=torch.float32 if case.startswith("f32") else torch.bfloat16)
+    elif case.startswith("bf16_rows_wider"):
+        pad = 8 if case.endswith("16_bytes") else 4
+        q, k, v = (torch.zeros(2, 24, n * 128 + pad, dtype=torch.bfloat16)
+                   [..., :n * 128].view(2, 24, n, 128) for n in (4, 2, 2))
+    else:
+        dtype = torch.float32 if case.startswith("f32") else torch.bfloat16
+        q, k, v = _qkv(2, 24, 4, 2, 64 if case.endswith("64") else 128,
+                       dtype=dtype)
+    assert fa.causal_design(q, k, v) == design
+    out = fa._cuda_causal(q, k, v, 0.125)
+    assert out.shape == (*q.shape[:3], v.shape[3]) and out.is_contiguous()
+    assert fa.causal_launch_counts() == {
+        "wgmma": int(design == "wgmma"), "mma_sync": int(design == "mma_sync")}
+    assert fa.causal_launch_count() == 1
+    entry = {"wgmma": "tpusim_causal_attention_wgmma_fwd",
+             "mma_sync": "tpusim_causal_attention_fwd"}[design]
+    (args,) = calls[entry]
+    assert sum(len(c) for c in calls.values()) == 1
+    # pointers, then batch, seq, heads, kv heads, the two head dims and the
+    # strides the kernel reads (rows of q, k, v and v's heads)
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr())
+    assert args[4:14] == (q.shape[0], q.shape[1], q.shape[2], k.shape[2],
+                          q.shape[3], v.shape[3], *fa._causal_strides(q, k, v))
+    assert args[-2:] == (0.125, 0)
+
+
+def test_the_design_counts_add_up_and_reset(stub_kernels):
+    q, k, v = _qkv(1, 16, 4, 2, 128, dtype=torch.bfloat16)
+    for _ in range(3):
+        fa._cuda_causal(q, k, v, 0.1)
+    fa._cuda_causal(q.float(), k.float(), v.float(), 0.1)
+    fa._cuda_causal(q, k, v, 0.1, design="mma_sync")
+    assert fa.causal_launch_counts() == {"wgmma": 3, "mma_sync": 2}
+    assert fa.causal_launch_count() == 5
+    fa.reset_causal_launch_count()
+    assert fa.causal_launch_counts() == {"wgmma": 0, "mma_sync": 0}
+
+
+@pytest.mark.parametrize("case", ["head_dim", "dtype", "refused_by_the_entry",
+                                  "unknown_design"])
+def test_what_neither_design_takes_raises(stub_kernels, case):
+    calls, state = stub_kernels
+    q, k, v = _qkv(1, 16, 4, 2, 128, dtype=torch.bfloat16)
+    if case == "head_dim":
+        q, k, v = _qkv(1, 16, 4, 2, 160, dtype=torch.bfloat16)
+        err, launch = ValueError, lambda: fa.causal_attention_fwd(q, k, v)
+    elif case == "dtype":
+        q, k, v = (x.half() for x in (q, k, v))
+        err, launch = TypeError, lambda: fa.causal_attention_fwd(q, k, v)
+    elif case == "refused_by_the_entry":
+        state["err"] = 1
+        err, launch = RuntimeError, lambda: fa._cuda_causal(q, k, v, 0.1)
+    else:
+        err = ValueError
+        launch = lambda: fa._cuda_causal(q, k, v, 0.1, design="cutlass")
+    with pytest.raises(err):
+        launch()
+    assert fa.causal_launch_count() == 0
+    if case != "refused_by_the_entry":
+        assert not any(calls.values())

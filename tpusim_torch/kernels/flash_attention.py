@@ -7,7 +7,12 @@ kernel ``_attn_kernel`` of ``tpusim/models/pallas_attention.py``
 ``[B, S, H, D]`` queries and ``[B, S, KVH, D]`` grouped keys and values,
 read in place, and DeepSeek-V2's latent attention, whose queries and keys
 have another head dim than its values (192 and 128) and whose softmax
-scale is not ``1 / sqrt(D)``.  A CUDA tensor goes to the kernel, which
+scale is not ``1 / sqrt(D)``.  The causal entry has two designs, chosen by
+:func:`causal_design` from what the call observes: ``wgmma``
+(``tpusim_torch/csrc/flash_attention_wgmma.cu``: wgmma, TMA and warp
+specialisation, bf16 at head dims 128 / 128 and 192 / 128, rows TMA can
+address) and ``mma_sync`` (the causal entry of ``flash_attention.cu``,
+everything else the entry takes).  A CUDA tensor goes to a kernel, which
 raises if it cannot build or launch; a CPU tensor goes to the plain version
 (:func:`flash_attention_reference`, :func:`causal_attention_reference`).
 There is no other route.
@@ -25,8 +30,8 @@ from tpusim_torch.kernels.build import load_library
 __all__ = ["flash_attention_fwd", "flash_attention_reference",
            "check_inputs", "launch_count", "reset_launch_count",
            "causal_attention_fwd", "causal_attention_reference",
-           "check_causal_inputs", "causal_launch_count",
-           "reset_causal_launch_count"]
+           "check_causal_inputs", "causal_design", "causal_launch_count",
+           "causal_launch_counts", "reset_causal_launch_count"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
@@ -34,10 +39,14 @@ MAX_HEAD_DIM = 128
 #: at most :data:`MAX_HEAD_DIM`)
 MAX_QK_HEAD_DIM = 192
 
-#: launches of the CUDA kernel's non-causal and causal entries in this
-#: process (each wrapper adds one per launch and nowhere else)
+#: the (q.k, v) head dims the causal entry's ``wgmma`` design is built for
+WGMMA_HEAD_DIMS = ((128, 128), (192, 128))
+
+#: launches of the CUDA kernel's non-causal entry and of each design of the
+#: causal entry in this process (each wrapper adds one per launch and
+#: nowhere else)
 _launches = 0
-_causal_launches = 0
+_causal_launches = {"wgmma": 0, "mma_sync": 0}
 
 
 def launch_count() -> int:
@@ -49,13 +58,18 @@ def reset_launch_count() -> None:
     _launches = 0
 
 
+def causal_launch_counts() -> dict[str, int]:
+    """Causal launches by design: ``{"wgmma": n, "mma_sync": m}``."""
+    return dict(_causal_launches)
+
+
 def causal_launch_count() -> int:
-    return _causal_launches
+    return sum(_causal_launches.values())
 
 
 def reset_causal_launch_count() -> None:
-    global _causal_launches
-    _causal_launches = 0
+    for design in _causal_launches:
+        _causal_launches[design] = 0
 
 
 def _check_types(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -104,22 +118,41 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return (torch.matmul(p, vf) / l).to(q.dtype)
 
 
-def _library() -> ctypes.CDLL:
-    """The kernel's library with its C signatures declared (built and
-    loaded once per process)."""
-    lib = load_library("flash_attention")
-    fn = lib.tpusim_flash_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        causal = lib.tpusim_causal_attention_fwd
-        causal.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
-            ctypes.c_float, ctypes.c_void_p]
-        causal.restype = ctypes.c_int
+#: each library's C entries: name -> (count of pointer, int arguments);
+#: every entry ends with a float (the scale) and the stream
+_ENTRIES = {
+    "flash_attention": {"tpusim_flash_attention_fwd": (4, 4),
+                        "tpusim_causal_attention_fwd": (4, 11)},
+    "flash_attention_wgmma": {"tpusim_causal_attention_wgmma_fwd": (4, 10)},
+}
+
+
+def _library(name: str = "flash_attention") -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu`` with its C signatures
+    declared (built and loaded once per process)."""
+    lib = load_library(name)
+    if lib.tpusim_cuda_error_string.restype is not ctypes.c_char_p:
+        for entry, (ptrs, ints) in _ENTRIES[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [
+                ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.tpusim_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tpusim_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _on_stream(x: torch.Tensor, launch) -> int:
+    """``launch(stream)`` on the current stream of ``x``'s card; returns
+    its cudaError_t."""
+    with torch.cuda.device(x.device):
+        return launch(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.tpusim_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg}")
 
 
 def _cuda_fwd(q: torch.Tensor, k: torch.Tensor,
@@ -128,16 +161,12 @@ def _cuda_fwd(q: torch.Tensor, k: torch.Tensor,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the CUDA kernel takes contiguous q, k, v")
     lib = _library()
-    fn = lib.tpusim_flash_attention_fwd
     bh, s, d = q.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 bh, s, d, _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d), stream)
-    if err != 0:
-        msg = lib.tpusim_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: {msg}")
+    err = _on_stream(q, lambda stream: lib.tpusim_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d,
+        _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(d), stream))
+    _check_launch(lib, err, "flash_attention")
     _launches += 1
     return out
 
@@ -234,11 +263,12 @@ def _rows_and_heads(x: torch.Tensor) -> tuple[int, int] | None:
         else None
 
 
-def _cuda_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 scale: float) -> torch.Tensor:
-    global _causal_launches
-    b, s, h, d = q.shape
-    dv = v.shape[3]
+def _causal_strides(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> tuple[int, int, int, int]:
+    """The elements between two rows of q, of k and of v and between two
+    heads of v, as the causal kernels read them; raises on another
+    layout."""
+    d, dv = q.shape[3], v.shape[3]
     ldq, ldk = _rows_apart(q), _rows_apart(k)
     if d == dv:
         lv = (ldk, d) if _rows_apart(v) == ldk else None
@@ -250,18 +280,53 @@ def _cuda_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "and v laid out as k (with two head dims: the head dim of each "
             f"of its heads packed); got strides {q.stride()}, {k.stride()}, "
             f"{v.stride()}")
-    lib = _library()
+    return ldq, ldk, *lv
+
+
+def causal_design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which design the causal entry launches for ``q, k, v`` (as
+    :func:`check_causal_inputs` takes them): ``"wgmma"`` for bfloat16 at
+    (q.k, v) head dims in :data:`WGMMA_HEAD_DIMS` when every tensor starts
+    on a 16-byte boundary and its row and head strides are whole 16-byte
+    chunks (what TMA addresses), else ``"mma_sync"``."""
+    return _design(q, k, v, _causal_strides(q, k, v))
+
+
+def _design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            strides: tuple[int, ...]) -> str:
+    aligned = all(x.data_ptr() % 16 == 0 for x in (q, k, v)) and \
+        all(n % 8 == 0 for n in strides)
+    dims = (q.shape[3], v.shape[3])
+    if q.dtype == torch.bfloat16 and dims in WGMMA_HEAD_DIMS and aligned:
+        return "wgmma"
+    return "mma_sync"
+
+
+def _cuda_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float, design: str | None = None) -> torch.Tensor:
+    """Launch the causal entry's ``design`` (:func:`causal_design`'s when
+    None) on q, k, v's card."""
+    b, s, h, d = q.shape
+    kvh, dv = k.shape[2], v.shape[3]
+    strides = ldq, ldk, ldv, hsv = _causal_strides(q, k, v)
+    design = design or _design(q, k, v, strides)
     out = q.new_empty((b, s, h, dv))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.tpusim_causal_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-            h, k.shape[2], d, dv, ldq, ldk, lv[0], lv[1],
-            _DTYPE_CODES[q.dtype], scale, stream)
-    if err != 0:
-        msg = lib.tpusim_cuda_error_string(err).decode()
-        raise RuntimeError(f"causal attention kernel launch failed: {msg}")
-    _causal_launches += 1
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if design == "wgmma":
+        lib = _library("flash_attention_wgmma")
+        fn = lib.tpusim_causal_attention_wgmma_fwd
+        err = _on_stream(q, lambda stream: fn(
+            *ptrs, b, s, h, kvh, d, dv, ldq, ldk, ldv, hsv, scale, stream))
+    elif design == "mma_sync":
+        lib = _library()
+        fn = lib.tpusim_causal_attention_fwd
+        err = _on_stream(q, lambda stream: fn(
+            *ptrs, b, s, h, kvh, d, dv, ldq, ldk, ldv, hsv,
+            _DTYPE_CODES[q.dtype], scale, stream))
+    else:
+        raise ValueError(f"no causal design {design!r}")
+    _check_launch(lib, err, f"causal attention ({design})")
+    _causal_launches[design] += 1
     return out
 
 
