@@ -354,57 +354,53 @@ non-zero and prints no result):
    and the probes) and ``tune``'s ``ici_link_bandwidth`` (phase 19 (a)'s
    fit over every card, none of its fit errors); on one card, what each
    needs.
-21. the causal entry of the flash-attention kernels, which the Llama
-   decoder's eager forward on the card runs once a layer (phase 13's
-   ``llama7b`` check runs such a forward too; the counters of
-   :data:`KERNELS` count the ported TPU kernels, ``causal_launch_counts``
-   this entry's launches by design, ``wgmma`` and ``mma_sync``):
-   (a) the kernel the wrapper picks against its plain version in bf16 at
-   each benchmark cell's attention shape and ``llama_tiny``'s (atol = rtol
-   1e-2), and at its edges (one row, sequences of no whole key tile or
-   query block, head dims 80 and 50, rows wider than their heads, float32
-   at atol 2e-5), both designs at the wgmma design's edges at head dim
+21. the causal attention kernel (``csrc/flash_attention_wgmma.cu``), which
+   the Llama decoder's eager bf16 forward on the card runs once a layer
+   at head dim 128 (phase 13's ``llama7b`` check runs such a forward too;
+   the counters of :data:`KERNELS` count the ported TPU kernels,
+   ``causal_launch_count`` this kernel's launches):
+   (a) the kernel against its plain version in bf16 at each benchmark
+   cell's attention shape (atol = rtol 1e-2) and at its edges at head dim
    128 (one row, 130, 200 and 333 rows, rep 1, 2 and 4, rows wider than
-   their heads), and what the wrapper refuses; (b) the time of each design
-   that takes the shape (in turns, in this call), each one's host cost a
-   call, its plain version's, the score chain's it replaced and PyTorch's
-   SDPA as a yardstick at each of those shapes, with the bound; (c) one
-   forward step of Mistral-7B and DeepSeek-LLM-7B (at a 2k cell's shape),
-   ``llama_tiny`` and ``llama7b``: one launch a layer, every one of the
-   design the wrapper's rule names for the layer's shapes, the worst
-   logit row against the score chain's within 0.5 (the benchmark's limit
-   on ``logit_row_err``), each path's step time and peak memory, and
-   ``LlamaForwardSharded``
-   (``llama_tiny``, tp 2) with a rank process a rank on the card: one
-   launch a layer on each rank, its logits against the chain's within
-   0.5; (d) ``llama_tiny`` and
+   their heads), and what the wrapper refuses (float32, head dim 64, rows
+   TMA cannot address); (b) the kernel's time and host cost a call, its
+   plain version's, the score chain's it replaced and PyTorch's SDPA as a
+   yardstick at each of those shapes, with the bound; (c) one forward step
+   of Mistral-7B and DeepSeek-LLM-7B (at a 2k cell's shape) and
+   ``llama7b``: one launch a layer, the worst logit row against the score
+   chain's within 0.5 (the benchmark's limit on ``logit_row_err``), each
+   path's step time and peak memory; ``llama_tiny`` (head dim 32, outside
+   the kernel's domain): no launch, the chain's logits; and
+   ``LlamaForwardSharded`` (``llama_tiny`` at dim 512 in bf16, 4 heads of
+   128, tp 2) with a rank process a rank on the card: one launch a layer
+   on each rank, its logits against the chain's within 0.5; (d)
+   ``llama_tiny`` and
    ``llama7b`` captured over CUDA arguments: the HLO text equal by bytes
    to the capture over meta tensors and to the parent commit's
    (:data:`CAUSAL_HLO_DIGESTS`), no launch; (e) the non-causal kernel's
    time at its registered shape beside PERF.md's kernel table
    (:data:`FLASH_TABLE_MS`), a reading, not a check.
    ``causal_alone()`` runs phases 1, 2 and 21 by themselves.
-22. the causal entry at two head dims, which DeepSeek-V2's latent
+22. the causal kernel at two head dims, which DeepSeek-V2's latent
    attention (``tpusim_torch/models/deepseek_v2.py``) runs once a layer:
-   (a) the kernel the wrapper picks against its plain version at q.k
-   head dim 192, value head dim 128 and the model's scale, v read in place
-   from a wider row, in bf16 at the benchmark cell's shape [1, 16384, 16]
-   and at a short and an odd length (atol = rtol 1e-2), in float32 at the
-   last two (atol 2e-5), both designs in bf16 at one row and 130 and 200
-   rows, and what the wrapper refuses; (b) the time of both designs (in
-   turns, in this call) with their host cost a call, the plain version's
-   and PyTorch's SDPA as a yardstick at those shapes, with the bound,
-   beside the head-dim-128 causal entry at the 4k cell's shape and the
-   non-causal kernel at its registered shape; (c) one forward of
-   DeepSeek-V2-Lite at published widths and full depth over 2048 tokens:
-   one launch a layer, every one of the design the rule names, its logits
-   against the score chain's within 0.5, and the busiest expert's tokens
-   over the mean in each expert layer.
+   (a) the kernel against its plain version at q.k head dim 192, value
+   head dim 128 and the model's scale, v read in place from a wider row,
+   in bf16 at the benchmark cell's shape [1, 16384, 16], at a short and an
+   odd length and at one row and 130 and 200 rows (atol = rtol 1e-2), and
+   what the wrapper refuses; (b) the kernel's time and host cost a call,
+   the plain version's and PyTorch's SDPA as a yardstick at those shapes,
+   with the bound, beside the kernel at head dim 128 at the 4k cell's
+   shape and the non-causal kernel at its registered shape; (c) one
+   forward of DeepSeek-V2-Lite at published widths and full depth over
+   2048 tokens: one launch a layer, its logits against the score chain's
+   within 0.5, and the busiest expert's tokens over the mean in each
+   expert layer; ``deepseek_v2_tiny`` (head dims 32 / 16): no launch, the
+   chain's logits.
    ``mla_alone()`` runs phases 1, 2 and 22 by themselves.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, the one before that the kernels' JSON
-record (flash's launches: phases 4 and 19; the causal entry's a step:
+record (flash's launches: phases 4 and 19; the causal kernel's a step:
 phases 21 and 22), the one before that phase 22's (``mla: {...}``),
 phase 21's (``causal: {...}``), phase
 20's (``ranks: {...}``), phase 19's (``probes: {...}``), phase 18's
@@ -548,8 +544,10 @@ FIXTURES = REPO / "tests" / "fixtures" / "traces"
 VOLATILE = {"simulation_rate_kops", "wall_seconds", "silicon_slowdown"}
 RTOL_GOLDEN = 1e-9
 
-#: every kernel of the port: (name, source, TPU kernel it replaces, its
-#: wrapper's launch counter and the counter's reset)
+#: every ported TPU kernel: (name, source, TPU kernel it replaces, its
+#: wrapper's launch counter and the counter's reset).  The causal attention
+#: kernel (:data:`CAUSAL_SOURCE`) replaces none; phases 21 and 22 count its
+#: launches (``fa.causal_launch_count``)
 KERNELS = (
     ("flash_attention", "tpusim_torch/csrc/flash_attention.cu",
      "tpusim/models/pallas_attention.py:50", fa.launch_count,
@@ -688,6 +686,9 @@ CHECKS = (
 )
 
 
+#: the causal attention kernel, which replaces the decoders' score chain
+CAUSAL_SOURCE = ("tpusim_torch/csrc/flash_attention_wgmma.cu "
+                 "(tpusim_causal_attention_wgmma_fwd)")
 #: sources built in phase 2: every kernel, and the instruction probes whose
 #: dependent-add latency phase 6 (d) reads
 BUILT = tuple(k[0] for k in KERNELS) + ("flash_attention_wgmma",
@@ -6031,34 +6032,19 @@ def ranks_alone(legs: str = "ab") -> int:
     return 0
 
 
-#: phase 21: the decoder's attention at each benchmark cell's shape and at
-#: ``llama_tiny``'s registered one: (label, (batch, seq, heads, kv heads,
-#: head dim))
+#: phase 21: the decoder's attention at each benchmark cell's shape:
+#: (label, (batch, seq, heads, kv heads, head dim))
 CAUSAL_SHAPES = (
     ("mistral7b.prefill_2k", (2, 2048, 32, 8, 128)),
     ("deepseek7b.prefill_2k", (2, 2048, 32, 32, 128)),
     ("mistral7b.prefill_4k", (1, 4096, 32, 8, 128)),
     ("mistral7b.prefill_256", (16, 256, 32, 8, 128)),
-    ("llama_tiny", (4, 256, 4, 4, 32)),
 )
-#: phase 21: the kernel's edges: one row, sequences that are no multiple of
-#: the 64-key tile or the 128-row block, a padded head dim (80), one whose
-#: rows are not whole 16-byte chunks (50, loaded element by element), and
-#: float32; (shape, dtype, strided: q, k and v read in rows wider than
-#: their heads)
+#: phase 21: the kernel's edges at head dim 128 in bf16, held to the plain
+#: version: one row, sequences of no whole 128-key tile or query block
+#: (130, 200, 333), rep 4, 2 and 1, rows wider than their heads by 16
+#: bytes; (shape, strided)
 CAUSAL_EDGES = (
-    ((1, 1, 4, 1, 64), torch.bfloat16, False),
-    ((2, 200, 8, 2, 64), torch.bfloat16, True),
-    ((1, 333, 4, 4, 80), torch.bfloat16, False),
-    ((2, 200, 8, 2, 64), torch.float32, True),
-    ((1, 130, 4, 2, 128), torch.float32, False),
-    ((3, 77, 2, 1, 50), torch.float32, False),
-)
-#: phase 21: the wgmma design's edges at head dim 128 in bf16, held to the
-#: plain version with that design forced: one row, sequences of no whole
-#: 128-key tile or query block (130, 200, 333), rep 4, 2 and 1, rows wider
-#: than their heads by 16 bytes; (shape, strided)
-CAUSAL_WGMMA_EDGES = (
     ((1, 1, 4, 1, 128), False),
     ((1, 130, 4, 2, 128), False),
     ((2, 200, 8, 2, 128), True),
@@ -6069,7 +6055,8 @@ HOST_CALLS = 50
 #: phase 21: the configurations whose forward step is counted: the
 #: benchmark's two (Mistral-7B-v0.1 and DeepSeek-LLM-7B-base
 #: ``config.json``, the output tied to the embedding as the port has it)
-#: at a cell's shape each, and the registered ``llama_tiny`` and
+#: at a cell's shape each, and the registered ``llama_tiny`` (head dim 32,
+#: outside the kernel's domain: the score chain, no launch) and
 #: ``llama7b``: (label, config fields, batch, seq)
 CAUSAL_CONFIGS = (
     ("mistral7b", dict(vocab=32000, dim=4096, layers=32, heads=32,
@@ -6081,7 +6068,7 @@ CAUSAL_CONFIGS = (
     ("llama_tiny", "tiny", (4, 256)),
     ("llama7b", "7b", (1, 2048)),
 )
-#: phase 21: sha256 of the HLO text the parent commit of the causal kernel
+#: phase 21: sha256 of the HLO text the commit before the causal kernel
 #: captured for ``llama_tiny`` (on the CPU) and ``llama7b`` (over meta
 #: tensors): the lowering reads only shapes, and a capture traces over fake
 #: tensors, so the decoder's graph is the score chain on every device
@@ -6126,30 +6113,39 @@ def causal_flops(shape) -> float:
     return 2.0 * b * h * s * (s + 1) * d
 
 
-def check_causal(shape, dtype, strided: bool = False,
-                 design: str | None = None) -> float:
-    """The causal kernel (``design``, or the one the wrapper picks) against
-    its plain version on the card; returns the max abs error.  Raises on a
-    disagreement."""
-    q, k, v = causal_inputs(shape, dtype, seed=5, strided=strided)
-    design = design or fa.causal_design(q, k, v)
-    got = fa._cuda_causal(q, k, v, 1.0 / math.sqrt(shape[-1]), design)
+def check_causal(shape, strided: bool = False) -> float:
+    """The causal kernel against its plain version on the card in bf16;
+    returns the max abs error.  Raises on a disagreement."""
+    q, k, v = causal_inputs(shape, torch.bfloat16, seed=5, strided=strided)
+    got = fa._cuda_causal(q, k, v, 1.0 / math.sqrt(shape[-1]))
     want = fa.causal_attention_reference(q, k, v)
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
-    if dtype == torch.float32:
-        ok, tol = err <= ATOL_F32, f"atol {ATOL_F32}"
-    else:
-        ok = bool((diff <= TOL_BF16 + TOL_BF16 * want.float().abs()).all())
-        tol = f"atol {TOL_BF16} + rtol {TOL_BF16}"
+    ok = bool((diff <= TOL_BF16 + TOL_BF16 * want.float().abs()).all())
     ok = ok and bool(torch.isfinite(got.float()).all())
-    print(f"  causal {design} {list(shape)} {str(dtype)[6:]}"
-          f"{' strided' if strided else ''}: max |kernel - plain| "
-          f"{err:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
+    print(f"  causal {list(shape)} bf16{' strided' if strided else ''}: max "
+          f"|kernel - plain| {err:.3e} (atol {TOL_BF16} + rtol {TOL_BF16}) "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"causal kernel disagrees at {shape} {dtype}")
+        raise AssertionError(f"causal kernel disagrees at {shape}")
     return err
+
+
+def refused(label: str, bad, want) -> None:
+    """The causal wrapper refuses each of ``bad`` (q, k, v on the card)
+    before a launch, raising ``want``."""
+    before = fa.causal_launch_count()
+    for q, k, v in bad:
+        try:
+            fa.causal_attention_fwd(q, k, v)
+        except want as e:
+            print(f"  {label} refused: {e}")
+        else:
+            raise AssertionError(f"the causal wrapper took {label} "
+                                 f"{tuple(q.shape)} {q.dtype}")
+    if fa.causal_launch_count() != before:
+        raise AssertionError(f"a refused {label} call launched")
 
 
 def host_us(fn) -> float:
@@ -6165,42 +6161,26 @@ def host_us(fn) -> float:
     return us
 
 
-def time_designs(q, k, v, scale) -> dict:
-    """Each causal design at q, k, v, in turns (the picked one, the other,
-    the other, the picked one), the better of each pair: ``ms`` the picked
-    design's, ``<design>_ms`` each one's, ``host_us_<design>`` each one's
+def time_kernel(q, k, v, scale) -> dict:
+    """The causal kernel at q, k, v: ``ms`` on the card, ``host_us`` its
     host cost a call."""
-    picked = fa.causal_design(q, k, v)
-    # the wgmma design takes only what the wrapper picks it for
-    order = ("wgmma", "mma_sync") if picked == "wgmma" else ("mma_sync",)
-    times: dict = {}
-    for design in order + order[::-1]:
-        times.setdefault(design, []).append(time_ms(
-            lambda: fa._cuda_causal(q, k, v, scale, design)))
-    out = {"design": picked, "ms": min(times[picked])}
-    for design in order:
-        out[f"{design}_ms"] = min(times[design])
-        out[f"host_us_{design}"] = host_us(
-            lambda: fa._cuda_causal(q, k, v, scale, design))
-    return out
+    return {"ms": time_ms(lambda: fa._cuda_causal(q, k, v, scale)),
+            "host_us": host_us(lambda: fa._cuda_causal(q, k, v, scale))}
 
 
 def time_causal(label: str, shape, card_name: str) -> dict:
-    """The causal kernel (both designs where both take the shape), its
-    plain version, the decoder's score chain it replaced and PyTorch's
-    SDPA (a yardstick the port never calls) at one shape in bf16, with the
-    card's bound."""
-    from tpusim_torch.models import llama as port_llama
+    """The causal kernel, its plain version, the decoders' score chain it
+    replaced and PyTorch's SDPA (a yardstick the port never calls) at one
+    shape in bf16, with the card's bound."""
+    from tpusim_torch.models import blocks
 
     b, s, h, kvh, d = shape
     q, k, v = causal_inputs(shape, torch.bfloat16, seed=6)
-    cfg = port_llama.LlamaConfig(dim=h * d, heads=h, kv_heads=kvh)
-    dec = port_llama._Decoder(cfg, None)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     out = {
-        **time_designs(q, k, v, 1.0 / math.sqrt(d)),
+        **time_kernel(q, k, v, 1.0 / math.sqrt(d)),
         "plain_ms": time_ms(lambda: fa.causal_attention_reference(q, k, v)),
-        "chain_ms": time_ms(lambda: dec.score_chain(q, k, v)),
+        "chain_ms": time_ms(lambda: blocks.score_chain(q, k, v)),
         "library_ms": time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
@@ -6211,41 +6191,25 @@ def time_causal(label: str, shape, card_name: str) -> dict:
     out["bound_ms"] = max(ops_ms, bytes_ms)
     out["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
     out["tflops"] = flops / out["ms"] / 1e9
-    print(f"time causal {label} {list(shape)} bf16: kernel ({out['design']}) "
+    print(f"time causal {label} {list(shape)} bf16: kernel "
           f"{out['ms']:.4f} ms ({out['tflops']:.1f} TFLOP/s, "
           f"{out['bound_ms'] / out['ms']:.1%} of the bound "
-          f"{out['bound_ms']:.4f} ms by {out['bound_by']}), {designs_text(out)}, "
-          f"plain {out['plain_ms']:.4f} ms, score chain {out['chain_ms']:.4f} "
-          f"ms, library SDPA {out['library_ms']:.4f} ms; median of {SAMPLES} "
-          f"x {REPS} back-to-back calls (card: {card_name})", flush=True)
+          f"{out['bound_ms']:.4f} ms by {out['bound_by']}; host "
+          f"{out['host_us']:.1f} us a call), plain {out['plain_ms']:.4f} ms, "
+          f"score chain {out['chain_ms']:.4f} ms, library SDPA "
+          f"{out['library_ms']:.4f} ms; median of {SAMPLES} x {REPS} "
+          f"back-to-back calls (card: {card_name})", flush=True)
     return out
-
-
-def designs_text(out: dict) -> str:
-    return ", ".join(
-        f"{d} {out[f'{d}_ms']:.4f} ms (host {out[f'host_us_{d}']:.1f} us a call)"
-        for d in ("wgmma", "mma_sync") if f"{d}_ms" in out)
-
-
-def layer_design(batch, seq, heads, kv_heads, dim, dim_v) -> str:
-    """The design the wrapper's rule names for a decoder layer's attention
-    at these shapes, in bf16 and in the layout the decoders hand it (q, k
-    and v contiguous; v read in place beside the keys with two head
-    dims)."""
-    def empty(*size):
-        return torch.empty(*size, device="cuda", dtype=torch.bfloat16)
-
-    q, k = empty(batch, seq, heads, dim), empty(batch, seq, kv_heads, dim)
-    v = empty(batch, seq, kv_heads, dim_v) if dim == dim_v else \
-        empty(batch, seq, kv_heads, 128 + dim_v)[..., 128:]
-    return fa.causal_design(q, k, v)
 
 
 def causal_steps(card_name: str) -> dict:
     """One forward step of each of :data:`CAUSAL_CONFIGS` on the card: the
-    causal kernel launched once a layer; its logits against the score
-    chain's (``_Decoder.logits`` without ``forward_only``); and each
-    path's step time (host clock over 5 synchronised steps after 2)."""
+    causal kernel launched once a layer where the kernel takes the layer's
+    attention, else never; the logits against the score chain's
+    (``_Decoder.logits`` without ``forward_only``), within
+    :data:`CAUSAL_STEP_ROW_ERR` of them, or equal to them where no launch
+    is made; and each path's step time (host clock over 5 synchronised
+    steps after 2)."""
     from tpusim_torch.models import llama as port_llama
 
     out = {}
@@ -6258,24 +6222,25 @@ def causal_steps(card_name: str) -> dict:
                                device="cuda", dtype=torch.int32)
         module = port_llama.LlamaForward(cfg)
         chain = port_llama._Decoder(cfg, None)
-        design = layer_design(batch, seq, cfg.heads, cfg.kv_heads,
-                              cfg.head_dim, cfg.head_dim)
+        takes = (cfg.head_dim,) * 2 in fa.WGMMA_HEAD_DIMS
         with torch.no_grad():
             fa.reset_causal_launch_count()
             got = module(*params, tokens)
             torch.cuda.synchronize()
             launches = fa.causal_launch_count()
-            by_design = fa.causal_launch_counts()
             want, _ = chain.logits(params, tokens)
-            if launches != cfg.layers or fa.causal_launch_count() != launches \
-                    or by_design[design] != cfg.layers:
+            if launches != (cfg.layers if takes else 0) \
+                    or fa.causal_launch_count() != launches:
                 raise AssertionError(
-                    f"{label}: causal launches {by_design} for "
-                    f"{cfg.layers} layers of the {design} design")
+                    f"{label}: {launches} causal launches for "
+                    f"{cfg.layers} layers at head dim {cfg.head_dim}")
             g, w = got.float(), want.float()
             row = ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
             if not row <= CAUSAL_STEP_ROW_ERR:
                 raise AssertionError(f"{label}: kernel vs chain row {row}")
+            if not takes and not torch.equal(got, want):
+                raise AssertionError(f"{label}: the forward is not the "
+                                     f"chain's (row {row})")
             del got, want, g, w
             ms = {}
             for path, fn in (("kernel", lambda: module(*params, tokens)),
@@ -6291,10 +6256,10 @@ def causal_steps(card_name: str) -> dict:
                 ms[path] = (time.perf_counter() - t0) / 5 * 1e3
                 ms[f"{path}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         out[label] = {"layers": cfg.layers, "launches": launches,
-                      "by_design": by_design, "row_err_vs_chain": row, **ms}
+                      "row_err_vs_chain": row, **ms}
         print(f"  step {label} [{batch}, {seq}]: {launches} causal launches "
-              f"({cfg.layers} layers; by design {by_design}, the rule names "
-              f"{design}); worst logit row kernel vs chain "
+              f"({cfg.layers} layers at head dim {cfg.head_dim}); worst "
+              f"logit row forward vs chain "
               f"{row:.4f}; step {ms['kernel']:.2f} ms (chain "
               f"{ms['chain']:.2f} ms), peak {ms['kernel_peak_gib']:.2f} GiB "
               f"(chain {ms['chain_peak_gib']:.2f}) (card: {card_name})",
@@ -6306,9 +6271,11 @@ def causal_steps(card_name: str) -> dict:
 
 #: phase 21 (c): the sharded forward whose ranks each run the causal kernel
 #: at ``heads / tp`` query and ``kv_heads / tp`` key/value heads:
-#: ``llama_tiny`` on a ``(dp, tp)`` mesh of 1 x 2, two rank processes
-#: sharing the card over gloo
-CAUSAL_SHARDED = dict(preset="tiny", batch=4, dp=1, tp=2)
+#: ``llama_tiny`` widened to 4 heads of 128 in bf16 (the kernel's domain)
+#: on a ``(dp, tp)`` mesh of 1 x 2, two rank processes sharing the card
+#: over gloo
+CAUSAL_SHARDED = dict(preset="tiny", batch=4, dp=1, tp=2, dim=512,
+                      dtype="bfloat16")
 
 
 def causal_sharded(card_name: str) -> dict:
@@ -6335,7 +6302,8 @@ def causal_sharded(card_name: str) -> dict:
         want, _ = port_llama._Decoder(cfg, None).logits(args[:-1], args[-1])
     g, w = got.float(), want.float()
     row = ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
-    print(f"  sharded step llama_tiny dp {mesh.shape[0]} x tp {mesh.shape[1]} "
+    print(f"  sharded step llama_tiny (dim {cfg.dim}, {cfg.heads} heads of "
+          f"{cfg.head_dim}) dp {mesh.shape[0]} x tp {mesh.shape[1]} "
           f"on {ranks}: causal launches by rank {launches} ({cfg.layers} "
           f"layers); worst logit row against the chain {row:.4f} (card: "
           f"{card_name})", flush=True)
@@ -6392,26 +6360,25 @@ def flash_against_table(card_name: str) -> dict:
 
 
 def causal_attention_phase(card_name: str) -> dict:
-    """Phase 21: the causal entry and the decoder's route to it."""
+    """Phase 21: the causal kernel and the decoder's route to it."""
     t_phase = time.perf_counter()
     out = {"card": card_name}
-    out["errors"] = {label: check_causal(shape, torch.bfloat16)
+    out["errors"] = {label: check_causal(shape)
                      for label, shape in CAUSAL_SHAPES}
-    out["edges"] = [check_causal(shape, dtype, strided)
-                    for shape, dtype, strided in CAUSAL_EDGES]
-    out["wgmma_edges"] = {
-        design: [check_causal(shape, torch.bfloat16, strided, design)
-                 for shape, strided in CAUSAL_WGMMA_EDGES]
-        for design in ("wgmma", "mma_sync")}
-    q, k, v = causal_inputs((1, 16, 4, 2, 64), torch.bfloat16, seed=9)
-    for bad in ((q.float(), k, v), (q, k[:, :, :1].expand(-1, -1, 3, -1), v),
-                (q.transpose(-1, -2).contiguous().transpose(-1, -2), k, v)):
-        try:
-            fa.causal_attention_fwd(*bad)
-        except (ValueError, TypeError) as e:
-            print(f"  refused: {e}")
-        else:
-            raise AssertionError("the causal wrapper took what it refuses")
+    out["edges"] = [check_causal(shape, strided)
+                    for shape, strided in CAUSAL_EDGES]
+    q, k, v = causal_inputs((1, 16, 4, 2, 128), torch.bfloat16, seed=9)
+    refused("float32", [(q.float(), k.float(), v.float())], TypeError)
+    narrow = causal_inputs((1, 16, 4, 2, 64), torch.bfloat16, seed=9)
+    # rows 4 elements (8 bytes) wider than their heads: no whole 16-byte
+    # chunk for TMA
+    wide = tuple(torch.zeros(1, 16, n * 128 + 4, dtype=torch.bfloat16,
+                             device="cuda")[..., :n * 128].view(1, 16, n, 128)
+                 for n in (4, 2, 2))
+    refused("head dim or layout", [
+        narrow, (q, k[:, :, :1].expand(-1, -1, 3, -1), v),
+        (q.transpose(-1, -2).contiguous().transpose(-1, -2), k, v), wide],
+        ValueError)
     out["times"] = {label: time_causal(label, shape, card_name)
                     for label, shape in CAUSAL_SHAPES}
     out["steps"] = causal_steps(card_name)
@@ -6430,11 +6397,9 @@ MLA_SHAPES = (
     ("short", (2, 256, 16, 192, 128)),
     ("odd", (1, 333, 16, 192, 128)),
 )
-#: phase 22: float32 at the short and the odd shape
-MLA_F32_SHAPES = MLA_SHAPES[1:]
-#: phase 22: the edges at two head dims in bf16, held to the plain version
-#: with each design forced: one row, and sequences of no whole 128-key
-#: tile (130, 200) besides the odd shape's 333
+#: phase 22: the edges at two head dims in bf16, held to the plain version:
+#: one row, and sequences of no whole 128-key tile (130, 200) besides the
+#: odd shape's 333
 MLA_EDGES = (
     ("one_row", (1, 1, 16, 192, 128)),
     ("rows_130", (1, 130, 16, 192, 128)),
@@ -6472,29 +6437,24 @@ def mla_flops(shape) -> float:
     return float(b * h * s * (s + 1) * (dqk + dv))
 
 
-def check_mla(shape, dtype, design: str | None = None) -> float:
-    """The causal kernel at two head dims (``design``, or the one the
-    wrapper picks) against its plain version on the card; returns the max
-    abs error.  Raises on a disagreement."""
-    q, k, v = mla_inputs(shape, dtype, seed=11)
+def check_mla(shape) -> float:
+    """The causal kernel at two head dims against its plain version on the
+    card in bf16; returns the max abs error.  Raises on a disagreement."""
+    q, k, v = mla_inputs(shape, torch.bfloat16, seed=11)
     scale = mla_scale()
-    design = design or fa.causal_design(q, k, v)
-    got = fa._cuda_causal(q, k, v, scale, design)
+    got = fa._cuda_causal(q, k, v, scale)
     want = fa.causal_attention_reference(q, k, v, scale)
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
-    if dtype == torch.float32:
-        ok, tol = err <= ATOL_F32, f"atol {ATOL_F32}"
-    else:
-        ok = bool((diff <= TOL_BF16 + TOL_BF16 * want.float().abs()).all())
-        tol = f"atol {TOL_BF16} + rtol {TOL_BF16}"
+    ok = bool((diff <= TOL_BF16 + TOL_BF16 * want.float().abs()).all())
     ok = ok and bool(torch.isfinite(got.float()).all()) and \
         got.shape == (*shape[:3], shape[4])
-    print(f"  mla {design} {list(shape)} {str(dtype)[6:]}: max |kernel - plain| "
-          f"{err:.3e} ({tol}) {'ok' if ok else 'FAIL'}", flush=True)
+    print(f"  mla {list(shape)} bf16: max |kernel - plain| {err:.3e} (atol "
+          f"{TOL_BF16} + rtol {TOL_BF16}) {'ok' if ok else 'FAIL'}",
+          flush=True)
     if not ok:
-        raise AssertionError(f"latent attention disagrees at {shape} {dtype}")
+        raise AssertionError(f"latent attention disagrees at {shape}")
     del q, k, v, got, want, diff
     torch.cuda.empty_cache()
     return err
@@ -6508,7 +6468,7 @@ def time_mla(label: str, shape, card_name: str) -> dict:
     q, k, v = mla_inputs(shape, torch.bfloat16, seed=12)
     scale = mla_scale()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    out = {**time_designs(q, k, v, scale),
+    out = {**time_kernel(q, k, v, scale),
            "plain_ms": time_ms(
                lambda: fa.causal_attention_reference(q, k, v, scale))}
     torch.cuda.empty_cache()
@@ -6521,80 +6481,77 @@ def time_mla(label: str, shape, card_name: str) -> dict:
     out["bound_ms"] = max(ops_ms, bytes_ms)
     out["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
     out["tflops"] = flops / out["ms"] / 1e9
-    print(f"time mla {label} {list(shape)} bf16: kernel ({out['design']}) "
+    print(f"time mla {label} {list(shape)} bf16: kernel "
           f"{out['ms']:.4f} ms ({out['tflops']:.1f} TFLOP/s, "
           f"{out['bound_ms'] / out['ms']:.1%} of the bound "
-          f"{out['bound_ms']:.4f} ms by {out['bound_by']}), "
-          f"{designs_text(out)}, plain {out['plain_ms']:.4f} ms, library SDPA "
-          f"{out['library_ms']:.4f} ms; median of {SAMPLES} x {REPS} "
-          f"back-to-back calls (card: {card_name})", flush=True)
+          f"{out['bound_ms']:.4f} ms by {out['bound_by']}; host "
+          f"{out['host_us']:.1f} us a call), plain {out['plain_ms']:.4f} ms, "
+          f"library SDPA {out['library_ms']:.4f} ms; median of {SAMPLES} x "
+          f"{REPS} back-to-back calls (card: {card_name})", flush=True)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return out
 
 
-def mla_step(card_name: str) -> dict:
-    """One forward of DeepSeek-V2-Lite at :data:`MLA_STEP_SEQ` tokens: the
-    causal kernel launched once a layer, the expert layers' balance, and
-    the logits against the score chain's (the same forward with a
-    gradient recorded, which keeps the chain)."""
+def mla_step(card_name: str, name: str = "deepseek_v2_lite",
+             seq: int = MLA_STEP_SEQ) -> dict:
+    """One forward of ``name`` at ``seq`` tokens: the causal kernel
+    launched once a layer where the kernel takes the latent attention's
+    head dims, else never; the expert layers' balance; and the logits
+    against the score chain's (the same forward with a gradient recorded,
+    which keeps the chain), within :data:`CAUSAL_STEP_ROW_ERR` of them,
+    or equal to them where no launch is made."""
     from tpusim_torch.models import get_workload
 
-    module, args = get_workload("deepseek_v2_lite").build(
-        device="cuda", seq=MLA_STEP_SEQ)
+    module, args = get_workload(name).build(device="cuda", seq=seq)
     cfg = module.cfg
     layers = cfg.layers
-    design = layer_design(1, MLA_STEP_SEQ, cfg.heads, cfg.heads,
-                          cfg.qk_head_dim, cfg.v_head_dim)
+    takes = (cfg.qk_head_dim, cfg.v_head_dim) in fa.WGMMA_HEAD_DIMS
     with torch.no_grad():
         fa.reset_causal_launch_count()
         got = module(*args)
         torch.cuda.synchronize()
         launches = fa.causal_launch_count()
-        by_design = fa.causal_launch_counts()
     balance = list(module.busiest_over_mean)
     with torch.enable_grad():
         want = module(*args)
-    if launches != layers or fa.causal_launch_count() != launches or \
-            by_design[design] != layers:
-        raise AssertionError(f"deepseek_v2_lite: causal launches {by_design} "
-                             f"for {layers} layers of the {design} design")
+    if launches != (layers if takes else 0) \
+            or fa.causal_launch_count() != launches:
+        raise AssertionError(f"{name}: {launches} causal launches for "
+                             f"{layers} layers at head dims "
+                             f"{cfg.qk_head_dim} / {cfg.v_head_dim}")
     g, w = got.float(), want.detach().float()
     row = ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
-    print(f"  step deepseek_v2_lite [1, {MLA_STEP_SEQ}]: {launches} causal "
-          f"launches ({layers} layers; by design {by_design}, the rule names "
-          f"{design}); worst logit row kernel vs chain "
-          f"{row:.4f}; busiest expert over the mean by layer "
-          f"{[round(x, 3) for x in balance]} (card: {card_name})", flush=True)
+    print(f"  step {name} [1, {seq}]: {launches} causal launches ({layers} "
+          f"layers at head dims {cfg.qk_head_dim} / {cfg.v_head_dim}); worst "
+          f"logit row forward vs chain {row:.4f}; busiest expert over the "
+          f"mean by layer {[round(x, 3) for x in balance]} (card: "
+          f"{card_name})", flush=True)
     if not row <= CAUSAL_STEP_ROW_ERR:
-        raise AssertionError(f"deepseek_v2_lite: kernel vs chain row {row}")
+        raise AssertionError(f"{name}: kernel vs chain row {row}")
+    if not takes and not torch.equal(got, want.detach()):
+        raise AssertionError(f"{name}: the forward is not the chain's "
+                             f"(row {row})")
     del module, args, got, want, g, w
     torch.cuda.empty_cache()
-    return {"layers": layers, "launches": launches, "by_design": by_design,
+    return {"layers": layers, "launches": launches,
             "row_err_vs_chain": row, "busiest_over_mean": balance}
 
 
 def mla_attention_phase(card_name: str) -> dict:
-    """Phase 22: the causal entry at two head dims, DeepSeek-V2's latent
-    attention, beside the entries the Llama cells run."""
+    """Phase 22: the causal kernel at two head dims, DeepSeek-V2's latent
+    attention, beside the kernels the Llama cells run."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     out = {"card": card_name, "scale": mla_scale()}
-    out["errors"] = {label: check_mla(shape, torch.bfloat16)
-                     for label, shape in MLA_SHAPES}
-    out["f32_errors"] = {label: check_mla(shape, torch.float32)
-                         for label, shape in MLA_F32_SHAPES}
-    out["edges"] = {design: {label: check_mla(shape, torch.bfloat16, design)
-                             for label, shape in MLA_EDGES}
-                    for design in ("wgmma", "mma_sync")}
+    out["errors"] = {label: check_mla(shape) for label, shape in MLA_SHAPES}
+    out["edges"] = {label: check_mla(shape) for label, shape in MLA_EDGES}
     q, k, v = mla_inputs((1, 16, 2, 224, 128), torch.bfloat16, seed=13)
-    for bad in ((q, k, v), (q[..., :160], k[..., :160], v[:, :, :1])):
-        try:
-            fa.causal_attention_fwd(*bad)
-        except (ValueError, TypeError) as e:
-            print(f"  refused: {e}")
-        else:
-            raise AssertionError("the causal wrapper took what it refuses")
+    refused("float32", [tuple(x[..., :192].float() for x in (q, k))
+                        + (v.float(),)], TypeError)
+    refused("head dims", [(q, k, v), (q[..., :160], k[..., :160], v),
+                          (q[..., :160], k[..., :160], v[:, :, :1])],
+            ValueError)
     out["times"] = {label: time_mla(label, shape, card_name)
                     for label, shape in MLA_SHAPES}
     out["beside"] = {
@@ -6604,6 +6561,7 @@ def mla_attention_phase(card_name: str) -> dict:
         "flash_bf16": time_attention(torch.bfloat16, card_name),
     }
     out["step"] = mla_step(card_name)
+    out["tiny_step"] = mla_step(card_name, "deepseek_v2_tiny", 64)
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -6883,23 +6841,15 @@ def main() -> int:
     }, {
         "name": "causal_attention",
         "route": "cuda",
-        "source": KERNELS[0][1] + " (tpusim_causal_attention_fwd)",
-        "replaces": "the score chain of tpusim_torch/models/llama.py "
-                    "_Decoder.score_chain (no TPU kernel)",
-        "launches_per_step": {n: r["launches"]
-                              for n, r in causal["steps"].items()},
-        "max_abs_err": causal["errors"],
-        "times": causal["times"],
-    }, {
-        "name": "causal_attention_mla",
-        "route": "cuda",
-        "source": KERNELS[0][1] + " (tpusim_causal_attention_fwd, "
-                  "flash_attention_kernel<T, 192, 128, true>)",
-        "replaces": "the score chain of tpusim_torch/models/deepseek_v2.py "
+        "source": CAUSAL_SOURCE,
+        "replaces": "the score chain of tpusim_torch/models/blocks.py "
                     "score_chain (no TPU kernel)",
-        "launches_per_step": {"deepseek_v2_lite": mla["step"]["launches"]},
-        "max_abs_err": mla["errors"],
-        "times": mla["times"],
+        "launches_per_step": {
+            **{n: r["launches"] for n, r in causal["steps"].items()},
+            "deepseek_v2_lite": mla["step"]["launches"],
+            "deepseek_v2_tiny": mla["tiny_step"]["launches"]},
+        "max_abs_err": {**causal["errors"], **mla["errors"]},
+        "times": {**causal["times"], **mla["times"]},
     }]}
     keys = ("ms", "plain_ms", "library_ms", "library_fused_ms")
     times = [f32[k] for k in keys] + [bf16[k] for k in keys] + [

@@ -1,9 +1,8 @@
-"""The causal entry of the flash-attention kernel and the decoder's route to
-it, on the CPU.
+"""The causal attention kernel and the decoders' route to it, on the CPU.
 
 * :func:`~tpusim_torch.kernels.flash_attention.causal_attention_reference`
   (the kernel's plain version, which the wrapper takes for CPU tensors)
-  against the decoder's score chain (``_Decoder.score_chain``, what a
+  against the decoders' score chain (``blocks.score_chain``, what a
   captured graph holds) on ``[B, S, H, D]`` queries and grouped
   ``[B, S, KVH, D]`` keys and values, in float32.  Tolerance: atol and
   rtol 1e-5; both compute in float32 and differ only in summation order
@@ -12,20 +11,22 @@ it, on the CPU.
 * the wrapper refuses what neither route takes, and the kernel's layout
   (rows of packed heads, any number of elements apart) is told apart
   from the rest before a launch;
-* with the device check forced open (``_on_card``), a no-grad forward of
+* with the device check (``blocks._on_card``) and the kernel's domain
+  (``causal_kernel_takes``) forced open, a no-grad forward of
   ``LlamaForward`` takes the kernel path once a layer, the plain version
   standing in for the launch, and its logits match the chain's; a
   profiler sees each launch inside a dispatched
   ``tpusim_torch::causal_attention`` op (the op a profile links its kernel
   to) inside the layer's attention range;
-* with the same check forced open, a head dim or a dtype the kernel does
-  not take reaches the wrapper and raises, with no quiet fallback;
-* with the kernels' libraries stubbed, the wrapper launches the design
-  :func:`~tpusim_torch.kernels.flash_attention.causal_design` names
-  (``wgmma`` for bf16 at head dims 128 / 128 and 192 / 128 in rows TMA
-  addresses, ``mma_sync`` for the rest), counts each launch under its
-  design, and raises on what neither design takes;
-* with the same check forced open and the wrapper made to raise, the
+* with only the device check forced open, a head dim or a dtype outside
+  the kernel's domain runs the score chain and never reaches the wrapper;
+* the kernel's domain holds the attention of every full-size decoder the
+  port registers or the benchmark runs, and not the test-size ones nor a
+  float32 build (read over meta tensors);
+* with the kernel's library stubbed, the wrapper launches the kernel for
+  bf16 at head dims 128 / 128 and 192 / 128 in rows TMA addresses, counts
+  each launch, and refuses the rest before any launch;
+* with both forced open and the wrapper made to raise, the
   callers that keep the chain never reach it: a gradient or ``torch.func``
   transform (``LlamaTrainStep``), the scanned AOT step (``llama_aot``,
   whose backward reads the probabilities), the vmap rank runner of
@@ -35,7 +36,7 @@ it, on the CPU.
 
 from __future__ import annotations
 
-import dataclasses
+from pathlib import Path
 
 import pytest
 
@@ -43,8 +44,10 @@ torch = pytest.importorskip("torch")
 
 from torch.fx.experimental.proxy_tensor import make_fx  # noqa: E402
 
+from benchmark import spec  # noqa: E402
 from tpusim_torch.kernels import flash_attention as fa  # noqa: E402
-from tpusim_torch.models import get_workload  # noqa: E402
+from tpusim_torch.models import blocks, get_workload  # noqa: E402
+from tpusim_torch.models import deepseek_v2 as ds  # noqa: E402
 from tpusim_torch.models import llama as port_llama  # noqa: E402
 from tpusim_torch.models.llama_aot import build_llama_aot  # noqa: E402
 from tpusim_torch.tracer.capture import capture_graph  # noqa: E402
@@ -61,19 +64,12 @@ def _qkv(batch, seq, heads, kv_heads, hd, dtype=torch.float32, seed=0):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def _decoder(rep: int, hd: int):
-    cfg = dataclasses.replace(port_llama.PRESETS["tiny"], dim=HEADS * hd,
-                              heads=HEADS, kv_heads=HEADS // rep,
-                              dtype="float32")
-    return port_llama._Decoder(cfg, None)
-
-
 @pytest.mark.parametrize("seq", [1, 200, 256])
 @pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("rep", [1, 4])
 def test_plain_version_matches_the_score_chain(rep, hd, seq):
     q, k, v = _qkv(2, seq, HEADS, HEADS // rep, hd, seed=rep * hd + seq)
-    *_, want = _decoder(rep, hd).score_chain(q, k, v)
+    *_, want = blocks.score_chain(q, k, v)
     got = fa.causal_attention_fwd(q, k, v)
     assert got.shape == q.shape and got.is_contiguous()
     torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
@@ -120,10 +116,18 @@ def test_causal_wrapper_refuses_what_it_does_not_take(case):
 
 
 @pytest.fixture
-def on_card(monkeypatch):
-    """The decoder's device check forced open: what a CUDA tensor would
+def device_open(monkeypatch):
+    """The decoders' device check forced open: what a CUDA tensor would
     pass, on the CPU."""
-    monkeypatch.setattr(port_llama, "_on_card", lambda x: True)
+    monkeypatch.setattr(blocks, "_on_card", lambda x: True)
+
+
+@pytest.fixture
+def on_card(device_open, monkeypatch):
+    """The device check and the kernel's domain forced open, so that the
+    tiny float32 configurations take the kernel path (the plain version
+    standing in for the launch)."""
+    monkeypatch.setattr(fa, "causal_kernel_takes", lambda q, k, v: True)
 
 
 @pytest.mark.parametrize("kv_heads", [4, 2, 1])
@@ -139,9 +143,9 @@ def test_forced_kernel_path_gives_the_chains_logits(on_card, monkeypatch,
         return plain(q, k, v, scale)
 
     with torch.no_grad():
-        monkeypatch.setattr(port_llama, "_on_card", lambda x: False)
+        monkeypatch.setattr(blocks, "_on_card", lambda x: False)
         want = module(*args)
-        monkeypatch.setattr(port_llama, "_on_card", lambda x: True)
+        monkeypatch.setattr(blocks, "_on_card", lambda x: True)
         monkeypatch.setattr(fa, "causal_attention_fwd", counted)
         got = module(*args)
     cfg = module.cfg
@@ -166,20 +170,87 @@ def test_a_forward_reaches_the_patched_kernel(kernel_raises):
 
 
 @pytest.mark.parametrize("case", ["head_dim", "dtype"])
-def test_what_the_kernel_does_not_take_reaches_it_and_raises(on_card, case):
-    # no quiet fallback to the chain on the card: an input the kernel does
-    # not take is refused by the wrapper (here its plain version, which
-    # checks alike)
+def test_what_the_kernel_does_not_take_runs_the_score_chain(device_open,
+                                                            monkeypatch,
+                                                            case):
+    # the kernel's domain decides before the op: bf16 at head dim 160, and
+    # float32 at head dim 128, run the chain on the card
     if case == "head_dim":
         module, args = get_workload("llama_tiny").build(
             device="cpu", seq=16, dim=4 * 160)
-        err = ValueError
     else:
-        module, args = get_workload("llama_tiny").build(device="cpu", seq=16)
-        args = [a.half() if a.is_floating_point() else a for a in args]
-        err = TypeError
-    with torch.no_grad(), pytest.raises(err):
-        module(*args)
+        module, args = get_workload("llama_tiny").build(
+            device="cpu", seq=16, dim=4 * 128, dtype="float32")
+    calls = []
+    plain = fa.causal_attention_fwd
+
+    def counted(q, k, v, scale=None):
+        calls.append(tuple(q.shape))
+        return plain(q, k, v, scale)
+
+    monkeypatch.setattr(fa, "causal_attention_fwd", counted)
+    with torch.no_grad():
+        got = module(*args)
+        monkeypatch.setattr(blocks, "_on_card", lambda x: False)
+        want = module(*args)
+    assert calls == []
+    assert torch.equal(got, want)
+
+
+class _Reached(Exception):
+    pass
+
+
+def _first_attention(program, module, args):
+    """The q, k, v that ``module``'s first layer hands the attention of
+    ``program`` (its module), the forward stopped there."""
+    seen = []
+
+    def record(q, k, v, scale=None):
+        seen.append((q, k, v))
+        raise _Reached
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(program, "causal_attention", record)
+        with torch.no_grad(), pytest.raises(_Reached):
+            module(*args)
+    return seen[0]
+
+
+def _meta_decoder(name: str):
+    """A decoder and its arguments over meta tensors: a registered
+    workload (``name`` with ``_float32``: its float32 build) or a
+    configuration of ``BENCHMARK.json`` (``bench:<config>``)."""
+    if name.startswith("bench:"):
+        root = Path(__file__).resolve().parents[1]
+        files = {c["name"]: c["file"]
+                 for c in spec.load_json(root / "BENCHMARK.json")["configs"]}
+        config = spec.load_json(root / files[name[len("bench:"):]])
+        module = spec.family(config["family"]).build(config, "meta")
+        program = ds if isinstance(module, ds.DeepseekV2Forward) \
+            else port_llama
+        tokens = torch.empty((1, 16), dtype=torch.int32, device="meta")
+        return program, module, (*program.init_params(module.cfg, "meta"),
+                                 tokens)
+    workload = name.removesuffix("_float32")
+    kw = {"dtype": "float32"} if workload != name else {}
+    module, args = get_workload(workload).build(device="meta", seq=16, **kw)
+    program = ds if workload.startswith("deepseek") else port_llama
+    return program, module, args
+
+
+@pytest.mark.parametrize("name, takes", [
+    ("llama7b", True), ("deepseek_v2_lite", True),
+    ("bench:mistral7b", True), ("bench:deepseek7b", True),
+    ("bench:dsv2lite", True), ("llama_tiny", False),
+    ("deepseek_v2_tiny", False), ("llama7b_float32", False)])
+def test_the_kernel_takes_every_full_size_decoder(name, takes):
+    # a full-size decoder outside the domain would run the score chain on
+    # the card without a word: this pins each one inside it
+    program, module, args = _meta_decoder(name)
+    q, k, v = _first_attention(program, module, args)
+    assert q.device.type == "meta"
+    assert fa.causal_kernel_takes(q, k, v) is takes
 
 
 @pytest.mark.parametrize("caller", [
@@ -247,7 +318,7 @@ def test_the_kernel_path_is_an_op_for_a_profiler(on_card):
         module(*args)
     spans = {name: [e.time_range for e in prof.events() if e.name == name]
              for name in ("tpusim_torch::causal_attention",
-                          port_llama.ATTENTION_RANGE)}
+                          blocks.ATTENTION_RANGE)}
     ops, attention = spans.values()
     assert len(ops) == len(attention) == module.cfg.layers
     for op, outer in zip(sorted(ops, key=lambda r: r.start),
@@ -277,7 +348,7 @@ class _StubLibrary:
 
 @pytest.fixture
 def stub_kernels(monkeypatch):
-    """Both kernel libraries stubbed and the stream taken as 0: the launch
+    """The kernel libraries stubbed and the stream taken as 0: the launch
     path runs on CPU tensors.  Returns the calls by entry; ``err`` is what
     every entry returns."""
     calls: dict = {}
@@ -300,13 +371,13 @@ def _latent_qkv(seq=16, heads=4, dtype=torch.bfloat16):
     return q, k, kv[..., 128:]
 
 
-@pytest.mark.parametrize("case, design", [
-    ("bf16_128", "wgmma"), ("bf16_192_128_in_place", "wgmma"),
-    ("bf16_rows_wider_by_16_bytes", "wgmma"), ("f32_128", "mma_sync"),
-    ("f32_192_128", "mma_sync"), ("bf16_64", "mma_sync"),
-    ("bf16_rows_wider_by_8_bytes", "mma_sync")])
+@pytest.mark.parametrize("case, refused", [
+    ("bf16_128", None), ("bf16_192_128_in_place", None),
+    ("bf16_rows_wider_by_16_bytes", None), ("f32_128", TypeError),
+    ("f32_192_128", TypeError), ("bf16_64", ValueError),
+    ("bf16_rows_wider_by_8_bytes", ValueError)])
 def test_each_design_counts_the_launches_that_reach_it(stub_kernels, case,
-                                                       design):
+                                                       refused):
     calls, _ = stub_kernels
     if case.startswith("bf16_192") or case == "f32_192_128":
         q, k, v = _latent_qkv(
@@ -319,15 +390,18 @@ def test_each_design_counts_the_launches_that_reach_it(stub_kernels, case,
         dtype = torch.float32 if case.startswith("f32") else torch.bfloat16
         q, k, v = _qkv(2, 24, 4, 2, 64 if case.endswith("64") else 128,
                        dtype=dtype)
-    assert fa.causal_design(q, k, v) == design
+    if refused is not None:
+        # float32, head dim 64 and rows TMA cannot address are refused
+        # before any entry is called
+        with pytest.raises(refused):
+            fa._cuda_causal(q, k, v, 0.125)
+        assert fa.causal_launch_count() == 0
+        assert not any(calls.values())
+        return
     out = fa._cuda_causal(q, k, v, 0.125)
     assert out.shape == (*q.shape[:3], v.shape[3]) and out.is_contiguous()
-    assert fa.causal_launch_counts() == {
-        "wgmma": int(design == "wgmma"), "mma_sync": int(design == "mma_sync")}
     assert fa.causal_launch_count() == 1
-    entry = {"wgmma": "tpusim_causal_attention_wgmma_fwd",
-             "mma_sync": "tpusim_causal_attention_fwd"}[design]
-    (args,) = calls[entry]
+    (args,) = calls["tpusim_causal_attention_wgmma_fwd"]
     assert sum(len(c) for c in calls.values()) == 1
     # pointers, then batch, seq, heads, kv heads, the two head dims and the
     # strides the kernel reads (rows of q, k, v and v's heads)
@@ -342,16 +416,17 @@ def test_the_design_counts_add_up_and_reset(stub_kernels):
     q, k, v = _qkv(1, 16, 4, 2, 128, dtype=torch.bfloat16)
     for _ in range(3):
         fa._cuda_causal(q, k, v, 0.1)
-    fa._cuda_causal(q.float(), k.float(), v.float(), 0.1)
-    fa._cuda_causal(q, k, v, 0.1, design="mma_sync")
-    assert fa.causal_launch_counts() == {"wgmma": 3, "mma_sync": 2}
+    for _ in range(2):
+        fa._cuda_causal(*_latent_qkv(), 0.1)
+    with pytest.raises(TypeError):
+        fa._cuda_causal(q.float(), k.float(), v.float(), 0.1)
     assert fa.causal_launch_count() == 5
     fa.reset_causal_launch_count()
-    assert fa.causal_launch_counts() == {"wgmma": 0, "mma_sync": 0}
+    assert fa.causal_launch_count() == 0
 
 
 @pytest.mark.parametrize("case", ["head_dim", "dtype", "refused_by_the_entry",
-                                  "unknown_design"])
+                                  "float32"])
 def test_what_neither_design_takes_raises(stub_kernels, case):
     calls, state = stub_kernels
     q, k, v = _qkv(1, 16, 4, 2, 128, dtype=torch.bfloat16)
@@ -365,8 +440,9 @@ def test_what_neither_design_takes_raises(stub_kernels, case):
         state["err"] = 1
         err, launch = RuntimeError, lambda: fa._cuda_causal(q, k, v, 0.1)
     else:
-        err = ValueError
-        launch = lambda: fa._cuda_causal(q, k, v, 0.1, design="cutlass")
+        # the plain version takes float32; the kernel does not
+        q, k, v = (x.float() for x in (q, k, v))
+        err, launch = TypeError, lambda: fa._cuda_causal(q, k, v, 0.1)
     with pytest.raises(err):
         launch()
     assert fa.causal_launch_count() == 0

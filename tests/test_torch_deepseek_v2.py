@@ -20,9 +20,9 @@ rotary dims.
   products' are the attention's), its parameter list (the program's, the
   published count), what it refuses, and the tiny cell through the
   harness;
-* with the device check forced open, a no-grad forward takes the causal
-  kernel's path once a layer at head dims 192 / 128 (here its plain
-  version) and matches the score chain;
+* with the device check and the kernel's domain forced open, a no-grad
+  forward takes the causal kernel's path once a layer at its two head
+  dims (here its plain version) and matches the score chain;
 * the module imports nothing of JAX or of the JAX package.
 """
 
@@ -50,7 +50,7 @@ from benchmark.reference import deepseek_v2_plain as plain  # noqa: E402
 from tpusim_torch.kernels import flash_attention as fa  # noqa: E402
 from tpusim_torch.models import deepseek_v2 as ds  # noqa: E402
 from tpusim_torch.models import get_workload, list_workloads  # noqa: E402
-from tpusim_torch.models import llama as port_llama  # noqa: E402
+from tpusim_torch.models import blocks  # noqa: E402
 
 fam = spec.family("deepseek_v2")
 CELL = "dsv2lite.prefill_16k"
@@ -140,7 +140,7 @@ def test_pair_rotation_equals_the_published_form_on_qk():
                                torch.einsum("bqhd,bkhd->bhqk", rq, rk),
                                rtol=1e-4, atol=1e-4)
     # the halves rotation on the un-permuted layout is another function
-    wrong = port_llama.rotate(q, cos, sin)
+    wrong = blocks.rotate(q, cos, sin)
     assert not torch.allclose(torch.einsum("bqhd,bkhd->bhqk", wrong, pk),
                               torch.einsum("bqhd,bkhd->bhqk", pq, pk),
                               atol=1e-2)
@@ -335,7 +335,10 @@ def test_forced_kernel_path_launches_once_a_layer_and_matches_the_chain(
 
     with torch.no_grad():
         want = module(*args)
-        monkeypatch.setattr(port_llama, "_on_card", lambda x: True)
+        # the device check and the kernel's domain forced open: the tiny
+        # float32 decoder's head dims (32 / 16) take the kernel path
+        monkeypatch.setattr(blocks, "_on_card", lambda x: True)
+        monkeypatch.setattr(fa, "causal_kernel_takes", lambda q, k, v: True)
         monkeypatch.setattr(fa, "causal_attention_fwd", counted)
         got = module(*args)
     cfg = module.cfg
@@ -355,7 +358,7 @@ def test_the_wrapper_takes_two_head_dims_and_reads_v_in_place():
     scale = 0.1147
     out = fa.causal_attention_fwd(q, k, v, scale)
     assert out.shape == (1, 40, 4, 128) and out.is_contiguous()
-    torch.testing.assert_close(out, ds.score_chain(q, k, v, scale),
+    torch.testing.assert_close(out, blocks.score_chain(q, k, v, scale)[-1],
                                atol=1e-5, rtol=1e-5)
     # v's rows 1024 elements apart, its heads 256
     assert fa._rows_and_heads(v) == (1024, 256)

@@ -54,50 +54,6 @@
 // Not used: wgmma (TF32 wgmma takes both operands K-major from shared
 // memory, so the split would need a transposed V tile and lo copies of K
 // and V^T: no room for two stages), TMA and warp specialisation.
-//
-// The causal entry, tpusim_causal_attention_fwd, is the same kernel
-// instantiated with CAUSAL for the Llama decoder's attention
-// (tpusim_torch/models/llama.py): it replaces no TPU kernel but the
-// decoder's chain of score kernels (repeat_kv, the QK^T einsum, the scale,
-// the causal where, the float casts, softmax, the PV einsum), each a full
-// pass over [B, H, S, S] scores in device memory.  It reads q as
-// [B, S, H, D] and k, v as [B, S, KVH, D] in place, their rows any number
-// of elements apart (the heads of a row packed), and writes o as a
-// contiguous [B, S, H, D].  What bounds it on an H100: 2*B*H*S*(S+1)*D
-// flops over the lower triangle (6.87e10 a Mistral-7B layer at batch 2,
-// seq 2048: 0.069 ms at 989 TFLOP/s bf16) against 2*B*S*(H+KVH)*D
-// elements moved (1.6e8 bytes there, 0.048 ms at 3.35 TB/s): arithmetic
-// again, and mma.sync's ~533 TFLOP/s bf16 ceiling on that card is its
-// nearer floor.  What the design does about it:
-//   * a 128-row query block reads only the key tiles at or below its
-//     diagonal and computes only the 32-key (f32: 64-key) steps at or below
-//     each warp's rows: the upper triangle is never loaded or multiplied.
-//     A key past its row is masked to -inf as a key past the end is; only
-//     the diagonal steps mask anything.
-//   * a block's work grows with its query index, so blockIdx.y counts the
-//     query blocks from the last (the heaviest) and blockIdx.x runs over
-//     batch x heads: the longest blocks launch first and the last wave
-//     holds the shortest.
-//   * query head h reads key/value head h / (H / KVH), and neighbouring
-//     blockIdx.x are neighbouring query heads, so the heads that share a
-//     K/V head run together and read its tiles from L2 (one K/V head of
-//     Mistral-7B at seq 2048 is 1 MB).  Nothing is copied out per head.
-//   * any sequence length: query rows past the end are zero-filled and not
-//     written, keys past the end masked, as in the non-causal entry.
-// The causal entry also takes a value head dim other than the query/key
-// one, and a softmax scale of the caller's: DeepSeek-V2's multi-head latent
-// attention (tpusim_torch/models/deepseek_v2.py) takes q.k over 192 dims
-// (128 from the latent, 64 rotary) and values of 128, at scale
-// 192^-0.5 * mscale^2.  That instantiation, flash_attention_kernel<T, 192,
-// 128, true>, reads v in place from the latent's up-projection, with rows
-// and heads of its own strides (a head's 128 values sit beside its 128
-// keys there).  Its bound at a 16k-token DeepSeek-V2-Lite layer: B*H*S*(S+1)
-// *(192 + 128) flops, 1.37e12 (1.39 ms at 989 TFLOP/s bf16), against 2.2e8
-// bytes: about 6,000 flops a byte, so arithmetic.  What the design does
-// about it: the same block, warps and causal skipping as at 128; a query
-// tile of 192 dims takes 51 KB of bf16, so its key tiles hold 32 keys
-// (one softmax step) and not 64, which keeps two bf16 blocks an SM
-// (100 KB each); the instantiations with one head dim are unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,15 +73,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 // bf16 gives each warp two row tiles, which share every K and V fragment
 // it loads, and runs two 4-warp blocks an SM; its softmax goes in 32-key
 // steps so that the scores of both row tiles fit without a spill.
-//
-// DQK: the query/key head dim the kernel is built for; past 128 a K/V tile
-// holds 32 keys, so that the Q tile and two stages of K and V still fit
-// two bf16 blocks an SM.
-template <typename T, int DQK = 128>
+template <typename T>
 struct Cfg {
   static constexpr bool F32 = sizeof(T) == 4;
   static constexpr int BQ = 128;             // query rows a block
-  static constexpr int BK = DQK > 128 ? 32 : 64;  // keys a K/V tile
+  static constexpr int BK = 64;              // keys a K/V tile
   static constexpr int STAGES = 2;           // K/V tiles in flight
   static constexpr int MT = F32 ? 1 : 2;     // 16-row mma tiles a warp
   static constexpr int NK = F32 ? BK : 32;   // keys a softmax step
@@ -133,36 +85,21 @@ struct Cfg {
   static constexpr int BLOCKS_PER_SM = F32 ? 1 : 2;
 };
 
-// A tile row of DMAX elements, padded by 16 bytes, so that the fragment
-// loads of a quarter warp (eight 16-byte pieces) hit 32 distinct banks.
+// Shared-memory layout of one block: Q [BQ][LD], then K [STAGES][BK][LD],
+// then V [STAGES][BK][LD].  Rows are padded by 16 bytes, so that the
+// fragment loads of a quarter warp (eight 16-byte pieces) hit 32 distinct
+// banks.
 template <typename T, int DMAX>
-struct Row {
+struct Tiles {
   static constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
   static constexpr int LD = DMAX + EPC;       // row stride in elements
-};
-
-// Shared-memory layout of one block: Q [BQ][LDQK], then K
-// [STAGES][BK][LDQK], then V [STAGES][BK][LDV], V's stages as far apart as
-// K's (with two head dims its tiles are narrower than their slots), so
-// that a stage's V tile lies at one fixed distance from its K tile: the
-// bf16 instantiation at 192 / 128 then needs no register more than the one
-// at 128 / 128 for V's address and does not spill.
-template <typename T, int DQK, int DV>
-struct Tiles {
-  static constexpr int LDQK = Row<T, DQK>::LD;
-  static constexpr int LDV = Row<T, DV>::LD;
-  static constexpr int Q_ELEMS = Cfg<T, DQK>::BQ * LDQK;
-  static constexpr int K_ELEMS = Cfg<T, DQK>::BK * LDQK;  // a stage of K or V
+  static constexpr int Q_ELEMS = Cfg<T>::BQ * LD;
+  static constexpr int KV_ELEMS = Cfg<T>::BK * LD;
   static constexpr size_t BYTES =
-      ((size_t)Q_ELEMS + Cfg<T, DQK>::STAGES * 2 * K_ELEMS) * sizeof(T);
+      ((size_t)Q_ELEMS + 2 * Cfg<T>::STAGES * KV_ELEMS) * sizeof(T);
 };
-static_assert(Tiles<float, 128, 128>::BYTES <= 232448,
+static_assert(Tiles<float, 128>::BYTES <= 232448,
               "f32 tiles do not fit in shared memory");
-static_assert(Tiles<float, 192, 128>::BYTES <= 232448,
-              "f32 tiles do not fit in shared memory");
-static_assert(2 * (Tiles<__nv_bfloat16, 192, 128>::BYTES + 1024 + 16) <=
-                  233472,
-              "two bf16 blocks do not fit an SM's shared memory");
 
 template <typename T>
 __device__ __forceinline__ T zero();
@@ -173,15 +110,14 @@ __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16(0.f);
 }
 
-// rows [row0, row0 + ROWS) of one head's [seq, dim] matrix, whose rows lie
-// ld elements apart, into a padded [ROWS][LD] tile; rows past seq and
-// columns past dim become zero.  vec: 16-byte cp.async copies (dim and ld
-// whole numbers of chunks, pointers aligned), else element by element
-// through registers.
+// rows [row0, row0 + ROWS) of one head's [seq, dim] matrix into a padded
+// [ROWS][LD] tile; rows past seq and columns past dim become zero.  vec:
+// 16-byte cp.async copies (dim a whole number of chunks, pointers aligned),
+// else element by element through registers.
 template <typename T, int DMAX, int ROWS>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int seq, int dim, int ld, bool vec) {
-  using TL = Row<T, DMAX>;
+                                          int seq, int dim, bool vec) {
+  using TL = Tiles<T, DMAX>;
   constexpr int THREADS = Cfg<T>::THREADS;
   constexpr int CPR = DMAX / TL::EPC;  // chunks per row
   static_assert(ROWS * CPR % THREADS == 0, "chunks split evenly");
@@ -192,7 +128,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
       const int r = i / CPR, c = (i % CPR) * TL::EPC;
       const int g = row0 + r;
       const bool ok = g < seq && c < dim;
-      cp_async16(dst + r * TL::LD + c, ok ? src + (size_t)g * ld + c : src,
+      cp_async16(dst + r * TL::LD + c, ok ? src + (size_t)g * dim + c : src,
                  ok ? 16 : 0);
     }
   } else {
@@ -200,7 +136,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
       const int r = i / DMAX, c = i % DMAX;
       const int g = row0 + r;
       dst[r * TL::LD + c] =
-          g < seq && c < dim ? src[(size_t)g * ld + c] : zero<T>();
+          g < seq && c < dim ? src[(size_t)g * dim + c] : zero<T>();
     }
   }
 }
@@ -220,7 +156,7 @@ template <int DMAX, int NK>
 __device__ __forceinline__ void scores_tf32(const float* qw, const float* kt,
                                             float (&s)[NK / 8][4], int g,
                                             int t) {
-  constexpr int LD = Row<float, DMAX>::LD;
+  constexpr int LD = Tiles<float, DMAX>::LD;
 #pragma unroll
   for (int c = 0; c < DMAX / 32; ++c) {
     float qa[2][8];
@@ -258,7 +194,7 @@ __device__ __forceinline__ void scores_bf16(const __nv_bfloat16* qw,
                                             const __nv_bfloat16* kt,
                                             float (&s)[MT][NK / 8][4],
                                             int lane) {
-  constexpr int LD = Row<__nv_bfloat16, DMAX>::LD;
+  constexpr int LD = Tiles<__nv_bfloat16, DMAX>::LD;
 #pragma unroll
   for (int kk = 0; kk < DMAX / 16; ++kk) {
     uint32_t a[MT][4];
@@ -291,7 +227,7 @@ __device__ __forceinline__ void pv_tf32(const float (&p)[NK / 8][4],
                                         const float* vt,
                                         float (&acc)[DMAX / 8][4], int g,
                                         int t) {
-  constexpr int LD = Row<float, DMAX>::LD;
+  constexpr int LD = Tiles<float, DMAX>::LD;
 #pragma unroll
   for (int j = 0; j < NK / 8; ++j) {
     uint32_t ah[4], al[4];
@@ -325,7 +261,7 @@ __device__ __forceinline__ void pv_bf16(const float (&p)[MT][NK / 8][4],
                                         const __nv_bfloat16* vt,
                                         float (&acc)[MT][DMAX / 8][4],
                                         int lane) {
-  constexpr int LD = Row<__nv_bfloat16, DMAX>::LD;
+  constexpr int LD = Tiles<__nv_bfloat16, DMAX>::LD;
 #pragma unroll
   for (int kk = 0; kk < NK / 16; ++kk) {
     uint32_t a[MT][4];
@@ -357,98 +293,37 @@ __device__ __forceinline__ int out_dim(int i, int e, int t) {
   return 8 * i + 2 * t + e;
 }
 
-// read anew at each use, so that no value derived from it stays live in a
-// register across the key loop
-__device__ __forceinline__ unsigned block_x() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(r));
-  return r;
-}
-
-// The causal entry's layout: q [B, S, H, D] with rows ldq elements apart,
-// k [B, S, KVH, D] with rows ldkv apart, o [B, S, H, DV] contiguous; query
-// head h reads key/value head h / group.  With one head dim (DV = D) v is
-// laid out as k; with two, v [B, S, KVH, DV] has rows ldv and heads hsv
-// elements apart.  (The non-causal entry's [BH, S, D] is contiguous.)
-struct Heads {
-  int heads, group, ldq, ldkv;
-  int dv, ldv, hsv;
-};
-
-// With two head dims: the offset of the block's value head in v
-__device__ __forceinline__ size_t v_head_offset(Heads hl, int seq) {
-  const unsigned bh = block_x();
-  return (size_t)(bh / hl.heads) * seq * hl.ldv +
-         (size_t)(bh % hl.heads / hl.group) * hl.hsv;
-}
-
-// CAUSAL: query row i keeps keys j <= i only, and a block reads no key past
-// its last row.  Grid: non-causal (query blocks, BH); causal (B x H, query
-// blocks counted from the last), so that the heaviest blocks launch first.
-// DQK, DV: the query/key and value head dims it is built for (dim and
-// hl.dv at most these); SPLIT when they differ, the causal entry only.
-template <typename T, int DQK, int DV, bool CAUSAL>
-__global__ void __launch_bounds__(Cfg<T, DQK>::THREADS,
-                                  Cfg<T, DQK>::BLOCKS_PER_SM)
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(Cfg<T>::THREADS, Cfg<T>::BLOCKS_PER_SM)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int seq,
-                       int dim, float scale_log2, bool vec, Heads hl) {
-  using TL = Tiles<T, DQK, DV>;
-  using C = Cfg<T, DQK>;
+                       int dim, float scale_log2, bool vec) {
+  using TL = Tiles<T, DMAX>;
   constexpr bool F32 = sizeof(T) == 4;
-  constexpr bool SPLIT = DQK != DV;
-  static_assert(!SPLIT || CAUSAL, "two head dims: the causal entry only");
-  constexpr int BQ = C::BQ, BK = C::BK, STAGES = C::STAGES;
-  constexpr int MT = C::MT, NK = C::NK;
+  constexpr int BQ = Cfg<T>::BQ, BK = Cfg<T>::BK, STAGES = Cfg<T>::STAGES;
+  constexpr int MT = Cfg<T>::MT, NK = Cfg<T>::NK;
   static_assert(!F32 || (MT == 1 && NK == BK), "f32: one row tile, whole tiles");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* ks = qs + TL::Q_ELEMS;
-  T* vs = ks + STAGES * TL::K_ELEMS;
-  const int dv = SPLIT ? hl.dv : dim;  // the value (and output) head dim
+  T* vs = ks + STAGES * TL::KV_ELEMS;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  // the head's first element in q (and o) and in k and v, and their row
-  // strides; the keys the block reads (under the mask none past its last
-  // row)
-  int q0, ldq, ldkv, kend;
-  size_t head, kv_head;
-  if constexpr (CAUSAL) {
-    const int b = blockIdx.x / hl.heads, h = blockIdx.x % hl.heads;
-    q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-    ldq = hl.ldq;
-    ldkv = hl.ldkv;
-    head = (size_t)b * seq * ldq + (size_t)h * dim;
-    kv_head = (size_t)b * seq * ldkv + (size_t)(h / hl.group) * dim;
-    kend = min(seq, q0 + BQ);
-  } else {
-    q0 = blockIdx.x * BQ;
-    ldq = ldkv = dim;
-    head = kv_head = (size_t)blockIdx.y * seq * dim;
-    kend = seq;
-  }
-  const int ntiles = (kend + BK - 1) / BK;
+  const int q0 = blockIdx.x * BQ;
+  const size_t head = (size_t)blockIdx.y * seq * dim;
+  const int ntiles = (seq + BK - 1) / BK;
 
-  load_tile<T, DQK, BQ>(qs, q + head, q0, seq, dim, ldq, vec);
-  load_tile<T, DQK, BK>(ks, k + kv_head, 0, seq, dim, ldkv, vec);
-  // SPLIT: the block's value head in v, kept in shared memory rather than
-  // in registers across the key loop (read back at each tile's load)
-  __shared__ size_t v_head;
-  if constexpr (SPLIT) {
-    const size_t off = v_head_offset(hl, seq);
-    if (threadIdx.x == 0) v_head = off;  // read after the loop's barrier
-    load_tile<T, DV, BK>(vs, v + off, 0, seq, dv, hl.ldv, vec);
-  } else {
-    load_tile<T, DV, BK>(vs, v + kv_head, 0, seq, dim, ldkv, vec);
-  }
+  load_tile<T, DMAX, BQ>(qs, q + head, q0, seq, dim, vec);
+  load_tile<T, DMAX, BK>(ks, k + head, 0, seq, dim, vec);
+  load_tile<T, DMAX, BK>(vs, v + head, 0, seq, dim, vec);
   cp_async_commit();
 
-  float acc[MT][DV / 8][4];
+  float acc[MT][DMAX / 8][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int i = 0; i < DV / 8; ++i)
+    for (int i = 0; i < DMAX / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.f;
   // rows g and g + 8 of each row tile: running max (log2 domain, the same
@@ -462,37 +337,26 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l_run[mt][r] = 0.f;
     }
   const int row0 = warp * 16 * MT;  // the warp's first row in the block
-  const T* qw = qs + row0 * TL::LDQK;
+  const T* qw = qs + row0 * TL::LD;
 
   for (int it = 0; it < ntiles; ++it) {
     cp_async_wait<0>();
     __syncthreads();  // tile it has landed; tile it - 1's readers are done
     if (it + 1 < ntiles) {
       const int st = (it + 1) % STAGES;
-      load_tile<T, DQK, BK>(ks + st * TL::K_ELEMS, k + kv_head,
-                            (it + 1) * BK, seq, dim, ldkv, vec);
-      if constexpr (SPLIT)
-        load_tile<T, DV, BK>(vs + st * TL::K_ELEMS, v + v_head,
-                             (it + 1) * BK, seq, dv, hl.ldv, vec);
-      else
-        load_tile<T, DV, BK>(vs + st * TL::K_ELEMS, v + kv_head,
-                             (it + 1) * BK, seq, dim, ldkv, vec);
+      load_tile<T, DMAX, BK>(ks + st * TL::KV_ELEMS, k + head, (it + 1) * BK,
+                             seq, dim, vec);
+      load_tile<T, DMAX, BK>(vs + st * TL::KV_ELEMS, v + head, (it + 1) * BK,
+                             seq, dim, vec);
       cp_async_commit();
     }
     // the tile in sub-tiles of NK keys, an online-softmax step each
 #pragma unroll
-    for (int sub = 0; sub < BK / NK; ++sub) {
-      const int k0 = it * BK + sub * NK;
+    for (int h = 0; h < BK / NK; ++h) {
+      const int k0 = it * BK + h * NK;
       if (k0 >= seq) break;
-      // off: the warp's first row less the step's first key.  Under the
-      // mask a step past the warp's last row is all masked: the warp skips
-      // it.  k0 and the warp's first row are multiples of 16 * MT, so a step
-      // it takes keeps key k0 in every one of its rows, and no row's max is
-      // -inf.
-      const int off = q0 + row0 - k0;
-      if (CAUSAL && off < 1 - 16 * MT) break;
-      const T* kt = ks + (it % STAGES) * TL::K_ELEMS + sub * NK * TL::LDQK;
-      const T* vt = vs + (it % STAGES) * TL::K_ELEMS + sub * NK * TL::LDV;
+      const T* kt = ks + (it % STAGES) * TL::KV_ELEMS + h * NK * TL::LD;
+      const T* vt = vs + (it % STAGES) * TL::KV_ELEMS + h * NK * TL::LD;
 
       float s[MT][NK / 8][4];
 #pragma unroll
@@ -502,20 +366,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
       if constexpr (F32)
-        scores_tf32<DQK, NK>(qw, kt, s[0], g, t);
+        scores_tf32<DMAX, NK>(qw, kt, s[0], g, t);
       else
-        scores_bf16<DQK, MT, NK>(qw, kt, s, lane);
+        scores_bf16<DMAX, MT, NK>(qw, kt, s, lane);
 
       // accumulator column 2t + e of score tile j is key k0 + 8j + 2t + e
-      // % 2, in row q0 + row0 + 16 mt + g + 8 (e / 2).  Without the mask a
-      // key past the end is masked.  Under it only a step that reaches past
-      // the warp's first row (diag) masks, and only keys past their row:
-      // 8j + e % 2 - 16 mt - 8 (e / 2) > lim.  (A key past the end lies
-      // past every row that is written.)  Offsets from the step, not keys
-      // and rows, keep the bf16 instantiation at D = 128 within its 255
-      // registers.
-      const bool diag = CAUSAL && off < NK - 1;
-      const int lim = off + g - 2 * t;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         float mx[2] = {-INFINITY, -INFINITY};
@@ -524,11 +379,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float& x = s[mt][j][e];
-            const int key = k0 + 8 * j + 2 * t + (e & 1);
-            const bool keep =
-                CAUSAL ? !diag || 8 * j + (e & 1) - 16 * mt - 8 * (e / 2) <= lim
-                       : key < seq;
-            x = keep ? x * scale_log2 : -INFINITY;
+            x = k0 + 8 * j + 2 * t + (e & 1) < seq ? x * scale_log2
+                                                   : -INFINITY;
             mx[e / 2] = fmaxf(mx[e / 2], x);
           }
         float alpha[2];
@@ -536,7 +388,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int r = 0; r < 2; ++r) {
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          const float m_new = fmaxf(m_run[mt][r], mx[r]);  // finite: key k0 kept
+          const float m_new = fmaxf(m_run[mt][r], mx[r]);  // finite: k0 < seq
           alpha[r] = exp2f(m_run[mt][r] - m_new);  // 0 on the first step
           m_run[mt][r] = m_new;
           l_run[mt][r] *= alpha[r];
@@ -550,15 +402,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             l_run[mt][e / 2] += x;
           }
 #pragma unroll
-        for (int i = 0; i < DV / 8; ++i)
+        for (int i = 0; i < DMAX / 8; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][i][e] *= alpha[e / 2];
       }
 
       if constexpr (F32)
-        pv_tf32<DV, NK>(s[0], vt, acc[0], g, t);
+        pv_tf32<DMAX, NK>(s[0], vt, acc[0], g, t);
       else
-        pv_bf16<DV, MT, NK>(s, vt, acc, lane);
+        pv_bf16<DMAX, MT, NK>(s, vt, acc, lane);
     }
   }
 
@@ -571,19 +423,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const int row = q0 + row0 + 16 * mt + g + 8 * r;
       if (row >= seq) continue;
-      T* orow;
-      if constexpr (CAUSAL) {
-        const unsigned bh = block_x();
-        orow = o + ((size_t)(bh / hl.heads) * seq + row) * hl.heads * dv +
-               (size_t)(bh % hl.heads) * dv;
-      } else {
-        orow = o + head + (size_t)row * dim;
-      }
-      const float(&a)[DV / 8][4] = acc[mt];
+      T* orow = o + head + (size_t)row * dim;
+      const float(&a)[DMAX / 8][4] = acc[mt];
       if constexpr (F32) {
         // dims 32c + 8t + 4e + [0, 4) are a[4c + u][2r + e], u = 0..3
 #pragma unroll
-        for (int c = 0; c < DV / 32; ++c)
+        for (int c = 0; c < DMAX / 32; ++c)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int col = out_dim<T>(4 * c, e, t);
@@ -592,139 +437,79 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                 a[4 * c + 2][2 * r + e] / l,
                                 a[4 * c + 3][2 * r + e] / l};
             if (vec) {
-              if (col < dv)
+              if (col < dim)
                 *reinterpret_cast<float4*>(orow + col) =
                     make_float4(x[0], x[1], x[2], x[3]);
             } else {
 #pragma unroll
               for (int u = 0; u < 4; ++u)
-                if (col + u < dv) orow[col + u] = x[u];
+                if (col + u < dim) orow[col + u] = x[u];
             }
           }
       } else {
 #pragma unroll
-        for (int i = 0; i < DV / 8; ++i) {
+        for (int i = 0; i < DMAX / 8; ++i) {
           const int col = out_dim<T>(i, 0, t);
           const float x0 = a[i][2 * r] / l, x1 = a[i][2 * r + 1] / l;
           if (vec) {
-            if (col < dv)
+            if (col < dim)
               *reinterpret_cast<__nv_bfloat162*>(orow + col) =
                   __floats2bfloat162_rn(x0, x1);
           } else {
-            if (col < dv) orow[col] = __float2bfloat16(x0);
-            if (col + 1 < dv) orow[col + 1] = __float2bfloat16(x1);
+            if (col < dim) orow[col] = __float2bfloat16(x0);
+            if (col + 1 < dim) orow[col + 1] = __float2bfloat16(x1);
           }
         }
       }
     }
 }
 
-template <typename T, int DQK, int DV, bool CAUSAL>
-int launch(const void* q, const void* k, const void* v, void* o, dim3 grid,
-           int seq, int dim, float scale, bool vec, Heads hl,
-           cudaStream_t stream) {
-  constexpr size_t smem = Tiles<T, DQK, DV>::BYTES;
+template <typename T, int DMAX>
+int launch(const void* q, const void* k, const void* v, void* o, int bh,
+           int seq, int dim, float scale, cudaStream_t stream) {
+  constexpr size_t smem = Tiles<T, DMAX>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, DQK, DV, CAUSAL>,
+      flash_attention_kernel<T, DMAX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_attention_kernel<T, DQK, DV, CAUSAL>,
+  err = cudaFuncSetAttribute(flash_attention_kernel<T, DMAX>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  flash_attention_kernel<T, DQK, DV, CAUSAL>
-      <<<grid, Cfg<T, DQK>::THREADS, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(o), seq, dim,
-          scale * LOG2E, vec, hl);
+  const uintptr_t any =
+      (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
+  const bool vec = dim % Tiles<T, DMAX>::EPC == 0 && any % 16 == 0;
+  const dim3 grid((seq + Cfg<T>::BQ - 1) / Cfg<T>::BQ, bh);
+  flash_attention_kernel<T, DMAX><<<grid, Cfg<T>::THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), seq, dim, scale * LOG2E,
+      vec);
   return (int)cudaGetLastError();
 }
 
-// grid: non-causal (query blocks, bh); causal (batch x heads, query blocks).
-// vec: 16-byte copies, when every pointer and row (and v's head) starts on
-// a 16-byte boundary.  Two head dims (hl.dv != dim, causal only): the
-// 192 / 128 instantiation.
-template <typename T, bool CAUSAL>
-int launch_dim(const void* q, const void* k, const void* v, void* o,
-               dim3 grid, int seq, int dim, float scale, Heads hl,
-               cudaStream_t stream) {
-  constexpr int EPC = 16 / sizeof(T);
-  const uintptr_t any =
-      (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
-  const bool vec = dim % EPC == 0 && any % 16 == 0 && hl.ldq % EPC == 0 &&
-                   hl.ldkv % EPC == 0 && hl.dv % EPC == 0 &&
-                   hl.ldv % EPC == 0 && hl.hsv % EPC == 0;
-  if constexpr (CAUSAL) {
-    if (hl.dv != dim)
-      return launch<T, 192, 128, true>(q, k, v, o, grid, seq, dim, scale,
-                                       vec, hl, stream);
-  }
-  if (dim <= 32)
-    return launch<T, 32, 32, CAUSAL>(q, k, v, o, grid, seq, dim, scale, vec,
-                                     hl, stream);
-  if (dim <= 64)
-    return launch<T, 64, 64, CAUSAL>(q, k, v, o, grid, seq, dim, scale, vec,
-                                     hl, stream);
-  return launch<T, 128, 128, CAUSAL>(q, k, v, o, grid, seq, dim, scale, vec,
-                                     hl, stream);
-}
-
-template <bool CAUSAL>
-int launch_dtype(const void* q, const void* k, const void* v, void* o,
-                 dim3 grid, int seq, int dim, int dtype, float scale,
-                 Heads hl, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dim<float, CAUSAL>(q, k, v, o, grid, seq, dim, scale, hl, s);
-  if (dtype == 1)
-    return launch_dim<__nv_bfloat16, CAUSAL>(q, k, v, o, grid, seq, dim,
-                                             scale, hl, s);
-  return (int)cudaErrorInvalidValue;
+template <typename T>
+int launch_dim(const void* q, const void* k, const void* v, void* o, int bh,
+               int seq, int dim, float scale, cudaStream_t stream) {
+  if (dim <= 32) return launch<T, 32>(q, k, v, o, bh, seq, dim, scale, stream);
+  if (dim <= 64) return launch<T, 64>(q, k, v, o, bh, seq, dim, scale, stream);
+  return launch<T, 128>(q, k, v, o, bh, seq, dim, scale, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, o: [bh, seq, dim], contiguous.  dtype: 0 = float32,
-// 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
 int tpusim_flash_attention_fwd(const void* q, const void* k, const void* v,
                                void* o, int bh, int seq, int dim, int dtype,
                                float scale, void* stream) {
   if (bh < 1 || bh > 65535 || seq < 1 || dim < 1 || dim > 128)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((seq + 127) / 128, bh);
-  return launch_dtype<false>(q, k, v, o, grid, seq, dim, dtype, scale,
-                             Heads{1, 1, dim, dim, dim, dim, dim}, stream);
-}
-
-// Causal attention with grouped key/value heads: q [batch, seq, heads,
-// dim] with rows ldq elements apart, k [batch, seq, kv_heads, dim] with
-// rows ldk apart, v [batch, seq, kv_heads, dim_v] with rows ldv and heads
-// hsv apart, o [batch, seq, heads, dim_v] contiguous; the scores are
-// scaled by scale.  Query head h reads key/value head h / (heads /
-// kv_heads); row i keeps keys j <= i.  One head dim (dim_v == dim): at
-// most 128, v laid out as k (ldv == ldk, hsv == dim).  Two: dim at most
-// 192, dim_v at most 128.  dtype as above.  Returns a cudaError_t (0 =
-// launched).
-int tpusim_causal_attention_fwd(const void* q, const void* k, const void* v,
-                                void* o, int batch, int seq, int heads,
-                                int kv_heads, int dim, int dim_v, int ldq,
-                                int ldk, int ldv, int hsv, int dtype,
-                                float scale, void* stream) {
-  const bool split = dim_v != dim;
-  if (batch < 1 || seq < 1 || heads < 1 || kv_heads < 1 ||
-      heads % kv_heads != 0 || dim < 1 || dim_v < 1 ||
-      dim > (split ? 192 : 128) || dim_v > 128 ||
-      (!split && (ldv != ldk || hsv != dim)) || hsv < dim_v ||
-      ldq < heads * dim || ldk < kv_heads * dim ||
-      (long long)ldv < (long long)(kv_heads - 1) * hsv + dim_v ||
-      (long long)batch * heads > 0x7fffffffLL || (seq + 127) / 128 > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(batch * heads, (seq + 127) / 128);
-  return launch_dtype<true>(
-      q, k, v, o, grid, seq, dim, dtype, scale,
-      Heads{heads, heads / kv_heads, ldq, ldk, dim_v, ldv, hsv}, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_dim<float>(q, k, v, o, bh, seq, dim, scale, s);
+  if (dtype == 1)
+    return launch_dim<__nv_bfloat16>(q, k, v, o, bh, seq, dim, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* tpusim_cuda_error_string(int err) {

@@ -5,12 +5,11 @@
 // attention).  Scores and softmax statistics in float32, P rounded once to
 // bf16 for P V, float32 accumulation, output cast to bf16.
 //
-// What it replaces: no TPU kernel.  Like the causal entry of
-// flash_attention.cu, whose bf16 calls at these head dims it takes over,
-// it stands in for the decoders' chains of score kernels
-// (tpusim_torch/models/llama.py `_Decoder.score_chain`,
-// tpusim_torch/models/deepseek_v2.py `score_chain`: repeat_kv, the QK^T
-// einsum, the scale, the causal where, softmax in float32, the PV einsum).
+// What it replaces: no TPU kernel.  It stands in for the decoders' chain
+// of score kernels (tpusim_torch/models/blocks.py `score_chain`: the
+// repeated keys and values, the QK^T einsum, the scale, the causal where,
+// softmax in float32, the PV einsum), which the decoders still run outside
+// this kernel's domain.
 // It reads q [B, S, H, DQK] with rows ldq elements apart, k [B, S, KVH,
 // DQK] with rows ldk apart and v [B, S, KVH, DV] with rows ldv and heads
 // hsv apart, all in place, and writes o as a contiguous [B, S, H, DV];
@@ -29,8 +28,9 @@
 //   * 256 [16, 256, 32, 128], KVH 8: 8.6e9, 0.0087 ms; 8.4e7 bytes, 0.025
 //     ms: bytes, and in practice each block's prologue (2 query blocks a
 //     sequence, 1 or 2 key tiles each).
-// The mma.sync kernel cannot come near: warp-level mma.sync tops out at
-// about 533 TFLOP/s in bf16 on this card, and it reached 218-295.
+// An mma.sync design cannot come near: warp-level mma.sync tops out at
+// about 533 TFLOP/s in bf16 on this card, and the port's earlier causal
+// kernel, built on it and since retired, reached 218-295.
 //
 // The design (FlashAttention-3's: a TMA-fed ring, one producer, consumer
 // warpgroups on wgmma):
@@ -65,35 +65,33 @@
 //       DQK 192: Q 128 x 192 (48 KB) + 2 stages x (K 128 x 192 + V 128 x
 //         128: 80 KB) = 208 KB;
 //     of the 227 KB a block may have, with 1 KB for the alignment and the
-//     barriers.  A key tile is 128 keys at both pairs (the mma.sync kernel
-//     cut it to 32 at 192 to fit two blocks an SM).  A third stage fits at
-//     DQK 128 (224 KB) and measured within 2% of two either way, so both
+//     barriers.  A key tile is 128 keys at both pairs.  A third stage fits
+//     at DQK 128 (224 KB) and measured within 2% of two either way, so both
 //     pairs keep two.
-//   * kept from the mma.sync kernel: key tiles above a query block's
+//   * the causal order: key tiles above a query block's
 //     diagonal are never loaded or multiplied (a block reads tiles q0 / 128
-//     down to 0, its diagonal first, the only one masked); the heaviest
-//     query blocks launch first; query heads that share a K/V head are
-//     neighbouring blocks and read it from L2; a ragged end is TMA's zero
-//     fill: query rows past the end are not written, keys past the end lie
-//     past every written row's diagonal.  Where a wave of blocks would
-//     read more K/V than L2 holds, bands of heads launch one after the
-//     other, each heaviest first (`band`).
+//     down to 0, its diagonal first, the only one masked); the heaviest query
+//     blocks launch first; query heads that share a K/V head are neighbouring
+//     blocks and read it from L2; a ragged end is TMA's zero fill: query rows
+//     past the end are not written, keys past the end lie past every written
+//     row's diagonal.  Where a wave of blocks would read more K/V than L2
+//     holds, bands of heads launch one after the other, each heaviest first
+//     (`band`).
 //   * the host encodes the three tensor maps at each launch with
 //     cuTensorMapEncodeTiled, looked up at run time through
 //     cudaGetDriverEntryPoint (no link to libcuda); they travel as
-//     __grid_constant__ parameters.  A
-//     call through the Python wrapper costs the host 24-47 us with either
-//     design (chip_smoke.py phases 21 and 22).
+//     __grid_constant__ parameters.  A call through the Python wrapper
+//     costs the host 24-58 us (chip_smoke.py phases 21 and 22).
 //
-// Dispatch (tpusim_torch/kernels/flash_attention.py `causal_design`): this
-// kernel takes a bf16 causal call at head dims 128 / 128 or 192 / 128
-// whose pointers start on 16-byte boundaries and whose row and head strides
-// are whole 16-byte chunks (what TMA addresses); the mma.sync kernel takes
-// the rest (float32, head dims 32 and 64, other rows).  No sequence-length
-// threshold: this kernel is faster at every cell's shape, 256 included
-// (0.065 against 0.108 ms), and ties at 256 and 333 tokens of the latent
-// attention (0.043 against 0.044 and 0.042 ms), where both are
-// launch-bound.
+// Domain (tpusim_torch/kernels/flash_attention.py `causal_kernel_takes`,
+// which the decoders' gate tpusim_torch/models/blocks.py `takes_kernel`
+// reads): bf16 causal calls at head dims 128 / 128 or 192 / 128; the
+// wrapper refuses pointers off 16-byte boundaries and row or head strides
+// that are not whole 16-byte chunks (what TMA addresses).  Outside the
+// domain the decoders run the score chain.  No sequence-length threshold:
+// at every cell's shape, 256 included, the kernel is an order of magnitude
+// faster than the score chain it replaces (0.065-0.075 against 0.81-0.83
+// ms at 256; chip_smoke.py phase 21).
 
 #include <algorithm>
 
@@ -645,12 +643,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 
 extern "C" {
 
-// Causal attention in bf16, the layout of tpusim_causal_attention_fwd
-// (flash_attention.cu): q [batch, seq, heads, dim] with rows ldq elements
-// apart, k [batch, seq, kv_heads, dim] with rows ldk apart, v [batch, seq,
-// kv_heads, dim_v] with rows ldv and heads hsv apart, o [batch, seq, heads,
-// dim_v] contiguous.  Takes (dim, dim_v) = (128, 128) or (192, 128), every
-// pointer on a 16-byte boundary and ldq, ldk, ldv, hsv multiples of 8.
+// Causal attention in bf16 over grouped heads read in place: q [batch,
+// seq, heads, dim] with rows ldq elements apart, k [batch, seq, kv_heads,
+// dim] with rows ldk apart, v [batch, seq, kv_heads, dim_v] with rows ldv
+// and heads hsv apart, o [batch, seq, heads, dim_v] contiguous.  Takes
+// (dim, dim_v) = (128, 128) or (192, 128), every pointer on a 16-byte
+// boundary and ldq, ldk, ldv, hsv multiples of 8.
 // Returns a cudaError_t (0 = launched).
 int tpusim_causal_attention_wgmma_fwd(const void* q, const void* k,
                                       const void* v, void* o, int batch,

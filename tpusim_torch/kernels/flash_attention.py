@@ -1,21 +1,20 @@
-"""Wrappers of the flash-attention CUDA kernel and their plain versions.
+"""Wrappers of the flash-attention CUDA kernels and their plain versions.
 
-The kernel (``tpusim_torch/csrc/flash_attention.cu``) replaces the TPU
-kernel ``_attn_kernel`` of ``tpusim/models/pallas_attention.py``
-(:func:`flash_attention_fwd`, over ``[BH, S, D]``).  Its causal entry,
-:func:`causal_attention_fwd`, is the Llama decoder's attention over
-``[B, S, H, D]`` queries and ``[B, S, KVH, D]`` grouped keys and values,
-read in place, and DeepSeek-V2's latent attention, whose queries and keys
-have another head dim than its values (192 and 128) and whose softmax
-scale is not ``1 / sqrt(D)``.  The causal entry has two designs, chosen by
-:func:`causal_design` from what the call observes: ``wgmma``
-(``tpusim_torch/csrc/flash_attention_wgmma.cu``: wgmma, TMA and warp
-specialisation, bf16 at head dims 128 / 128 and 192 / 128, rows TMA can
-address) and ``mma_sync`` (the causal entry of ``flash_attention.cu``,
-everything else the entry takes).  A CUDA tensor goes to a kernel, which
-raises if it cannot build or launch; a CPU tensor goes to the plain version
-(:func:`flash_attention_reference`, :func:`causal_attention_reference`).
-There is no other route.
+``tpusim_torch/csrc/flash_attention.cu`` replaces the TPU kernel
+``_attn_kernel`` of ``tpusim/models/pallas_attention.py``
+(:func:`flash_attention_fwd`, over ``[BH, S, D]``).  The causal kernel,
+``tpusim_torch/csrc/flash_attention_wgmma.cu`` (wgmma, TMA and warp
+specialisation; :func:`causal_attention_fwd`), replaces no TPU kernel but
+the decoders' score chain: the Llama decoder's attention over ``[B, S, H,
+D]`` queries and ``[B, S, KVH, D]`` grouped keys and values, read in
+place, and DeepSeek-V2's latent attention, whose queries and keys have
+another head dim than its values (192 and 128) and whose softmax scale is
+not ``1 / sqrt(D)``.  It takes bfloat16 at the (q.k, v) head dims of
+:data:`WGMMA_HEAD_DIMS` (:func:`causal_kernel_takes`); a decoder runs the
+score chain outside that domain.  A CUDA tensor goes to a kernel, which
+raises on what it does not take and when it cannot build or launch; a CPU
+tensor goes to the plain version (:func:`flash_attention_reference`,
+:func:`causal_attention_reference`).  There is no other route.
 """
 
 from __future__ import annotations
@@ -30,23 +29,22 @@ from tpusim_torch.kernels.build import load_library
 __all__ = ["flash_attention_fwd", "flash_attention_reference",
            "check_inputs", "launch_count", "reset_launch_count",
            "causal_attention_fwd", "causal_attention_reference",
-           "check_causal_inputs", "causal_design", "causal_launch_count",
-           "causal_launch_counts", "reset_causal_launch_count"]
+           "check_causal_inputs", "causal_kernel_takes",
+           "causal_launch_count", "reset_causal_launch_count"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-#: the causal entry's query/key head dim when the values' differs (theirs
-#: at most :data:`MAX_HEAD_DIM`)
+#: the plain causal version's query/key head dim when the values' differs
+#: (theirs at most :data:`MAX_HEAD_DIM`)
 MAX_QK_HEAD_DIM = 192
 
-#: the (q.k, v) head dims the causal entry's ``wgmma`` design is built for
+#: the (q.k, v) head dims the causal kernel is built for
 WGMMA_HEAD_DIMS = ((128, 128), (192, 128))
 
-#: launches of the CUDA kernel's non-causal entry and of each design of the
-#: causal entry in this process (each wrapper adds one per launch and
-#: nowhere else)
+#: launches of the non-causal and of the causal kernel in this process (each
+#: wrapper adds one per launch and nowhere else)
 _launches = 0
-_causal_launches = {"wgmma": 0, "mma_sync": 0}
+_causal_launches = 0
 
 
 def launch_count() -> int:
@@ -58,18 +56,13 @@ def reset_launch_count() -> None:
     _launches = 0
 
 
-def causal_launch_counts() -> dict[str, int]:
-    """Causal launches by design: ``{"wgmma": n, "mma_sync": m}``."""
-    return dict(_causal_launches)
-
-
 def causal_launch_count() -> int:
-    return sum(_causal_launches.values())
+    return _causal_launches
 
 
 def reset_causal_launch_count() -> None:
-    for design in _causal_launches:
-        _causal_launches[design] = 0
+    global _causal_launches
+    _causal_launches = 0
 
 
 def _check_types(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -121,8 +114,7 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
 #: each library's C entries: name -> (count of pointer, int arguments);
 #: every entry ends with a float (the scale) and the stream
 _ENTRIES = {
-    "flash_attention": {"tpusim_flash_attention_fwd": (4, 4),
-                        "tpusim_causal_attention_fwd": (4, 11)},
+    "flash_attention": {"tpusim_flash_attention_fwd": (4, 4)},
     "flash_attention_wgmma": {"tpusim_causal_attention_wgmma_fwd": (4, 10)},
 }
 
@@ -187,11 +179,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def check_causal_inputs(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> None:
-    """Raise on what neither the causal kernel nor its plain version
-    takes: q ``[B, S, H, D]``, k ``[B, S, KVH, D]`` and v ``[B, S, KVH,
-    DV]`` with ``H`` a multiple of ``KVH``, float32 or bfloat16 on one
-    device; ``D = DV`` at most :data:`MAX_HEAD_DIM`, or ``D`` at most
-    :data:`MAX_QK_HEAD_DIM` and ``DV`` at most :data:`MAX_HEAD_DIM`."""
+    """Raise on what the causal plain version does not take (the kernel
+    takes less: :func:`causal_kernel_takes`): q ``[B, S, H, D]``, k ``[B,
+    S, KVH, D]`` and v ``[B, S, KVH, DV]`` with ``H`` a multiple of
+    ``KVH``, float32 or bfloat16 on one device; ``D = DV`` at most
+    :data:`MAX_HEAD_DIM`, or ``D`` at most :data:`MAX_QK_HEAD_DIM` and
+    ``DV`` at most :data:`MAX_HEAD_DIM`."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or k.shape[:3] != v.shape[:3]:
         raise ValueError(
@@ -266,7 +259,7 @@ def _rows_and_heads(x: torch.Tensor) -> tuple[int, int] | None:
 def _causal_strides(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> tuple[int, int, int, int]:
     """The elements between two rows of q, of k and of v and between two
-    heads of v, as the causal kernels read them; raises on another
+    heads of v, as the causal kernel reads them; raises on another
     layout."""
     d, dv = q.shape[3], v.shape[3]
     ldq, ldk = _rows_apart(q), _rows_apart(k)
@@ -283,50 +276,47 @@ def _causal_strides(q: torch.Tensor, k: torch.Tensor,
     return ldq, ldk, *lv
 
 
-def causal_design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """Which design the causal entry launches for ``q, k, v`` (as
-    :func:`check_causal_inputs` takes them): ``"wgmma"`` for bfloat16 at
-    (q.k, v) head dims in :data:`WGMMA_HEAD_DIMS` when every tensor starts
-    on a 16-byte boundary and its row and head strides are whole 16-byte
-    chunks (what TMA addresses), else ``"mma_sync"``."""
-    return _design(q, k, v, _causal_strides(q, k, v))
-
-
-def _design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            strides: tuple[int, ...]) -> str:
-    aligned = all(x.data_ptr() % 16 == 0 for x in (q, k, v)) and \
-        all(n % 8 == 0 for n in strides)
-    dims = (q.shape[3], v.shape[3])
-    if q.dtype == torch.bfloat16 and dims in WGMMA_HEAD_DIMS and aligned:
-        return "wgmma"
-    return "mma_sync"
+def causal_kernel_takes(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> bool:
+    """Whether the causal kernel is built for ``q, k, v`` (as
+    :func:`check_causal_inputs` takes them): bfloat16 at (q.k, v) head dims
+    in :data:`WGMMA_HEAD_DIMS`.  Reads only dtypes and shapes, so it
+    answers for meta and fake tensors too."""
+    return (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and (q.shape[3], v.shape[3]) in WGMMA_HEAD_DIMS)
 
 
 def _cuda_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 scale: float, design: str | None = None) -> torch.Tensor:
-    """Launch the causal entry's ``design`` (:func:`causal_design`'s when
-    None) on q, k, v's card."""
+                 scale: float) -> torch.Tensor:
+    """Launch the causal kernel on q, k, v's card; raises before the launch
+    on what it does not take: another dtype or head dims
+    (:func:`causal_kernel_takes`), or a layout TMA cannot address (every
+    tensor on a 16-byte boundary, its row and head strides whole 16-byte
+    chunks)."""
+    global _causal_launches
     b, s, h, d = q.shape
     kvh, dv = k.shape[2], v.shape[3]
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise TypeError(f"the causal kernel takes bfloat16 q, k, v; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if (d, dv) not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"the causal kernel takes (q.k, v) head dims "
+                         f"{WGMMA_HEAD_DIMS}; got ({d}, {dv})")
     strides = ldq, ldk, ldv, hsv = _causal_strides(q, k, v)
-    design = design or _design(q, k, v, strides)
+    if any(x.data_ptr() % 16 for x in (q, k, v)) or \
+            any(n % 8 for n in strides):
+        raise ValueError(
+            f"the causal kernel takes tensors on 16-byte boundaries whose "
+            f"row and head strides are whole 16-byte chunks; got element "
+            f"strides {strides}")
     out = q.new_empty((b, s, h, dv))
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    if design == "wgmma":
-        lib = _library("flash_attention_wgmma")
-        fn = lib.tpusim_causal_attention_wgmma_fwd
-        err = _on_stream(q, lambda stream: fn(
-            *ptrs, b, s, h, kvh, d, dv, ldq, ldk, ldv, hsv, scale, stream))
-    elif design == "mma_sync":
-        lib = _library()
-        fn = lib.tpusim_causal_attention_fwd
-        err = _on_stream(q, lambda stream: fn(
-            *ptrs, b, s, h, kvh, d, dv, ldq, ldk, ldv, hsv,
-            _DTYPE_CODES[q.dtype], scale, stream))
-    else:
-        raise ValueError(f"no causal design {design!r}")
-    _check_launch(lib, err, f"causal attention ({design})")
-    _causal_launches[design] += 1
+    lib = _library("flash_attention_wgmma")
+    fn = lib.tpusim_causal_attention_wgmma_fwd
+    err = _on_stream(q, lambda stream: fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, s, h, kvh, d, dv, ldq, ldk, ldv, hsv, scale, stream))
+    _check_launch(lib, err, "causal attention")
+    _causal_launches += 1
     return out
 
 
@@ -334,10 +324,10 @@ def causal_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float | None = None) -> torch.Tensor:
     """Causal attention over q ``[B, S, H, D]``, grouped k ``[B, S, KVH,
     D]`` and v ``[B, S, KVH, DV]``, scores scaled by ``scale`` (``1 /
-    √D`` when None), the output ``[B, S, H, DV]`` contiguous: the CUDA
-    kernel's causal entry for CUDA tensors (launched on the current
-    stream; it allocates only the output), the plain version for CPU
-    tensors."""
+    √D`` when None), the output ``[B, S, H, DV]`` contiguous: the causal
+    kernel for CUDA tensors (launched on the current stream; it allocates
+    only the output and refuses what :func:`causal_kernel_takes` does
+    not), the plain version for CPU tensors."""
     check_causal_inputs(q, k, v)
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     if q.is_cuda:

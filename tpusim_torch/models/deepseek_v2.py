@@ -15,7 +15,7 @@ DeepSeek-V2-Lite):
   ``192^-0.5 * m^2`` (:func:`softmax_scale`), then ``@ w_o``;
 * **the rotation** is the published one: the rotary dims are
   de-interleaved (``view(..., 32, 2).transpose``: even dims, then odd) and
-  the halves rotated (:func:`tpusim_torch.models.llama.rotate`).  q and k
+  the halves rotated (:func:`tpusim_torch.models.blocks.rotate`).  q and k
   are permuted alike, so ``q . k`` equals that of adjacent pairs (2i,
   2i + 1) rotated in place;
 * **routed experts.**  Router logits ``h.float() @ router.float()``, a
@@ -43,9 +43,10 @@ The expert layer reads the per-expert token counts to the host once a
 layer, to cut the sorted rows into each expert's; the busiest expert's
 count over the mean is kept for each expert layer of the last forward
 (:attr:`DeepseekV2Forward.busiest_over_mean`).  The attention of an eager
-CUDA forward with no gradient recorded and nothing tracing it runs the
-port's causal kernel at head dims 192 / 128 (one launch a layer); the CPU,
-a gradient or a capture runs the plain score chain (:func:`score_chain`).
+bfloat16 CUDA forward with no gradient recorded and nothing tracing it
+runs the port's causal kernel at head dims 192 / 128 (one launch a layer);
+the CPU, another dtype or head dims, a gradient or a capture runs the
+score chain (:func:`tpusim_torch.models.blocks.causal_attention`).
 A capture for the simulator is not supported: the routing is
 data-dependent.
 """
@@ -60,17 +61,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpusim_torch.models.llama import (
+from tpusim_torch.models.blocks import (
     ATTENTION_RANGE,
+    EXPERTS_RANGE,
     HEAD_RANGE,
     MLP_RANGE,
     NORM_RANGE,
     PROJ_RANGE,
     ROPE_RANGE,
+    ROUTER_RANGE,
     _rmsnorm,
-    _TakeRows,
-    _takes_kernel,
-    causal_mask,
+    causal_attention,
     rotate,
 )
 from tpusim_torch.models.registry import register, resolve_device, torch_dtype
@@ -79,16 +80,8 @@ from tpusim_torch.obs.ranges import device_range
 __all__ = ["DeepseekV2Config", "PRESETS", "DENSE_KEYS", "MOE_KEYS",
            "DeepseekV2Forward", "param_shapes", "init_params",
            "yarn_correction_range", "yarn_inv_freq", "softmax_scale",
-           "route", "sort_by_expert", "shared_expert", "score_chain",
+           "route", "sort_by_expert", "shared_expert",
            "build_deepseek_v2"]
-
-#: the expert layer's profiler ranges (beside the Llama decoder's, whose
-#: prefix the benchmark reads): the router product, softmax, top-k, the
-#: sort into expert order, the read of the counts, the gather of the
-#: tokens and the weighted combine back into token order; and every routed
-#: expert's gate, up, SiLU, product and down
-ROUTER_RANGE = "tpusim_torch.llama.router"
-EXPERTS_RANGE = "tpusim_torch.llama.experts"
 
 #: each expert's rows are padded to a multiple of this many, so that its
 #: products take few shapes: cuBLAS chooses a kernel for a new shape on the
@@ -287,19 +280,6 @@ def _rope(x, cos, sin):
     return rotate(x, cos, sin)
 
 
-def score_chain(q, k, v, scale: float):
-    """Causal attention as the published code writes it, over ``[B, S, H,
-    D]`` q, k and ``[B, S, H, DV]`` v: the scores in the input dtype,
-    scaled, masked, a float32 softmax rounded to the input dtype, and the
-    product with v."""
-    s = q.shape[1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    scores = torch.where(causal_mask(s, q.device)[None, None], scores,
-                         -1e30)
-    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
-
-
 def _swiglu(x, gate, up, down):
     """``down(silu(x @ gate) * (x @ up))``."""
     return F.silu(x @ gate) * (x @ up) @ down
@@ -413,7 +393,7 @@ class DeepseekV2Forward(nn.Module):
         cfg = self.cfg
         tokens = flat[-1]
         embed, final_norm, lm_head, layers = _unflatten(cfg, flat[:-1])
-        h = _TakeRows.apply(embed, tokens)
+        h = F.embedding(tokens, embed)
         with device_range(ROPE_RANGE):
             cos, sin = yarn_tables(tokens.shape[1], cfg, h.device)
         balance = []
@@ -456,11 +436,7 @@ class DeepseekV2Forward(nn.Module):
             k = torch.cat([kv[..., :nope], k_pe.expand(-1, -1, heads, -1)],
                           dim=-1)
             v = kv[..., nope:]
-            if _takes_kernel(q, k, v):
-                o = torch.ops.tpusim_torch.causal_attention(q, k, v,
-                                                            self.scale)
-            else:
-                o = score_chain(q, k, v, self.scale)
+            o = causal_attention(q, k, v, self.scale)
             o = o.reshape(b, s, heads * cfg.v_head_dim)
         with device_range(PROJ_RANGE):
             return h + o @ w["w_o"]

@@ -59,10 +59,19 @@ from typing import Any, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch._subclasses.fake_tensor import is_fake
-from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
-from tpusim_torch.kernels import flash_attention as fa
+from tpusim_torch.models.blocks import (
+    ATTENTION_RANGE,
+    HEAD_RANGE,
+    MLP_RANGE,
+    NORM_RANGE,
+    PROJ_RANGE,
+    ROPE_RANGE,
+    _rmsnorm,
+    causal_attention,
+    rotate,
+    score_chain,
+)
 from tpusim_torch.models.registry import (
     register,
     resolve_device,
@@ -118,20 +127,6 @@ PRESETS: dict[str, LlamaConfig] = {
 #: a layer's parameters in the reference pytree's leaf order (sorted keys)
 LAYER_KEYS = ("attn_norm", "mlp_norm", "w_down", "w_gate", "w_up", "wk",
               "wo", "wq", "wv")
-
-#: the profiler ranges of the decoder (open only under a running profiler,
-#: :func:`~tpusim_torch.obs.ranges.device_range`): each ``_rmsnorm``; the
-#: q, k and v projections, and apart the o projection with its residual
-#: add; the rotary tables and rotations; the attention (the causal kernel,
-#: or the score chain from ``repeat_kv`` to the PV product); the MLP with
-#: its residual add; the tied output projection.  The embedding lookup is
-#: in none.
-NORM_RANGE = "tpusim_torch.llama.norm"
-PROJ_RANGE = "tpusim_torch.llama.proj"
-ROPE_RANGE = "tpusim_torch.llama.rope"
-ATTENTION_RANGE = "tpusim_torch.llama.attention"
-MLP_RANGE = "tpusim_torch.llama.mlp"
-HEAD_RANGE = "tpusim_torch.llama.head"
 
 #: the partition spec of each layer parameter on a (dp, tp) mesh — the
 #: reference's ``param_shardings``
@@ -273,12 +268,6 @@ class _TakeRows(torch.autograd.Function):
         return _ScatterAddRows.apply(g, ids, ctx.rows), None
 
 
-def _rmsnorm(x, w, eps):
-    x32 = x.float()
-    inv = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
-    return (x32 * inv).to(x.dtype) * w
-
-
 def rope_tables(seq: int, d: int, theta: float, device):
     """The rotary ``cos`` and ``sin`` tables, ``[1, seq, 1, d / 2]``."""
     pos = torch.arange(seq, dtype=torch.float32, device=device)
@@ -287,59 +276,6 @@ def rope_tables(seq: int, d: int, theta: float, device):
     angles = pos[:, None] * freqs[None, :]
     return (torch.cos(angles)[None, :, None, :],
             torch.sin(angles)[None, :, None, :])
-
-
-def rotate(x, cos, sin, inverse: bool = False):
-    """The rotary rotation of ``x`` [B, S, H, D] (its transpose when
-    ``inverse``), in float32, back in ``x``'s dtype."""
-    d = x.shape[-1] // 2
-    x1, x2 = torch.split(x.float(), d, dim=-1)
-    s = -sin if inverse else sin
-    return torch.cat([x1 * cos - x2 * s, x2 * cos + x1 * s],
-                     dim=-1).to(x.dtype)
-
-
-def causal_mask(s: int, device) -> torch.Tensor:
-    idx = torch.arange(s, dtype=torch.int32, device=device)
-    return idx[:, None] >= idx[None, :]
-
-
-#: the causal kernel as a dispatched op, ``tpusim_torch::causal_attention``:
-#: a profiler links a launch to the op around it (a ``record_function``
-#: range gets no link), and its readers file each kernel under its
-#: launching op.  Registered through the low-level library, whose first
-#: call costs milliseconds where ``torch.library.custom_op``'s cost seconds.
-#: ``scale``: the softmax scale, ``1 / sqrt(D)`` when None (this decoder's;
-#: DeepSeek-V2's latent attention gives its own).
-_CAUSAL_LIB = torch.library.Library("tpusim_torch", "FRAGMENT")
-_CAUSAL_LIB.define("causal_attention(Tensor q, Tensor k, Tensor v, "
-                   "float? scale=None) -> Tensor")
-for _key in ("CPU", "CUDA"):
-    _CAUSAL_LIB.impl(
-        "causal_attention",
-        lambda q, k, v, scale=None: fa.causal_attention_fwd(q, k, v, scale),
-        _key)
-
-
-def _on_card(x: torch.Tensor) -> bool:
-    """Whether ``x`` lies where the causal kernel runs."""
-    return x.is_cuda
-
-
-def _takes_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Whether a forward's attention over ``q, k, v`` may run the causal
-    kernel: no gradient is recorded and nothing traces the call
-    (``torch.export``, ``make_fx``, dynamo: a captured graph holds the
-    score chain, which the simulator prices), and each is a real CUDA
-    tensor, not a fake, functional or functorch-wrapped one.  What the
-    kernel does not take reaches it and raises there."""
-    if (torch.is_grad_enabled() or torch.compiler.is_compiling()
-            or get_proxy_mode() is not None):
-        return False
-    return all(type(x) is torch.Tensor and _on_card(x) and not is_fake(x)
-               and not torch._is_functional_tensor(x)
-               and not torch._C._functorch.is_functorch_wrapped_tensor(x)
-               for x in (q, k, v))
 
 
 class _Decoder:
@@ -359,12 +295,6 @@ class _Decoder:
             raise ValueError(f"the tp mesh axis ({self.tp}) does not "
                              f"divide kv_heads ({cfg.kv_heads})")
         self.rep = cfg.heads // cfg.kv_heads
-
-    def repeat_kv(self, x):
-        """``x`` [B, S, kv heads, D] with each head repeated ``rep`` times
-        in place (``jnp.repeat(x, rep, axis=2)``)."""
-        return x if self.rep == 1 else torch.repeat_interleave(
-            x, self.rep, dim=2)
 
     def psum_tp(self, x):
         return psum(x, self.mesh, "tp") if self.tp > 1 else x
@@ -406,19 +336,6 @@ class _Decoder:
             total = total + x
         return total
 
-    def score_chain(self, q, k, v):
-        """The attention over ``q`` [B, S, heads, D] and ``k``, ``v`` [B, S,
-        kv heads, D] as the reference writes it, and as a captured graph
-        holds it: the repeated keys and values, the probabilities and the
-        output [B, S, heads, D]."""
-        hd, s = q.shape[-1], q.shape[1]
-        k, v = self.repeat_kv(k), self.repeat_kv(v)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / (hd ** 0.5)
-        scores = torch.where(causal_mask(s, q.device)[None, None],
-                             scores, -1e30)
-        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        return k, v, probs, torch.einsum("bhqk,bkhd->bqhd", probs, v)
-
     def layer(self, h, w: dict, plain: bool = False,
               forward_only: bool = False):
         """One decoder layer, ``h + attention(norm(h))`` then ``+
@@ -429,7 +346,8 @@ class _Decoder:
         collectives and no ``pvary``, for a scan body, which nothing
         differentiates through.  ``forward_only``: the caller drops the
         residuals (None), so the attention runs the causal kernel where
-        :func:`_takes_kernel` allows, else the score chain."""
+        :func:`~tpusim_torch.models.blocks.takes_kernel` allows, else the
+        score chain."""
         cfg = self.cfg
         b, s, _ = h.shape
         hd, heads = cfg.head_dim, cfg.heads // self.tp
@@ -446,10 +364,10 @@ class _Decoder:
             cos, sin = rope_tables(s, hd, cfg.rope_theta, h.device)
             q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         with device_range(ATTENTION_RANGE):
-            if forward_only and _takes_kernel(q, k, v):
-                o = torch.ops.tpusim_torch.causal_attention(q, k, v)
+            if forward_only:
+                o = causal_attention(q, k, v)
             else:
-                k, v, probs, o = self.score_chain(q, k, v)
+                k, v, probs, o = score_chain(q, k, v)
             o = o.reshape(b, s, heads * hd)
         with device_range(PROJ_RANGE):
             h1 = h + psum_tp(o @ w["wo"])

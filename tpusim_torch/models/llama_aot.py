@@ -35,16 +35,14 @@ from __future__ import annotations
 
 import torch
 
+from tpusim_torch.models.blocks import _rmsnorm, causal_mask, rotate
 from tpusim_torch.models.llama import (
     LAYER_KEYS,
     LlamaConfig,
     _Decoder,
-    _rmsnorm,
     _tokens,
-    causal_mask,
     config_for,
     rope_tables,
-    rotate,
 )
 from tpusim_torch.models.registry import register, resolve_device, torch_dtype
 from tpusim_torch.spmd import (Mesh, P, SpmdModule, psum_coalesced, psum_plain,
