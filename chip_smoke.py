@@ -397,11 +397,32 @@ non-zero and prints no result):
    expert layer; ``deepseek_v2_tiny`` (head dims 32 / 16): no launch, the
    chain's logits.
    ``mla_alone()`` runs phases 1, 2 and 22 by themselves.
+23. the RMSNorm kernel (``csrc/rms_norm.cu``), which every norm of both
+   decoders' eager bf16 forwards on the card runs (the op
+   ``tpusim_torch::rms_norm``; ``rn.launch_count`` counts its launches):
+   (a) the kernel against the chain it replaced (atol = rtol 1e-2) at the
+   cells' shapes, DeepSeek-V2-Lite's latent read from rows 576 apart, one
+   row and 333 rows, eps 1e-5 and 1e-6, and what the wrapper refuses
+   (float32, a misaligned base, a row stride or a width that is no
+   multiple of 8), the two layouts also through the decoders' route,
+   which takes them to the kernel, where they raise; (b) the kernel's
+   time, the chain's and PyTorch's fused ``rms_norm`` as a yardstick at
+   the three shapes of the cells' steps, each cycling through inputs L2
+   cannot hold and queued behind a sleep on the card, so that the host's
+   cost a call does not pace them, with the bound (one read and one
+   write), and the host's cost a call, untraced, of the wrapper, of the
+   decoders' route to it and of the chain; (c) one forward of
+   Mistral-7B, DeepSeek-LLM-7B, ``llama7b``, ``llama_tiny``,
+   DeepSeek-V2-Lite and ``deepseek_v2_tiny``: one launch a norm, the
+   logits against the chains' (the forward with a gradient recorded)
+   within 0.5.
+   ``norm_alone()`` runs phases 1, 2 and 23 by themselves.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, the one before that the kernels' JSON
 record (flash's launches: phases 4 and 19; the causal kernel's a step:
-phases 21 and 22), the one before that phase 22's (``mla: {...}``),
+phases 21 and 22; the RMSNorm kernel's a forward: phase 23), the one
+before that phase 23's (``norm: {...}``), phase 22's (``mla: {...}``),
 phase 21's (``causal: {...}``), phase
 20's (``ranks: {...}``), phase 19's (``probes: {...}``), phase 18's
 (``front: {...}``), phase 17's
@@ -451,6 +472,7 @@ from tpusim_torch.kernels.bench import (  # noqa: E402
     time_ms,
 )
 from tpusim_torch.kernels import flash_attention as fa  # noqa: E402
+from tpusim_torch.kernels import rms_norm as rn  # noqa: E402
 from tpusim_torch.kernels import scan_rows as sr  # noqa: E402
 from tpusim_torch.models.flash_attention import flash_attention  # noqa: E402
 from tpusim_torch.fastpath import batch as fp_batch  # noqa: E402
@@ -547,7 +569,9 @@ RTOL_GOLDEN = 1e-9
 #: every ported TPU kernel: (name, source, TPU kernel it replaces, its
 #: wrapper's launch counter and the counter's reset).  The causal attention
 #: kernel (:data:`CAUSAL_SOURCE`) replaces none; phases 21 and 22 count its
-#: launches (``fa.causal_launch_count``)
+#: launches (``fa.causal_launch_count``).  Nor does the RMSNorm kernel
+#: (:data:`NORM_SOURCE`); phase 23 counts its launches
+#: (``rn.launch_count``)
 KERNELS = (
     ("flash_attention", "tpusim_torch/csrc/flash_attention.cu",
      "tpusim/models/pallas_attention.py:50", fa.launch_count,
@@ -689,10 +713,11 @@ CHECKS = (
 #: the causal attention kernel, which replaces the decoders' score chain
 CAUSAL_SOURCE = ("tpusim_torch/csrc/flash_attention_wgmma.cu "
                  "(tpusim_causal_attention_wgmma_fwd)")
+NORM_SOURCE = "tpusim_torch/csrc/rms_norm.cu (tpusim_rms_norm_fwd)"
 #: sources built in phase 2: every kernel, and the instruction probes whose
 #: dependent-add latency phase 6 (d) reads
 BUILT = tuple(k[0] for k in KERNELS) + ("flash_attention_wgmma",
-                                        "mma_probe")
+                                        "rms_norm", "mma_probe")
 #: ptxas notes that undo a design: wgmma serialized (C7520), a register
 #: budget the warp-specialised kernel asked for and did not get (C7508)
 PTXAS_REFUSED = ("C7520", "C7508")
@@ -6566,6 +6591,267 @@ def mla_attention_phase(card_name: str) -> dict:
     return out
 
 
+#: phase 23: the RMSNorm kernel held to the decoders' chain (atol = rtol
+#: :data:`TOL_BF16`) at their shapes and edges: (label, x's shape, the
+#: elements between two rows, eps)
+NORM_CHECKS = (
+    ("mistral7b.prefill_2k", (2, 2048, 4096), 4096, 1e-5),
+    ("mistral7b.prefill_256", (16, 256, 4096), 4096, 1e-5),
+    ("deepseek7b.prefill_2k", (2, 2048, 4096), 4096, 1e-6),
+    ("dsv2lite_hidden", (1, 16384, 2048), 2048, 1e-6),
+    ("dsv2lite_latent", (1, 16384, 512), 576, 1e-6),
+    ("one_row", (1, 1, 4096), 4096, 1e-5),
+    ("rows_333", (1, 333, 4096), 4096, 1e-6),
+    ("rows_333_latent", (1, 333, 512), 576, 1e-5),
+)
+#: phase 23 (b): the shapes of the cells' steps, timed: every Llama cell's
+#: 4096 tokens of 4096, DeepSeek-V2-Lite's 16,384 of 2048 and its latent's
+#: 16,384 of 512 read from rows 576 apart: (label, x's shape, row)
+NORM_TIMED = (
+    ("llama_4096x4096", (4096, 4096), 4096),
+    ("dsv2lite_16384x2048", (16384, 2048), 2048),
+    ("dsv2lite_latent_16384x512", (16384, 512), 576),
+)
+#: phase 23 (b): bytes of inputs a timing cycles through, so that no launch
+#: finds its rows in the 50 MB L2
+NORM_COLD_BYTES = 256 << 20
+#: phase 23 (b): cycles the card sleeps before a timed sample, so that the
+#: host has queued all :data:`REPS` calls before the first runs (about 2 ms:
+#: the wrapper's host cost, some 25 us a call, would otherwise pace the
+#: shorter shapes)
+NORM_SLEEP_CYCLES = 4_000_000
+#: phase 23 (c): the forwards counted, one launch a norm: the benchmark's
+#: two Llama configurations (:data:`CAUSAL_CONFIGS`) and the registered
+#: ``llama7b``, ``llama_tiny`` (dim 128 in bf16: inside the domain),
+#: ``deepseek_v2_lite`` and ``deepseek_v2_tiny``, each over this many tokens
+NORM_STEP_SEQ = 512
+
+
+def norm_inputs(shape, row: int, seed: int):
+    """Seeded x (``shape``, its rows ``row`` elements apart) and w near 1 on
+    the card, in bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    full = torch.randn((*shape[:-1], row), generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
+         ).to(torch.bfloat16)
+    return full[..., :shape[-1]], w
+
+
+def check_norm(label: str, shape, row: int, eps: float) -> dict:
+    """The RMSNorm kernel against the chain on the card: the max abs error
+    and the share of elements equal to the bit.  Raises on a
+    disagreement."""
+    x, w = norm_inputs(shape, row, seed=21)
+    before = rn.launch_count()
+    got = rn.rms_norm_fwd(x, w, eps)
+    want = rn.rms_norm_reference(x, w, eps)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    equal = (got == want).float().mean().item()
+    ok = bool((diff <= TOL_BF16 + TOL_BF16 * want.float().abs()).all())
+    ok = ok and bool(torch.isfinite(got.float()).all()) \
+        and rn.launch_count() == before + 1 and got.is_contiguous()
+    print(f"  norm {label} {list(shape)} rows {row} apart eps {eps}: max "
+          f"|kernel - chain| {err:.3e} (atol {TOL_BF16} + rtol {TOL_BF16}), "
+          f"{equal:.4%} of the elements equal {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"RMSNorm kernel disagrees at {label}")
+    return {"max_abs_err": err, "equal_share": equal}
+
+
+def norm_refused() -> None:
+    """What the wrapper refuses, each before a launch: float32, a base off
+    a 16-byte boundary, rows apart by no multiple of 8 elements, a width
+    that is no multiple of 8; and the two layouts through the decoders'
+    route (``blocks._rmsnorm``, no gradient), which takes them to the
+    kernel, where they raise."""
+    from tpusim_torch.models import blocks
+
+    x, w = norm_inputs((4, 256), 256, seed=22)
+    wide = torch.zeros(4, 264, dtype=torch.bfloat16, device="cuda")
+    bad = [("float32", x.float(), w.float(), TypeError),
+           ("misaligned", wide[:, 4:260], w, ValueError),
+           ("row stride 260", torch.zeros(4, 260, dtype=torch.bfloat16,
+                                          device="cuda")[:, :256], w,
+            ValueError),
+           ("width 252", x[:, :252], w[:252], ValueError)]
+    before = rn.launch_count()
+    for label, bx, bw, want in bad:
+        try:
+            rn.rms_norm_fwd(bx, bw, 1e-5)
+        except want as e:
+            print(f"  norm {label} refused: {e}")
+        else:
+            raise AssertionError(f"the RMSNorm wrapper took {label}")
+    for label, bx, bw, want in bad[1:3]:
+        try:
+            with torch.no_grad():
+                blocks._rmsnorm(bx, bw, 1e-5)
+        except want:
+            print(f"  norm {label} through the decoders' route raised")
+        else:
+            raise AssertionError(f"the decoders' route took {label}")
+    if rn.launch_count() != before:
+        raise AssertionError("a refused RMSNorm call launched")
+
+
+def queued_ms(fn) -> float:
+    """Device milliseconds a call of ``fn``: the median over
+    :data:`SAMPLES` CUDA-event times of :data:`REPS` back-to-back calls,
+    queued behind a sleep on the card (:data:`NORM_SLEEP_CYCLES`)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(SAMPLES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(NORM_SLEEP_CYCLES)
+        start.record()
+        for _ in range(REPS):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / REPS)
+    return statistics.median(times)
+
+
+def time_norm(label: str, shape, row: int, card_name: str) -> dict:
+    """The RMSNorm kernel, the chain it replaced and PyTorch's fused
+    ``rms_norm`` (a yardstick the port never calls) at one shape in bf16,
+    each cycling through inputs that L2 cannot hold (:func:`queued_ms`),
+    with the card's bound: one read and one write of each element; and
+    the host's cost a call (:func:`host_us`, untraced) of the wrapper, of
+    the decoders' route to it (``blocks._rmsnorm`` with no gradient: the
+    predicate, the op's dispatch and the wrapper) and of the chain."""
+    import itertools
+
+    from tpusim_torch.models import blocks
+
+    rows, dim = shape
+    n = max(2, -(-NORM_COLD_BYTES // (rows * row * 2)))
+    ins = [norm_inputs(shape, row, seed=23 + i) for i in range(n)]
+    w = ins[0][1]
+    cyc = itertools.cycle([x for x, _ in ins])
+    out = {"ms": queued_ms(lambda: rn.rms_norm_fwd(next(cyc), w, 1e-6)),
+           "host_us": host_us(lambda: rn.rms_norm_fwd(ins[0][0], w, 1e-6)),
+           "chain_host_us": host_us(
+               lambda: rn.rms_norm_reference(ins[0][0], w, 1e-6)),
+           "chain_ms": queued_ms(
+               lambda: rn.rms_norm_reference(next(cyc), w, 1e-6)),
+           "library_ms": queued_ms(lambda: torch.nn.functional.rms_norm(
+               next(cyc), (dim,), w, 1e-6))}
+    with torch.no_grad():
+        out["route_host_us"] = host_us(
+            lambda: blocks._rmsnorm(ins[0][0], w, 1e-6))
+    nbytes = 2 * rows * dim * 2 + dim * 2
+    out["bound_ms"] = nbytes / PEAK_HBM_BYTES * 1e3
+    out["bound_by"] = "bytes"
+    out["tb_per_s"] = nbytes / out["ms"] / 1e9
+    print(f"time norm {label} {list(shape)} rows {row} apart bf16: kernel "
+          f"{out['ms']:.4f} ms ({out['tb_per_s']:.3f} TB/s, "
+          f"{out['bound_ms'] / out['ms']:.1%} of the bound "
+          f"{out['bound_ms']:.4f} ms by bytes; host {out['host_us']:.1f} us "
+          f"a call, {out['route_host_us']:.1f} through the decoders' route),"
+          f" chain {out['chain_ms']:.4f} ms (host "
+          f"{out['chain_host_us']:.1f} us a call), library "
+          f"F.rms_norm {out['library_ms']:.4f} ms; {n} inputs in turn, "
+          f"median of {SAMPLES} x {REPS} back-to-back calls queued behind "
+          f"a sleep (card: {card_name})", flush=True)
+    del ins, cyc
+    torch.cuda.empty_cache()
+    return out
+
+
+def norm_steps(card_name: str) -> dict:
+    """One no-grad forward of each decoder of :data:`NORM_STEP_SEQ`
+    tokens: one kernel launch a norm (2L + 1 in the Llama decoder, 3L + 1
+    in DeepSeek-V2's), and the logits against the chains' (the same
+    forward with a gradient recorded), within
+    :data:`CAUSAL_STEP_ROW_ERR`."""
+    from tpusim_torch.models import llama as port_llama
+
+    runs = [(label, fields) for label, fields, _ in CAUSAL_CONFIGS] + [
+        ("deepseek_v2_lite", None), ("deepseek_v2_tiny", None)]
+    out = {}
+    for label, fields in runs:
+        if fields is None:
+            module, args = get_workload(label).build(device="cuda",
+                                                     seq=NORM_STEP_SEQ)
+            norms = 3 * module.cfg.layers + 1
+        else:
+            cfg = (port_llama.PRESETS[fields] if isinstance(fields, str)
+                   else port_llama.LlamaConfig(**fields))
+            module = port_llama.LlamaForward(cfg)
+            gen = torch.Generator(device="cuda").manual_seed(8)
+            args = (*port_llama.init_params(cfg, "cuda", seed=7),
+                    torch.randint(0, cfg.vocab, (1, NORM_STEP_SEQ),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int32))
+            norms = 2 * cfg.layers + 1
+        with torch.no_grad():
+            rn.reset_launch_count()
+            got = module(*args)
+            torch.cuda.synchronize()
+            launches = rn.launch_count()
+            with torch.enable_grad():
+                want = module(*args).detach()
+        if launches != norms or rn.launch_count() != launches:
+            raise AssertionError(f"{label}: {launches} RMSNorm launches for "
+                                 f"{norms} norms")
+        g, w = got.float(), want.float()
+        row = ((g - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
+        print(f"  step {label} {list(args[-1].shape)}: {launches} RMSNorm "
+              f"launches ({norms} norms); worst logit row against the "
+              f"chains {row:.4f} (card: {card_name})", flush=True)
+        if not row <= CAUSAL_STEP_ROW_ERR:
+            raise AssertionError(f"{label}: kernel vs chain row {row}")
+        out[label] = {"norms": norms, "launches": launches,
+                      "row_err_vs_chain": row}
+        del module, args, got, want, g, w
+        torch.cuda.empty_cache()
+    return out
+
+
+def rms_norm_phase(card_name: str) -> dict:
+    """Phase 23: the RMSNorm kernel and the decoders' route to it."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"card": card_name}
+    out["errors"] = {label: check_norm(label, shape, row, eps)
+                     for label, shape, row, eps in NORM_CHECKS}
+    norm_refused()
+    out["times"] = {label: time_norm(label, shape, row, card_name)
+                    for label, shape, row in NORM_TIMED}
+    out["steps"] = norm_steps(card_name)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def norm_alone() -> int:
+    """Phases 1, 2 and 23 alone: ``python3 -c "import chip_smoke, sys;
+    sys.exit(chip_smoke.norm_alone())"``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase(1, "card")
+    card_name = card()
+    print(f"card: {card_name}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    phase(2, "build")
+    build_kernels()
+    phase(23, "the RMSNorm kernel on the decoders' step")
+    out = rms_norm_phase(card_name)
+    phase(None)
+    print("norm: " + json.dumps(out))
+    return 0
+
+
 def mla_alone() -> int:
     """Phases 1, 2 and 22 alone: ``python3 -c "import chip_smoke, sys;
     sys.exit(chip_smoke.mla_alone())"``."""
@@ -6764,6 +7050,8 @@ def main() -> int:
     phase(22, "the causal kernel at two head dims: DeepSeek-V2's latent "
               "attention")
     mla = mla_attention_phase(card_name)
+    phase(23, "the RMSNorm kernel on the decoders' step")
+    norm = rms_norm_phase(card_name)
     phase(None)
     models["phase_seconds"] = PHASE_SECONDS
     print("models: " + json.dumps(models))
@@ -6776,6 +7064,7 @@ def main() -> int:
     print("ranks: " + json.dumps(ranked))
     print("causal: " + json.dumps(causal))
     print("mla: " + json.dumps(mla))
+    print("norm: " + json.dumps(norm))
 
     record = {"kernels": [{
         "name": "flash_attention",
@@ -6850,6 +7139,17 @@ def main() -> int:
             "deepseek_v2_tiny": mla["tiny_step"]["launches"]},
         "max_abs_err": {**causal["errors"], **mla["errors"]},
         "times": {**causal["times"], **mla["times"]},
+    }, {
+        "name": "rms_norm",
+        "route": "cuda",
+        "source": NORM_SOURCE,
+        "replaces": "the float32 chain of tpusim_torch/kernels/rms_norm.py "
+                    "rms_norm_reference (no TPU kernel)",
+        "launches_per_step": {n: r["launches"]
+                              for n, r in norm["steps"].items()},
+        "max_abs_err": {n: r["max_abs_err"]
+                        for n, r in norm["errors"].items()},
+        "times": norm["times"],
     }]}
     keys = ("ms", "plain_ms", "library_ms", "library_fused_ms")
     times = [f32[k] for k in keys] + [bf16[k] for k in keys] + [

@@ -1,4 +1,6 @@
-"""What the port's decoders share: the profiler range names, RMSNorm, the
+"""What the port's decoders share: the profiler range names, RMSNorm, which
+runs the RMSNorm kernel (the op ``tpusim_torch::rms_norm``) where
+:func:`takes_norm_kernel` allows and the float32 chain everywhere else, the
 rotary rotation, the causal mask, and the causal attention, which runs the
 causal kernel (the op ``tpusim_torch::causal_attention``) where
 :func:`takes_kernel` allows and the score chain everywhere else.
@@ -16,11 +18,12 @@ from torch._subclasses.fake_tensor import is_fake
 from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 from tpusim_torch.kernels import flash_attention as fa
+from tpusim_torch.kernels import rms_norm as rn
 
 __all__ = ["NORM_RANGE", "PROJ_RANGE", "ROPE_RANGE", "ATTENTION_RANGE",
            "MLP_RANGE", "HEAD_RANGE", "ROUTER_RANGE", "EXPERTS_RANGE",
-           "rotate", "causal_mask", "takes_kernel", "score_chain",
-           "causal_attention"]
+           "takes_norm_kernel", "rotate", "causal_mask", "takes_kernel",
+           "score_chain", "causal_attention"]
 
 #: the decoders' profiler ranges (open only under a running profiler,
 #: :func:`~tpusim_torch.obs.ranges.device_range`), named under the prefix
@@ -43,12 +46,6 @@ ROUTER_RANGE = "tpusim_torch.llama.router"
 EXPERTS_RANGE = "tpusim_torch.llama.experts"
 
 
-def _rmsnorm(x, w, eps):
-    x32 = x.float()
-    inv = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
-    return (x32 * inv).to(x.dtype) * w
-
-
 def rotate(x, cos, sin, inverse: bool = False):
     """The rotary rotation of ``x`` [B, S, H, D] (its transpose when
     ``inverse``), in float32, back in ``x``'s dtype."""
@@ -64,43 +61,71 @@ def causal_mask(s: int, device) -> torch.Tensor:
     return idx[:, None] >= idx[None, :]
 
 
-#: the causal kernel as a dispatched op, ``tpusim_torch::causal_attention``:
-#: a profiler links a launch to the op around it (a ``record_function``
-#: range gets no link), and its readers file each kernel under its
-#: launching op.  Registered through the low-level library, whose first
-#: call costs milliseconds where ``torch.library.custom_op``'s cost seconds.
-#: ``scale``: the softmax scale, ``1 / sqrt(D)`` when None.
-_CAUSAL_LIB = torch.library.Library("tpusim_torch", "FRAGMENT")
-_CAUSAL_LIB.define("causal_attention(Tensor q, Tensor k, Tensor v, "
-                   "float? scale=None) -> Tensor")
+#: the kernels as dispatched ops, ``tpusim_torch::causal_attention`` and
+#: ``tpusim_torch::rms_norm``: a profiler links a launch to the op around
+#: it (a ``record_function`` range gets no link), and its readers file each
+#: kernel under its launching op.  Registered through the low-level
+#: library, whose first call costs milliseconds where
+#: ``torch.library.custom_op``'s cost seconds.  ``scale``: the softmax
+#: scale, ``1 / sqrt(D)`` when None.
+_LIB = torch.library.Library("tpusim_torch", "FRAGMENT")
+_LIB.define("causal_attention(Tensor q, Tensor k, Tensor v, "
+            "float? scale=None) -> Tensor")
+_LIB.define("rms_norm(Tensor x, Tensor w, float eps) -> Tensor")
 for _key in ("CPU", "CUDA"):
-    _CAUSAL_LIB.impl(
+    _LIB.impl(
         "causal_attention",
         lambda q, k, v, scale=None: fa.causal_attention_fwd(q, k, v, scale),
         _key)
+    _LIB.impl("rms_norm", lambda x, w, eps: rn.rms_norm_fwd(x, w, eps), _key)
 
 
 def _on_card(x: torch.Tensor) -> bool:
-    """Whether ``x`` lies where the causal kernel runs."""
+    """Whether ``x`` lies where the kernels run."""
     return x.is_cuda
 
 
-def takes_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Whether a forward's attention over ``q, k, v`` runs the causal
-    kernel: no gradient is recorded and nothing traces the call
-    (``torch.export``, ``make_fx``, dynamo: a captured graph holds the
-    score chain, which the simulator prices), each is a real CUDA tensor,
-    not a fake, functional or functorch-wrapped one, and the kernel is
-    built for their dtype and head dims
-    (:func:`~tpusim_torch.kernels.flash_attention.causal_kernel_takes`).
-    A layout the kernel cannot read reaches it and raises there."""
+def _eager_on_card(*xs: torch.Tensor) -> bool:
+    """Whether a call over ``xs`` may launch a kernel: no gradient is
+    recorded and nothing traces the call (``torch.export``, ``make_fx``,
+    dynamo: a captured graph holds the chains, which the simulator
+    prices), and each is a real CUDA tensor, not a fake, functional or
+    functorch-wrapped one."""
     if (torch.is_grad_enabled() or torch.compiler.is_compiling()
             or get_proxy_mode() is not None):
         return False
     return all(type(x) is torch.Tensor and _on_card(x) and not is_fake(x)
                and not torch._is_functional_tensor(x)
                and not torch._C._functorch.is_functorch_wrapped_tensor(x)
-               for x in (q, k, v)) and fa.causal_kernel_takes(q, k, v)
+               for x in xs)
+
+
+def takes_norm_kernel(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether a forward's RMSNorm of ``x`` with weight ``w`` runs the
+    RMSNorm kernel: :func:`_eager_on_card`, and the kernel takes their
+    dtypes and width
+    (:func:`~tpusim_torch.kernels.rms_norm.rms_norm_takes`).  A layout the
+    kernel cannot read reaches it and raises there."""
+    return _eager_on_card(x, w) and rn.rms_norm_takes(x, w)
+
+
+def _rmsnorm(x, w, eps):
+    """RMSNorm of ``x`` over its last dim with weight ``w``: the kernel
+    where :func:`takes_norm_kernel` allows, else the chain
+    (:func:`~tpusim_torch.kernels.rms_norm.rms_norm_reference`), whose
+    roundings the kernel keeps."""
+    if takes_norm_kernel(x, w):
+        return torch.ops.tpusim_torch.rms_norm(x, w, eps)
+    return rn.rms_norm_reference(x, w, eps)
+
+
+def takes_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether a forward's attention over ``q, k, v`` runs the causal
+    kernel: :func:`_eager_on_card`, and the kernel is built for their
+    dtype and head dims
+    (:func:`~tpusim_torch.kernels.flash_attention.causal_kernel_takes`).
+    A layout the kernel cannot read reaches it and raises there."""
+    return _eager_on_card(q, k, v) and fa.causal_kernel_takes(q, k, v)
 
 
 def score_chain(q, k, v, scale: float | None = None):
